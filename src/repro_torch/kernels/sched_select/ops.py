@@ -1,0 +1,170 @@
+"""Wrapper for the fused victim-select/placement kernel on Hopper.
+
+Replaces the TPU kernel ``src/repro/kernels/sched_select/kernel.py:59``
+(``sched_select_kernel``) behind the reference's
+``src/repro/kernels/sched_select/ops.py:37`` (``plan_evictions_fused``):
+`core.omfs_torch.plan_evictions` dispatches here when
+``SchedulerConfig.kernel_backend == "cuda"``.
+
+* CPU tensors run the plain version (``ref.plan_evictions_ref``).
+* CUDA tensors run the hand-written kernel (``csrc/sched_select.cu``,
+  built for ``sm_90a`` at first use by ``kernels._build``) on the current
+  stream, or raise: there is no fallback to the plain version.
+
+Bound on the H100: the plan reads the int32 key and value columns once
+(``4*J*(5+T)`` bytes, one column more with the cheap key, plus ``2*J``
+bytes of bool masks) and writes ``5*J`` bytes: 4.3 MB at J=100k and T=4,
+i.e. ~1.3 us at 3.35 TB/s.  It is bound by launch latency long before
+bandwidth: the design sorts only ``(key tuple, row)`` with a multi-launch
+bitonic network, gathers the value columns by sorted row, and walks the
+placement over the planned prefix only, so each launch is one coalesced
+sweep; fusing the launches is later work.
+
+``LAUNCHES`` counts kernel launches (one per plan on a CUDA tensor); the
+CPU path never moves it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.kernels.sched_select.ref import plan_evictions_ref
+
+#: plans launched on the card since the count was last reset
+LAUNCHES = 0
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_select.cu"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def build():
+    """Build (or reuse) and load the kernel library; returns the
+    `kernels._build.Built` record (path, build seconds, ptxas log)."""
+    global _lib_handle
+    from repro_torch.kernels import _build
+
+    built = _build.load("sched_select", [SOURCE])
+    lib = built.lib
+    lib.sched_select_launch.argtypes = (
+        [_P] * 11 + [_I] * 5 + [_P] * 5)
+    lib.sched_select_launch.restype = _I
+    lib.sched_select_scratch_words.argtypes = [_I]
+    lib.sched_select_scratch_words.restype = ctypes.c_longlong
+    lib.sched_select_error_string.argtypes = [_I]
+    lib.sched_select_error_string.restype = ctypes.c_char_p
+    lib.sched_select_max_tiers.argtypes = []
+    lib.sched_select_max_tiers.restype = _I
+    _lib_handle = lib
+    return built
+
+
+def _lib() -> ctypes.CDLL:
+    if _lib_handle is None:
+        build()
+    return _lib_handle
+
+
+def _check_col(name, x, j, dtype, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if x.shape[0] != j:
+        raise ValueError(f"{name} has {x.shape[0]} rows, expected {j}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scalar(name, x, device):
+    if isinstance(x, torch.Tensor):
+        if x.device != device or x.dtype != torch.int32 or x.dim() != 0:
+            raise ValueError(f"{name} must be a 0-d int32 tensor on {device}")
+    elif not isinstance(x, int):
+        raise TypeError(f"{name} must be an int or a 0-d int32 tensor")
+
+
+def plan_evictions_fused(prio, run_start, jid, key_cost, evictable, cpus,
+                         state_mib, is_ckpt, save_lat, idle, cpus_needed,
+                         occ, cap: Sequence[int], *, cheap: bool = False,
+                         tiered: bool = False, bounded: bool = False):
+    """Fused plan over bare columns.
+
+    ``planned`` is the paper's minimal victim prefix (lines 32-36) in the
+    requested victim-key order (``key_cost`` — the delta-aware effective
+    tier-0 save cost — leads the key when ``cheap``), ``enough`` the
+    feasibility bit, and ``tier`` the greedy cheapest-feasible placement
+    of the checkpointable planned victims over the ``[J, T]`` effective
+    save lattice (all-zero when ``tiered=False``).  Columns are int32
+    ``[J]`` (``evictable``/``is_ckpt`` bool), ``save_lat`` int32 ``[J, T]``,
+    ``idle``/``cpus_needed`` ints or 0-d int32 tensors, ``occ`` the ``[T]``
+    int32 per-tier occupancy and ``cap`` ``T`` ints (``< 0`` = unbounded).
+    Returns ``(planned[J] bool, enough 0-d bool, tier[J] int32)``.
+    """
+    device = prio.device
+    if device.type == "cpu":
+        return plan_evictions_ref(
+            prio, run_start, jid, key_cost, evictable, cpus, state_mib,
+            is_ckpt, save_lat, idle, cpus_needed, occ, cap, cheap=cheap,
+            tiered=tiered, bounded=bounded)
+    if device.type != "cuda":
+        raise ValueError(f"sched_select runs on cpu or cuda tensors, "
+                         f"got {device}")
+    j = prio.shape[0]
+    if prio.dim() != 1 or j < 1:
+        raise ValueError(f"prio must be a non-empty [J] column, "
+                         f"got shape {tuple(prio.shape)}")
+    for name, x in (("prio", prio), ("run_start", run_start), ("jid", jid),
+                    ("key_cost", key_cost), ("cpus", cpus),
+                    ("state_mib", state_mib)):
+        _check_col(name, x, j, torch.int32, device)
+    for name, x in (("evictable", evictable), ("is_ckpt", is_ckpt)):
+        _check_col(name, x, j, torch.bool, device)
+    _check_col("save_lat", save_lat, j, torch.int32, device)
+    lib = _lib()
+    n_tiers = save_lat.shape[1] if save_lat.dim() == 2 else -1
+    if save_lat.dim() != 2 or not 1 <= n_tiers <= lib.sched_select_max_tiers():
+        raise ValueError(f"save_lat must be [J, T] with 1 <= T <= "
+                         f"{lib.sched_select_max_tiers()}, got "
+                         f"{tuple(save_lat.shape)}")
+    _check_col("occ", occ, n_tiers, torch.int32, device)
+    cap = [int(c) for c in cap]
+    if len(cap) != n_tiers:
+        raise ValueError(f"cap has {len(cap)} entries, expected {n_tiers}")
+    _check_scalar("idle", idle, device)
+    _check_scalar("cpus_needed", cpus_needed, device)
+
+    scal = torch.empty(2 + n_tiers, dtype=torch.int32, device=device)
+    scal[0] = idle
+    scal[1] = cpus_needed
+    scal[2:] = occ
+    scratch = torch.empty(lib.sched_select_scratch_words(j),
+                          dtype=torch.int32, device=device)
+    planned = torch.empty(j, dtype=torch.bool, device=device)
+    enough = torch.empty((), dtype=torch.bool, device=device)
+    tier = torch.empty(j, dtype=torch.int32, device=device)
+    caps_host = (ctypes.c_int * n_tiers)(*cap)
+    stream = torch.cuda.current_stream(device)
+    with torch.cuda.device(device):
+        rc = lib.sched_select_launch(
+            prio.data_ptr(), run_start.data_ptr(), jid.data_ptr(),
+            key_cost.data_ptr(), evictable.data_ptr(), cpus.data_ptr(),
+            state_mib.data_ptr(), is_ckpt.data_ptr(), save_lat.data_ptr(),
+            scal.data_ptr(), ctypes.addressof(caps_host), j, n_tiers,
+            int(cheap), int(tiered), int(bounded), scratch.data_ptr(),
+            planned.data_ptr(), enough.data_ptr(), tier.data_ptr(),
+            stream.cuda_stream)
+    if rc != 0:
+        msg = lib.sched_select_error_string(rc).decode()
+        raise RuntimeError(f"sched_select launch failed: CUDA error {rc} "
+                           f"({msg})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return planned, enough, tier
