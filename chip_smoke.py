@@ -2,20 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version on the card, drives the main path (the OMFS tick
-engine, `repro_torch.core.engine.simulate`) on a 100k-job, 16,384-CPU fleet
-with a T=4 checkpoint hierarchy, checks that it went through the kernel
-and matches the eager "torch" backend column for column, and runs the
-launcher.  Every phase prints one line; any failure raises.  The last two
-lines are the kernels' JSON record and the device record.
+Builds the port's CUDA kernels from this checkout (one nvcc per source,
+all started together), holds each against its plain PyTorch version on the
+card, and drives the port's two paths:
+
+* the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
+  16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
+  `sched_select` kernel and match the eager "torch" backend column for
+  column; then the launcher;
+* checkpoint-restart: the int8 `ckpt_codec` kernels bit for bit against
+  their plain versions, then over a TrainState-shaped tree at the published
+  widths of internlm2-1.8b (21.11 GiB on the card); a `CheckpointService`
+  fast-tier save/save/restore cycle at depth 1 (4.94 GiB); and
+  `repro_torch.launch.cr_cost.measure` on two snapshots of the job that
+  `benchmarks/bench_cr_cost.py` measures, whose calibrated cost lattice
+  then prices the launcher's default fleet on both backends.
+
+The state is synthetic: filled from a seeded generator and advanced by one
+AdamW-style update (the port cannot train yet), so the delta rows it
+prints describe that update, not a trained job.  Every phase prints one
+line; any failure raises.  The last two lines are the kernels' JSON
+record and the device record.
 
 Exits non-zero without a result where no CUDA device is visible.
 """
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +43,9 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import serialize  # noqa: E402
+from repro_torch.checkpoint.manager import ManagerConfig  # noqa: E402
+from repro_torch.checkpoint.service import CheckpointService  # noqa: E402
 from repro_torch.core import engine, omfs_torch  # noqa: E402
 from repro_torch.core.crcost import (  # noqa: E402
     UNBOUNDED,
@@ -40,11 +59,23 @@ from repro_torch.core.workload import (  # noqa: E402
     make_jobs,
     make_users,
 )
+from repro_torch.kernels.ckpt_codec import ops as codec_ops  # noqa: E402
+from repro_torch.kernels.ckpt_codec.ref import (  # noqa: E402
+    LANE,
+    dequantize_array_ref,
+    dequantize_ref,
+    quantize_array_ref,
+    quantize_ref,
+)
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
     plan_evictions_ref,
 )
-from repro_torch.launch import cluster_sim  # noqa: E402
+from repro_torch.launch import cluster_sim, cr_cost  # noqa: E402
+from repro_torch.train.state import (  # noqa: E402
+    INTERNLM2_1_8B,
+    dense_state_template,
+)
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -60,6 +91,14 @@ FLEET_TENANTS = 16
 FLEET_QUANTUM = 10
 FLEET_DEPTH = 32
 FLEET_HORIZON = 100
+
+# checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
+# measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
+CODEC_SIZES = (1, 127, 128, 129, 33_000, 2048 * 128, 10**8 + 3)
+FAST_TIER_DEPTH = 1
+CR_JOB = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+              vocab=8192)
+TICK_SECONDS = 0.1
 
 
 def log(phase, **kv):
@@ -178,13 +217,19 @@ def phase_env():
 
 
 def phase_build():
-    built = sched_ops.build()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln
-             or "spill" in ln]
-    log("build", library=built.path.name, seconds=f"{built.seconds:.2f}")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(ops.build) for ops in (sched_ops, codec_ops)]
+        builds = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    for built in builds:
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "Compiling entry" in ln
+                 or "spill" in ln]
+        log("build", library=built.path.name, seconds=f"{built.seconds:.2f}",
+            wall_s=f"{wall:.2f}")
+        for ln in ptxas:
+            print(f"  ptxas: {ln}")
 
 
 def phase_kernel_compare():
@@ -279,6 +324,7 @@ def phase_fleet():
     runs = {}
     # the main path: every kernel count starts at 0 here
     sched_ops.LAUNCHES = 0
+    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
     for policy in ("omfs", "omfs_cheap_victim"):
         runs[policy, "cuda"] = engine.simulate(
             users, jobs, fleet_config("cuda"), FLEET_HORIZON, policy,
@@ -398,6 +444,330 @@ def phase_launcher():
         seconds_cuda=f"{cuda_s:.2f}", identical_to_cpu_plain=True)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint-restart: the int8 codec, the TrainState-shaped state
+# ---------------------------------------------------------------------------
+
+
+def same_bits(a, b):
+    """Equal dtype, shape and raw bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def codec_bound_ms(numels, ops_per_element):
+    """Least time for quantizing (or dequantizing to fp32) tensors of
+    ``numels`` elements: 4n + 128R + 4R bytes each, against the fp32
+    operations the function needs."""
+    rows = sum(-(-n // LANE) for n in numels)
+    byte_s = (4 * sum(numels) + (LANE + 4) * rows) / HBM_BYTES_PER_S
+    ops_s = ops_per_element * sum(numels) / SCALAR_OPS_PER_S
+    return 1e3 * max(byte_s, ops_s), ("bytes" if byte_s >= ops_s
+                                      else "operations")
+
+
+def special_rows():
+    """An all-zero row (it takes the 1e-12 floor) and rows of exact
+    half-way codes: an absmax of 127 * 2^m makes the scale exactly 2^m
+    (127 * fl32(1/127) rounds to 1), so (k + 0.5) * 2^m divides to k + 0.5
+    and must round to even."""
+    rows = [np.zeros(LANE, np.float32)]
+    for m in (-20, -3, 0, 5):
+        scale = np.float32(127 * 2.0**m) * np.float32(1.0 / 127.0)
+        assert scale == np.float32(2.0**m), scale
+        for ks in (np.arange(-126, 1), np.arange(0, 127)):
+            rows.append(np.concatenate([[127.0], ks + 0.5]) * 2.0**m)
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).to(DEV)
+
+
+def compare_codec(x):
+    """Kernels against their plain versions on the same card tensor (codes,
+    scales, fp32 and bf16 round trips, bit for bit), and the round trip's
+    bound |y - x| <= absmax/127 + 1e-6; returns the largest absolute
+    difference between kernel and plain outputs."""
+    n = x.numel()
+    q, s = codec_ops.quantize_array(x)
+    qr, sr = quantize_array_ref(x)
+    torch.cuda.synchronize()
+    if not (same_bits(q, qr) and same_bits(s, sr)):
+        raise AssertionError(
+            f"ckpt_quantize differs from its plain version at n={n}: "
+            f"{int((q != qr).sum())} codes, {int((s != sr).sum())} scales")
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        y = codec_ops.dequantize_array(q, s, shape=x.shape, dtype=dtype)
+        yr = dequantize_array_ref(q, s, x.shape, dtype)
+        torch.cuda.synchronize()
+        if not same_bits(y, yr):
+            raise AssertionError(
+                f"ckpt_dequantize ({dtype}) differs from its plain version "
+                f"at n={n} in {int((y != yr).sum())} elements")
+        err = max(err, float((y.float() - yr.float()).abs().max()))
+        if dtype == torch.float32:
+            bound = float(x.abs().max()) / 127.0 + 1e-6
+            worst = float((y - x).abs().max())
+            if worst > bound:
+                raise AssertionError(f"codec round trip error {worst} > "
+                                     f"{bound} at n={n}")
+    return err
+
+
+def synthetic_state(template, gen):
+    """A TrainState on the card shaped like ``template``, filled from a
+    seeded generator: weights N(0, 0.02), first moments N(0, 1e-3), second
+    moments U(0, 1e-6), step and cursor 0, a random uint32 key."""
+    key = np.random.default_rng(SEED).integers(0, 2**32, 2, dtype=np.uint32)
+
+    def fill(path, t):
+        if path == ".rng":
+            return torch.from_numpy(key).to(DEV)
+        if t.dtype == torch.int32:
+            return torch.zeros(t.shape, dtype=torch.int32, device=DEV)
+        x = torch.empty(t.shape, dtype=t.dtype, device=DEV)
+        if path.startswith(".opt.v"):
+            return x.uniform_(0.0, 1e-6, generator=gen)
+        std = 0.02 if path.startswith(".params") else 1e-3
+        return x.normal_(0.0, std, generator=gen)
+
+    return serialize.map_with_path(fill, template)
+
+
+def adamw_step(state, gen, lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
+    """One AdamW-style update of ``state`` in place, from seeded random
+    gradients (the port cannot compute real ones yet)."""
+    m = dict(serialize.leaf_paths(state.opt.m))
+    v = dict(serialize.leaf_paths(state.opt.v))
+    for path, w in serialize.leaf_paths(state.params):
+        g = torch.randn(w.shape, generator=gen, device=DEV) * 1e-3
+        m[path].mul_(b1).add_(g, alpha=1 - b1)
+        v[path].mul_(b2).addcmul_(g, g, value=1 - b2)
+        w.sub_(lr * (m[path] / (v[path].sqrt() + eps) + wd * w))
+    state.opt.step.add_(1)
+    state.data_cursor.add_(1)
+
+
+def scratch_dir():
+    """A temporary directory inside the checkout's git-ignored build/."""
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=root)
+
+
+def phase_codec_compare():
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    special = special_rows().reshape(-1)
+    saved = dict(codec_ops.LAUNCHES)
+    err = 0.0
+    t0 = time.perf_counter()
+    for n in CODEC_SIZES:
+        x = torch.randn(n, generator=gen, device=DEV) * 3.0
+        if n >= special.numel():
+            x[:special.numel()] = special
+        err = max(err, compare_codec(x))
+        if n % LANE == 0:               # the [R, 128] block entry points
+            blocks = x.view(-1, LANE)
+            q, s = codec_ops.quantize_blocks(blocks)
+            qr, sr = quantize_ref(blocks)
+            y = codec_ops.dequantize_blocks(q, s, out_dtype=torch.bfloat16)
+            yr = dequantize_ref(qr, sr, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not (same_bits(q, qr) and same_bits(s, sr)
+                    and same_bits(y, yr)):
+                raise AssertionError(f"ckpt_codec block API differs at n={n}")
+    err = max(err, compare_codec(special.view(-1, 8, 16)))
+    codec_ops.LAUNCHES.update(saved)
+    log("codec-compare", sizes=list(CODEC_SIZES),
+        special_rows=special.numel() // LANE, bit_identical=True,
+        max_abs_err=err, seconds=f"{time.perf_counter() - t0:.1f}")
+    return err
+
+
+def time_leaves(fn, leaves, iters, warmup=1):
+    """CUDA-event ms of one pass of ``fn`` over every leaf."""
+    def one_pass():
+        for leaf in leaves:
+            fn(leaf)
+    return time_ms(one_pass, iters=iters, warmup=warmup)
+
+
+def phase_codec_state():
+    """The codec over every fp32 leaf of a TrainState at the published
+    widths and depth of internlm2-1.8b."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    state = synthetic_state(dense_state_template(**INTERNLM2_1_8B), gen)
+    leaves = serialize.leaf_paths(state)
+    state_bytes = serialize.tree_bytes(state)
+    coded = [t for _, t in leaves
+             if t.dtype == torch.float32 and t.numel() >= LANE]
+    saved = dict(codec_ops.LAUNCHES)
+    err = 0.0
+    for t in coded:
+        err = max(err, compare_codec(t))
+    numels = [t.numel() for t in coded]
+    big_path, big = max(leaves, key=lambda kv: kv[1].numel())
+    big_index = next(i for i, t in enumerate(coded) if t is big)
+    codes = [codec_ops.quantize_array(t) for t in coded]
+
+    def dequantize(i):
+        q, s = codes[i]
+        return codec_ops.dequantize_array(q, s, shape=coded[i].shape)
+
+    def dequantize_plain(i):
+        return dequantize_array_ref(*codes[i], coded[i].shape)
+
+    index = range(len(coded))
+    timing = {
+        "quantize": dict(
+            ms=time_leaves(codec_ops.quantize_array, coded, iters=5),
+            plain_ms=time_leaves(quantize_array_ref, coded, iters=2),
+            big_ms=time_ms(lambda: codec_ops.quantize_array(big), iters=20),
+            bound=codec_bound_ms(numels, 7)),
+        "dequantize": dict(
+            ms=time_leaves(dequantize, index, iters=5),
+            plain_ms=time_leaves(dequantize_plain, index, iters=2),
+            big_ms=time_ms(lambda: codec_ops.dequantize_array(
+                *codes[big_index], shape=big.shape), iters=20),
+            bound=codec_bound_ms(numels, 2)),
+    }
+    codec_ops.LAUNCHES.update(saved)
+    peak = torch.cuda.max_memory_allocated()
+    big_bound = {"quantize": codec_bound_ms([big.numel()], 7)[0],
+                 "dequantize": codec_bound_ms([big.numel()], 2)[0]}
+    for name, tm in timing.items():
+        bound, bound_by = tm["bound"]
+        log("codec-state", kernel=name, config="internlm2-1.8b",
+            layers=INTERNLM2_1_8B["n_layers"], leaves=len(leaves),
+            coded_leaves=len(coded), state_bytes=state_bytes,
+            state_gib=f"{state_bytes / 2**30:.2f}", ms=f"{tm['ms']:.4f}",
+            plain_ms=f"{tm['plain_ms']:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=bound_by, share_of_bound=f"{bound / tm['ms']:.4f}",
+            launches_per_pass=len(coded), largest_leaf=repr(big_path),
+            largest_ms=f"{tm['big_ms']:.4f}",
+            largest_bound_ms=f"{big_bound[name]:.4f}",
+            largest_share=f"{big_bound[name] / tm['big_ms']:.4f}",
+            max_abs_err=err, max_memory_allocated=peak)
+    del state, leaves, coded, codes, big
+    torch.cuda.empty_cache()
+    log("codec-state-done", seconds=f"{time.perf_counter() - t0:.1f}")
+    return {name: dict(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound"][0], bound_by=tm["bound"][1],
+                       max_abs_err=err)
+            for name, tm in timing.items()}
+
+
+def phase_cr_fast_tier():
+    """A CheckpointService save, save, restore cycle on the card at the
+    widths of internlm2-1.8b and depth FAST_TIER_DEPTH: the fast tier
+    only (8 GiB, no delta, no durable save)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    template = dense_state_template(**dict(INTERNLM2_1_8B,
+                                           n_layers=FAST_TIER_DEPTH))
+    state = synthetic_state(template, gen)
+    state_bytes = serialize.tree_bytes(state)
+    with scratch_dir() as root:
+        svc = CheckpointService(ManagerConfig(
+            root=Path(root), mem_capacity_bytes=8 << 30, use_delta=False,
+            durable_every=1 << 30), device=DEV)
+        try:
+            svc.save(0, state)
+            adamw_step(state, gen)
+            torch.cuda.synchronize()
+            svc.save(1, state)
+            restored, name = svc.restore(template)
+            stats = svc.stats()
+            evictions = svc.manager.mem.stats.evictions
+            durable = svc.manager.disk.names()
+        finally:
+            svc.close()
+    want = dict(serialize.leaf_paths(state))
+    got = dict(serialize.leaf_paths(restored))
+    if name != "step_00000001" or got.keys() != want.keys() or not all(
+            same_bits(got[k], want[k]) for k in want):
+        raise AssertionError(f"fast-tier restore of {name} is not the saved "
+                             "state bit for bit")
+    if got[".params['embed']"].device != DEV or durable:
+        raise AssertionError("fast-tier restore left the card or wrote a "
+                             "durable checkpoint")
+    log("cr-fast-tier", config="internlm2-1.8b", layers=FAST_TIER_DEPTH,
+        state_bytes=state_bytes, state_gib=f"{state_bytes / 2**30:.2f}",
+        saves=stats.saves, restores=stats.restores,
+        save_s=f"{stats.save_seconds:.3f}",
+        restore_s=f"{stats.restore_seconds:.3f}",
+        device_to_host_GBps=f"{stats.save_bytes_per_s / 1e9:.3f}",
+        host_to_device_GBps=f"{stats.restore_bytes_per_s / 1e9:.3f}",
+        mem_evictions=evictions, bit_equal=True)
+    del state, restored, got, want
+    torch.cuda.empty_cache()
+
+
+def launcher_fleet(tiers, backend):
+    """`repro_torch.launch.cluster_sim`'s default fleet, priced by
+    ``tiers``."""
+    spec = WorkloadSpec(n_users=6, horizon=800, cpu_total=1024, seed=0,
+                        arrival_rate=0.08)
+    users = make_users(spec)
+    cfg = SchedulerConfig(cpu_total=1024, quantum=20, cr_overhead=2,
+                          cr_tiers=tiers, kernel_backend=backend)
+    return users, make_jobs(spec, users), cfg
+
+
+def phase_cr_path():
+    """`launch.cr_cost.measure` on two snapshots of the job that
+    bench_cr_cost.py measures, then the calibrated lattice on the
+    launcher's fleet, both backends: the C/R path, counted on its own."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    prev = synthetic_state(dense_state_template(**CR_JOB), gen)
+    cur = serialize.map_with_path(lambda _k, t: t.clone(), prev)
+    adamw_step(cur, gen)
+    torch.cuda.synchronize()
+    runs = {}
+    # the C/R path: every kernel count starts at 0 here
+    sched_ops.LAUNCHES = 0
+    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
+    t0 = time.perf_counter()
+    with scratch_dir() as root:
+        rows = cr_cost.measure(prev, cur, tick_seconds=TICK_SECONDS,
+                               root=root, device=DEV)
+    measure_s = time.perf_counter() - t0
+    tiers = rows["tiered_cost_model"]
+    for backend in ("cuda", "torch"):
+        users, jobs, cfg = launcher_fleet(tiers, backend)
+        runs[backend] = engine.simulate(users, jobs, cfg, 800, "omfs",
+                                        pass_depth=64, device=DEV)
+    launches = dict(codec_ops.LAUNCHES, sched_select=sched_ops.LAUNCHES)
+    if not rows["restore_bit_equal"]:
+        raise AssertionError("the service's restore differs from the second "
+                             "snapshot")
+    if rows["int8_roundtrip_error"] >= 1e-2:
+        raise AssertionError(f"codec round trip error "
+                             f"{rows['int8_roundtrip_error']}")
+    if min(launches["quantize"], launches["dequantize"]) == 0:
+        raise AssertionError(f"the C/R path missed a codec kernel: {launches}")
+    branches = runs["cuda"].stats.evict_branches
+    if launches["sched_select"] != branches:
+        raise AssertionError(f"sched_select launches {launches} != eviction "
+                             f"branches {branches}")
+    assert_same_run(runs["cuda"], runs["torch"], "calibrated fleet")
+    printable = {k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in rows.items()
+                 if k not in ("cost_model", "tiered_cost_model")}
+    log("cr-path", config="internlm2-1.8b-smoke-heads", **CR_JOB,
+        state="synthetic", measure_s=f"{measure_s:.2f}", **printable)
+    summary = runs["cuda"].summary()
+    log("cr-path-fleet", tiers=[(m.save_mib_per_tick, m.restore_mib_per_tick)
+                                for m in tiers.tiers],
+        capacity_mib=list(tiers.capacity_mib), jobs=len(jobs), ticks=800,
+        preemptions=summary["preemptions"], spills=summary["spills"],
+        checkpoints=summary["checkpoints"],
+        utilization=f"{summary['utilization']:.4f}",
+        identical_to_torch_backend=True, **{
+            f"launches_{k}": v for k, v in launches.items()})
+    return launches
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -406,6 +776,10 @@ def main():
     timing = phase_kernel_on_fleet(final)
     phase_fleet_profile()
     phase_launcher()
+    codec_err = phase_codec_compare()
+    codec = phase_codec_state()
+    phase_cr_fast_tier()
+    cr_launches = phase_cr_path()
     record = {"kernels": [{
         "name": "sched_select",
         "route": "cuda",
@@ -418,7 +792,19 @@ def main():
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": f"ckpt_{name}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
+        "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
+        "launches": cr_launches[name],
+        "max_abs_err": max(codec_err, codec[name]["max_abs_err"]),
+        "ms": codec[name]["ms"],
+        "plain_ms": codec[name]["plain_ms"],
+        "bound_ms": codec[name]["bound_ms"],
+        "bound_by": codec[name]["bound_by"],
+        "library_ms": None,
+    } for name, line in (("quantize", 22), ("dequantize", 30))]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

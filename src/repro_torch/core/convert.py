@@ -1,17 +1,21 @@
-"""Carry scheduler state across from the reference package.
+"""Carry scheduler and job state across from the reference package.
 
 The port imports nothing of ``repro``: a reference `JobTable` crosses as a
 dict of numpy columns keyed by ``JobTable._fields`` (the two tables share
-their column names and int32 layout), and reference ``User``/``Job``
-objects are read attribute by attribute.
+their column names and int32 layout), reference ``User``/``Job``
+objects are read attribute by attribute, and a reference tree of arrays
+(a ``TrainState``) crosses leaf by leaf through ``__array__``.
 """
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import serialize
 from repro_torch.core.omfs_torch import JobTable, resolve_device
 from repro_torch.core.types import Job, JobClass, JobState, User
 
@@ -54,3 +58,40 @@ def jobs_from_reference(users, jobs) -> Tuple[List[User], List[Job]]:
         out_jobs.append(Job(job_class=JobClass(int(j.job_class)),
                             state=JobState(int(j.state)), **kw))
     return out_users, out_jobs
+
+
+@functools.lru_cache(maxsize=None)
+def _namedtuple_twin(name: str, fields: Tuple[str, ...]):
+    return collections.namedtuple(name, fields)
+
+
+def _mirror(tree, leaf_fn):
+    """``tree`` rebuilt with ``leaf_fn`` on every leaf: a dict stays a dict,
+    a list a list, a tuple a tuple, and a NamedTuple becomes a port
+    NamedTuple of the same type name and fields."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        twin = _namedtuple_twin(type(tree).__name__, tuple(tree._fields))
+        return twin(*(_mirror(getattr(tree, f), leaf_fn)
+                      for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _mirror(v, leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_mirror(c, leaf_fn) for c in tree)
+    if tree is None:
+        return None
+    return leaf_fn(tree)
+
+
+def tree_from_reference(tree, device="cuda"):
+    """A tree whose leaves expose ``__array__`` (a reference ``TrainState``)
+    as the same structure of tensors on ``device``, dtypes kept (bfloat16
+    by its raw bits)."""
+    dev = resolve_device(device)
+    return _mirror(tree, lambda leaf: serialize.host_tensor(
+        np.asarray(leaf)).to(device=dev, copy=True))
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as the same structure of host numpy arrays
+    (bfloat16 as `serialize.BFLOAT16_BITS`)."""
+    return serialize.map_with_path(lambda _k, t: serialize.to_numpy(t), tree)
