@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all started together), holds each against its plain PyTorch version on the
-card, and drives the port's two paths:
+card, and drives the port's three paths:
 
 * the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
   16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
@@ -16,16 +16,30 @@ card, and drives the port's two paths:
   fast-tier save/save/restore cycle at depth 1 (4.94 GiB); and
   `repro_torch.launch.cr_cost.measure` on two snapshots of the job that
   `benchmarks/bench_cr_cost.py` measures, whose calibrated cost lattice
-  then prices the launcher's default fleet on both backends.
+  then prices the launcher's default fleet on both backends;
+* serving: the flash-attention kernel against its plain version on every
+  shape of the reference's kernel tests and on one layer at the serving
+  shape, and timed there beside the SDPA library call; the serve path at
+  the full widths and depth 2 on the card against the CPU (fp32); then
+  `repro_torch.launch.serve` on the full 24-layer internlm2-1.8b (seeded
+  random fp32 weights, bf16 compute), batch 4, prompt 2,048, 32 generated
+  tokens, which must launch the kernel once per layer of the prefill, and
+  one prefill and one decode step under torch.profiler.
+
+TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
+products on the card are full fp32.
 
 The state is synthetic: filled from a seeded generator and advanced by one
 AdamW-style update (the port cannot train yet), so the delta rows it
 prints describe that update, not a trained job.  Every phase prints one
-line; any failure raises.  The last two lines are the kernels' JSON
-record and the device record.
+line per result (the launchers print their own lines too); any failure
+raises.  The last three lines are the card's name and power limit, the
+kernels' JSON record and the device record.
 
 Exits non-zero without a result where no CUDA device is visible.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +73,7 @@ from repro_torch.core.workload import (  # noqa: E402
     make_jobs,
     make_users,
 )
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.ckpt_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.ckpt_codec.ref import (  # noqa: E402
     LANE,
@@ -67,11 +82,17 @@ from repro_torch.kernels.ckpt_codec.ref import (  # noqa: E402
     quantize_array_ref,
     quantize_ref,
 )
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+    visible,
+)
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
     plan_evictions_ref,
 )
-from repro_torch.launch import cluster_sim, cr_cost  # noqa: E402
+from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
     INTERNLM2_1_8B,
     dense_state_template,
@@ -79,10 +100,15 @@ from repro_torch.train.state import (  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s and the non-tensor-core
-#: scalar rate used for the comparison count of a sort
+# every comparison on the card is in full fp32: no TF32 products
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+#: H100 SXM data-sheet peaks (dense): HBM bytes/s, the non-tensor-core
+#: scalar rate used for the comparison count of a sort, and the bf16
+#: tensor-core rate that bounds attention
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # the fleet: bench_sched_scale.py's scale generator and T=4 lattice
 FLEET_JOBS = 100_000
@@ -99,6 +125,27 @@ FAST_TIER_DEPTH = 1
 CR_JOB = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
               vocab=8192)
 TICK_SECONDS = 0.1
+
+# serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
+# window, n_meta), two ragged Sq != Skv cases (B, Sq, Skv, H, KVH, D,
+# causal), and internlm2-1.8b's prefill attention at batch 4, prompt 2,048
+FLASH_CASES = [(2, 128, 4, 2, 64, True, 0, 0), (1, 200, 4, 4, 32, True, 0, 0),
+               (2, 256, 8, 2, 64, False, 0, 0), (1, 256, 4, 1, 64, True, 64, 16),
+               (1, 72, 2, 2, 16, True, 0, 0), (2, 96, 4, 2, 128, True, 48, 8),
+               (1, 128, 4, 2, 64, True, 0, 0)]
+RAGGED_CASES = [(1, 200, 72, 4, 2, 32, True), (2, 40, 72, 4, 2, 16, False)]
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)   # B, S, Hq, Hkv, d
+#: kernel vs plain: the reference's own bar (tests/test_kernels.py)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# [serve-vs-cpu]: the full widths at depth 2, fp32 compute and cache
+CPU_LAYERS, CPU_BATCH, CPU_PROMPT, CPU_STEPS = 2, 2, 256, 8
+#: both sides compute in fp32, but the card sums the 2,048- and 8,192-long
+#: products of its GEMMs and the kernel's online softmax in another order
+#: than the CPU's BLAS and the plain full-score softmax; the logits are
+#: O(1), so an fp32 rounding difference stays orders of magnitude below this
+SERVE_CPU_TOL = 1e-3
 
 
 def log(phase, **kv):
@@ -218,8 +265,9 @@ def phase_env():
 
 def phase_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(ops.build) for ops in (sched_ops, codec_ops)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = [pool.submit(ops.build)
+                   for ops in (sched_ops, codec_ops, flash_ops)]
         builds = [f.result() for f in futures]
     wall = time.perf_counter() - t0
     for built in builds:
@@ -366,6 +414,28 @@ def phase_fleet():
     return runs["omfs", "cuda"], launches
 
 
+def device_us(prof, names=()):
+    """Device time in µs that a torch.profiler run saw, summed over the
+    device-side events only (kernels, copies, sets): a CPU op's own device
+    time repeats that of the kernels it launched, so summing every event
+    counts most kernels twice.  Returns (total, the part in kernels whose
+    name holds one of ``names``, the number of device events)."""
+    from torch.autograd import DeviceType
+
+    total = ours = 0.0
+    count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        total += us
+        count += ev.count
+        if any(k in ev.key for k in names):
+            ours += us
+    return total, ours, count
+
+
 def phase_fleet_profile():
     """Device busy share of the tick loop: the fleet's `omfs` run under
     torch.profiler, device time summed over all kernels (and over the
@@ -378,15 +448,9 @@ def phase_fleet_profile():
         res = engine.simulate(users, jobs, fleet_config("cuda"),
                               FLEET_HORIZON, "omfs", pass_depth=FLEET_DEPTH,
                               device=DEV)
-    ours = ("build_keys", "bitonic_", "gather_freed", "scan_tiles",
-            "scan_sums", "plan(", "place_bounded")
-    dev_us = sched_us = 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        dev_us += us
-        if any(k in ev.key for k in ours):
-            sched_us += us
+    dev_us, sched_us, _ = device_us(prof, (
+        "build_keys", "bitonic_", "gather_freed", "scan_tiles", "scan_sums",
+        "plan(", "place_bounded"))
     ticks_s = res.seconds["ticks"]
     log("fleet-profile", ticks=FLEET_HORIZON, ticks_wall_s=f"{ticks_s:.4f}",
         device_busy_ms=f"{dev_us / 1e3:.3f}",
@@ -767,6 +831,259 @@ def phase_cr_path():
             f"launches_{k}": v for k, v in launches.items()})
     return launches
 
+# ---------------------------------------------------------------------------
+# serving: the flash-attention kernel and the dense GQA serve path
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(gen, b, sq, skv, h, kvh, d, dtype):
+    q = torch.randn((b, sq, h, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((b, skv, kvh, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, skv, kvh, d), generator=gen, device=DEV).to(dtype)
+    return q, k, v
+
+
+def compare_attn(q, k, v, **kw):
+    """Kernel against the plain version on the same card tensors; raises
+    above the dtype's tolerance, returns the largest absolute difference."""
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    if not (err <= ATTN_TOL[q.dtype]):
+        raise AssertionError(f"flash_attention differs from its plain version "
+                             f"by {err} > {ATTN_TOL[q.dtype]} (q "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                             f"{q.dtype}, {kw})")
+    return err
+
+
+def phase_attn_compare():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    saved = flash_ops.LAUNCHES
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    t0 = time.perf_counter()
+    for dtype in errs:
+        for b, s, h, kvh, d, causal, window, meta in FLASH_CASES:
+            qkv = attn_inputs(gen, b, s, s, h, kvh, d, dtype)
+            errs[dtype] = max(errs[dtype], compare_attn(
+                *qkv, causal=causal, window=window, n_meta=meta))
+            cases += 1
+        for b, sq, skv, h, kvh, d, causal in RAGGED_CASES:
+            qkv = attn_inputs(gen, b, sq, skv, h, kvh, d, dtype)
+            errs[dtype] = max(errs[dtype], compare_attn(*qkv, causal=causal))
+            cases += 1
+    b, s, h, kvh, d = ATTN_SHAPE
+    serving_err = compare_attn(*attn_inputs(gen, b, s, s, h, kvh, d,
+                                            torch.bfloat16), causal=True)
+    errs[torch.bfloat16] = max(errs[torch.bfloat16], serving_err)
+    flash_ops.LAUNCHES = saved
+    log("attn-compare", cases=cases + 1,
+        max_abs_err_fp32=f"{errs[torch.float32]:.3e}",
+        max_abs_err_bf16=f"{errs[torch.bfloat16]:.3e}",
+        serving_shape_err=f"{serving_err:.3e}",
+        tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return max(errs.values())
+
+
+def attn_bound(b, s, h, kvh, d, dtype_bytes):
+    """FLOP (QK^T and PV over the visible pairs only, 4d each) and bytes
+    (q, k, v read once, out written once) of one causal launch, and the
+    least time for them on the card."""
+    pairs = int(visible(s, s, causal=True, window=0, n_meta=0,
+                        device=DEV).sum())
+    flop = pairs * b * h * 4 * d
+    nbytes = dtype_bytes * d * s * b * (2 * h + 2 * kvh)
+    ops_ms, byte_ms = 1e3 * flop / BF16_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(pairs_per_head=pairs, flop=flop, bytes=nbytes,
+                bound_ms=max(ops_ms, byte_ms),
+                bound_by="operations" if ops_ms >= byte_ms else "bytes")
+
+
+def phase_attn_time():
+    """The kernel at the serving shape (one layer of internlm2-1.8b's
+    prefill, bf16), its plain version, and the library's fused attention
+    (SDPA on the same tensors viewed [B, H, S, D]; never called by the
+    port)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    b, s, h, kvh, d = ATTN_SHAPE
+    q, k, v = attn_inputs(gen, b, s, s, h, kvh, d, torch.bfloat16)
+    saved = flash_ops.LAUNCHES
+    ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
+                 iters=20, warmup=3)
+    flash_ops.LAUNCHES = saved
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                       iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3)
+    bound = attn_bound(b, s, h, kvh, d, 2)
+    log("attn-time", B=b, S=s, Hq=h, Hkv=kvh, d=d, dtype="bfloat16",
+        causal=True, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", flop=bound["flop"],
+        bytes=bound["bytes"], pairs_per_head=bound["pairs_per_head"],
+        bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
+        share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
+        tflops=f"{bound['flop'] / ms / 1e9:.2f}",
+        x_library=f"{ms / library_ms:.2f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def phase_serve_vs_cpu():
+    """The same seeded weights at the full widths and depth CPU_LAYERS,
+    fp32 compute and cache: prefill and CPU_STEPS decode steps on the card
+    (the kernel) against the CPU (the plain version), teacher-forced on the
+    CPU's greedy ids."""
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH).replace(n_layers=CPU_LAYERS,
+                                         compute_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    card = Model(cfg, device=DEV)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (CPU_BATCH, CPU_PROMPT)).astype(np.int32))
+    max_seq = CPU_PROMPT + CPU_STEPS
+    c_cache, c_logits = cpu.prefill(
+        {"tokens": tokens}, cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
+    saved = flash_ops.LAUNCHES
+    g_cache, g_logits = card.prefill(
+        {"tokens": tokens.to(DEV)},
+        card.init_cache(CPU_BATCH, max_seq, torch.float32))
+    torch.cuda.synchronize()
+    launches = flash_ops.LAUNCHES - saved
+    flash_ops.LAUNCHES = saved
+    if launches != CPU_LAYERS:
+        raise AssertionError(f"the card's prefill launched the flash kernel "
+                             f"{launches} times, not {CPU_LAYERS}")
+    errs = [float((g_logits.cpu() - c_logits).abs().max())]
+    scale = float(c_logits.abs().max())
+    for _ in range(CPU_STEPS):
+        tok = serve.greedy(c_logits)
+        c_cache, c_logits = cpu.decode_step(c_cache, tok)
+        g_cache, g_logits = card.decode_step(g_cache, tok.to(DEV))
+        errs.append(float((g_logits.cpu() - c_logits).abs().max()))
+    kv_err = max(float((g_cache["layers"][n].cpu() - c_cache["layers"][n])
+                       .abs().max()) for n in ("k", "v"))
+    if not (max(errs) <= SERVE_CPU_TOL and kv_err <= SERVE_CPU_TOL):
+        raise AssertionError(f"the card's serve path differs from the CPU's: "
+                             f"logits {errs}, kv cache {kv_err} (tolerance "
+                             f"{SERVE_CPU_TOL})")
+    if not (torch.equal(g_cache["pos"].cpu(), c_cache["pos"])
+            and int(g_cache["length"]) == int(c_cache["length"]) == max_seq):
+        raise AssertionError("the card's cache positions or length differ "
+                             "from the CPU's")
+    log("serve-vs-cpu", config=SERVE_ARCH, layers=CPU_LAYERS,
+        compute="float32", batch=CPU_BATCH, prompt=CPU_PROMPT,
+        decode_steps=CPU_STEPS, prefill_err=f"{errs[0]:.3e}",
+        decode_max_err=f"{max(errs[1:]):.3e}", kv_cache_err=f"{kv_err:.3e}",
+        max_abs_logit=f"{scale:.4f}", tol=SERVE_CPU_TOL,
+        flash_launches=launches, seconds=f"{time.perf_counter() - t0:.1f}")
+    del cpu, card, c_cache, g_cache
+    torch.cuda.empty_cache()
+
+
+def collect_garbage():
+    """Collect Python's cyclic garbage: tensors of earlier phases held in
+    reference cycles count as allocated until then (gigabytes of them
+    before the serving phases), so a peak taken next would not be the
+    step's own.
+    The allocator keeps its cached blocks, as a running server's would."""
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def phase_serve():
+    """The main serving path: `repro_torch.launch.serve`'s own functions on
+    the full internlm2-1.8b (24 layers, fp32 master weights from a seeded
+    generator, bf16 compute and cache): one warm-up request, then the
+    measured one, whose prefill must launch the kernel once per layer."""
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = serve.build(cfg, SEED, DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
+    serve.generate(model, tokens, 2)                      # warm-up
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    # the serving path: every kernel count starts at 0 here
+    sched_ops.LAUNCHES = flash_ops.LAUNCHES = 0
+    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
+    res = serve.generate(model, tokens, SERVE_GEN)
+    launches = flash_ops.LAUNCHES
+    others = dict(codec_ops.LAUNCHES, sched_select=sched_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    serve.report(res, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    if launches != cfg.n_layers or any(others.values()):
+        raise AssertionError(f"the prefill launched the flash kernel "
+                             f"{launches} times, not once per layer "
+                             f"({cfg.n_layers}), and the others {others}")
+    if not (torch.isfinite(res.prefill_logits).all()
+            and torch.isfinite(res.last_logits).all()):
+        raise AssertionError("the served logits are not finite")
+    if res.tokens.shape != (SERVE_BATCH, SERVE_GEN):
+        raise AssertionError(f"generated ids {tuple(res.tokens.shape)}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    hd = cfg.resolved_head_dim
+    kv_bytes = (2 * cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + SERVE_GEN)
+                * cfg.n_kv_heads * hd * 2)
+    steps = SERVE_GEN - 1
+    log("serve", config=SERVE_ARCH, layers=cfg.n_layers,
+        params=sum(p.numel() for p in model.parameters()),
+        weights="float32-seeded-random", compute=cfg.compute_dtype,
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        prefill_ms=f"{res.prefill_s * 1e3:.3f}",
+        prefill_tok_per_s=f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f}",
+        decode_ms_per_token=f"{res.decode_s * 1e3 / steps:.3f}",
+        decode_tok_per_s=f"{SERVE_BATCH * steps / res.decode_s:.1f}",
+        flash_launches_prefill=launches, weight_bytes=weight_bytes,
+        kv_cache_bytes=kv_bytes, allocated_before=baseline,
+        max_memory_allocated=peak, logits_finite=True,
+        init_s=f"{init_s:.2f}")
+    return model, tokens, launches
+
+
+def phase_serve_profile(model, tokens):
+    """One prefill and one decode step under torch.profiler: device busy
+    time against host wall time, the flash kernel's share, the device
+    events per step, and each step's peak device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    saved = flash_ops.LAUNCHES
+    rows = {}
+    for step in ("prefill", "decode"):
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if step == "prefill":
+                cache, logits = model.prefill({"tokens": tokens}, cache)
+            else:
+                cache, logits = model.decode_step(cache, serve.greedy(logits))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows[step] = (wall, *device_us(prof, ("flash_fwd",)),
+                      torch.cuda.max_memory_allocated())
+    flash_ops.LAUNCHES = saved
+    for step, (wall, dev, flash, events, peak) in rows.items():
+        log("serve-profile", config=SERVE_ARCH, step=step, batch=SERVE_BATCH,
+            prompt=SERVE_PROMPT, host_wall_ms=f"{wall * 1e3:.3f}",
+            device_busy_ms=f"{dev / 1e3:.3f}",
+            device_busy_share=(f"{dev / 1e6 / wall:.4f}" if dev
+                               else "not measured"),
+            flash_ms=f"{flash / 1e3:.3f}",
+            flash_share_of_device=(f"{flash / dev:.4f}" if dev
+                                   else "not measured"),
+            device_events=events, max_memory_allocated=peak)
+
 
 def main():
     smi = phase_env()
@@ -780,6 +1097,13 @@ def main():
     codec = phase_codec_state()
     phase_cr_fast_tier()
     cr_launches = phase_cr_path()
+    attn_err = phase_attn_compare()
+    attn = phase_attn_time()
+    phase_serve_vs_cpu()
+    model, tokens, flash_launches = phase_serve()
+    phase_serve_profile(model, tokens)
+    del model
+    torch.cuda.empty_cache()
     record = {"kernels": [{
         "name": "sched_select",
         "route": "cuda",
@@ -804,7 +1128,20 @@ def main():
         "bound_ms": codec[name]["bound_ms"],
         "bound_by": codec[name]["bound_by"],
         "library_ms": None,
-    } for name, line in (("quantize", 22), ("dequantize", 30))]}
+    } for name, line in (("quantize", 22), ("dequantize", 30))] + [{
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
+        "launches": flash_launches,
+        "max_abs_err": attn_err,
+        "ms": attn["ms"],
+        "plain_ms": attn["plain_ms"],
+        "bound_ms": attn["bound_ms"],
+        "bound_by": attn["bound_by"],
+        "library_ms": attn["library_ms"],
+    }]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ The port imports nothing of ``repro``: a reference `JobTable` crosses as a
 dict of numpy columns keyed by ``JobTable._fields`` (the two tables share
 their column names and int32 layout), reference ``User``/``Job``
 objects are read attribute by attribute, and a reference tree of arrays
-(a ``TrainState``) crosses leaf by leaf through ``__array__``.
+(a ``TrainState``) crosses leaf by leaf through ``__array__``.  A
+reference model's params tree crosses into a port `models.model.Model`
+by `load_reference_params`.
 """
 from __future__ import annotations
 
@@ -95,3 +97,43 @@ def tree_to_numpy(tree):
     """A tree of tensors as the same structure of host numpy arrays
     (bfloat16 as `serialize.BFLOAT16_BITS`)."""
     return serialize.map_with_path(lambda _k, t: serialize.to_numpy(t), tree)
+
+
+def _flat_paths(tree, prefix=""):
+    """``{"a.b.c": leaf}`` for a nested dict of leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def load_reference_params(model: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy a reference params tree (nested dicts of leaves with
+    ``__array__``) into ``model``'s parameters, on their device.  Raises on
+    a missing or extra path, or on a leaf of another shape or dtype;
+    bfloat16 crosses by its raw bits."""
+    leaves = _flat_paths(tree)
+    params = dict(model.named_parameters())
+    missing, extra = sorted(params.keys() - leaves), sorted(leaves.keys() -
+                                                            params)
+    if missing or extra:
+        raise KeyError(f"params paths differ: missing {missing}, "
+                       f"extra {extra}")
+    staged = {}
+    for path, leaf in leaves.items():
+        host = serialize.host_tensor(np.asarray(leaf))
+        p = params[path]
+        if tuple(host.shape) != tuple(p.shape):
+            raise ValueError(f"{path}: shape {tuple(host.shape)}, the model "
+                             f"holds {tuple(p.shape)}")
+        if host.dtype != p.dtype:
+            raise TypeError(f"{path}: dtype {host.dtype}, the model holds "
+                            f"{p.dtype}")
+        staged[path] = host
+    with torch.no_grad():
+        for path, host in staged.items():
+            params[path].copy_(host)
+    return model

@@ -1,0 +1,134 @@
+"""Wrapper for the flash-attention forward kernel on Hopper.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py:34``
+(``_fwd_kernel``, launched by ``flash_attention_fwd`` at ``:110``) behind the
+reference's ``ops.py:35 flash_attention``.  The model's prefill attention
+(`repro_torch.models.attention.prefill_attention`) calls it once per layer.
+
+* Layout: the model's [B, S, H, D] for q, k, v and the output; GQA when
+  ``H`` is a multiple of ``KVH``.  The scale is ``D ** -0.5`` of the true
+  head dim (``ops.py:52``).  No head-dim padding: the 128-lane padding was
+  the TPU's.
+* CPU tensors run the plain version (``ref.py``).
+* CUDA tensors run the hand-written kernel (``csrc/flash_attention.cu``,
+  built for ``sm_90a`` at first use by ``kernels._build``) on the current
+  stream, or raise: there is no fallback to the plain version.  It takes
+  float32 and bfloat16, contiguous, any ``D <= 128``.
+
+``LAUNCHES`` counts kernel launches on the card; the CPU path never moves
+it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+#: kernel launches on the card since the count was last reset
+LAUNCHES = 0
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MAX_HEAD_DIM = 128
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def build():
+    """Build (or reuse) and load the kernel library; returns the
+    `kernels._build.Built` record (path, build seconds, ptxas log)."""
+    global _lib_handle
+    from repro_torch.kernels import _build
+
+    built = _build.load("flash_attention", [SOURCE])
+    lib = built.lib
+    lib.flash_attention_fwd_launch.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+        _I, _P]
+    lib.flash_attention_fwd_launch.restype = _I
+    lib.flash_attention_error_string.argtypes = [_I]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_max_head_dim.argtypes = []
+    lib.flash_attention_max_head_dim.restype = _I
+    if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError("flash_attention library disagrees on the largest "
+                           "head dim")
+    _lib_handle = lib
+    return built
+
+
+def _lib() -> ctypes.CDLL:
+    if _lib_handle is None:
+        build()
+    return _lib_handle
+
+
+def _check_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [B, Sq, H, D] and k, v [B, Skv, KVH, D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
+                         f"{q.device}")
+
+
+def _launch(q, k, v, causal, window, n_meta):
+    global LAUNCHES
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("flash_attention needs at least one query and one "
+                         "key")
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, sq, skv, h, kvh, d, float(d ** -0.5),
+            int(causal), int(window), int(n_meta),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
+                           f"({msg})")
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    n_meta: int = 0) -> torch.Tensor:
+    """q [B, Sq, H, D], k and v [B, Skv, KVH, D] -> [B, Sq, H, D] in q's
+    dtype; positions are the row and column indices (top-left aligned)."""
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   n_meta=n_meta)
+    return _launch(q, k, v, causal, window, n_meta)

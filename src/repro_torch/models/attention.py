@@ -1,0 +1,174 @@
+"""Attention for the serving path: prefill through the flash kernel, decode
+against a padded KV cache, and the ring KV cache itself.
+
+The port of ``src/repro/models/attention.py`` minus ``chunked_attention``
+(the training primitive, which waits for slice 8b).
+
+* ``prefill_attention`` is the reference prefill's ``chunked_attention(q,
+  k, v, positions, positions, causal=True, ...)`` for the one case the model
+  calls it with, ``positions = arange``: exactly the function of the flash
+  kernel, whose positions are the row and column indices.  It calls
+  `kernels.flash_attention.ops.flash_attention` and raises for any other
+  positions.
+* ``decode_attention`` is plain torch, as in the reference (no kernel):
+  fp32 scores, then P cast to the cache's dtype before P·V
+  (``attention.py:184``).
+* The cache writers scatter **in place** (``index_copy_`` on the cache
+  tensor, or on the view of one layer of the stacked cache) and return the
+  tensor they wrote.  The reference's ``mode="drop"`` (entries overwritten
+  by a later entry of the same write land on slot ``size``) becomes a mask
+  before the scatter, since torch raises on an index out of bounds; a write
+  that fits the ring drops nothing and needs no mask.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+NEG_INF = -1e30
+
+
+def visibility_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    causal: bool, window: int = 0,
+                    n_meta: int = 0) -> torch.Tensor:
+    """Boolean [..., Sq, Skv] visibility from positions [..., Sq] and
+    [..., Skv] (-1 marks an invalid cache slot)."""
+    qp = q_pos[..., :, None]
+    kp = kv_pos[..., None, :]
+    vis = kp >= 0
+    if causal:
+        vis = vis & (kp <= qp)
+    if window > 0:
+        in_window = (qp - kp) < window
+        if n_meta > 0:
+            in_window = in_window | (kp < n_meta)
+        vis = vis & in_window
+    return vis
+
+
+def _is_arange(pos: torch.Tensor) -> bool:
+    ar = torch.arange(pos.shape[-1], dtype=pos.dtype, device=pos.device)
+    return bool(torch.equal(pos, ar.expand_as(pos)))
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      n_meta: int = 0) -> torch.Tensor:
+    """q [B, S, H, D], k and v [B, S, KVH, D], positions [B, S] that must
+    be ``arange(S)`` in every row -> [B, S, H, D] in q's dtype."""
+    if q_pos.shape != kv_pos.shape or not _is_arange(q_pos) or (
+            kv_pos is not q_pos and not _is_arange(kv_pos)):
+        raise ValueError("prefill_attention takes positions arange(S) only "
+                         "(the flash kernel's row and column indices); "
+                         "other positions need chunked_attention (slice 8b)")
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           n_meta=n_meta)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_pos: torch.Tensor,
+                     kv_pos: torch.Tensor, *, window: int = 0,
+                     n_meta: int = 0) -> torch.Tensor:
+    """Few-token attention against a padded KV cache: q [B, Tq, H, Dk],
+    caches [B, S, KVH, D], q_pos [B, Tq], kv_pos [B, S] (-1 = empty) ->
+    [B, Tq, H, Dv] in q's dtype."""
+    b, tq, h, dk = q.shape
+    kvh = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(dk)
+    qr = q.reshape(b, tq, kvh, h // kvh, dk)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), k_cache.float()) * scale
+    vis = visibility_mask(q_pos, kv_pos, causal=True, window=window,
+                          n_meta=n_meta)
+    s = torch.where(vis[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, tq, h, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Per-layer-stacked KV cache.
+
+    k, v: [L, B, S, KVH, D]; pos: [B, S] int32 slot positions (-1 empty);
+    length: [] int32 write cursor (the same for all batch rows).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, max_seq, n_kv, d_k, d_v=None,
+             dtype=torch.bfloat16, device="cpu"):
+        d_v = d_k if d_v is None else d_v
+        return KVCache(
+            k=torch.zeros((n_layers, batch, max_seq, n_kv, d_k), dtype=dtype,
+                          device=device),
+            v=torch.zeros((n_layers, batch, max_seq, n_kv, d_v), dtype=dtype,
+                          device=device),
+            pos=torch.full((batch, max_seq), -1, dtype=torch.int32,
+                           device=device),
+            length=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def ring_slots(cursor, n_new: int, size: int,
+               n_pinned: int = 0) -> torch.Tensor:
+    """Slot indices (int32 [n_new]) for writing ``n_new`` entries at
+    ``cursor`` (an int or an int32 tensor) into a cache of ``size`` slots
+    whose first ``n_pinned`` slots are never recycled and whose other
+    ``size - n_pinned`` slots form a ring.  Entries that a later entry of
+    the same write would overwrite are sent to slot ``size``."""
+    cursor = torch.as_tensor(cursor, dtype=torch.int32)
+    idx = cursor + torch.arange(n_new, dtype=torch.int32,
+                                device=cursor.device)
+    ring = max(size - n_pinned, 1)
+    slot = torch.where(idx < n_pinned, idx,
+                       n_pinned + torch.remainder(idx - n_pinned, ring))
+    keep = (idx < n_pinned) | (idx >= cursor + n_new - ring)
+    return torch.where(keep, slot, torch.full_like(slot, size))
+
+
+def _scatter(cache: torch.Tensor, new: torch.Tensor, cursor,
+             n_pinned: int) -> torch.Tensor:
+    """``cache[:, slots] = new`` in place, dropping the entries sent to slot
+    ``size``."""
+    size, n_new = cache.shape[1], new.shape[1]
+    slots = ring_slots(cursor, n_new, size, n_pinned).to(cache.device)
+    new = new.to(cache.dtype)
+    if n_new > max(size - n_pinned, 1):
+        keep = slots < size          # a host sync, only when the ring wraps
+        slots, new = slots[keep], new[:, keep]
+    return cache.index_copy_(1, slots.long(), new)
+
+
+def cache_write(cache_k, cache_v, k_new, v_new, cursor, n_pinned: int = 0):
+    """Scatter [B, T, KVH, D] new K/V into [B, S, KVH, D] caches at
+    ``cursor``, in place; returns (k, v).  One code path for full caches,
+    sliding-window rings and pinned meta-token slots."""
+    return (_scatter(cache_k, k_new, cursor, n_pinned),
+            _scatter(cache_v, v_new, cursor, n_pinned))
+
+
+def cache_write_single(cache: torch.Tensor, new: torch.Tensor, cursor,
+                       n_pinned: int = 0) -> torch.Tensor:
+    """Scatter one [B, T, ...] tensor into a [B, S, ...] ring cache in
+    place."""
+    return _scatter(cache, new, cursor, n_pinned)
+
+
+def cache_pos_write(pos: torch.Tensor, new_pos: torch.Tensor, cursor,
+                    n_pinned: int = 0) -> torch.Tensor:
+    """Scatter new absolute positions [B, T] into the pos ring [B, S] in
+    place."""
+    return _scatter(pos, new_pos, cursor, n_pinned)

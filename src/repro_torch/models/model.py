@@ -1,0 +1,232 @@
+"""The model facade for the dense GQA family: internlm2-1.8b, glm4-9b and
+mistral-nemo-12b (the port of ``src/repro/models/model.py``'s serving
+path).
+
+`Model` is an ``nn.Module`` whose parameters keep the reference's tree and
+shapes (``embed``, ``norm_f``, ``unembed``, ``blocks/{attn,ffn,norm_*}``
+stacked on ``[L, ...]``) in the config's ``param_dtype``, so one
+``state_dict`` serves the reference's params, the checkpoint service and
+the training slice.  Methods:
+
+* ``init(generator)`` — fill the parameters from a ``torch.Generator``.
+* ``prefill(batch, cache)`` — populate the cache, return last logits.
+* ``decode_step(cache, tokens)`` — one serve step.
+* ``init_cache(batch, max_seq, dtype)`` — the reference's cache layout:
+  ``length`` [] int32, ``pos`` [B, S] int32, ``layers.k`` and ``layers.v``
+  [L, B, S, KVH, D].
+
+Weights are cast to the compute dtype at each use, as the reference does
+(a bf16 serving copy is later performance work).  ``prefill`` and
+``decode_step`` write the cache's tensors **in place** and return a new
+dict over them with the new ``length``.  Other families raise
+``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
+``chunked_ce_loss`` wait for slice 8b.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.omfs_torch import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import cache_pos_write
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    ones_init,
+    rms_norm,
+    stack_specs,
+)
+
+Batch = Dict[str, torch.Tensor]
+Cache = Dict[str, Any]
+
+def _logits_last(h_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
+    """h_last [B, T, d] -> fp32 logits [B, T, V] (small T only): the
+    weights rounded to h's dtype, products and sums in fp32 (the
+    reference's ``preferred_element_type=float32``)."""
+    w = unembed.to(h_last.dtype)
+    return h_last.float() @ w.float()
+
+
+def _materialise(node: nn.Module, spec: dict, device, inits: dict,
+                 prefix: str) -> None:
+    """Register ``spec``'s leaves as parameters of ``node`` and its dicts as
+    child modules, so that parameter paths are the reference's tree paths;
+    ``inits`` collects each path's initialiser."""
+    for name in sorted(spec):
+        leaf = spec[name]
+        if isinstance(leaf, dict):
+            child = nn.Module()
+            node.add_module(name, child)
+            _materialise(child, leaf, device, inits, f"{prefix}{name}.")
+        else:
+            shape, init, dtype = leaf
+            node.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device)))
+            inits[f"{prefix}{name}"] = init
+
+
+def _as_dict(node: nn.Module) -> dict:
+    out = dict(node.named_parameters(recurse=False))
+    for name, child in node.named_children():
+        out[name] = _as_dict(child)
+    return out
+
+
+class Model(nn.Module):
+    """A dense GQA decoder on ``device`` (``"cuda"`` unless the caller asks
+    for ``"cpu"``; ``"meta"`` for shapes only)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self._inits: Dict[str, Any] = {}
+        _materialise(self, self.param_spec(), resolve_device(device),
+                     self._inits, "")
+
+    # -- parameters ---------------------------------------------------------
+
+    def param_spec(self) -> dict:
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.param_dtype)
+        spec: dict = {
+            "embed": ((cfg.vocab, cfg.d_model), embed_init, dtype),
+            "norm_f": ((cfg.d_model,), ones_init, torch.float32),
+        }
+        if not cfg.tie_embeddings:
+            spec["unembed"] = ((cfg.d_model, cfg.vocab), dense_init, dtype)
+        if cfg.n_meta_tokens:
+            spec["meta"] = ((cfg.n_meta_tokens, cfg.d_model), embed_init,
+                            dtype)
+        spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
+                                     cfg.n_layers)
+        return spec
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Model":
+        """Fill every parameter, in sorted path order, from ``generator``
+        (on the parameters' device)."""
+        params = dict(self.named_parameters())
+        for path in sorted(self._inits):
+            self._inits[path](params[path], generator)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def params(self) -> dict:
+        """The parameters as the reference's nested dict of tensors."""
+        return _as_dict(self)
+
+    # -- embedding helpers --------------------------------------------------
+
+    def _embed(self, params, tokens):
+        x = params["embed"][tokens]
+        return x.to(getattr(torch, self.cfg.compute_dtype))
+
+    def _unembed_matrix(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["unembed"]
+
+    def _positions(self, batch_size: int, start, length: int):
+        pos = start + torch.arange(length, dtype=torch.int32,
+                                   device=self.device)[None, :]
+        return pos.expand(batch_size, length)
+
+    # -- trunk --------------------------------------------------------------
+
+    def _trunk(self, params, x, positions, *, mode, cache):
+        kv_pos = cache["pos"] if "pos" in cache else None
+        h, layers, _ = tfm.stack_apply(
+            self.cfg, params["blocks"], x, positions, mode=mode,
+            cache=cache["layers"], kv_pos=kv_pos, cursor=cache["length"])
+        return rms_norm(h, params["norm_f"], self.cfg.norm_eps), layers
+
+    # -- serving ------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch: Batch, cache: Cache) -> Tuple[Cache, torch.Tensor]:
+        """Populate the cache from a [B, S] prompt; returns (cache,
+        last-token fp32 logits [B, 1, V])."""
+        cfg = self.cfg
+        params = self.params()
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        x = self._embed(params, tokens)
+        nm = cfg.n_meta_tokens
+        if nm:
+            meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
+            x = torch.cat([meta, x], dim=1)
+        positions = self._positions(b, 0, t + nm)
+        h, layers = self._trunk(params, x, positions, mode="prefill",
+                                cache=cache)
+        new_cache = dict(cache, layers=layers)
+        if "pos" in cache:
+            new_cache["pos"] = cache_pos_write(cache["pos"], positions,
+                                               cache["length"], n_pinned=nm)
+        new_cache["length"] = cache["length"] + (t + nm)
+        logits = _logits_last(h[:, -1:], self._unembed_matrix(params))
+        return new_cache, logits
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache,
+                    tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
+        """One decode step: tokens [B, T_small] -> (cache, fp32 logits
+        [B, T_small, V])."""
+        cfg = self.cfg
+        params = self.params()
+        b, t = tokens.shape
+        x = self._embed(params, tokens)
+        positions = self._positions(b, cache["length"], t)
+        new_cache = dict(cache)
+        if "pos" in cache:
+            # positions first, so that attention sees the new token's slot
+            new_cache["pos"] = cache_pos_write(
+                cache["pos"], positions, cache["length"],
+                n_pinned=cfg.n_meta_tokens)
+        h, layers = self._trunk(params, x, positions, mode="decode",
+                                cache=new_cache)
+        new_cache["layers"] = layers
+        new_cache["length"] = cache["length"] + t
+        logits = _logits_last(h, self._unembed_matrix(params))
+        return new_cache, logits
+
+    # -- caches -------------------------------------------------------------
+
+    def cache_slots(self, max_seq: int) -> int:
+        cfg = self.cfg
+        if cfg.sliding_window:
+            return min(max_seq, cfg.sliding_window + cfg.n_meta_tokens)
+        return max_seq
+
+    def init_cache(self, batch_size: int, max_seq: int,
+                   dtype=torch.bfloat16) -> Cache:
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        s = self.cache_slots(max_seq + cfg.n_meta_tokens)
+        dev = self.device
+        shape = (cfg.n_layers, batch_size, s, cfg.n_kv_heads, hd)
+        return {
+            "length": torch.zeros((), dtype=torch.int32, device=dev),
+            "layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
+            "pos": torch.full((batch_size, s), -1, dtype=torch.int32,
+                              device=dev),
+        }
+
+
+def count_params(cfg: ModelConfig) -> dict:
+    """Counts from the parameter shapes (a ``device="meta"`` model), in the
+    reference's keys."""
+    model = Model(cfg, device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return {"total": total, "active": total,
+            "active_flops": total - cfg.vocab * cfg.d_model,
+            "embedding": embed}

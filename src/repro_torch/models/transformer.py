@@ -1,0 +1,167 @@
+"""Decoder stack of the dense GQA family: the serving path.
+
+The port of the dense branch of ``src/repro/models/transformer.py``.
+Stacked ``[L, ...]`` layer weights, as in the reference; the stack is a
+Python loop over the layers (the reference's ``lax.scan``), each layer
+reading its slice of the weights and of the KV cache.
+
+Modes
+-----
+``prefill`` — full sequence; attention through the flash kernel; writes the
+              KV cache in place; returns hidden states.
+``decode``  — T new tokens (usually 1) against the cache.
+``train``   — raises: the training path (``chunked_attention`` with
+              autograd) is ROADMAP slice 8b.
+
+The reference's ``constrain_heads`` and its sharded-decode branch are the
+identity on one device; they wait for slice 11.  MLA, MoE and hybrid
+blocks raise (slice 10).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (
+    cache_write,
+    decode_attention,
+    prefill_attention,
+)
+from repro_torch.models.layers import (
+    apply_rope,
+    dense_init,
+    ones_init,
+    rms_norm,
+    swiglu,
+    swiglu_params,
+)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.mla is not None or cfg.moe is not None or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported; MLA, MoE, "
+            "hybrid and the other families are ROADMAP slice 10")
+
+
+# ---------------------------------------------------------------------------
+# GQA attention sub-layer
+# ---------------------------------------------------------------------------
+
+
+def gqa_params_spec(cfg: ModelConfig, dtype) -> dict:
+    hd = cfg.resolved_head_dim
+    return {
+        "w_q": ((cfg.d_model, cfg.n_heads * hd), dense_init, dtype),
+        "w_k": ((cfg.d_model, cfg.n_kv_heads * hd), dense_init, dtype),
+        "w_v": ((cfg.d_model, cfg.n_kv_heads * hd), dense_init, dtype),
+        "w_o": ((cfg.n_heads * hd, cfg.d_model), dense_init, dtype),
+    }
+
+
+def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """x [B, T, d] -> q [B, T, H, hd], k and v [B, T, KVH, hd], rotary on
+    q and k; weights cast to x's dtype at each use."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["w_q"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
+    k = (x @ p["w_k"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    v = (x @ p["w_v"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor, *, mode: str,
+                  layer_cache: Optional[dict] = None,
+                  kv_pos: Optional[torch.Tensor] = None,
+                  cursor=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention sub-layer (pre-norm residual applied by the caller).
+    Returns (out [B, T, d], the layer's cache {k, v}, written in place)."""
+    b, t, _ = x.shape
+    q, k, v = gqa_project_qkv(cfg, p, x, positions)
+    if mode == "train":
+        raise NotImplementedError("train mode needs chunked_attention with "
+                                  "autograd: ROADMAP slice 8b")
+    if mode == "prefill":
+        out = prefill_attention(q, k, v, positions, positions, causal=True,
+                                window=cfg.sliding_window,
+                                n_meta=cfg.n_meta_tokens)
+        ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
+                             n_pinned=cfg.n_meta_tokens)
+    elif mode == "decode":
+        ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
+                             n_pinned=cfg.n_meta_tokens)
+        out = decode_attention(q, ck, cv, positions, kv_pos,
+                               window=cfg.sliding_window,
+                               n_meta=cfg.n_meta_tokens)
+    else:
+        raise ValueError(mode)
+    hd = cfg.resolved_head_dim
+    out = out.reshape(b, t, cfg.n_heads * hd) @ p["w_o"].to(x.dtype)
+    return out, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Layer blocks
+# ---------------------------------------------------------------------------
+
+
+def block_params_spec(cfg: ModelConfig, dtype) -> dict:
+    """Parameter spec for one dense decoder layer."""
+    _dense_only(cfg)
+    spec: dict = {"norm_attn": ((cfg.d_model,), ones_init, torch.float32),
+                  "norm_ffn": ((cfg.d_model,), ones_init, torch.float32),
+                  "attn": gqa_params_spec(cfg, dtype)}
+    if cfg.d_ff > 0:
+        spec["ffn"] = swiglu_params(cfg.d_model, cfg.d_ff, dtype)
+    return spec
+
+
+def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor, *, mode: str,
+                  layer_cache: Optional[dict] = None,
+                  kv_pos: Optional[torch.Tensor] = None, cursor=None
+                  ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """One dense decoder layer.  Returns (x, layer_cache, aux_loss = 0)."""
+    _dense_only(cfg)
+    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    attn_out, new_cache = gqa_attention(
+        cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
+        kv_pos=kv_pos, cursor=cursor)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + swiglu(p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# The stack: a loop over stacked [L, ...] layer params and cache slices
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
+                positions: torch.Tensor, *, mode: str,
+                cache: Optional[dict] = None,
+                kv_pos: Optional[torch.Tensor] = None, cursor=None
+                ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Homogeneous decoder stack.  Returns (h, cache, aux_loss_sum); the
+    stacked cache ``{k, v}`` [L, B, S, KVH, D] is written in place, one
+    layer's view at a time."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        cache_i = _layer(cache, i) if cache is not None else None
+        x, _, aux_i = decoder_block(
+            cfg, _layer(blocks_params, i), x, positions, mode=mode,
+            layer_cache=cache_i, kv_pos=kv_pos, cursor=cursor)
+        aux = aux + aux_i
+    return x, cache, aux

@@ -34,14 +34,22 @@ def test_every_port_module_imports_without_jax_or_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # core (6 modules), checkpoint (7), kernels (_build, sched_select and
-    # ckpt_codec {ops,ref}), launch (cluster_sim, cr_cost), train (state)
-    assert int(out.stdout.strip()) >= 28
+    names = set(out.stdout.split())
+    # packages and modules: core (6 modules), checkpoint (7), kernels
+    # (_build; sched_select, ckpt_codec and flash_attention {ops,ref}),
+    # launch (cluster_sim, cr_cost, serve), train (state), configs (base
+    # + 10 archs), models (layers, attention, transformer, model)
+    assert len(names) >= 49, sorted(names)
+    for mod in ("configs", "configs.base", "configs.internlm2_1_8b",
+                "models.layers", "models.attention", "models.transformer",
+                "models.model", "kernels.flash_attention.ops",
+                "kernels.flash_attention.ref", "launch.serve"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
