@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all started together), holds each against its plain PyTorch version on the
-card, and drives the port's three paths:
+card, and drives the port's paths:
 
 * the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
   16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
@@ -24,7 +24,17 @@ card, and drives the port's three paths:
   `repro_torch.launch.serve` on the full 24-layer internlm2-1.8b (seeded
   random fp32 weights, bf16 compute), batch 4, prompt 2,048, 32 generated
   tokens, which must launch the kernel once per layer of the prefill, and
-  one prefill and one decode step under torch.profiler.
+  one prefill and one decode step under torch.profiler;
+* the recurrent families: the `ssm_scan` and `mlstm_scan` kernels against
+  their plain versions on the reference's kernel-test shapes and at the
+  serving shapes, timed there beside their bounds; hymba-1.5b and
+  xlstm-350m at the full widths and depth 2 on the card against the CPU
+  (fp32); then `repro_torch.launch.serve` on the full 32-layer hymba-1.5b
+  (32 flash and 32 `ssm_scan` launches per prefill, 32 `ssm_scan` per
+  decode step) and the full 24-layer xlstm-350m (12 `mlstm_scan` launches
+  per prefill, none per decode step), batch 4, prompt 2,048, 32 tokens,
+  with the share of xlstm's prefill spent in the sLSTM, and one prefill
+  and one decode step of each under torch.profiler.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -87,11 +97,16 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref,
     visible,
 )
+from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
     plan_evictions_ref,
 )
+from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
     INTERNLM2_1_8B,
@@ -128,7 +143,8 @@ TICK_SECONDS = 0.1
 
 # serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
 # window, n_meta), two ragged Sq != Skv cases (B, Sq, Skv, H, KVH, D,
-# causal), and internlm2-1.8b's prefill attention at batch 4, prompt 2,048
+# causal), internlm2-1.8b's prefill attention at batch 4, prompt 2,048, and
+# hymba-1.5b's (HYBRID_ATTN_SHAPE, below)
 FLASH_CASES = [(2, 128, 4, 2, 64, True, 0, 0), (1, 200, 4, 4, 32, True, 0, 0),
                (2, 256, 8, 2, 64, False, 0, 0), (1, 256, 4, 1, 64, True, 64, 16),
                (1, 72, 2, 2, 16, True, 0, 0), (2, 96, 4, 2, 128, True, 48, 8),
@@ -147,8 +163,44 @@ CPU_LAYERS, CPU_BATCH, CPU_PROMPT, CPU_STEPS = 2, 2, 256, 8
 #: O(1), so an fp32 rounding difference stays orders of magnitude below this
 SERVE_CPU_TOL = 1e-3
 
+# the recurrent families: tests/test_kernels.py's scan cases, and the
+# shapes of hymba-1.5b's and xlstm-350m's prefill at SERVE_BATCH x
+# SERVE_PROMPT (hymba adds its 128 meta tokens; one mLSTM block's heads)
+HYBRID_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-350m"
+_HYMBA, _XLSTM = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH)
+SSM_CASES = [(2, 100, 64, 8), (1, 64, 32, 16), (3, 33, 16, 4)]  # B S di ds
+SSM_PREFILL = (SERVE_BATCH, SERVE_PROMPT + _HYMBA.n_meta_tokens,
+               _HYMBA.ssm.expand * _HYMBA.d_model, _HYMBA.ssm.d_state)
+#: one layer of hymba-1.5b's prefill attention: the 128 meta tokens and
+#: the prompt under its 1,024 window, so that rows past 1,152 lose keys to
+#: the window but keep the meta tokens (B, S, Hq, Hkv, d, window, n_meta)
+HYBRID_ATTN_SHAPE = (SERVE_BATCH, SSM_PREFILL[1], _HYMBA.n_heads,
+                     _HYMBA.n_kv_heads, _HYMBA.head_dim,
+                     _HYMBA.sliding_window, _HYMBA.n_meta_tokens)
+MLSTM_CASES = [(3, 80, 32, 32), (1, 64, 16, 32), (2, 100, 64, 64),
+               (1, 37, 16, 16)]                                # BH S dh L
+MLSTM_PREFILL = (SERVE_BATCH * _XLSTM.n_heads, SERVE_PROMPT,
+                 int(_XLSTM.xlstm.proj_factor_mlstm * _XLSTM.d_model)
+                 // _XLSTM.n_heads, 256)
+MLSTM_RAGGED_S = 2000
+#: kernel vs plain at the reference's test shapes: its own bars
+#: (tests/test_kernels.py).  At the serving shapes, the same bars times
+#: the largest magnitude of the compared output where it is above 1: the
+#: two versions sum thousands of fp32 terms (2,176 steps of a growing SSM
+#: state; 256-long products and eight chunks of a carried 512 x 512
+#: state) in other orders and with FMAs, so their rounding grows with the
+#: values, while a fault of the function (a wrong gate, a lost step, a
+#: missed chunk) moves the output by a sizeable part of its magnitude.
+SSM_TOL = 1e-5
+MLSTM_H_TOL, MLSTM_STATE_TOL = 2e-4, 1e-5
+
+
+T0 = time.perf_counter()
+
 
 def log(phase, **kv):
+    """One result line, stamped with the seconds since the script began."""
+    kv["at_s"] = f"{time.perf_counter() - T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -265,9 +317,10 @@ def phase_env():
 
 def phase_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         futures = [pool.submit(ops.build)
-                   for ops in (sched_ops, codec_ops, flash_ops)]
+                   for ops in (sched_ops, codec_ops, flash_ops, ssm_ops,
+                               mlstm_ops)]
         builds = [f.result() for f in futures]
     wall = time.perf_counter() - t0
     for built in builds:
@@ -371,8 +424,7 @@ def phase_fleet():
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     # the main path: every kernel count starts at 0 here
-    sched_ops.LAUNCHES = 0
-    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
+    zero_kernel_counts()
     for policy in ("omfs", "omfs_cheap_victim"):
         runs[policy, "cuda"] = engine.simulate(
             users, jobs, fleet_config("cuda"), FLEET_HORIZON, policy,
@@ -418,20 +470,21 @@ def device_us(prof, names=()):
     """Device time in µs that a torch.profiler run saw, summed over the
     device-side events only (kernels, copies, sets): a CPU op's own device
     time repeats that of the kernels it launched, so summing every event
-    counts most kernels twice.  Returns (total, the part in kernels whose
-    name holds one of ``names``, the number of device events)."""
+    counts most kernels twice.  Reads the profiler's raw events (building
+    its per-op tables takes minutes for xlstm's ~540,000-kernel prefill).
+    Returns (total, the part in kernels whose name holds one of ``names``,
+    the number of device events)."""
     from torch.autograd import DeviceType
 
     total = ours = 0.0
     count = 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CPU or ev.is_user_annotation():
             continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
+        us = ev.duration_ns() / 1e3
         total += us
-        count += ev.count
-        if any(k in ev.key for k in names):
+        count += 1
+        if any(k in ev.name() for k in names):
             ours += us
     return total, ours, count
 
@@ -789,8 +842,7 @@ def phase_cr_path():
     torch.cuda.synchronize()
     runs = {}
     # the C/R path: every kernel count starts at 0 here
-    sched_ops.LAUNCHES = 0
-    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
+    zero_kernel_counts()
     t0 = time.perf_counter()
     with scratch_dir() as root:
         rows = cr_cost.measure(prev, cur, tick_seconds=TICK_SECONDS,
@@ -878,11 +930,23 @@ def phase_attn_compare():
     serving_err = compare_attn(*attn_inputs(gen, b, s, s, h, kvh, d,
                                             torch.bfloat16), causal=True)
     errs[torch.bfloat16] = max(errs[torch.bfloat16], serving_err)
+    cases += 1
+    b, s, h, kvh, d, window, meta = HYBRID_ATTN_SHAPE
+    hybrid_errs = {}
+    for dtype in errs:
+        hybrid_errs[dtype] = compare_attn(
+            *attn_inputs(gen, b, s, s, h, kvh, d, dtype), causal=True,
+            window=window, n_meta=meta)
+        errs[dtype] = max(errs[dtype], hybrid_errs[dtype])
+        cases += 1
     flash_ops.LAUNCHES = saved
-    log("attn-compare", cases=cases + 1,
+    log("attn-compare", cases=cases,
         max_abs_err_fp32=f"{errs[torch.float32]:.3e}",
         max_abs_err_bf16=f"{errs[torch.bfloat16]:.3e}",
         serving_shape_err=f"{serving_err:.3e}",
+        hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
+        hybrid_shape_err_fp32=f"{hybrid_errs[torch.float32]:.3e}",
+        hybrid_shape_err_bf16=f"{hybrid_errs[torch.bfloat16]:.3e}",
         tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
         seconds=f"{time.perf_counter() - t0:.1f}")
     return max(errs.values())
@@ -933,59 +997,6 @@ def phase_attn_time():
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
-def phase_serve_vs_cpu():
-    """The same seeded weights at the full widths and depth CPU_LAYERS,
-    fp32 compute and cache: prefill and CPU_STEPS decode steps on the card
-    (the kernel) against the CPU (the plain version), teacher-forced on the
-    CPU's greedy ids."""
-    t0 = time.perf_counter()
-    cfg = get_config(SERVE_ARCH).replace(n_layers=CPU_LAYERS,
-                                         compute_dtype="float32")
-    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
-    card = Model(cfg, device=DEV)
-    card.load_state_dict(cpu.state_dict())
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (CPU_BATCH, CPU_PROMPT)).astype(np.int32))
-    max_seq = CPU_PROMPT + CPU_STEPS
-    c_cache, c_logits = cpu.prefill(
-        {"tokens": tokens}, cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
-    saved = flash_ops.LAUNCHES
-    g_cache, g_logits = card.prefill(
-        {"tokens": tokens.to(DEV)},
-        card.init_cache(CPU_BATCH, max_seq, torch.float32))
-    torch.cuda.synchronize()
-    launches = flash_ops.LAUNCHES - saved
-    flash_ops.LAUNCHES = saved
-    if launches != CPU_LAYERS:
-        raise AssertionError(f"the card's prefill launched the flash kernel "
-                             f"{launches} times, not {CPU_LAYERS}")
-    errs = [float((g_logits.cpu() - c_logits).abs().max())]
-    scale = float(c_logits.abs().max())
-    for _ in range(CPU_STEPS):
-        tok = serve.greedy(c_logits)
-        c_cache, c_logits = cpu.decode_step(c_cache, tok)
-        g_cache, g_logits = card.decode_step(g_cache, tok.to(DEV))
-        errs.append(float((g_logits.cpu() - c_logits).abs().max()))
-    kv_err = max(float((g_cache["layers"][n].cpu() - c_cache["layers"][n])
-                       .abs().max()) for n in ("k", "v"))
-    if not (max(errs) <= SERVE_CPU_TOL and kv_err <= SERVE_CPU_TOL):
-        raise AssertionError(f"the card's serve path differs from the CPU's: "
-                             f"logits {errs}, kv cache {kv_err} (tolerance "
-                             f"{SERVE_CPU_TOL})")
-    if not (torch.equal(g_cache["pos"].cpu(), c_cache["pos"])
-            and int(g_cache["length"]) == int(c_cache["length"]) == max_seq):
-        raise AssertionError("the card's cache positions or length differ "
-                             "from the CPU's")
-    log("serve-vs-cpu", config=SERVE_ARCH, layers=CPU_LAYERS,
-        compute="float32", batch=CPU_BATCH, prompt=CPU_PROMPT,
-        decode_steps=CPU_STEPS, prefill_err=f"{errs[0]:.3e}",
-        decode_max_err=f"{max(errs[1:]):.3e}", kv_cache_err=f"{kv_err:.3e}",
-        max_abs_logit=f"{scale:.4f}", tol=SERVE_CPU_TOL,
-        flash_launches=launches, seconds=f"{time.perf_counter() - t0:.1f}")
-    del cpu, card, c_cache, g_cache
-    torch.cuda.empty_cache()
-
-
 def collect_garbage():
     """Collect Python's cyclic garbage: tensors of earlier phases held in
     reference cycles count as allocated until then (gigabytes of them
@@ -996,45 +1007,385 @@ def collect_garbage():
     torch.cuda.synchronize()
 
 
-def phase_serve():
-    """The main serving path: `repro_torch.launch.serve`'s own functions on
-    the full internlm2-1.8b (24 layers, fp32 master weights from a seeded
-    generator, bf16 compute and cache): one warm-up request, then the
-    measured one, whose prefill must launch the kernel once per layer."""
-    cfg = get_config(SERVE_ARCH)
+# ---------------------------------------------------------------------------
+# serving, the recurrent families' kernels: ssm_scan and mlstm_scan
+# ---------------------------------------------------------------------------
+
+
+def kernel_counts():
+    """Every kernel's launch count, by name."""
+    return dict(sched_select=sched_ops.LAUNCHES, **{
+        f"ckpt_{k}": v for k, v in codec_ops.LAUNCHES.items()},
+        flash_attention=flash_ops.LAUNCHES, ssm_scan=ssm_ops.LAUNCHES,
+        mlstm_scan=mlstm_ops.LAUNCHES)
+
+
+def set_kernel_counts(counts):
+    """Set every kernel's launch count (``kernel_counts()``'s keys)."""
+    sched_ops.LAUNCHES = counts["sched_select"]
+    codec_ops.LAUNCHES.update(quantize=counts["ckpt_quantize"],
+                              dequantize=counts["ckpt_dequantize"])
+    flash_ops.LAUNCHES = counts["flash_attention"]
+    ssm_ops.LAUNCHES = counts["ssm_scan"]
+    mlstm_ops.LAUNCHES = counts["mlstm_scan"]
+
+
+def zero_kernel_counts():
+    set_kernel_counts(dict.fromkeys(kernel_counts(), 0))
+
+
+def ssm_inputs(gen, b, s, di, ds, h0_scale=0.1):
+    """delta, B, C, x, a, h0 drawn as tests/test_kernels.py draws them."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    delta = torch.nn.functional.softplus(rn(b, s, di)) * 0.1
+    a = -torch.exp(rn(di, ds) * 0.3)
+    return delta, rn(b, s, ds), rn(b, s, ds), rn(b, s, di), a, \
+        rn(b, di, ds) * h0_scale
+
+
+def rel_bar(bar, want):
+    """``bar`` times the largest |want|, or ``bar`` itself below 1."""
+    return bar * max(1.0, float(want.abs().max()))
+
+
+def compare_ssm(args, serving):
+    """Kernel against the plain version on the same card tensors; raises
+    above the bar, returns the largest absolute difference."""
+    y, h = ssm_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    yr, hr = ssm_scan_ref(*args)
+    err = 0.0
+    for name, g, w in (("y", y, yr), ("h", h, hr)):
+        e = float((g - w).abs().max())
+        bar = rel_bar(SSM_TOL, w) if serving else SSM_TOL
+        if not e <= bar:
+            raise AssertionError(f"ssm_scan {name} differs from its plain "
+                                 f"version by {e} > {bar} at "
+                                 f"{tuple(args[0].shape)}")
+        err = max(err, e)
+    return err
+
+
+def phase_ssm_compare():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    saved = kernel_counts()
+    t0 = time.perf_counter()
+    test_err = max(compare_ssm(ssm_inputs(gen, *case), serving=False)
+                   for case in SSM_CASES)
+    b, s, di, ds = SSM_PREFILL
+    serving = {
+        "prefill_h0_zero": compare_ssm(ssm_inputs(gen, b, s, di, ds, 0.0),
+                                       serving=True),
+        "prefill_h0": compare_ssm(ssm_inputs(gen, b, s, di, ds),
+                                  serving=True),
+        "decode": compare_ssm(ssm_inputs(gen, b, 1, di, ds), serving=True)}
+    set_kernel_counts(saved)
+    log("ssm-compare", cases=len(SSM_CASES) + len(serving),
+        test_shapes_err=f"{test_err:.3e}", tol=SSM_TOL,
+        **{f"{k}_err": f"{v:.3e}" for k, v in serving.items()},
+        serving_bar=f"{SSM_TOL} x max(1, max|y|) (and |h|)",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return max(test_err, *serving.values())
+
+
+#: H100 SXM: the SFUs give 16 exps per clock per SM (CUDA C++ Programming
+#: Guide, throughput of exp2f on compute capability 9.0), 132 SMs at the
+#: 1,980 MHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+
+def ssm_bound(b, s, di, ds):
+    """Bytes (every input read once, y and h written once), fp32 operations
+    and exps of one scan, and the least time for them: the larger of the
+    byte time, the fp32 operation time and the exp time."""
+    steps = b * s * di * ds
+    nbytes = 4 * (3 * b * s * di + 2 * b * s * ds + di * ds + 2 * b * di * ds)
+    flop = 6 * steps + b * s * di       # dl*a, decay*h, dx*B, add, y fma
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": max(flop / SCALAR_OPS_PER_S,
+                               steps / SFU_OPS_PER_S)}
+    by = max(times, key=times.get)
+    return dict(bytes=nbytes, flop=flop, exps=steps,
+                bound_ms=1e3 * times[by], bound_by=by)
+
+
+def phase_ssm_time():
+    """The kernel and its plain version at Hymba's prefill shape and at one
+    decode step (S = 1), beside the bound.  No single PyTorch call computes
+    the scan."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    saved = kernel_counts()
+    rows = {}
+    b, s, di, ds = SSM_PREFILL
+    for name, steps in (("prefill", s), ("decode", 1)):
+        args = ssm_inputs(gen, b, steps, di, ds)
+        ms = time_ms(lambda a=args: ssm_ops.selective_scan(*a), iters=20,
+                     warmup=3)
+        plain_ms = time_ms(lambda a=args: ssm_scan_ref(*a),
+                           iters=2 if steps > 1 else 20, warmup=1)
+        bound = ssm_bound(b, steps, di, ds)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, **bound)
+        log("ssm-time", step=name, B=b, S=steps, di=di, ds=ds,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bytes=bound["bytes"], flop=bound["flop"], exps=bound["exps"],
+            bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
+            library_ms="none")
+    set_kernel_counts(saved)
+    return rows
+
+
+def mlstm_inputs(gen, bh, s, dh):
+    """q, k (pre-scaled), v, lf, li drawn as tests/test_kernels.py draws
+    them."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    return (rn(bh, s, dh), rn(bh, s, dh) / dh ** 0.5, rn(bh, s, dh),
+            torch.nn.functional.logsigmoid(rn(bh, s) + 3.0), rn(bh, s))
+
+
+def compare_mlstm(args, chunk, serving):
+    h, state = mlstm_ops.mlstm_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    hr, state_r = mlstm_scan_ref(*args, chunk=chunk)
+    errs = {}
+    for name, g, w, bar in (("h", h, hr, MLSTM_H_TOL),
+                            *((n, g, w, MLSTM_STATE_TOL) for n, g, w in
+                              zip("Cnm", state, state_r))):
+        e = float((g - w).abs().max())
+        limit = rel_bar(bar, w) if serving else bar
+        if not e <= limit:
+            raise AssertionError(f"mlstm_scan {name} differs from its plain "
+                                 f"version by {e} > {limit} at "
+                                 f"{tuple(args[0].shape)}, chunk {chunk}")
+        errs[name] = e
+    return errs
+
+
+def phase_mlstm_compare():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    saved = kernel_counts()
+    t0 = time.perf_counter()
+    test = {"h": 0.0, "state": 0.0}
+    for bh, s, dh, chunk in MLSTM_CASES:
+        e = compare_mlstm(mlstm_inputs(gen, bh, s, dh), chunk, serving=False)
+        test["h"] = max(test["h"], e["h"])
+        test["state"] = max(test["state"], e["C"], e["n"], e["m"])
+    bh, s, dh, chunk = MLSTM_PREFILL
+    serving = {f"S{n}": compare_mlstm(mlstm_inputs(gen, bh, n, dh), chunk,
+                                      serving=True)
+               for n in (s, MLSTM_RAGGED_S)}
+    set_kernel_counts(saved)
+    log("mlstm-compare", cases=len(MLSTM_CASES) + len(serving),
+        test_h_err=f"{test['h']:.3e}", test_state_err=f"{test['state']:.3e}",
+        tol_h=MLSTM_H_TOL, tol_state=MLSTM_STATE_TOL,
+        **{f"{k}_{n}_err": f"{v:.3e}" for k, e in serving.items()
+           for n, v in e.items()},
+        serving_bar="tol x max(1, max|output|)",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return max(test["h"], test["state"],
+               *(v for e in serving.values() for v in e.values()))
+
+
+def mlstm_bound(bh, s, dh, chunk):
+    """FLOP the function needs (Q K^T and W V over the causal pairs of each
+    chunk, Q C0^T from the second chunk on, the carry V^T K and k^T wc),
+    bytes (q, k, v, lf, li read once; h, C, n, m written once), and the
+    least time: fp32 operations at the CUDA cores' rate against bytes."""
+    flop = 0
+    for i, c0 in enumerate(range(0, s, chunk)):
+        n = min(chunk, s - c0)
+        pairs = n * (n + 1) // 2
+        flop += 2 * 2 * pairs * dh + 2 * n * dh * dh + 2 * n * dh
+        if i:
+            flop += 2 * n * dh * dh
+    flop *= bh
+    nbytes = 4 * (4 * bh * s * dh + 2 * bh * s + bh * (dh * dh + dh + 1))
+    times = {"operations": flop / SCALAR_OPS_PER_S,
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return dict(flop=flop, bytes=nbytes, bound_ms=1e3 * times[by],
+                bound_by=by)
+
+
+def phase_mlstm_time():
+    """The kernel and its plain version at xlstm-350m's prefill shape (one
+    mLSTM block, batch 4), beside the bound.  No single PyTorch call
+    computes the scan."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    saved = kernel_counts()
+    bh, s, dh, chunk = MLSTM_PREFILL
+    args = mlstm_inputs(gen, bh, s, dh)
+    ms = time_ms(lambda: mlstm_ops.mlstm_scan(*args, chunk=chunk), iters=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: mlstm_scan_ref(*args, chunk=chunk), iters=5,
+                       warmup=1)
+    set_kernel_counts(saved)
+    bound = mlstm_bound(bh, s, dh, chunk)
+    log("mlstm-time", BH=bh, S=s, dh=dh, chunk=chunk, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", flop=bound["flop"], bytes=bound["bytes"],
+        bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
+        share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
+        gflops=f"{bound['flop'] / ms / 1e6:.1f}", library_ms="none")
+    return dict(ms=ms, plain_ms=plain_ms, **bound)
+
+
+# ---------------------------------------------------------------------------
+# the serve paths: internlm2-1.8b, hymba-1.5b, xlstm-350m
+# ---------------------------------------------------------------------------
+
+
+def cache_leaves(cache):
+    """(name, tensor) of a cache's layer leaves, for either family."""
+    layers = cache["layers"]
+    if isinstance(layers, dict):
+        return [(k, layers[k]) for k in sorted(layers)]
+    return [(f"{part}.{f}", getattr(getattr(layers, part), f))
+            for part in ("m", "s") for f in getattr(layers, part)._fields]
+
+
+def cache_bytes(cache):
+    """Bytes of every tensor of a cache: length, pos and the layers."""
+    tensors = [cache["length"], *(t for _, t in cache_leaves(cache))]
+    if "pos" in cache:
+        tensors.append(cache["pos"])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
+    """The same seeded weights at the full widths and depth CPU_LAYERS (one
+    mLSTM/sLSTM pair for xLSTM), fp32 compute and cache: prefill and
+    CPU_STEPS decode steps on the card (the kernels) against the CPU (the
+    plain versions), teacher-forced on the CPU's greedy ids; every logit,
+    cache leaf, position and length must agree, and the card's launches
+    per prefill and per step must be the given ones."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=CPU_LAYERS,
+                                   compute_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    card = Model(cfg, device=DEV)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (CPU_BATCH, CPU_PROMPT)).astype(np.int32))
+    max_seq = CPU_PROMPT + CPU_STEPS
+    c_cache, c_logits = cpu.prefill(
+        {"tokens": tokens}, cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
+    saved = kernel_counts()
+    zero_kernel_counts()
+    g_cache, g_logits = card.prefill(
+        {"tokens": tokens.to(DEV)},
+        card.init_cache(CPU_BATCH, max_seq, torch.float32))
+    torch.cuda.synchronize()
+    launches = {"prefill": kernel_counts()}
+    errs = [float((g_logits.cpu() - c_logits).abs().max())]
+    scale = float(c_logits.abs().max())
+    zero_kernel_counts()
+    for _ in range(CPU_STEPS):
+        tok = serve.greedy(c_logits)
+        c_cache, c_logits = cpu.decode_step(c_cache, tok)
+        g_cache, g_logits = card.decode_step(g_cache, tok.to(DEV))
+        errs.append(float((g_logits.cpu() - c_logits).abs().max()))
+    launches["decode"] = kernel_counts()
+    set_kernel_counts(saved)
+    for step, want in (("prefill", prefill_counts),
+                       ("decode", {k: CPU_STEPS * v
+                                   for k, v in decode_counts.items()})):
+        got = {k: v for k, v in launches[step].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{arch} depth {CPU_LAYERS}: the card's "
+                                 f"{step} launched {got}, not {want}")
+    state_err = max(float((g.cpu() - c).abs().max()) for (_, g), (_, c) in
+                    zip(cache_leaves(g_cache), cache_leaves(c_cache)))
+    if not (max(errs) <= SERVE_CPU_TOL and state_err <= SERVE_CPU_TOL):
+        raise AssertionError(f"{arch}: the card's serve path differs from "
+                             f"the CPU's: logits {errs}, cache {state_err} "
+                             f"(tolerance {SERVE_CPU_TOL})")
+    if int(g_cache["length"]) != int(c_cache["length"]) or (
+            "pos" in c_cache
+            and not torch.equal(g_cache["pos"].cpu(), c_cache["pos"])):
+        raise AssertionError(f"{arch}: the card's cache length or positions "
+                             "differ from the CPU's")
+    log(phase, config=arch, layers=CPU_LAYERS, compute="float32",
+        batch=CPU_BATCH, prompt=CPU_PROMPT, decode_steps=CPU_STEPS,
+        prefill_err=f"{errs[0]:.3e}", decode_max_err=f"{max(errs[1:]):.3e}",
+        cache_err=f"{state_err:.3e}", max_abs_logit=f"{scale:.4f}",
+        tol=SERVE_CPU_TOL,
+        launches_prefill={k: v for k, v in launches["prefill"].items() if v},
+        launches_decode={k: v for k, v in launches["decode"].items() if v},
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del cpu, card, c_cache, g_cache
+    torch.cuda.empty_cache()
+
+
+def slstm_share(model, tokens):
+    """The warm-up request's prefill with every sLSTM block timed on the
+    host (each call synchronised before and after): the sLSTM's seconds
+    and the prefill's."""
+    orig = xlstm_mod.slstm_forward
+    spent = [0.0]
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    xlstm_mod.slstm_forward = timed
+    try:
+        res = serve.generate(model, tokens, 2)
+    finally:
+        xlstm_mod.slstm_forward = orig
+    return spent[0], res.prefill_s
+
+
+def phase_serve(arch, phase, per_prefill, per_decode):
+    """An arch's main serving path: `repro_torch.launch.serve`'s own
+    functions at its full published widths and depth (fp32 master weights
+    from a seeded generator, bf16 compute and cache), batch SERVE_BATCH,
+    prompt SERVE_PROMPT, SERVE_GEN tokens: one warm-up request, then the
+    measured one, whose launches must be per_prefill plus SERVE_GEN - 1
+    times per_decode, and no other kernel's.  Peaks are taken after
+    `collect_garbage`, from the memory allocated before the request."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = serve.build(cfg, SEED, DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
-    serve.generate(model, tokens, 2)                      # warm-up
+    extra = {}
+    if cfg.family == "ssm":      # the warm-up, its sLSTM blocks timed
+        spent, wall = slstm_share(model, tokens)
+        extra = dict(warmup_slstm_s=f"{spent:.3f}",
+                     warmup_prefill_s=f"{wall:.3f}",
+                     slstm_share_of_prefill=f"{spent / wall:.4f}")
+    else:
+        serve.generate(model, tokens, 2)                  # warm-up
     collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     baseline = torch.cuda.memory_allocated()
-    # the serving path: every kernel count starts at 0 here
-    sched_ops.LAUNCHES = flash_ops.LAUNCHES = 0
-    codec_ops.LAUNCHES.update(quantize=0, dequantize=0)
+    # this serving path: every kernel count starts at 0 here
+    zero_kernel_counts()
     res = serve.generate(model, tokens, SERVE_GEN)
-    launches = flash_ops.LAUNCHES
-    others = dict(codec_ops.LAUNCHES, sched_select=sched_ops.LAUNCHES)
+    launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     serve.report(res, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
-    if launches != cfg.n_layers or any(others.values()):
-        raise AssertionError(f"the prefill launched the flash kernel "
-                             f"{launches} times, not once per layer "
-                             f"({cfg.n_layers}), and the others {others}")
+    steps = SERVE_GEN - 1
+    want = {k: per_prefill.get(k, 0) + steps * per_decode.get(k, 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"{arch}: the request launched {launches}, not "
+                             f"{want}")
     if not (torch.isfinite(res.prefill_logits).all()
             and torch.isfinite(res.last_logits).all()):
-        raise AssertionError("the served logits are not finite")
+        raise AssertionError(f"{arch}: the served logits are not finite")
     if res.tokens.shape != (SERVE_BATCH, SERVE_GEN):
         raise AssertionError(f"generated ids {tuple(res.tokens.shape)}")
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    hd = cfg.resolved_head_dim
-    kv_bytes = (2 * cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + SERVE_GEN)
-                * cfg.n_kv_heads * hd * 2)
-    steps = SERVE_GEN - 1
-    log("serve", config=SERVE_ARCH, layers=cfg.n_layers,
+    cache_size = cache_bytes(model.init_cache(SERVE_BATCH,
+                                              SERVE_PROMPT + SERVE_GEN))
+    log(phase, config=arch, layers=cfg.n_layers,
         params=sum(p.numel() for p in model.parameters()),
         weights="float32-seeded-random", compute=cfg.compute_dtype,
         batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
@@ -1042,27 +1393,35 @@ def phase_serve():
         prefill_tok_per_s=f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f}",
         decode_ms_per_token=f"{res.decode_s * 1e3 / steps:.3f}",
         decode_tok_per_s=f"{SERVE_BATCH * steps / res.decode_s:.1f}",
-        flash_launches_prefill=launches, weight_bytes=weight_bytes,
-        kv_cache_bytes=kv_bytes, allocated_before=baseline,
-        max_memory_allocated=peak, logits_finite=True,
-        init_s=f"{init_s:.2f}")
+        launches_prefill=per_prefill, launches_per_decode_step=per_decode,
+        launches_request={k: v for k, v in launches.items() if v},
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+        cache_bytes=cache_size, allocated_before=baseline,
+        max_memory_allocated=peak,
+        peak_over_allocated=peak - baseline, logits_finite=True,
+        init_s=f"{init_s:.2f}", **extra)
     return model, tokens, launches
 
 
-def phase_serve_profile(model, tokens):
+def phase_profile(phase, arch, model, tokens, names, per_prefill,
+                  per_decode):
     """One prefill and one decode step under torch.profiler: device busy
-    time against host wall time, the flash kernel's share, the device
-    events per step, and each step's peak device memory."""
+    time against host wall time, the share of the device time in this
+    arch's kernels (by name), the launches, device events and peak memory
+    of each step.  The profiler records device activity only:
+    xlstm's prefill launches ~540,000 kernels, and recording the host ops
+    beside them slows the traced prefill by a sixth."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
-    saved = flash_ops.LAUNCHES
+    saved = kernel_counts()
     rows = {}
     for step in ("prefill", "decode"):
         collect_garbage()
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        zero_kernel_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if step == "prefill":
                 cache, logits = model.prefill({"tokens": tokens}, cache)
@@ -1070,19 +1429,25 @@ def phase_serve_profile(model, tokens):
                 cache, logits = model.decode_step(cache, serve.greedy(logits))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rows[step] = (wall, *device_us(prof, ("flash_fwd",)),
-                      torch.cuda.max_memory_allocated())
-    flash_ops.LAUNCHES = saved
-    for step, (wall, dev, flash, events, peak) in rows.items():
-        log("serve-profile", config=SERVE_ARCH, step=step, batch=SERVE_BATCH,
-            prompt=SERVE_PROMPT, host_wall_ms=f"{wall * 1e3:.3f}",
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        want = per_prefill if step == "prefill" else per_decode
+        if counts != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{arch} {step}: launched {counts}, not "
+                                 f"{want}")
+        rows[step] = (wall, *device_us(prof, names),
+                      torch.cuda.max_memory_allocated(), counts)
+    set_kernel_counts(saved)
+    for step, (wall, dev, ours, events, peak, counts) in rows.items():
+        log(f"{phase}-profile", config=arch, step=step,
+            batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+            host_wall_ms=f"{wall * 1e3:.3f}",
             device_busy_ms=f"{dev / 1e3:.3f}",
             device_busy_share=(f"{dev / 1e6 / wall:.4f}" if dev
                                else "not measured"),
-            flash_ms=f"{flash / 1e3:.3f}",
-            flash_share_of_device=(f"{flash / dev:.4f}" if dev
-                                   else "not measured"),
-            device_events=events, max_memory_allocated=peak)
+            kernels_ms=f"{ours / 1e3:.3f}",
+            kernel_share_of_device=(f"{ours / dev:.4f}" if dev
+                                    else "not measured"),
+            launches=counts, device_events=events, max_memory_allocated=peak)
 
 
 def main():
@@ -1099,11 +1464,41 @@ def main():
     cr_launches = phase_cr_path()
     attn_err = phase_attn_compare()
     attn = phase_attn_time()
-    phase_serve_vs_cpu()
-    model, tokens, flash_launches = phase_serve()
-    phase_serve_profile(model, tokens)
+    n_dense = get_config(SERVE_ARCH).n_layers
+    phase_vs_cpu(SERVE_ARCH, "serve-vs-cpu", {"flash_attention": CPU_LAYERS},
+                 {})
+    model, tokens, dense = phase_serve(
+        SERVE_ARCH, "serve", {"flash_attention": n_dense}, {})
+    phase_profile("serve", SERVE_ARCH, model, tokens, ("flash_fwd",),
+                  {"flash_attention": n_dense}, {})
     del model
+    collect_garbage()
     torch.cuda.empty_cache()
+    ssm_err = phase_ssm_compare()
+    ssm = phase_ssm_time()
+    mlstm_err = phase_mlstm_compare()
+    mlstm = phase_mlstm_time()
+    n_hybrid = _HYMBA.n_layers
+    n_mlstm = _XLSTM.n_layers // _XLSTM.xlstm.slstm_every
+    phase_vs_cpu(HYBRID_ARCH, "hybrid-vs-cpu",
+                 {"flash_attention": CPU_LAYERS, "ssm_scan": CPU_LAYERS},
+                 {"ssm_scan": CPU_LAYERS})
+    phase_vs_cpu(XLSTM_ARCH, "xlstm-vs-cpu", {"mlstm_scan": CPU_LAYERS // 2},
+                 {})
+    recurrent = {}
+    for arch, phase, per_prefill, per_decode, names in (
+            (HYBRID_ARCH, "serve-hymba",
+             {"flash_attention": n_hybrid, "ssm_scan": n_hybrid},
+             {"ssm_scan": n_hybrid}, ("flash_fwd", "ssm_scan_fwd")),
+            (XLSTM_ARCH, "serve-xlstm", {"mlstm_scan": n_mlstm}, {},
+             ("mlstm_scan_fwd",))):
+        model, tokens, recurrent[arch] = phase_serve(
+            arch, phase, per_prefill, per_decode)
+        phase_profile(phase, arch, model, tokens, names, per_prefill,
+                      per_decode)
+        del model
+        collect_garbage()
+        torch.cuda.empty_cache()
     record = {"kernels": [{
         "name": "sched_select",
         "route": "cuda",
@@ -1134,13 +1529,37 @@ def main():
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": flash_launches,
+        "launches": dense["flash_attention"],
         "max_abs_err": attn_err,
         "ms": attn["ms"],
         "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"],
         "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
+        "launches": recurrent[HYBRID_ARCH]["ssm_scan"],
+        "max_abs_err": ssm_err,
+        "ms": ssm["prefill"]["ms"],
+        "plain_ms": ssm["prefill"]["plain_ms"],
+        "bound_ms": ssm["prefill"]["bound_ms"],
+        "bound_by": ssm["prefill"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mlstm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan/kernel.py:46",
+        "launches": recurrent[XLSTM_ARCH]["mlstm_scan"],
+        "max_abs_err": mlstm_err,
+        "ms": mlstm["ms"],
+        "plain_ms": mlstm["plain_ms"],
+        "bound_ms": mlstm["bound_ms"],
+        "bound_by": mlstm["bound_by"],
+        "library_ms": None,
     }]}
     print(smi)
     print(json.dumps(record))

@@ -6,8 +6,10 @@ prompts on seeded random weights (the port of the model path of
       --smoke --batch 4 --prompt-len 16 --gen 24 [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given, and raises without
-CUDA.  The dense GQA family is ported (internlm2-1.8b, glm4-9b,
-mistral-nemo-12b); the other archs raise ``NotImplementedError``.  No
+CUDA.  Five archs are ported: the dense GQA family (internlm2-1.8b,
+glm4-9b, mistral-nemo-12b), the hybrid hymba-1.5b and xlstm-350m; the
+other archs (MoE, MLA, VLM, audio) raise ``NotImplementedError`` naming
+ROADMAP slice 10.  No
 trained weights are in the repository, so the generated ids are
 meaningless; the path and its sizes are the real ones.  Prints the
 reference's lines: the run, prefill ms and tok/s, decode ms and tok/s, and

@@ -1,6 +1,6 @@
 """Shared model primitives: initialisers, norms, rotary embeddings, MLPs.
 
-The port of ``src/repro/models/layers.py`` for the dense serving path.
+The port of ``src/repro/models/layers.py`` for the serving path.
 Layers are functions ``(params, x, ...) -> y`` over nested dicts of
 tensors, as in the reference.  Parameter *structure* helpers return spec
 dicts ``{name: (shape, init, dtype) | subdict}`` that `models.model.Model`
@@ -37,6 +37,12 @@ def dense_init(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 def embed_init(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     with torch.no_grad():
         return t.normal_(0.0, 0.02, generator=generator)
+
+
+def zeros_init(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    del generator
+    with torch.no_grad():
+        return t.zero_()
 
 
 def ones_init(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -86,6 +92,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal convolution (the SSM and xLSTM blocks)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                prefix: torch.Tensor):
+    """Depthwise causal conv over time (the reference's ``ssm._causal_conv``
+    and ``xlstm._conv1d``): x [B, T, C], conv_w [W, C], prefix [B, W-1, C]
+    the trailing window of the previous call.  Returns (out [B, T, C], the
+    new trailing window), in x's dtype."""
+    w = conv_w.shape[0]
+    xp = torch.cat([prefix.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + xp[:, i:i + x.shape[1]] * conv_w[i].to(x.dtype)
+    return out + conv_b.to(x.dtype), xp[:, -(w - 1):] if w > 1 else prefix
 
 
 # ---------------------------------------------------------------------------

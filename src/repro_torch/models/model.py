@@ -1,10 +1,12 @@
-"""The model facade for the dense GQA family: internlm2-1.8b, glm4-9b and
-mistral-nemo-12b (the port of ``src/repro/models/model.py``'s serving
-path).
+"""The model facade of the serving path: the dense GQA family
+(internlm2-1.8b, glm4-9b, mistral-nemo-12b), the hybrid family
+(hymba-1.5b) and the xLSTM family (xlstm-350m); the port of
+``src/repro/models/model.py``'s serving path.
 
 `Model` is an ``nn.Module`` whose parameters keep the reference's tree and
-shapes (``embed``, ``norm_f``, ``unembed``, ``blocks/{attn,ffn,norm_*}``
-stacked on ``[L, ...]``) in the config's ``param_dtype``, so one
+shapes (``embed``, ``norm_f``, ``unembed``, ``meta``, then ``blocks/...``
+stacked on ``[L, ...]``, or ``m_blocks`` / ``s_blocks`` stacked on the
+xLSTM's ``[P, ...]`` pairs) in the config's ``param_dtype``, so one
 ``state_dict`` serves the reference's params, the checkpoint service and
 the training slice.  Methods:
 
@@ -12,14 +14,19 @@ the training slice.  Methods:
 * ``prefill(batch, cache)`` — populate the cache, return last logits.
 * ``decode_step(cache, tokens)`` — one serve step.
 * ``init_cache(batch, max_seq, dtype)`` — the reference's cache layout:
-  ``length`` [] int32, ``pos`` [B, S] int32, ``layers.k`` and ``layers.v``
-  [L, B, S, KVH, D].
+  ``length`` [] int32; for the attention families ``pos`` [B, S] int32 and
+  ``layers.k``, ``layers.v`` [L, B, S, KVH, D], plus for the hybrid family
+  ``layers.ssm_h`` [L, B, d_inner, d_state] fp32 and ``layers.ssm_conv``
+  [L, B, d_conv - 1, d_inner]; for the xLSTM family ``layers`` is an
+  `models.xlstm.XLSTMStackState` and there is no ``pos``.
 
 Weights are cast to the compute dtype at each use, as the reference does
 (a bf16 serving copy is later performance work).  ``prefill`` and
 ``decode_step`` write the cache's tensors **in place** and return a new
-dict over them with the new ``length``.  Other families raise
-``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
+dict over them with the new ``length``.  An xLSTM prefill into a fresh
+cache (``length`` 0, read once on the host) runs the mLSTM kernel; any
+other runs the chunk function in torch (`models.xlstm`).  MoE, MLA, VLM and
+audio raise ``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
 ``chunked_ce_loss`` wait for slice 8b.
 """
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import cache_pos_write
 from repro_torch.models.layers import (
     dense_init,
@@ -78,8 +86,8 @@ def _as_dict(node: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A dense GQA decoder on ``device`` (``"cuda"`` unless the caller asks
-    for ``"cpu"``; ``"meta"`` for shapes only)."""
+    """A dense, hybrid or xLSTM decoder on ``device`` (``"cuda"`` unless
+    the caller asks for ``"cpu"``; ``"meta"`` for shapes only)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -102,8 +110,15 @@ class Model(nn.Module):
         if cfg.n_meta_tokens:
             spec["meta"] = ((cfg.n_meta_tokens, cfg.d_model), embed_init,
                             dtype)
-        spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
-                                     cfg.n_layers)
+        if cfg.family == "ssm":
+            n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
+            spec["m_blocks"] = stack_specs(xlstm_mod.mlstm_params_spec(
+                cfg.d_model, cfg.n_heads, cfg.xlstm, dtype), n_pairs)
+            spec["s_blocks"] = stack_specs(xlstm_mod.slstm_params_spec(
+                cfg.d_model, cfg.n_heads, cfg.xlstm, dtype), n_pairs)
+        else:
+            spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
+                                         cfg.n_layers)
         return spec
 
     @torch.no_grad()
@@ -141,12 +156,18 @@ class Model(nn.Module):
 
     # -- trunk --------------------------------------------------------------
 
-    def _trunk(self, params, x, positions, *, mode, cache):
-        kv_pos = cache["pos"] if "pos" in cache else None
-        h, layers, _ = tfm.stack_apply(
-            self.cfg, params["blocks"], x, positions, mode=mode,
-            cache=cache["layers"], kv_pos=kv_pos, cursor=cache["length"])
-        return rms_norm(h, params["norm_f"], self.cfg.norm_eps), layers
+    def _trunk(self, params, x, positions, *, mode, cache, fresh=False):
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            h, layers = xlstm_mod.xlstm_stack_apply(
+                cfg.xlstm, cfg.n_heads, params, x, cache["layers"],
+                fresh=fresh)
+        else:
+            kv_pos = cache["pos"] if "pos" in cache else None
+            h, layers, _ = tfm.stack_apply(
+                cfg, params["blocks"], x, positions, mode=mode,
+                cache=cache["layers"], kv_pos=kv_pos, cursor=cache["length"])
+        return rms_norm(h, params["norm_f"], cfg.norm_eps), layers
 
     # -- serving ------------------------------------------------------------
 
@@ -164,8 +185,10 @@ class Model(nn.Module):
             meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
         positions = self._positions(b, 0, t + nm)
+        # the mLSTM kernel starts from a zero state: a fresh cache only
+        fresh = cfg.family == "ssm" and int(cache["length"]) == 0
         h, layers = self._trunk(params, x, positions, mode="prefill",
-                                cache=cache)
+                                cache=cache, fresh=fresh)
         new_cache = dict(cache, layers=layers)
         if "pos" in cache:
             new_cache["pos"] = cache_pos_write(cache["pos"], positions,
@@ -211,14 +234,28 @@ class Model(nn.Module):
         hd = cfg.resolved_head_dim
         s = self.cache_slots(max_seq + cfg.n_meta_tokens)
         dev = self.device
-        shape = (cfg.n_layers, batch_size, s, cfg.n_kv_heads, hd)
-        return {
-            "length": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
-            "pos": torch.full((batch_size, s), -1, dtype=torch.int32,
-                              device=dev),
-        }
+        b = batch_size
+        cache: Cache = {"length": torch.zeros((), dtype=torch.int32,
+                                              device=dev)}
+        if cfg.family == "ssm":
+            n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
+            cache["layers"] = xlstm_mod.XLSTMStackState.init(
+                n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, dtype, dev)
+            return cache
+        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, hd)
+        layers = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if cfg.family == "hybrid":
+            di = cfg.ssm.expand * cfg.d_model
+            layers["ssm_h"] = torch.zeros(
+                (cfg.n_layers, b, di, cfg.ssm.d_state), dtype=torch.float32,
+                device=dev)
+            layers["ssm_conv"] = torch.zeros(
+                (cfg.n_layers, b, cfg.ssm.d_conv - 1, di), dtype=dtype,
+                device=dev)
+        cache["layers"] = layers
+        cache["pos"] = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+        return cache
 
 
 def count_params(cfg: ModelConfig) -> dict:

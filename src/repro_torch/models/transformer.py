@@ -1,21 +1,26 @@
-"""Decoder stack of the dense GQA family: the serving path.
+"""Decoder stack of the dense GQA and the hybrid (Hymba) families: the
+serving path.
 
-The port of the dense branch of ``src/repro/models/transformer.py``.
-Stacked ``[L, ...]`` layer weights, as in the reference; the stack is a
-Python loop over the layers (the reference's ``lax.scan``), each layer
-reading its slice of the weights and of the KV cache.
+The port of the dense and hybrid branches of
+``src/repro/models/transformer.py``.  Stacked ``[L, ...]`` layer weights,
+as in the reference; the stack is a Python loop over the layers (the
+reference's ``lax.scan``), each layer reading its slice of the weights and
+of the cache.
 
 Modes
 -----
 ``prefill`` — full sequence; attention through the flash kernel; writes the
-              KV cache in place; returns hidden states.
+              layer's cache in place; returns hidden states.
 ``decode``  — T new tokens (usually 1) against the cache.
 ``train``   — raises: the training path (``chunked_attention`` with
               autograd) is ROADMAP slice 8b.
 
-The reference's ``constrain_heads`` and its sharded-decode branch are the
-identity on one device; they wait for slice 11.  MLA, MoE and hybrid
-blocks raise (slice 10).
+A hybrid layer runs attention and the selective SSM (`models.ssm`) in
+parallel on the same normed input and mixes them as ``0.5 * (rms(attn) +
+rms(ssm))``; its SSM state lives in the layer's ``ssm_h`` / ``ssm_conv``
+cache, read and written in place.  The reference's ``constrain_heads`` and
+its sharded-decode branch are the identity on one device; they wait for
+slice 11.  MLA, MoE, VLM and audio blocks raise (slice 10).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     cache_write,
     decode_attention,
@@ -39,11 +45,13 @@ from repro_torch.models.layers import (
 )
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.mla is not None or cfg.moe is not None or cfg.family != "dense":
+def _ported_block(cfg: ModelConfig) -> None:
+    if cfg.mla is not None or cfg.moe is not None or cfg.family not in (
+            "dense", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported; MLA, MoE, "
-            "hybrid and the other families are ROADMAP slice 10")
+            f"{cfg.name}: the ported archs are internlm2-1.8b, glm4-9b, "
+            "mistral-nemo-12b, hymba-1.5b and xlstm-350m; MoE, MLA, VLM and "
+            "audio are ROADMAP slice 10")
 
 
 # ---------------------------------------------------------------------------
@@ -112,13 +120,17 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def block_params_spec(cfg: ModelConfig, dtype) -> dict:
-    """Parameter spec for one dense decoder layer."""
-    _dense_only(cfg)
+    """Parameter spec for one dense or hybrid decoder layer."""
+    _ported_block(cfg)
     spec: dict = {"norm_attn": ((cfg.d_model,), ones_init, torch.float32),
                   "norm_ffn": ((cfg.d_model,), ones_init, torch.float32),
                   "attn": gqa_params_spec(cfg, dtype)}
     if cfg.d_ff > 0:
         spec["ffn"] = swiglu_params(cfg.d_model, cfg.d_ff, dtype)
+    if cfg.family == "hybrid" and cfg.ssm is not None:
+        spec["ssm"] = ssm_mod.ssm_params_spec(cfg.d_model, cfg.ssm, dtype)
+        spec["norm_attn_out"] = ((cfg.d_model,), ones_init, torch.float32)
+        spec["norm_ssm_out"] = ((cfg.d_model,), ones_init, torch.float32)
     return spec
 
 
@@ -127,13 +139,25 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   layer_cache: Optional[dict] = None,
                   kv_pos: Optional[torch.Tensor] = None, cursor=None
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """One dense decoder layer.  Returns (x, layer_cache, aux_loss = 0)."""
-    _dense_only(cfg)
+    """One dense or hybrid decoder layer.  Returns (x, layer_cache,
+    aux_loss = 0)."""
+    _ported_block(cfg)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     attn_out, new_cache = gqa_attention(
         cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
         kv_pos=kv_pos, cursor=cursor)
-    x = x + attn_out
+    if cfg.family == "hybrid" and cfg.ssm is not None:
+        # Hymba: attention and mamba heads in parallel on the same normed
+        # input, each output normed, then averaged
+        st = ssm_mod.SSMState(h=layer_cache["ssm_h"],
+                              conv=layer_cache["ssm_conv"])
+        ssm_out, st_new = ssm_mod.ssm_forward(cfg.ssm, p["ssm"], h, st)
+        layer_cache["ssm_h"].copy_(st_new.h)
+        layer_cache["ssm_conv"].copy_(st_new.conv)
+        x = x + 0.5 * (rms_norm(attn_out, p["norm_attn_out"], cfg.norm_eps)
+                       + rms_norm(ssm_out, p["norm_ssm_out"], cfg.norm_eps))
+    else:
+        x = x + attn_out
     if cfg.d_ff > 0:
         x = x + swiglu(p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
     return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -155,8 +179,9 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
                 kv_pos: Optional[torch.Tensor] = None, cursor=None
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Homogeneous decoder stack.  Returns (h, cache, aux_loss_sum); the
-    stacked cache ``{k, v}`` [L, B, S, KVH, D] is written in place, one
-    layer's view at a time."""
+    stacked cache (``k``, ``v`` [L, B, S, KVH, D], and for the hybrid family
+    ``ssm_h``, ``ssm_conv``) is written in place, one layer's view at a
+    time."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         cache_i = _layer(cache, i) if cache is not None else None

@@ -1,0 +1,315 @@
+"""xLSTM blocks, mLSTM (matrix memory) and sLSTM (scalar memory): the port
+of ``src/repro/models/xlstm.py``.
+
+* **mLSTM** runs in chunked-parallel form (the reference's
+  ``_mlstm_chunk`` is ``kernels/mlstm_scan/ref.mlstm_chunk``, its chunk
+  loop ``ref.mlstm_chunks``).  The kernel
+  `repro_torch.kernels.mlstm_scan.ops.mlstm_scan` starts from a zero state
+  and has no initial-state input, so ``mlstm_forward`` calls it only when
+  the caller says the state is fresh (``fresh=True``: a prefill into a new
+  cache, which `repro_torch.models.model.Model.prefill` decides from one
+  read of the cache's length) and T > 1; one launch per mLSTM block.  A
+  prefill onto a carried state and every decode step (T = 1) run the chunk
+  function here, in torch, chunk by chunk, as the reference does.  q, k and
+  v go to the kernel upcast to fp32 (exact for bf16), so that h comes back
+  in fp32, where the reference keeps it until after the per-head norm.
+* **sLSTM** reads h_{t-1} in its gates, so it has no parallel form and no
+  TPU kernel: a plain loop over tokens (the reference's nested scan).
+
+States are NamedTuples of the reference's names and fields; the stacked
+``XLSTMStackState`` of a model cache holds ``[P, ...]`` tensors that
+``xlstm_stack_apply`` writes in place, pair by pair.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import XLSTMConfig
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+from repro_torch.kernels.mlstm_scan.ref import NEG_BIG, mlstm_chunks
+from repro_torch.models.layers import (
+    causal_conv,
+    dense_init,
+    ones_init,
+    rms_norm,
+    zeros_init,
+)
+
+def _linspace_3_6(n: int) -> torch.Tensor:
+    """linspace(3, 6, n) in fp32, rounded once from float64.  jnp.linspace
+    on the CPU is within 1 ulp of it: XLA rewrites its division into a
+    product by 1/(n-1) and contracts into FMAs differently in the
+    vectorised body and the tail."""
+    return torch.from_numpy(np.linspace(3.0, 6.0, n).astype(np.float32))
+
+
+def _fgate_bias_init(t: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Positive forget-gate bias, linspace 3..6 over the last axis (the
+    xLSTM reference init)."""
+    del generator
+    with torch.no_grad():
+        return t.copy_(_linspace_3_6(t.shape[-1]).expand(t.shape))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_params_spec(d_model: int, n_heads: int, xl: XLSTMConfig,
+                      dtype) -> dict:
+    di = int(xl.proj_factor_mlstm * d_model)
+    return {
+        "norm": ((d_model,), ones_init, torch.float32),
+        "w_up": ((d_model, 2 * di), dense_init, dtype),
+        "conv_w": ((xl.conv_width, di), dense_init, dtype),
+        "conv_b": ((di,), zeros_init, dtype),
+        "w_q": ((di, di), dense_init, dtype),
+        "w_k": ((di, di), dense_init, dtype),
+        "w_v": ((di, di), dense_init, dtype),
+        "w_i": ((di, n_heads), dense_init, torch.float32),
+        "b_i": ((n_heads,), zeros_init, torch.float32),
+        "w_f": ((di, n_heads), dense_init, torch.float32),
+        "b_f": ((n_heads,), _fgate_bias_init, torch.float32),
+        "gn": ((di,), ones_init, torch.float32),
+        "w_down": ((di, d_model), dense_init, dtype),
+    }
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor      # [B, H, dh, dh] f32 matrix memory
+    n: torch.Tensor      # [B, H, dh] f32 normaliser
+    m: torch.Tensor      # [B, H] f32 max-stabiliser
+    conv: torch.Tensor   # [B, W-1, di] conv window
+
+    @staticmethod
+    def init(batch, d_model, n_heads, xl: XLSTMConfig, dtype=torch.float32,
+             device="cpu"):
+        di = int(xl.proj_factor_mlstm * d_model)
+        dh = di // n_heads
+        f32 = dict(dtype=torch.float32, device=device)
+        return MLSTMState(
+            c=torch.zeros((batch, n_heads, dh, dh), **f32),
+            n=torch.zeros((batch, n_heads, dh), **f32),
+            m=torch.full((batch, n_heads), NEG_BIG, **f32),
+            conv=torch.zeros((batch, xl.conv_width - 1, di), dtype=dtype,
+                             device=device),
+        )
+
+
+def _head_norm(h: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Per-head RMS norm of [B, T, d] with unit scale (the reference's
+    ``rms_norm(h.reshape(b, t, H, dh), ones(dh))``)."""
+    b, t, d = h.shape
+    ones = torch.ones((d // n_heads,), dtype=torch.float32, device=h.device)
+    return rms_norm(h.reshape(b, t, n_heads, d // n_heads), ones).reshape(
+        b, t, d)
+
+
+def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
+                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256,
+                  fresh: bool = False) -> Tuple[torch.Tensor, MLSTMState]:
+    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state).
+    ``fresh`` promises that ``state`` is ``MLSTMState.init``'s (c = n = 0,
+    m = -1e30): the kernel's domain."""
+    b_sz, t, d_model = x.shape
+    di = int(xl.proj_factor_mlstm * d_model)
+    dh = di // n_heads
+    xin = rms_norm(x, params["norm"])
+    up = xin @ params["w_up"].to(x.dtype)
+    xi, z = up.chunk(2, dim=-1)
+    xc, conv_tail = causal_conv(xi, params["conv_w"], params["conv_b"],
+                                state.conv)
+    xc = F.silu(xc)
+
+    def heads(a):                    # [B, T, di] -> [B, H, T, dh]
+        return a.reshape(b_sz, t, n_heads, dh).transpose(1, 2)
+
+    q = heads(xc @ params["w_q"].to(x.dtype))
+    k = heads(xc @ params["w_k"].to(x.dtype)) / math.sqrt(dh)
+    v = heads(xi @ params["w_v"].to(x.dtype))
+    xcf = xc.float()
+    li = (xcf @ params["w_i"] + params["b_i"]).transpose(1, 2)
+    lf = F.logsigmoid((xcf @ params["w_f"] + params["b_f"]).transpose(1, 2))
+
+    if fresh and t > 1:
+        def flat(a):
+            return a.float().reshape(b_sz * n_heads, *a.shape[2:]).contiguous()
+
+        h, (c_f, n_f, m_f) = mlstm_scan(flat(q), flat(k), flat(v), flat(lf),
+                                        flat(li), chunk=chunk)
+        h = h.reshape(b_sz, n_heads, t, dh)
+        c_f = c_f.reshape(b_sz, n_heads, dh, dh)
+        n_f = n_f.reshape(b_sz, n_heads, dh)
+        m_f = m_f.reshape(b_sz, n_heads)
+    else:
+        h, (c_f, n_f, m_f) = mlstm_chunks(q, k, v, lf, li,
+                                          (state.c, state.n, state.m),
+                                          chunk=chunk)
+    h = _head_norm(h.transpose(1, 2).reshape(b_sz, t, di), n_heads)
+    h = h * params["gn"]
+    h = h.to(x.dtype) * F.silu(z)
+    out = h @ params["w_down"].to(x.dtype)
+    return out, MLSTMState(c=c_f, n=n_f, m=m_f, conv=conv_tail)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def _slstm_bias_init(t: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Gate biases laid out [i | f | z | o]: zeros, the forget block
+    linspace 3..6."""
+    del generator
+    d4 = t.shape[-1] // 4
+    bias = torch.zeros((4, d4), dtype=torch.float32)
+    bias[1] = _linspace_3_6(d4)
+    with torch.no_grad():
+        return t.copy_(bias.reshape(-1).expand(t.shape))
+
+
+def slstm_params_spec(d_model: int, n_heads: int, xl: XLSTMConfig,
+                      dtype) -> dict:
+    dh = d_model // n_heads
+    dff = int(xl.proj_factor_slstm * d_model)
+    return {
+        "norm": ((d_model,), ones_init, torch.float32),
+        "conv_w": ((xl.conv_width, d_model), dense_init, dtype),
+        "conv_b": ((d_model,), zeros_init, dtype),
+        "w_gates": ((d_model, 4 * d_model), dense_init, dtype),   # i,f,z,o
+        "r_gates": ((n_heads, dh, 4 * dh), dense_init, dtype),    # per head
+        "b_gates": ((4 * d_model,), _slstm_bias_init, torch.float32),
+        "gn": ((d_model,), ones_init, torch.float32),
+        "w_up": ((d_model, 2 * dff), dense_init, dtype),
+        "w_down": ((dff, d_model), dense_init, dtype),
+    }
+
+
+class SLSTMState(NamedTuple):
+    h: torch.Tensor      # [B, d]
+    c: torch.Tensor      # [B, d]
+    n: torch.Tensor      # [B, d]
+    m: torch.Tensor      # [B, d]
+    conv: torch.Tensor   # [B, W-1, d]
+
+    @staticmethod
+    def init(batch, d_model, xl: XLSTMConfig, dtype=torch.float32,
+             device="cpu"):
+        f32 = dict(dtype=torch.float32, device=device)
+        return SLSTMState(
+            h=torch.zeros((batch, d_model), **f32),
+            c=torch.zeros((batch, d_model), **f32),
+            n=torch.zeros((batch, d_model), **f32),
+            m=torch.full((batch, d_model), NEG_BIG, **f32),
+            conv=torch.zeros((batch, xl.conv_width - 1, d_model), dtype=dtype,
+                             device=device),
+        )
+
+
+def slstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
+                  x: torch.Tensor,
+                  state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
+    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state); one
+    recurrence step per token."""
+    b_sz, t, d_model = x.shape
+    dh = d_model // n_heads
+    xin = rms_norm(x, params["norm"])
+    xc, conv_tail = causal_conv(xin, params["conv_w"], params["conv_b"],
+                                state.conv)
+    xc = F.silu(xc)
+    # input contributions to the 4 gates: i, f from the conv path; z, o raw
+    w_gates = params["w_gates"].to(x.dtype)
+    wx = xc @ w_gates[:, :2 * d_model]
+    wzo = xin @ w_gates[:, 2 * d_model:]
+    gates_x = torch.cat([wx, wzo], dim=-1).float()           # [B, T, 4d]
+    r = params["r_gates"].float()                             # [H, dh, 4dh]
+    bias = params["b_gates"]
+    h, c, n, m = state.h, state.c, state.n, state.m
+    hs = []
+    for step in range(t):
+        hr = h.reshape(b_sz, n_heads, dh).transpose(0, 1)     # [H, B, dh]
+        rec = torch.bmm(hr, r).transpose(0, 1).reshape(b_sz, 4 * d_model)
+        # gx and rec are both laid out [i | f | z | o] over units
+        pre = gates_x[:, step] + rec + bias
+        pi, pf, pz, po = pre.chunk(4, dim=-1)
+        lf = F.logsigmoid(pf)
+        m_new = torch.maximum(lf + m, pi)
+        i_g = torch.exp(pi - m_new)
+        f_g = torch.exp(lf + m - m_new)
+        c = f_g * c + i_g * torch.tanh(pz)
+        n = f_g * n + i_g
+        h = torch.sigmoid(po) * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    out_h = _head_norm(torch.stack(hs, dim=1), n_heads)
+    out_h = (out_h * params["gn"]).to(x.dtype)
+    # gated up/down projection
+    u, g = (out_h @ params["w_up"].to(x.dtype)).chunk(2, dim=-1)
+    out = (u * F.gelu(g, approximate="tanh")) @ params["w_down"].to(x.dtype)
+    return out, SLSTMState(h=h, c=c, n=n, m=m, conv=conv_tail)
+
+
+# ---------------------------------------------------------------------------
+# Stack driver: alternating (mLSTM, sLSTM) residual block pairs
+# ---------------------------------------------------------------------------
+
+
+def xlstm_pair_count(n_layers: int, xl: XLSTMConfig) -> int:
+    assert n_layers % xl.slstm_every == 0
+    return n_layers // xl.slstm_every
+
+
+class XLSTMStackState(NamedTuple):
+    """Stacked states for the whole trunk ([P, ...] per pair)."""
+
+    m: MLSTMState
+    s: SLSTMState
+
+    @staticmethod
+    def init(n_pairs, batch, d_model, n_heads, xl: XLSTMConfig,
+             dtype=torch.float32, device="cpu"):
+        def stack(st):
+            return type(st)(*(a.expand((n_pairs,) + a.shape).clone()
+                              for a in st))
+
+        return XLSTMStackState(
+            m=stack(MLSTMState.init(batch, d_model, n_heads, xl, dtype,
+                                    device)),
+            s=stack(SLSTMState.init(batch, d_model, xl, dtype, device)),
+        )
+
+
+def _write(stacked: NamedTuple, i: int, new: NamedTuple) -> None:
+    for dst, src in zip(stacked, new):
+        dst[i].copy_(src)
+
+
+def xlstm_stack_apply(xl: XLSTMConfig, n_heads: int, params: dict,
+                      x: torch.Tensor, state: XLSTMStackState, *,
+                      chunk: int = 256, fresh: bool = False
+                      ) -> Tuple[torch.Tensor, XLSTMStackState]:
+    """The pairs in order, each an mLSTM then an sLSTM residual block;
+    ``state``'s tensors are written in place.  ``fresh`` as in
+    ``mlstm_forward``."""
+    n_pairs = params["m_blocks"]["norm"].shape[0]
+    for i in range(n_pairs):
+        p_m = {k: v[i] for k, v in params["m_blocks"].items()}
+        p_s = {k: v[i] for k, v in params["s_blocks"].items()}
+        out_m, st_m = mlstm_forward(
+            xl, n_heads, p_m, x, MLSTMState(*(a[i] for a in state.m)),
+            chunk=chunk, fresh=fresh)
+        x = x + out_m
+        _write(state.m, i, st_m)
+        out_s, st_s = slstm_forward(
+            xl, n_heads, p_s, x, SLSTMState(*(a[i] for a in state.s)))
+        x = x + out_s
+        _write(state.s, i, st_s)
+    return x, state

@@ -54,10 +54,28 @@ def test_serve_decode_is_the_teacher_forced_prefill():
     assert torch.equal(serve.greedy(logits), res.tokens[:, -1:])
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_serve_recurrent_archs_on_cpu(arch):
+    """The launcher on the two recurrent smoke archs: hymba's 16-entry
+    prefill (4 meta tokens pinned) wraps its 8-slot window ring, xlstm
+    keeps no KV cache; greedy ids follow the logits and the run is
+    seeded."""
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12",
+            "--gen", "4", "--seed", "1", "--device", "cpu"]
+    res, lines = _run(argv)
+    assert lines[0] == f"arch={arch}-smoke batch=2 prompt=12 gen=4"
+    assert res.tokens.shape == (2, 4) and res.tokens.dtype == torch.int32
+    assert torch.isfinite(res.prefill_logits).all()
+    assert torch.isfinite(res.last_logits).all()
+    assert torch.equal(res.tokens[:, :1], serve.greedy(res.prefill_logits))
+    again, _ = _run(argv)
+    assert torch.equal(again.tokens, res.tokens)
+
+
 def test_serve_needs_cuda_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         with pytest.raises(NotImplementedError):
-            serve.main(["--arch", "xlstm-350m", "--smoke"])
+            serve.main(["--arch", "deepseek-moe-16b", "--smoke"])
         return
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(ARGS)
