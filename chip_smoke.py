@@ -34,7 +34,19 @@ card, and drives the port's paths:
   decode step) and the full 24-layer xlstm-350m (12 `mlstm_scan` launches
   per prefill, none per decode step), batch 4, prompt 2,048, 32 tokens,
   with the share of xlstm's prefill spent in the sLSTM, and one prefill
-  and one decode step of each under torch.profiler.
+  and one decode step of each under torch.profiler;
+* the MoE family, last, with every earlier model freed: the `moe_gmm`
+  grouped-matmul kernel against its plain version on the reference's
+  kernel-test shapes, at deepseek-moe-16b's prefill and decode capacity
+  shapes (with per-expert counts and fp32 weights under bf16 x, as the
+  path calls it) and on a router that sends every token to the same
+  experts, and timed beside `torch.bmm` and its bound; deepseek-moe-16b at
+  the full widths and depth 2 on the card against the CPU (fp32, expert
+  ids equal outside near ties); then `repro_torch.launch.serve` on the
+  full 28-layer deepseek-moe-16b (16.9 B fp32 master weights), batch 4,
+  prompt 2,048, 32 tokens (28 flash and 84 `moe_gmm` launches per
+  prefill, 84 `moe_gmm` per decode step), and one prefill and one decode
+  step under torch.profiler.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -49,6 +61,7 @@ kernels' JSON record and the device record.
 
 Exits non-zero without a result where no CUDA device is visible.
 """
+import contextlib
 import gc
 import json
 import subprocess
@@ -99,6 +112,11 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
+    expert_swiglu_ref,
+    grouped_matmul_ref,
+)
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
     plan_evictions_ref,
@@ -106,6 +124,7 @@ from repro_torch.kernels.sched_select.ref import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
@@ -193,6 +212,25 @@ MLSTM_RAGGED_S = 2000
 #: missed chunk) moves the output by a sizeable part of its magnitude.
 SSM_TOL = 1e-5
 MLSTM_H_TOL, MLSTM_STATE_TOL = 2e-4, 1e-5
+
+# the MoE family: tests/test_kernels.py's moe_gmm shapes (E, C, d, f), and
+# deepseek-moe-16b's experts at SERVE_BATCH x SERVE_PROMPT prefill tokens
+# and at one decode step of SERVE_BATCH tokens
+MOE_ARCH = "deepseek-moe-16b"
+_MOE = get_config(MOE_ARCH)
+GMM_CASES = [(4, 96, 160, 224), (2, 128, 64, 64), (8, 32, 48, 96),
+             (1, 256, 512, 128)]
+GMM_EXPERTS = (_MOE.moe.n_routed, _MOE.moe.top_k, _MOE.d_model,
+               _MOE.moe.d_expert)                               # E k d f
+GMM_TOKENS = {"prefill": SERVE_BATCH * SERVE_PROMPT, "decode": SERVE_BATCH}
+#: kernel vs plain: the reference's own bars (tests/test_kernels.py), at
+#: the serving shapes times max(1, max|output|) as for the scans
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: [moe-vs-cpu]: a token's experts must agree on both sides unless the
+#: CPU's k-th and (k+1)-th router probabilities lie within this fraction
+#: of the k-th (routing is discrete; the two sides' fp32 router products
+#: differ in the last bits)
+ROUTE_TIE_REL = 1e-5
 
 
 T0 = time.perf_counter()
@@ -317,10 +355,9 @@ def phase_env():
 
 def phase_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        futures = [pool.submit(ops.build)
-                   for ops in (sched_ops, codec_ops, flash_ops, ssm_ops,
-                               mlstm_ops)]
+    libs = (sched_ops, codec_ops, flash_ops, ssm_ops, mlstm_ops, gmm_ops)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        futures = [pool.submit(ops.build) for ops in libs]
         builds = [f.result() for f in futures]
     wall = time.perf_counter() - t0
     for built in builds:
@@ -1017,7 +1054,7 @@ def kernel_counts():
     return dict(sched_select=sched_ops.LAUNCHES, **{
         f"ckpt_{k}": v for k, v in codec_ops.LAUNCHES.items()},
         flash_attention=flash_ops.LAUNCHES, ssm_scan=ssm_ops.LAUNCHES,
-        mlstm_scan=mlstm_ops.LAUNCHES)
+        mlstm_scan=mlstm_ops.LAUNCHES, moe_gmm=gmm_ops.LAUNCHES)
 
 
 def set_kernel_counts(counts):
@@ -1028,6 +1065,7 @@ def set_kernel_counts(counts):
     flash_ops.LAUNCHES = counts["flash_attention"]
     ssm_ops.LAUNCHES = counts["ssm_scan"]
     mlstm_ops.LAUNCHES = counts["mlstm_scan"]
+    gmm_ops.LAUNCHES = counts["moe_gmm"]
 
 
 def zero_kernel_counts():
@@ -1269,25 +1307,34 @@ def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (CPU_BATCH, CPU_PROMPT)).astype(np.int32))
     max_seq = CPU_PROMPT + CPU_STEPS
-    c_cache, c_logits = cpu.prefill(
-        {"tokens": tokens}, cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
-    saved = kernel_counts()
-    zero_kernel_counts()
-    g_cache, g_logits = card.prefill(
-        {"tokens": tokens.to(DEV)},
-        card.init_cache(CPU_BATCH, max_seq, torch.float32))
-    torch.cuda.synchronize()
-    launches = {"prefill": kernel_counts()}
-    errs = [float((g_logits.cpu() - c_logits).abs().max())]
-    scale = float(c_logits.abs().max())
-    zero_kernel_counts()
-    for _ in range(CPU_STEPS):
-        tok = serve.greedy(c_logits)
-        c_cache, c_logits = cpu.decode_step(c_cache, tok)
-        g_cache, g_logits = card.decode_step(g_cache, tok.to(DEV))
-        errs.append(float((g_logits.cpu() - c_logits).abs().max()))
-    launches["decode"] = kernel_counts()
+    # an MoE layer's routes, each side's, per layer and step
+    calls, keep = route_log()
+    with recording(moe_mod, "route_topk", keep):
+        c_cache, c_logits = cpu.prefill(
+            {"tokens": tokens},
+            cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
+        saved = kernel_counts()
+        zero_kernel_counts()
+        g_cache, g_logits = card.prefill(
+            {"tokens": tokens.to(DEV)},
+            card.init_cache(CPU_BATCH, max_seq, torch.float32))
+        torch.cuda.synchronize()
+        launches = {"prefill": kernel_counts()}
+        errs = [float((g_logits.cpu() - c_logits).abs().max())]
+        scale = float(c_logits.abs().max())
+        zero_kernel_counts()
+        for _ in range(CPU_STEPS):
+            tok = serve.greedy(c_logits)
+            c_cache, c_logits = cpu.decode_step(c_cache, tok)
+            g_cache, g_logits = card.decode_step(g_cache, tok.to(DEV))
+            errs.append(float((g_logits.cpu() - c_logits).abs().max()))
+        launches["decode"] = kernel_counts()
     set_kernel_counts(saved)
+    routes = {}
+    if cfg.moe is not None:      # first: a route that moved moves logits
+        ties, routed = compare_routes(calls, cfg.moe.top_k)
+        routes = dict(routed_tokens=routed, near_tie_tokens=ties,
+                      tie_margin_rel=ROUTE_TIE_REL, routes_equal=True)
     for step, want in (("prefill", prefill_counts),
                        ("decode", {k: CPU_STEPS * v
                                    for k, v in decode_counts.items()})):
@@ -1310,7 +1357,7 @@ def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
         batch=CPU_BATCH, prompt=CPU_PROMPT, decode_steps=CPU_STEPS,
         prefill_err=f"{errs[0]:.3e}", decode_max_err=f"{max(errs[1:]):.3e}",
         cache_err=f"{state_err:.3e}", max_abs_logit=f"{scale:.4f}",
-        tol=SERVE_CPU_TOL,
+        tol=SERVE_CPU_TOL, **routes,
         launches_prefill={k: v for k, v in launches["prefill"].items() if v},
         launches_decode={k: v for k, v in launches["decode"].items() if v},
         seconds=f"{time.perf_counter() - t0:.1f}")
@@ -1343,12 +1390,15 @@ def slstm_share(model, tokens):
 
 def phase_serve(arch, phase, per_prefill, per_decode):
     """An arch's main serving path: `repro_torch.launch.serve`'s own
-    functions at its full published widths and depth (fp32 master weights
-    from a seeded generator, bf16 compute and cache), batch SERVE_BATCH,
-    prompt SERVE_PROMPT, SERVE_GEN tokens: one warm-up request, then the
-    measured one, whose launches must be per_prefill plus SERVE_GEN - 1
-    times per_decode, and no other kernel's.  Peaks are taken after
-    `collect_garbage`, from the memory allocated before the request."""
+    functions at its full published widths and depth (master weights in
+    the config's param dtype, fp32, from a seeded generator; bf16 compute
+    and cache), batch SERVE_BATCH, prompt SERVE_PROMPT, SERVE_GEN tokens:
+    one warm-up request, then the measured one, whose launches must be
+    per_prefill plus SERVE_GEN - 1 times per_decode, and no other
+    kernel's.  Peaks are taken after `collect_garbage`, from the memory
+    allocated before the request.  For an MoE arch the line adds the host
+    reads of the dispatch, the capacities C it chose, and the card's
+    memory left above the peak."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
     model = serve.build(cfg, SEED, DEV)
@@ -1366,11 +1416,22 @@ def phase_serve(arch, phase, per_prefill, per_decode):
     collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     baseline = torch.cuda.memory_allocated()
+    reads = moe_mod.HOST_READS
+    capacities = []
     # this serving path: every kernel count starts at 0 here
     zero_kernel_counts()
-    res = serve.generate(model, tokens, SERVE_GEN)
+    with recording(moe_mod, "capacity", lambda a, c: capacities.append(c)):
+        res = serve.generate(model, tokens, SERVE_GEN)
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
+    if cfg.moe is not None:      # C per MoE layer: prefill's, then decode's
+        n = cfg.n_layers
+        total = torch.cuda.get_device_properties(0).total_memory
+        extra.update(moe_host_reads=moe_mod.HOST_READS - reads,
+                     prefill_capacity_min=min(capacities[:n]),
+                     prefill_capacity_max=max(capacities[:n]),
+                     decode_capacity=sorted(set(capacities[n:])),
+                     card_total_bytes=total, headroom_bytes=total - peak)
     serve.report(res, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
     steps = SERVE_GEN - 1
     want = {k: per_prefill.get(k, 0) + steps * per_decode.get(k, 0)
@@ -1387,7 +1448,8 @@ def phase_serve(arch, phase, per_prefill, per_decode):
                                               SERVE_PROMPT + SERVE_GEN))
     log(phase, config=arch, layers=cfg.n_layers,
         params=sum(p.numel() for p in model.parameters()),
-        weights="float32-seeded-random", compute=cfg.compute_dtype,
+        weights=f"{cfg.param_dtype}-seeded-random",
+        compute=cfg.compute_dtype,
         batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
         prefill_ms=f"{res.prefill_s * 1e3:.3f}",
         prefill_tok_per_s=f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f}",
@@ -1449,6 +1511,247 @@ def phase_profile(phase, arch, model, tokens, names, per_prefill,
                                     else "not measured"),
             launches=counts, device_events=events, max_memory_allocated=peak)
 
+# ---------------------------------------------------------------------------
+# the MoE family: the moe_gmm kernel, deepseek-moe-16b
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording(module, name, keep):
+    """Wrap ``module.name`` while the block runs: each call's arguments and
+    result go to ``keep(args, result)``, and the result goes back."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        keep(args, out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_moe_memory():
+    """The card's free and total memory before the MoE phases (every
+    earlier model freed)."""
+    collect_garbage()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log("moe-memory", free_bytes=free, total_bytes=total,
+        allocated=torch.cuda.memory_allocated(),
+        reserved=torch.cuda.memory_reserved())
+
+
+def gmm_weights(gen, e, d, f, scale):
+    return torch.randn((e, d, f), generator=gen, device=DEV) * scale
+
+
+def gmm_routes(gen, tokens, skewed=False):
+    """Experts [T, k] int32 of deepseek-moe-16b's router shape: a uniform
+    router (k distinct experts per token, drawn at random), or one that
+    sends every token to experts 0..k-1."""
+    e, k = GMM_EXPERTS[:2]
+    if skewed:
+        return torch.arange(k, device=DEV, dtype=torch.int32).expand(
+            tokens, k).contiguous()
+    return torch.rand((tokens, e), generator=gen, device=DEV).argsort(
+        -1)[:, :k].to(torch.int32)
+
+
+def gmm_capacity_inputs(gen, experts, dtype):
+    """The capacity buffer x [E, C, d] that `models.moe` builds for these
+    routes (each token's hidden row, N(0, 1) as after the norm, copied to
+    each of its experts; zero past each count) and the int32 counts."""
+    e, k, d, _ = GMM_EXPERTS
+    counts, pos = moe_mod.dispatch(experts, e)
+    t = experts.shape[0]
+    x = torch.zeros((e, moe_mod.capacity(t, counts), d), dtype=dtype,
+                    device=DEV)
+    rows = torch.randn((t, d), generator=gen, device=DEV).to(dtype)
+    x[experts.long(), pos] = rows[:, None, :].expand(t, k, d)
+    return x, counts
+
+
+def compare_gmm(fn, ref, args, tol, serving):
+    """Kernel against the plain version on the same card tensors; raises
+    above the bar, returns the largest absolute difference and the largest
+    |output| (a zero output would make any comparison pass)."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = ref(*args).float()
+    err = float((got.float() - want).abs().max())
+    bar = rel_bar(tol, want) if serving else tol
+    if not err <= bar:
+        raise AssertionError(f"moe_gmm {fn.__name__} differs from its plain "
+                             f"version by {err} > {bar} at x "
+                             f"{tuple(args[0].shape)} {args[0].dtype}, w "
+                             f"{args[1].dtype}")
+    return err, float(want.abs().max())
+
+
+def phase_moe_compare():
+    """`expert_swiglu` on the reference's kernel-test shapes (with and
+    without counts, at its bars), and `grouped_matmul`/`expert_swiglu` at
+    deepseek-moe-16b's prefill and decode capacity shapes and on a skewed
+    router (C = T), at the bars times max(1, max|out|)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    saved = kernel_counts()
+    t0 = time.perf_counter()
+    test_errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for dtype in test_errs:
+        for e, c, d, f in GMM_CASES:
+            x = (torch.randn((e, c, d), generator=gen, device=DEV) * 0.3
+                 ).to(dtype)
+            ws = [gmm_weights(gen, e, *dims, 0.05).to(dtype)
+                  for dims in ((d, f), (d, f), (f, d))]
+            counts = torch.tensor([c * (i + 1) // (e + 1) for i in range(e)],
+                                  dtype=torch.int32, device=DEV)
+            for cnt in (None, counts):
+                err, _ = compare_gmm(gmm_ops.expert_swiglu, expert_swiglu_ref,
+                                     (x, *ws, cnt), GMM_TOL[dtype],
+                                     serving=False)
+                test_errs[dtype] = max(test_errs[dtype], err)
+                cases += 1
+    e, _, d, f = GMM_EXPERTS
+    w_gate, w_up = (gmm_weights(gen, e, d, f, d ** -0.5) for _ in range(2))
+    w_down = gmm_weights(gen, e, f, d, f ** -0.5)
+    serving, sizes = {}, {}
+    for name, tokens, skewed in (("prefill", GMM_TOKENS["prefill"], False),
+                                 ("decode", GMM_TOKENS["decode"], False),
+                                 ("skewed", GMM_TOKENS["prefill"], True)):
+        experts = gmm_routes(gen, tokens, skewed)
+        for dtype in ((torch.bfloat16,) if name == "skewed"
+                      else (torch.bfloat16, torch.float32)):
+            x, counts = gmm_capacity_inputs(gen, experts, dtype)
+            tol = GMM_TOL[dtype]
+            tag = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            sizes[f"{tag}_C"] = x.shape[1]
+            runs = {"gate": (gmm_ops.grouped_matmul, grouped_matmul_ref,
+                             (x, w_gate, counts)),
+                    "swiglu": (gmm_ops.expert_swiglu, expert_swiglu_ref,
+                               (x, w_gate, w_up, w_down, counts))}
+            if dtype == torch.bfloat16:          # weights stored in bf16
+                runs["gate_bf16w"] = (gmm_ops.grouped_matmul,
+                                      grouped_matmul_ref,
+                                      (x, w_gate.to(dtype), counts))
+            for part, (fn, ref, args) in runs.items():
+                serving[f"{tag}_{part}"], sizes[f"{tag}_{part}_max_out"] = \
+                    compare_gmm(fn, ref, args, tol, serving=True)
+            cases += len(runs)
+            del x, runs
+    set_kernel_counts(saved)
+    log("moe-compare", cases=cases,
+        test_shapes_err_fp32=f"{test_errs[torch.float32]:.3e}",
+        test_shapes_err_bf16=f"{test_errs[torch.bfloat16]:.3e}",
+        tol_fp32=GMM_TOL[torch.float32], tol_bf16=GMM_TOL[torch.bfloat16],
+        **{k: f"{v:.3e}" for k, v in serving.items()},
+        **{k: (v if k.endswith("_C") else f"{v:.4f}")
+           for k, v in sizes.items()},
+        serving_bar="tol x max(1, max|out|)",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return max(*test_errs.values(), *serving.values())
+
+
+def gmm_bound(x, w, counts):
+    """Bytes the product must move (the x rows below each count, the
+    weights of each expert with a row, counts, and the whole output written
+    once), its operations over those rows at the bf16 tensor-core rate
+    (the weights are rounded to bf16), and the least time for them."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    rows = int(counts.sum())
+    active = int((counts > 0).sum())
+    nbytes = (rows * d * x.element_size() + active * d * f * w.element_size()
+              + 4 * e + e * c * f * x.element_size())
+    flop = 2 * rows * d * f
+    times = {"operations": flop / BF16_OPS_PER_S,
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return dict(rows=rows, active_experts=active, flop=flop, bytes=nbytes,
+                bound_ms=1e3 * times[by], bound_by=by)
+
+
+def phase_moe_time():
+    """One gate product of deepseek-moe-16b's experts, bf16 x, at the
+    prefill and decode capacity shapes of a uniform router: the kernel on
+    the fp32 master weights (as the serve path calls it) and on bf16
+    weights, its plain version, `torch.bmm` on the bf16 weights (the
+    library's batched product; never called by the port), and the
+    bound."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    saved = kernel_counts()
+    e, _, d, f = GMM_EXPERTS
+    w = gmm_weights(gen, e, d, f, d ** -0.5)
+    w16 = w.to(torch.bfloat16)
+    rows = {}
+    for name, tokens in GMM_TOKENS.items():
+        x, counts = gmm_capacity_inputs(gen, gmm_routes(gen, tokens),
+                                        torch.bfloat16)
+        iters = 10 if name == "prefill" else 50
+        ms = time_ms(lambda: gmm_ops.grouped_matmul(x, w, counts),
+                     iters=iters, warmup=2)
+        ms_bf16w = time_ms(lambda: gmm_ops.grouped_matmul(x, w16, counts),
+                           iters=iters, warmup=2)
+        plain_ms = time_ms(lambda: grouped_matmul_ref(x, w, counts),
+                           iters=iters, warmup=2)
+        library_ms = time_ms(lambda: torch.bmm(x, w16), iters=iters,
+                             warmup=2)
+        bound = gmm_bound(x, w, counts)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **bound)
+        log("moe-time", step=name, E=e, C=x.shape[1], d=d, f=f,
+            dtype="bfloat16", weights="float32", ms=f"{ms:.4f}",
+            ms_bf16_weights=f"{ms_bf16w:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", rows=bound["rows"],
+            active_experts=bound["active_experts"], flop=bound["flop"],
+            bytes=bound["bytes"], bound_ms=f"{bound['bound_ms']:.5f}",
+            bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
+            tflops=f"{bound['flop'] / ms / 1e9:.2f}",
+            x_library_bf16_weights=f"{ms_bf16w / library_ms:.2f}")
+        del x
+    set_kernel_counts(saved)
+    return rows
+
+
+def route_log():
+    """A list that `recording(moe_mod, "route_topk", ...)` fills with each
+    call's (device type, experts, probs), on the host."""
+    calls = []
+
+    def keep(args, out):
+        calls.append((args[0].device.type, out[1].cpu(), out[2].cpu()))
+    return calls, keep
+
+
+def compare_routes(calls, k):
+    """Each card call's experts against the CPU call of the same layer and
+    step: equal (as sets) for every token whose CPU gap between the k-th
+    and (k+1)-th probability exceeds ROUTE_TIE_REL of the k-th.  Returns
+    (near-tie tokens, tokens)."""
+    cpu = [c for c in calls if c[0] == "cpu"]
+    card = [c for c in calls if c[0] == "cuda"]
+    if len(cpu) != len(card) or not cpu:
+        raise AssertionError(f"{len(cpu)} CPU routings, {len(card)} on the "
+                             "card")
+    ties = tokens = 0
+    for (_, ec, pc), (_, eg, _) in zip(cpu, card):
+        top = pc.topk(k + 1, dim=-1).values
+        clear = (top[:, k - 1] - top[:, k]) > ROUTE_TIE_REL * top[:, k - 1]
+        same = (ec.sort(-1).values == eg.sort(-1).values).all(-1)
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{int((~same & clear).sum())} tokens clear "
+                                 "of a near tie took other experts on the "
+                                 "card")
+        ties += int((~clear).sum())
+        tokens += pc.shape[0]
+    return ties, tokens
+
+
 
 def main():
     smi = phase_env()
@@ -1499,6 +1802,21 @@ def main():
         del model
         collect_garbage()
         torch.cuda.empty_cache()
+    phase_moe_memory()
+    gmm_err = phase_moe_compare()
+    gmm = phase_moe_time()
+    n_moe = _MOE.n_layers
+    phase_vs_cpu(MOE_ARCH, "moe-vs-cpu",
+                 {"flash_attention": CPU_LAYERS, "moe_gmm": 3 * CPU_LAYERS},
+                 {"moe_gmm": 3 * CPU_LAYERS})
+    per_prefill = {"flash_attention": n_moe, "moe_gmm": 3 * n_moe}
+    model, tokens, moe = phase_serve(MOE_ARCH, "serve-moe", per_prefill,
+                                     {"moe_gmm": 3 * n_moe})
+    phase_profile("serve-moe", MOE_ARCH, model, tokens, ("moe_gmm",),
+                  per_prefill, {"moe_gmm": 3 * n_moe})
+    del model
+    collect_garbage()
+    torch.cuda.empty_cache()
     record = {"kernels": [{
         "name": "sched_select",
         "route": "cuda",
@@ -1560,6 +1878,18 @@ def main():
         "bound_ms": mlstm["bound_ms"],
         "bound_by": mlstm["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:25",
+        "launches": moe["moe_gmm"],
+        "max_abs_err": gmm_err,
+        "ms": gmm["prefill"]["ms"],
+        "plain_ms": gmm["prefill"]["plain_ms"],
+        "bound_ms": gmm["prefill"]["bound_ms"],
+        "bound_by": gmm["prefill"]["bound_by"],
+        "library_ms": gmm["prefill"]["library_ms"],
     }]}
     print(smi)
     print(json.dumps(record))

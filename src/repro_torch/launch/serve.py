@@ -6,12 +6,14 @@ prompts on seeded random weights (the port of the model path of
       --smoke --batch 4 --prompt-len 16 --gen 24 [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given, and raises without
-CUDA.  Five archs are ported: the dense GQA family (internlm2-1.8b,
-glm4-9b, mistral-nemo-12b), the hybrid hymba-1.5b and xlstm-350m; the
-other archs (MoE, MLA, VLM, audio) raise ``NotImplementedError`` naming
-ROADMAP slice 10.  No
-trained weights are in the repository, so the generated ids are
-meaningless; the path and its sizes are the real ones.  Prints the
+CUDA.  Seven archs are ported: the dense GQA family (internlm2-1.8b,
+glm4-9b, mistral-nemo-12b), the MoE family (deepseek-moe-16b, whose 67.5
+GB of fp32 master weights fit one 80 GB card, and dbrx-132b, which at its
+full size needs the expert-parallel sharding of ROADMAP slice 11 and
+serves here at its smoke size), the hybrid hymba-1.5b and xlstm-350m; the
+other archs (MLA, VLM, audio) raise ``NotImplementedError`` naming ROADMAP
+slice 10.  No trained weights are in the repository, so the generated ids
+are meaningless; the path and its sizes are the real ones.  Prints the
 reference's lines: the run, prefill ms and tok/s, decode ms and tok/s, and
 the first generated row.
 """

@@ -1,7 +1,8 @@
 """The model facade of the serving path: the dense GQA family
-(internlm2-1.8b, glm4-9b, mistral-nemo-12b), the hybrid family
-(hymba-1.5b) and the xLSTM family (xlstm-350m); the port of
-``src/repro/models/model.py``'s serving path.
+(internlm2-1.8b, glm4-9b, mistral-nemo-12b), the MoE family
+(deepseek-moe-16b, dbrx-132b), the hybrid family (hymba-1.5b) and the
+xLSTM family (xlstm-350m); the port of ``src/repro/models/model.py``'s
+serving path.
 
 `Model` is an ``nn.Module`` whose parameters keep the reference's tree and
 shapes (``embed``, ``norm_f``, ``unembed``, ``meta``, then ``blocks/...``
@@ -14,8 +15,9 @@ the training slice.  Methods:
 * ``prefill(batch, cache)`` — populate the cache, return last logits.
 * ``decode_step(cache, tokens)`` — one serve step.
 * ``init_cache(batch, max_seq, dtype)`` — the reference's cache layout:
-  ``length`` [] int32; for the attention families ``pos`` [B, S] int32 and
-  ``layers.k``, ``layers.v`` [L, B, S, KVH, D], plus for the hybrid family
+  ``length`` [] int32; for the attention families (dense, MoE, hybrid)
+  ``pos`` [B, S] int32 and ``layers.k``, ``layers.v`` [L, B, S, KVH, D],
+  plus for the hybrid family
   ``layers.ssm_h`` [L, B, d_inner, d_state] fp32 and ``layers.ssm_conv``
   [L, B, d_conv - 1, d_inner]; for the xLSTM family ``layers`` is an
   `models.xlstm.XLSTMStackState` and there is no ``pos``.
@@ -25,8 +27,10 @@ Weights are cast to the compute dtype at each use, as the reference does
 ``decode_step`` write the cache's tensors **in place** and return a new
 dict over them with the new ``length``.  An xLSTM prefill into a fresh
 cache (``length`` 0, read once on the host) runs the mLSTM kernel; any
-other runs the chunk function in torch (`models.xlstm`).  MoE, MLA, VLM and
-audio raise ``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
+other runs the chunk function in torch (`models.xlstm`).  An MoE layer
+whose tokens exceed the grouped-matmul kernel's row tile reads its largest
+expert count once on the host (`models.moe`).  MLA, VLM and audio raise
+``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
 ``chunked_ce_loss`` wait for slice 8b.
 """
 from __future__ import annotations
@@ -86,8 +90,8 @@ def _as_dict(node: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A dense, hybrid or xLSTM decoder on ``device`` (``"cuda"`` unless
-    the caller asks for ``"cpu"``; ``"meta"`` for shapes only)."""
+    """A dense, MoE, hybrid or xLSTM decoder on ``device`` (``"cuda"``
+    unless the caller asks for ``"cpu"``; ``"meta"`` for shapes only)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -260,10 +264,16 @@ class Model(nn.Module):
 
 def count_params(cfg: ModelConfig) -> dict:
     """Counts from the parameter shapes (a ``device="meta"`` model), in the
-    reference's keys."""
+    reference's keys; ``active`` leaves out the routed experts that a token
+    does not use."""
     model = Model(cfg, device="meta")
     total = sum(p.numel() for p in model.parameters())
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return {"total": total, "active": total,
-            "active_flops": total - cfg.vocab * cfg.d_model,
+    active = total
+    if cfg.moe is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe.d_expert * cfg.n_layers
+        active = total - (cfg.moe.n_routed - cfg.moe.top_k) * per_expert
+    # "active" for FLOPs excludes the input embedding gather (not a matmul)
+    return {"total": total, "active": active,
+            "active_flops": active - cfg.vocab * cfg.d_model,
             "embedding": embed}

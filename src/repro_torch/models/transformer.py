@@ -1,7 +1,7 @@
-"""Decoder stack of the dense GQA and the hybrid (Hymba) families: the
+"""Decoder stack of the dense GQA, MoE and hybrid (Hymba) families: the
 serving path.
 
-The port of the dense and hybrid branches of
+The port of the dense, MoE and hybrid branches of
 ``src/repro/models/transformer.py``.  Stacked ``[L, ...]`` layer weights,
 as in the reference; the stack is a Python loop over the layers (the
 reference's ``lax.scan``), each layer reading its slice of the weights and
@@ -18,9 +18,12 @@ Modes
 A hybrid layer runs attention and the selective SSM (`models.ssm`) in
 parallel on the same normed input and mixes them as ``0.5 * (rms(attn) +
 rms(ssm))``; its SSM state lives in the layer's ``ssm_h`` / ``ssm_conv``
-cache, read and written in place.  The reference's ``constrain_heads`` and
-its sharded-decode branch are the identity on one device; they wait for
-slice 11.  MLA, MoE, VLM and audio blocks raise (slice 10).
+cache, read and written in place.  An MoE layer's channel mix is
+`models.moe.moe_ffn` (the grouped-matmul kernel), and its aux loss is
+summed over the stack.  The reference's ``constrain_heads``, its
+sharded-decode branch and its expert-parallel MoE dispatch are the
+identity on one device; they wait for slice 11.  MLA, VLM and audio blocks
+raise (slice 10).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     cache_write,
@@ -46,12 +50,11 @@ from repro_torch.models.layers import (
 
 
 def _ported_block(cfg: ModelConfig) -> None:
-    if cfg.mla is not None or cfg.moe is not None or cfg.family not in (
-            "dense", "hybrid"):
+    if cfg.mla is not None or cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the ported archs are internlm2-1.8b, glm4-9b, "
-            "mistral-nemo-12b, hymba-1.5b and xlstm-350m; MoE, MLA, VLM and "
-            "audio are ROADMAP slice 10")
+            "mistral-nemo-12b, deepseek-moe-16b, dbrx-132b, hymba-1.5b and "
+            "xlstm-350m; MLA, VLM and audio are ROADMAP slice 10")
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +123,14 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def block_params_spec(cfg: ModelConfig, dtype) -> dict:
-    """Parameter spec for one dense or hybrid decoder layer."""
+    """Parameter spec for one dense, MoE or hybrid decoder layer."""
     _ported_block(cfg)
     spec: dict = {"norm_attn": ((cfg.d_model,), ones_init, torch.float32),
                   "norm_ffn": ((cfg.d_model,), ones_init, torch.float32),
                   "attn": gqa_params_spec(cfg, dtype)}
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        spec["ffn"] = moe_mod.moe_params_spec(cfg.d_model, cfg.moe, dtype)
+    elif cfg.d_ff > 0:
         spec["ffn"] = swiglu_params(cfg.d_model, cfg.d_ff, dtype)
     if cfg.family == "hybrid" and cfg.ssm is not None:
         spec["ssm"] = ssm_mod.ssm_params_spec(cfg.d_model, cfg.ssm, dtype)
@@ -139,9 +144,10 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   layer_cache: Optional[dict] = None,
                   kv_pos: Optional[torch.Tensor] = None, cursor=None
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """One dense or hybrid decoder layer.  Returns (x, layer_cache,
-    aux_loss = 0)."""
+    """One dense, MoE or hybrid decoder layer.  Returns (x, layer_cache,
+    aux_loss): the MoE layer's load-balance loss, else 0."""
     _ported_block(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     attn_out, new_cache = gqa_attention(
         cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
@@ -158,9 +164,13 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                        + rms_norm(ssm_out, p["norm_ssm_out"], cfg.norm_eps))
     else:
         x = x + attn_out
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        ffn_out, aux = moe_mod.moe_ffn(
+            cfg.moe, p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
+        x = x + ffn_out
+    elif cfg.d_ff > 0:
         x = x + swiglu(p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -47,8 +47,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert len(names) >= 49, sorted(names)
     for mod in ("configs", "configs.base", "configs.internlm2_1_8b",
                 "models.layers", "models.attention", "models.transformer",
-                "models.model", "kernels.flash_attention.ops",
-                "kernels.flash_attention.ref", "launch.serve"):
+                "models.model", "models.moe", "kernels.flash_attention.ops",
+                "kernels.flash_attention.ref", "kernels.moe_gmm.ops",
+                "kernels.moe_gmm.ref", "launch.serve"):
         assert f"repro_torch.{mod}" in names, mod
 
 

@@ -72,13 +72,30 @@ def test_serve_recurrent_archs_on_cpu(arch):
     assert torch.equal(again.tokens, res.tokens)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+def test_serve_moe_archs_on_cpu(arch):
+    """The launcher on the two MoE smoke archs, over a prompt long enough
+    that the prefill's capacity comes from the largest expert count (2 x 40
+    tokens, above the kernel's 64-row tile) while each decode step's is its
+    2 tokens; greedy ids follow the logits and the run is seeded."""
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "40",
+            "--gen", "4", "--seed", "2", "--device", "cpu"]
+    res, lines = _run(argv)
+    assert lines[0] == f"arch={arch}-smoke batch=2 prompt=40 gen=4"
+    assert res.tokens.shape == (2, 4) and res.tokens.dtype == torch.int32
+    assert torch.isfinite(res.prefill_logits).all()
+    assert torch.isfinite(res.last_logits).all()
+    assert torch.equal(res.tokens[:, :1], serve.greedy(res.prefill_logits))
+    again, _ = _run(argv)
+    assert torch.equal(again.tokens, res.tokens)
+
+
 def test_serve_needs_cuda_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         with pytest.raises(NotImplementedError):
-            serve.main(["--arch", "deepseek-moe-16b", "--smoke"])
+            serve.main(["--arch", "minicpm3-4b", "--smoke"])
         return
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(ARGS)
     with pytest.raises(NotImplementedError, match="slice 10"):
-        serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device",
-                    "cpu"])
+        serve.main(["--arch", "minicpm3-4b", "--smoke", "--device", "cpu"])
