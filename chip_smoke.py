@@ -4,7 +4,11 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all started together), holds each against its plain PyTorch version on the
-card, and drives the port's paths:
+card, and drives the port's paths.  flash attention and the grouped expert
+matmul each have two kernels: a tensor-core one (TMA, mbarriers, wgmma;
+bf16) that the bf16 serving paths take, and a SIMT one that keeps fp32
+(the depth-2 `-vs-cpu` comparisons) and every other shape; both are held
+against the plain version and timed beside it in one run.
 
 * the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
   16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
@@ -23,8 +27,9 @@ card, and drives the port's paths:
   the full widths and depth 2 on the card against the CPU (fp32); then
   `repro_torch.launch.serve` on the full 24-layer internlm2-1.8b (seeded
   random fp32 weights, bf16 compute), batch 4, prompt 2,048, 32 generated
-  tokens, which must launch the kernel once per layer of the prefill, and
-  one prefill and one decode step under torch.profiler;
+  tokens, which must launch the kernel once per layer of the prefill, one
+  prefill under torch.cuda's sync debug mode (its host syncs), and one
+  prefill and one decode step under torch.profiler;
 * the recurrent families: the `ssm_scan` and `mlstm_scan` kernels against
   their plain versions on the reference's kernel-test shapes and at the
   serving shapes, timed there beside their bounds; hymba-1.5b and
@@ -68,6 +73,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -116,6 +122,7 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
     expert_swiglu_ref,
     grouped_matmul_ref,
+    swiglu_gate,
 )
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
@@ -220,6 +227,9 @@ MOE_ARCH = "deepseek-moe-16b"
 _MOE = get_config(MOE_ARCH)
 GMM_CASES = [(4, 96, 160, 224), (2, 128, 64, 64), (8, 32, 48, 96),
              (1, 256, 512, 128)]
+#: one layer of deepseek-moe-16b's prefill attention (16/16 heads)
+MOE_ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, _MOE.n_heads, _MOE.n_kv_heads,
+                  _MOE.resolved_head_dim)
 GMM_EXPERTS = (_MOE.moe.n_routed, _MOE.moe.top_k, _MOE.d_model,
                _MOE.moe.d_expert)                               # E k d f
 GMM_TOKENS = {"prefill": SERVE_BATCH * SERVE_PROMPT, "decode": SERVE_BATCH}
@@ -363,7 +373,7 @@ def phase_build():
     for built in builds:
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "Compiling entry" in ln
-                 or "spill" in ln]
+                 or "spill" in ln or "Performance Loss" in ln]
         log("build", library=built.path.name, seconds=f"{built.seconds:.2f}",
             wall_s=f"{wall:.2f}")
         for ln in ptxas:
@@ -932,61 +942,93 @@ def attn_inputs(gen, b, sq, skv, h, kvh, d, dtype):
     return q, k, v
 
 
-def compare_attn(q, k, v, **kw):
-    """Kernel against the plain version on the same card tensors; raises
-    above the dtype's tolerance, returns the largest absolute difference."""
-    got = flash_ops.flash_attention(q, k, v, **kw)
+def compare_attn(q, k, v, route, **kw):
+    """One kernel (``route``, as `flash_ops.kernel_route` names them)
+    against the plain version on the same card tensors; raises above the
+    dtype's tolerance, returns the largest absolute difference."""
+    got = flash_ops.launch(q, k, v, route, **kw)
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, **kw)
     err = float((got.float() - want.float()).abs().max())
     if not (err <= ATTN_TOL[q.dtype]):
-        raise AssertionError(f"flash_attention differs from its plain version "
-                             f"by {err} > {ATTN_TOL[q.dtype]} (q "
-                             f"{tuple(q.shape)}, k {tuple(k.shape)}, "
-                             f"{q.dtype}, {kw})")
+        raise AssertionError(f"flash_attention's {route} kernel differs from "
+                             f"its plain version by {err} > "
+                             f"{ATTN_TOL[q.dtype]} (q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, {q.dtype}, {kw})")
     return err
 
 
+def attn_routes(q):
+    """The kernels that take q: the SIMT one always, the tensor-core one
+    where `flash_ops.kernel_route` sends q to it."""
+    return ("simt", "wgmma") if flash_ops.kernel_route(q) == "wgmma" \
+        else ("simt",)
+
+
 def phase_attn_compare():
+    """Both kernels against the plain version: the reference's test shapes
+    and the ragged ones in fp32 (SIMT) and bf16 (both), internlm2-1.8b's
+    and deepseek-moe-16b's serving shapes in bf16, and hymba-1.5b's
+    (window and meta tokens) in both dtypes.  Returns the largest error of
+    each kernel."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    saved = flash_ops.LAUNCHES
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    saved = kernel_counts()
+    errs = {(dt, r): 0.0 for dt in (torch.float32, torch.bfloat16)
+            for r in ("simt", "wgmma")}
     cases = 0
     t0 = time.perf_counter()
-    for dtype in errs:
+
+    def run(qkv, **kw):
+        nonlocal cases
+        got = {}
+        for route in attn_routes(qkv[0]):
+            got[route] = compare_attn(*qkv, route, **kw)
+            key = (qkv[0].dtype, route)
+            errs[key] = max(errs[key], got[route])
+            cases += 1
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, kvh, d, causal, window, meta in FLASH_CASES:
-            qkv = attn_inputs(gen, b, s, s, h, kvh, d, dtype)
-            errs[dtype] = max(errs[dtype], compare_attn(
-                *qkv, causal=causal, window=window, n_meta=meta))
-            cases += 1
+            run(attn_inputs(gen, b, s, s, h, kvh, d, dtype), causal=causal,
+                window=window, n_meta=meta)
         for b, sq, skv, h, kvh, d, causal in RAGGED_CASES:
-            qkv = attn_inputs(gen, b, sq, skv, h, kvh, d, dtype)
-            errs[dtype] = max(errs[dtype], compare_attn(*qkv, causal=causal))
-            cases += 1
-    b, s, h, kvh, d = ATTN_SHAPE
-    serving_err = compare_attn(*attn_inputs(gen, b, s, s, h, kvh, d,
-                                            torch.bfloat16), causal=True)
-    errs[torch.bfloat16] = max(errs[torch.bfloat16], serving_err)
-    cases += 1
+            run(attn_inputs(gen, b, sq, skv, h, kvh, d, dtype), causal=causal)
+    serving = {}
+    for name, (b, s, h, kvh, d) in (("internlm2", ATTN_SHAPE),
+                                    ("deepseek", MOE_ATTN_SHAPE)):
+        serving[name] = run(attn_inputs(gen, b, s, s, h, kvh, d,
+                                        torch.bfloat16), causal=True)
     b, s, h, kvh, d, window, meta = HYBRID_ATTN_SHAPE
-    hybrid_errs = {}
-    for dtype in errs:
-        hybrid_errs[dtype] = compare_attn(
-            *attn_inputs(gen, b, s, s, h, kvh, d, dtype), causal=True,
-            window=window, n_meta=meta)
-        errs[dtype] = max(errs[dtype], hybrid_errs[dtype])
-        cases += 1
-    flash_ops.LAUNCHES = saved
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "hymba_" + ("fp32" if dtype == torch.float32 else "bf16")
+        serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
+                           causal=True, window=window, n_meta=meta)
+    set_kernel_counts(saved)
     log("attn-compare", cases=cases,
-        max_abs_err_fp32=f"{errs[torch.float32]:.3e}",
-        max_abs_err_bf16=f"{errs[torch.bfloat16]:.3e}",
-        serving_shape_err=f"{serving_err:.3e}",
+        simt_err_fp32=f"{errs[torch.float32, 'simt']:.3e}",
+        simt_err_bf16=f"{errs[torch.bfloat16, 'simt']:.3e}",
+        wgmma_err_bf16=f"{errs[torch.bfloat16, 'wgmma']:.3e}",
+        **{f"{name}_{route}_err": f"{err:.3e}"
+           for name, got in serving.items() for route, err in got.items()},
         hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
-        hybrid_shape_err_fp32=f"{hybrid_errs[torch.float32]:.3e}",
-        hybrid_shape_err_bf16=f"{hybrid_errs[torch.bfloat16]:.3e}",
         tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return max(errs.values())
+    return {"simt": max(errs[dt, "simt"] for dt in (torch.float32,
+                                                     torch.bfloat16)),
+            "wgmma": errs[torch.bfloat16, "wgmma"]}
+
+
+def in_turns(fns, iters, warmup):
+    """Time each named function in the order given, then in the reverse
+    order; returns each one's mean ms over the two passes (and both
+    passes), so that a drift of the card's clocks weighs on all alike."""
+    runs = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(time_ms(fns[name], iters=iters[name],
+                                      warmup=warmup))
+    return {name: sum(v) / len(v) for name, v in runs.items()}, runs
 
 
 def attn_bound(b, s, h, kvh, d, dtype_bytes):
@@ -1004,34 +1046,42 @@ def attn_bound(b, s, h, kvh, d, dtype_bytes):
 
 
 def phase_attn_time():
-    """The kernel at the serving shape (one layer of internlm2-1.8b's
+    """Both kernels at the serving shape (one layer of internlm2-1.8b's
     prefill, bf16), its plain version, and the library's fused attention
     (SDPA on the same tensors viewed [B, H, S, D]; never called by the
-    port)."""
+    port), in turns."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     b, s, h, kvh, d = ATTN_SHAPE
     q, k, v = attn_inputs(gen, b, s, s, h, kvh, d, torch.bfloat16)
-    saved = flash_ops.LAUNCHES
-    ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True),
-                 iters=20, warmup=3)
-    flash_ops.LAUNCHES = saved
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                       iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3)
+    saved = kernel_counts()
+    fns = {
+        "wgmma": lambda: flash_ops.launch(q, k, v, "wgmma", causal=True),
+        "simt": lambda: flash_ops.launch(q, k, v, "simt", causal=True),
+        "plain": lambda: flash_attention_ref(q, k, v, causal=True),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}
+    ms, runs = in_turns(fns, dict(wgmma=20, simt=5, plain=3, library=20),
+                        warmup=2)
+    set_kernel_counts(saved)
     bound = attn_bound(b, s, h, kvh, d, 2)
-    log("attn-time", B=b, S=s, Hq=h, Hkv=kvh, d=d, dtype="bfloat16",
-        causal=True, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", flop=bound["flop"],
-        bytes=bound["bytes"], pairs_per_head=bound["pairs_per_head"],
-        bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
-        share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
-        tflops=f"{bound['flop'] / ms / 1e9:.2f}",
-        x_library=f"{ms / library_ms:.2f}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    out = {}
+    for route in ("wgmma", "simt"):
+        log("attn-time", kernel=route, B=b, S=s, Hq=h, Hkv=kvh, d=d,
+            dtype="bfloat16", causal=True, ms=f"{ms[route]:.4f}",
+            passes=[f"{t:.4f}" for t in runs[route]],
+            plain_ms=f"{ms['plain']:.4f}",
+            library_ms=f"{ms['library']:.4f}", flop=bound["flop"],
+            bytes=bound["bytes"], pairs_per_head=bound["pairs_per_head"],
+            bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['bound_ms'] / ms[route]:.5f}",
+            tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
+            x_library=f"{ms[route] / ms['library']:.2f}")
+        out[route] = dict(ms=ms[route], plain_ms=ms["plain"],
+                          library_ms=ms["library"],
+                          bound_ms=bound["bound_ms"],
+                          bound_by=bound["bound_by"])
+    return out
 
 
 def collect_garbage():
@@ -1053,8 +1103,10 @@ def kernel_counts():
     """Every kernel's launch count, by name."""
     return dict(sched_select=sched_ops.LAUNCHES, **{
         f"ckpt_{k}": v for k, v in codec_ops.LAUNCHES.items()},
-        flash_attention=flash_ops.LAUNCHES, ssm_scan=ssm_ops.LAUNCHES,
-        mlstm_scan=mlstm_ops.LAUNCHES, moe_gmm=gmm_ops.LAUNCHES)
+        flash_attention=flash_ops.LAUNCHES,
+        flash_attention_wgmma=flash_ops.WGMMA_LAUNCHES,
+        ssm_scan=ssm_ops.LAUNCHES, mlstm_scan=mlstm_ops.LAUNCHES,
+        moe_gmm=gmm_ops.LAUNCHES, moe_gmm_wgmma=gmm_ops.WGMMA_LAUNCHES)
 
 
 def set_kernel_counts(counts):
@@ -1063,9 +1115,11 @@ def set_kernel_counts(counts):
     codec_ops.LAUNCHES.update(quantize=counts["ckpt_quantize"],
                               dequantize=counts["ckpt_dequantize"])
     flash_ops.LAUNCHES = counts["flash_attention"]
+    flash_ops.WGMMA_LAUNCHES = counts["flash_attention_wgmma"]
     ssm_ops.LAUNCHES = counts["ssm_scan"]
     mlstm_ops.LAUNCHES = counts["mlstm_scan"]
     gmm_ops.LAUNCHES = counts["moe_gmm"]
+    gmm_ops.WGMMA_LAUNCHES = counts["moe_gmm_wgmma"]
 
 
 def zero_kernel_counts():
@@ -1363,6 +1417,8 @@ def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
         seconds=f"{time.perf_counter() - t0:.1f}")
     del cpu, card, c_cache, g_cache
     torch.cuda.empty_cache()
+    return {k: launches["prefill"][k] + launches["decode"][k]
+            for k in launches["prefill"]}
 
 
 def slstm_share(model, tokens):
@@ -1575,34 +1631,57 @@ def gmm_capacity_inputs(gen, experts, dtype):
     return x, counts
 
 
-def compare_gmm(fn, ref, args, tol, serving):
-    """Kernel against the plain version on the same card tensors; raises
-    above the bar, returns the largest absolute difference and the largest
-    |output| (a zero output would make any comparison pass)."""
-    got = fn(*args)
+def gmm_route(route):
+    """`grouped_matmul` and `expert_swiglu` through one named kernel
+    (``route``, as `gmm_ops.kernel_route` names them)."""
+    def grouped_matmul(x, w, counts=None):
+        return gmm_ops.launch(x, w, counts, route)
+
+    def expert_swiglu(x, w_gate, w_up, w_down, counts=None):
+        h = swiglu_gate(grouped_matmul(x, w_gate, counts),
+                        grouped_matmul(x, w_up, counts))
+        return grouped_matmul(h, w_down, counts)
+    return {"gate": grouped_matmul, "swiglu": expert_swiglu}
+
+
+def gmm_routes_for(x, w):
+    """The kernels that take (x, w): the SIMT one always, the tensor-core
+    one where `gmm_ops.kernel_route` sends them to it."""
+    return ("simt", "wgmma") if gmm_ops.kernel_route(x, w) == "wgmma" \
+        else ("simt",)
+
+
+def compare_gmm(route, part, ref, args, tol, serving):
+    """One kernel against the plain version on the same card tensors;
+    raises above the bar, returns the largest absolute difference and the
+    largest |output| (a zero output would make any comparison pass)."""
+    got = gmm_route(route)[part](*args)
     torch.cuda.synchronize()
     want = ref(*args).float()
     err = float((got.float() - want).abs().max())
     bar = rel_bar(tol, want) if serving else tol
     if not err <= bar:
-        raise AssertionError(f"moe_gmm {fn.__name__} differs from its plain "
-                             f"version by {err} > {bar} at x "
+        raise AssertionError(f"moe_gmm's {route} kernel ({part}) differs "
+                             f"from its plain version by {err} > {bar} at x "
                              f"{tuple(args[0].shape)} {args[0].dtype}, w "
                              f"{args[1].dtype}")
     return err, float(want.abs().max())
 
 
 def phase_moe_compare():
-    """`expert_swiglu` on the reference's kernel-test shapes (with and
-    without counts, at its bars), and `grouped_matmul`/`expert_swiglu` at
+    """Both kernels through `expert_swiglu` on the reference's kernel-test
+    shapes (with and without counts, at its bars; fp32 x on the SIMT
+    kernel only), and `grouped_matmul`/`expert_swiglu` at
     deepseek-moe-16b's prefill and decode capacity shapes and on a skewed
-    router (C = T), at the bars times max(1, max|out|)."""
+    router (C = T), at the bars times max(1, max|out|).  Returns the
+    largest error of each kernel."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
     saved = kernel_counts()
     t0 = time.perf_counter()
-    test_errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    errs = {(dt, r): 0.0 for dt in (torch.float32, torch.bfloat16)
+            for r in ("simt", "wgmma")}
     cases = 0
-    for dtype in test_errs:
+    for dtype in (torch.float32, torch.bfloat16):
         for e, c, d, f in GMM_CASES:
             x = (torch.randn((e, c, d), generator=gen, device=DEV) * 0.3
                  ).to(dtype)
@@ -1610,12 +1689,13 @@ def phase_moe_compare():
                   for dims in ((d, f), (d, f), (f, d))]
             counts = torch.tensor([c * (i + 1) // (e + 1) for i in range(e)],
                                   dtype=torch.int32, device=DEV)
-            for cnt in (None, counts):
-                err, _ = compare_gmm(gmm_ops.expert_swiglu, expert_swiglu_ref,
-                                     (x, *ws, cnt), GMM_TOL[dtype],
-                                     serving=False)
-                test_errs[dtype] = max(test_errs[dtype], err)
-                cases += 1
+            for route in gmm_routes_for(x, ws[0]):
+                for cnt in (None, counts):
+                    err, _ = compare_gmm(route, "swiglu", expert_swiglu_ref,
+                                         (x, *ws, cnt), GMM_TOL[dtype],
+                                         serving=False)
+                    errs[dtype, route] = max(errs[dtype, route], err)
+                    cases += 1
     e, _, d, f = GMM_EXPERTS
     w_gate, w_up = (gmm_weights(gen, e, d, f, d ** -0.5) for _ in range(2))
     w_down = gmm_weights(gen, e, f, d, f ** -0.5)
@@ -1630,30 +1710,35 @@ def phase_moe_compare():
             tol = GMM_TOL[dtype]
             tag = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
             sizes[f"{tag}_C"] = x.shape[1]
-            runs = {"gate": (gmm_ops.grouped_matmul, grouped_matmul_ref,
-                             (x, w_gate, counts)),
-                    "swiglu": (gmm_ops.expert_swiglu, expert_swiglu_ref,
+            runs = {"gate": (grouped_matmul_ref, (x, w_gate, counts)),
+                    "swiglu": (expert_swiglu_ref,
                                (x, w_gate, w_up, w_down, counts))}
             if dtype == torch.bfloat16:          # weights stored in bf16
-                runs["gate_bf16w"] = (gmm_ops.grouped_matmul,
-                                      grouped_matmul_ref,
+                runs["gate_bf16w"] = (grouped_matmul_ref,
                                       (x, w_gate.to(dtype), counts))
-            for part, (fn, ref, args) in runs.items():
-                serving[f"{tag}_{part}"], sizes[f"{tag}_{part}_max_out"] = \
-                    compare_gmm(fn, ref, args, tol, serving=True)
-            cases += len(runs)
+            for part, (ref, args) in runs.items():
+                for route in gmm_routes_for(x, w_gate):
+                    err, sizes[f"{tag}_{part}_max_out"] = compare_gmm(
+                        route, part.split("_")[0], ref, args, tol,
+                        serving=True)
+                    serving[f"{tag}_{part}_{route}"] = err
+                    errs[dtype, route] = max(errs[dtype, route], err)
+                    cases += 1
             del x, runs
     set_kernel_counts(saved)
     log("moe-compare", cases=cases,
-        test_shapes_err_fp32=f"{test_errs[torch.float32]:.3e}",
-        test_shapes_err_bf16=f"{test_errs[torch.bfloat16]:.3e}",
+        **{f"{r}_err_{'fp32' if dt == torch.float32 else 'bf16'}":
+           f"{v:.3e}" for (dt, r), v in errs.items()
+           if not (dt == torch.float32 and r == "wgmma")},
         tol_fp32=GMM_TOL[torch.float32], tol_bf16=GMM_TOL[torch.bfloat16],
         **{k: f"{v:.3e}" for k, v in serving.items()},
         **{k: (v if k.endswith("_C") else f"{v:.4f}")
            for k, v in sizes.items()},
         serving_bar="tol x max(1, max|out|)",
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return max(*test_errs.values(), *serving.values())
+    return {"simt": max(errs[dt, "simt"] for dt in (torch.float32,
+                                                     torch.bfloat16)),
+            "wgmma": errs[torch.bfloat16, "wgmma"]}
 
 
 def gmm_bound(x, w, counts):
@@ -1677,11 +1762,11 @@ def gmm_bound(x, w, counts):
 
 def phase_moe_time():
     """One gate product of deepseek-moe-16b's experts, bf16 x, at the
-    prefill and decode capacity shapes of a uniform router: the kernel on
-    the fp32 master weights (as the serve path calls it) and on bf16
-    weights, its plain version, `torch.bmm` on the bf16 weights (the
-    library's batched product; never called by the port), and the
-    bound."""
+    prefill and decode capacity shapes of a uniform router, in turns: the
+    tensor-core kernel on the fp32 master weights (as the serve path calls
+    it) and on bf16 weights, the SIMT kernel on the fp32 weights, the
+    plain version, `torch.bmm` on the bf16 weights (the library's batched
+    product; never called by the port), and the bound."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     saved = kernel_counts()
     e, _, d, f = GMM_EXPERTS
@@ -1691,28 +1776,34 @@ def phase_moe_time():
     for name, tokens in GMM_TOKENS.items():
         x, counts = gmm_capacity_inputs(gen, gmm_routes(gen, tokens),
                                         torch.bfloat16)
-        iters = 10 if name == "prefill" else 50
-        ms = time_ms(lambda: gmm_ops.grouped_matmul(x, w, counts),
-                     iters=iters, warmup=2)
-        ms_bf16w = time_ms(lambda: gmm_ops.grouped_matmul(x, w16, counts),
-                           iters=iters, warmup=2)
-        plain_ms = time_ms(lambda: grouped_matmul_ref(x, w, counts),
-                           iters=iters, warmup=2)
-        library_ms = time_ms(lambda: torch.bmm(x, w16), iters=iters,
-                             warmup=2)
+        fns = {"wgmma": lambda: gmm_ops.launch(x, w, counts, "wgmma"),
+               "wgmma_bf16w": lambda: gmm_ops.launch(x, w16, counts,
+                                                     "wgmma"),
+               "simt": lambda: gmm_ops.launch(x, w, counts, "simt"),
+               "plain": lambda: grouped_matmul_ref(x, w, counts),
+               "library": lambda: torch.bmm(x, w16)}
+        n = 10 if name == "prefill" else 50
+        ms, runs = in_turns(fns, dict(wgmma=n, wgmma_bf16w=n, simt=n // 2,
+                                      plain=n // 2, library=n), warmup=2)
         bound = gmm_bound(x, w, counts)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          **bound)
-        log("moe-time", step=name, E=e, C=x.shape[1], d=d, f=f,
-            dtype="bfloat16", weights="float32", ms=f"{ms:.4f}",
-            ms_bf16_weights=f"{ms_bf16w:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", rows=bound["rows"],
-            active_experts=bound["active_experts"], flop=bound["flop"],
-            bytes=bound["bytes"], bound_ms=f"{bound['bound_ms']:.5f}",
-            bound_by=bound["bound_by"],
-            share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
-            tflops=f"{bound['flop'] / ms / 1e9:.2f}",
-            x_library_bf16_weights=f"{ms_bf16w / library_ms:.2f}")
+        rows[name] = {}
+        for route in ("wgmma", "simt"):
+            log("moe-time", kernel=route, step=name, E=e, C=x.shape[1], d=d,
+                f=f, dtype="bfloat16", weights="float32",
+                ms=f"{ms[route]:.4f}",
+                passes=[f"{t:.4f}" for t in runs[route]],
+                ms_bf16_weights=(f"{ms['wgmma_bf16w']:.4f}"
+                                 if route == "wgmma" else "not measured"),
+                plain_ms=f"{ms['plain']:.4f}",
+                library_ms=f"{ms['library']:.4f}", rows=bound["rows"],
+                active_experts=bound["active_experts"], flop=bound["flop"],
+                bytes=bound["bytes"], bound_ms=f"{bound['bound_ms']:.5f}",
+                bound_by=bound["bound_by"],
+                share_of_bound=f"{bound['bound_ms'] / ms[route]:.5f}",
+                tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
+                x_library=f"{ms[route] / ms['library']:.2f}")
+            rows[name][route] = dict(ms=ms[route], plain_ms=ms["plain"],
+                                     library_ms=ms["library"], **bound)
         del x
     set_kernel_counts(saved)
     return rows
@@ -1753,6 +1844,59 @@ def compare_routes(calls, k):
 
 
 
+def phase_prefill_syncs(model, tokens):
+    """One internlm2-1.8b prefill under
+    ``torch.cuda.set_sync_debug_mode("warn")``, under which each
+    synchronising op warns: every such warning, by the innermost line of
+    the port's source on the Python stack when it was raised, and its
+    text."""
+    import traceback
+
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    saved = kernel_counts()
+    src = str(Path(__file__).resolve().parent / "src")
+    where, texts = [], set()
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        # every warning but the notice that the debug mode is a prototype,
+        # which setting the mode prints
+        if "prototype" in str(message):
+            return
+        texts.add(str(message).splitlines()[0][:80])
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(src)]
+        where.append(f"{Path(ours[-1].filename).relative_to(src)}:"
+                     f"{ours[-1].lineno}" if ours
+                     else f"{Path(filename).name}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.prefill({"tokens": tokens}, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    set_kernel_counts(saved)
+    log("serve-syncs", config=SERVE_ARCH, step="prefill", syncs=len(where),
+        at={w: where.count(w) for w in sorted(set(where))} or "none",
+        messages=sorted(texts) or "none")
+    return where
+
+
+def kernel_entry(name, source, replaces, launches, err, t):
+    """One kernel's entry in the JSON record: ``t`` holds its ms, plain_ms,
+    bound_ms, bound_by and library_ms (None where no library call computes
+    the same function)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms")}
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -1768,12 +1912,14 @@ def main():
     attn_err = phase_attn_compare()
     attn = phase_attn_time()
     n_dense = get_config(SERVE_ARCH).n_layers
-    phase_vs_cpu(SERVE_ARCH, "serve-vs-cpu", {"flash_attention": CPU_LAYERS},
-                 {})
-    model, tokens, dense = phase_serve(
-        SERVE_ARCH, "serve", {"flash_attention": n_dense}, {})
+    dense_cpu = phase_vs_cpu(SERVE_ARCH, "serve-vs-cpu",
+                             {"flash_attention": CPU_LAYERS}, {})
+    # bf16 serving: flash through the tensor-core kernel
+    dense_prefill = {"flash_attention_wgmma": n_dense}
+    model, tokens, dense = phase_serve(SERVE_ARCH, "serve", dense_prefill, {})
+    phase_prefill_syncs(model, tokens)
     phase_profile("serve", SERVE_ARCH, model, tokens, ("flash_fwd",),
-                  {"flash_attention": n_dense}, {})
+                  dense_prefill, {})
     del model
     collect_garbage()
     torch.cuda.empty_cache()
@@ -1791,7 +1937,7 @@ def main():
     recurrent = {}
     for arch, phase, per_prefill, per_decode, names in (
             (HYBRID_ARCH, "serve-hymba",
-             {"flash_attention": n_hybrid, "ssm_scan": n_hybrid},
+             {"flash_attention_wgmma": n_hybrid, "ssm_scan": n_hybrid},
              {"ssm_scan": n_hybrid}, ("flash_fwd", "ssm_scan_fwd")),
             (XLSTM_ARCH, "serve-xlstm", {"mlstm_scan": n_mlstm}, {},
              ("mlstm_scan_fwd",))):
@@ -1806,91 +1952,58 @@ def main():
     gmm_err = phase_moe_compare()
     gmm = phase_moe_time()
     n_moe = _MOE.n_layers
-    phase_vs_cpu(MOE_ARCH, "moe-vs-cpu",
-                 {"flash_attention": CPU_LAYERS, "moe_gmm": 3 * CPU_LAYERS},
-                 {"moe_gmm": 3 * CPU_LAYERS})
-    per_prefill = {"flash_attention": n_moe, "moe_gmm": 3 * n_moe}
+    moe_cpu = phase_vs_cpu(
+        MOE_ARCH, "moe-vs-cpu",
+        {"flash_attention": CPU_LAYERS, "moe_gmm": 3 * CPU_LAYERS},
+        {"moe_gmm": 3 * CPU_LAYERS})
+    per_prefill = {"flash_attention_wgmma": n_moe, "moe_gmm_wgmma": 3 * n_moe}
+    per_decode = {"moe_gmm_wgmma": 3 * n_moe}
     model, tokens, moe = phase_serve(MOE_ARCH, "serve-moe", per_prefill,
-                                     {"moe_gmm": 3 * n_moe})
+                                     per_decode)
     phase_profile("serve-moe", MOE_ARCH, model, tokens, ("moe_gmm",),
-                  per_prefill, {"moe_gmm": 3 * n_moe})
+                  per_prefill, per_decode)
     del model
     collect_garbage()
     torch.cuda.empty_cache()
-    record = {"kernels": [{
-        "name": "sched_select",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/sched_select/csrc/sched_select.cu",
-        "replaces": "src/repro/kernels/sched_select/kernel.py:59",
-        "launches": launches,
-        "max_abs_err": max(err, timing["max_abs_err"]),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }] + [{
-        "name": f"ckpt_{name}",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
-        "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
-        "launches": cr_launches[name],
-        "max_abs_err": max(codec_err, codec[name]["max_abs_err"]),
-        "ms": codec[name]["ms"],
-        "plain_ms": codec[name]["plain_ms"],
-        "bound_ms": codec[name]["bound_ms"],
-        "bound_by": codec[name]["bound_by"],
-        "library_ms": None,
-    } for name, line in (("quantize", 22), ("dequantize", 30))] + [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": dense["flash_attention"],
-        "max_abs_err": attn_err,
-        "ms": attn["ms"],
-        "plain_ms": attn["plain_ms"],
-        "bound_ms": attn["bound_ms"],
-        "bound_by": attn["bound_by"],
-        "library_ms": attn["library_ms"],
-    }, {
-        "name": "ssm_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
-        "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
-        "launches": recurrent[HYBRID_ARCH]["ssm_scan"],
-        "max_abs_err": ssm_err,
-        "ms": ssm["prefill"]["ms"],
-        "plain_ms": ssm["prefill"]["plain_ms"],
-        "bound_ms": ssm["prefill"]["bound_ms"],
-        "bound_by": ssm["prefill"]["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "mlstm_scan",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
-        "replaces": "src/repro/kernels/mlstm_scan/kernel.py:46",
-        "launches": recurrent[XLSTM_ARCH]["mlstm_scan"],
-        "max_abs_err": mlstm_err,
-        "ms": mlstm["ms"],
-        "plain_ms": mlstm["plain_ms"],
-        "bound_ms": mlstm["bound_ms"],
-        "bound_by": mlstm["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "moe_gmm",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
-        "replaces": "src/repro/kernels/moe_gmm/kernel.py:25",
-        "launches": moe["moe_gmm"],
-        "max_abs_err": gmm_err,
-        "ms": gmm["prefill"]["ms"],
-        "plain_ms": gmm["prefill"]["plain_ms"],
-        "bound_ms": gmm["prefill"]["bound_ms"],
-        "bound_by": gmm["prefill"]["bound_by"],
-        "library_ms": gmm["prefill"]["library_ms"],
-    }]}
+    flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    gmm_src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
+    record = {"kernels": [kernel_entry(
+        "sched_select",
+        "src/repro_torch/kernels/sched_select/csrc/sched_select.cu",
+        "src/repro/kernels/sched_select/kernel.py:59", launches,
+        max(err, timing["max_abs_err"]), timing)] + [kernel_entry(
+            f"ckpt_{name}",
+            "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
+            f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
+            cr_launches[name], max(codec_err, codec[name]["max_abs_err"]),
+            codec[name])
+        for name, line in (("quantize", 22), ("dequantize", 30))] + [
+        # the SIMT kernels' launches: the fp32 serve paths ([*-vs-cpu])
+        kernel_entry("flash_attention_fwd", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     dense_cpu["flash_attention"], attn_err["simt"],
+                     attn["simt"]),
+        kernel_entry("flash_attention_fwd_wgmma", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     dense["flash_attention_wgmma"], attn_err["wgmma"],
+                     attn["wgmma"]),
+        kernel_entry("ssm_scan",
+                     "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:25",
+                     recurrent[HYBRID_ARCH]["ssm_scan"], ssm_err,
+                     ssm["prefill"]),
+        kernel_entry("mlstm_scan",
+                     "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+                     "src/repro/kernels/mlstm_scan/kernel.py:46",
+                     recurrent[XLSTM_ARCH]["mlstm_scan"], mlstm_err, mlstm),
+        kernel_entry("moe_gmm", gmm_src,
+                     "src/repro/kernels/moe_gmm/kernel.py:25",
+                     moe_cpu["moe_gmm"], gmm_err["simt"],
+                     gmm["prefill"]["simt"]),
+        kernel_entry("moe_gmm_wgmma", gmm_src,
+                     "src/repro/kernels/moe_gmm/kernel.py:25",
+                     moe["moe_gmm_wgmma"], gmm_err["wgmma"],
+                     gmm["prefill"]["wgmma"])]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,21 @@ reference's ``ops.py:35 flash_attention``.  The model's prefill attention
   head dim (``ops.py:52``).  No head-dim padding: the 128-lane padding was
   the TPU's.
 * CPU tensors run the plain version (``ref.py``).
-* CUDA tensors run the hand-written kernel (``csrc/flash_attention.cu``,
-  built for ``sm_90a`` at first use by ``kernels._build``) on the current
-  stream, or raise: there is no fallback to the plain version.  It takes
-  float32 and bfloat16, contiguous, any ``D <= 128``.
+* CUDA tensors run one of two hand-written kernels in
+  ``csrc/flash_attention.cu`` (built for ``sm_90a`` at first use by
+  ``kernels._build``) on the current stream, or raise: there is no
+  fallback from one kernel to the other or to the plain version.  The
+  rule (`kernel_route`): bfloat16 with ``D % 16 == 0`` (and ``D <= 128``)
+  goes to the tensor-core kernel ``flash_fwd_wgmma`` (``"wgmma"``: TMA,
+  mbarriers, wgmma with fp32 accumulators, P·V as a bf16 hi/lo split of
+  fp32 P), whose tensors must also start on 16 bytes with every stride a
+  multiple of 16 bytes; every other case (float32, and bfloat16 with
+  another head dim) goes to the SIMT kernel ``flash_fwd`` (``"simt"``,
+  fp32 on the CUDA cores).  Both take contiguous tensors with
+  ``D <= 128``.
 
-``LAUNCHES`` counts kernel launches on the card; the CPU path never moves
-it.
+``LAUNCHES`` counts launches of the SIMT kernel and ``WGMMA_LAUNCHES``
+those of the tensor-core kernel on the card; the CPU path moves neither.
 """
 from __future__ import annotations
 
@@ -26,13 +34,17 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: kernel launches on the card since the count was last reset
+#: launches of the SIMT kernel on the card since the count was last reset
 LAUNCHES = 0
+#: launches of the tensor-core kernel on the card since the last reset
+WGMMA_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128
+ROUTES = ("simt", "wgmma")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -44,14 +56,16 @@ def build():
     """Build (or reuse) and load the kernel library; returns the
     `kernels._build.Built` record (path, build seconds, ptxas log)."""
     global _lib_handle
-    from repro_torch.kernels import _build
-
     built = _build.load("flash_attention", [SOURCE])
     lib = built.lib
     lib.flash_attention_fwd_launch.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
         _I, _P]
     lib.flash_attention_fwd_launch.restype = _I
+    lib.flash_attention_fwd_wgmma_launch.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I,
+        _P]
+    lib.flash_attention_fwd_wgmma_launch.restype = _I
     lib.flash_attention_error_string.argtypes = [_I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_max_head_dim.argtypes = []
@@ -91,10 +105,38 @@ def _check_shapes(q, k, v):
                          f"{q.device}")
 
 
-def _launch(q, k, v, causal, window, n_meta):
-    global LAUNCHES
+def kernel_route(q: torch.Tensor) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bfloat16 with a head
+    dim that is a multiple of 16, ``"simt"`` for everything else."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def _call(x: torch.Tensor, fn: str, *args):
+    """Launch ``fn`` of the library on x's device and current stream;
+    raise on the error code it returns."""
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention {fn} failed: error {rc} "
+                           f"({msg})")
+
+
+def launch(q, k, v, route: str, *, causal: bool = True, window: int = 0,
+           n_meta: int = 0) -> torch.Tensor:
+    """Run the named kernel (``"simt"`` or ``"wgmma"``) on CUDA tensors
+    that `flash_attention` has checked; raise if that kernel does not take
+    them."""
+    global LAUNCHES, WGMMA_LAUNCHES
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     if d > MAX_HEAD_DIM:
@@ -107,18 +149,25 @@ def _launch(q, k, v, causal, window, n_meta):
         raise ValueError("flash_attention needs at least one query and one "
                          "key")
     out = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, h, kvh, d, float(d ** -0.5),
-            int(causal), int(window), int(n_meta),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc} "
-                           f"({msg})")
-    LAUNCHES += 1
+    scale = float(d ** -0.5)
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the tensor-core kernel takes bfloat16, got "
+                            f"{q.dtype}")
+        if d % 16:
+            raise ValueError(f"the tensor-core kernel takes head dims that "
+                             f"are multiples of 16, got {d}")
+        for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+            _build.check_tma(name, x)
+        _call(q, "flash_attention_fwd_wgmma_launch", q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh,
+              d, scale, int(causal), int(window), int(n_meta))
+        WGMMA_LAUNCHES += 1
+    else:
+        _call(q, "flash_attention_fwd_launch", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, sq, skv, h,
+              kvh, d, scale, int(causal), int(window), int(n_meta))
+        LAUNCHES += 1
     return out
 
 
@@ -131,4 +180,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    n_meta=n_meta)
-    return _launch(q, k, v, causal, window, n_meta)
+    return launch(q, k, v, kernel_route(q), causal=causal, window=window,
+                  n_meta=n_meta)

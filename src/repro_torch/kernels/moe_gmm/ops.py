@@ -13,16 +13,23 @@ MoE layer: three launches, on every prefill and decode step.
   ``w.astype(x.dtype)``).  With int32 ``counts`` [E], each in ``[0, C]``,
   the rows at or past ``counts[e]`` are zero and are not computed.
 * CPU tensors run the plain version (``ref.py``).
-* CUDA tensors run the hand-written kernel (``csrc/moe_gmm.cu``, built for
-  ``sm_90a`` at first use by ``kernels._build``) on the current stream, or
-  raise: there is no fallback to the plain version.  A count outside
-  ``[0, C]`` raises on the CPU; on the card the kernel traps, and the next
-  synchronise raises (the check costs no host read).
+* CUDA tensors run one of two hand-written kernels in ``csrc/moe_gmm.cu``
+  (built for ``sm_90a`` at first use by ``kernels._build``) on the current
+  stream, or raise: there is no fallback from one kernel to the other or
+  to the plain version.  The rule (`kernel_route`): bfloat16 x with ``d``
+  and ``f`` multiples of 8 goes to the tensor-core kernel
+  ``moe_gmm_wgmma`` (``"wgmma"``: TMA, mbarriers, wgmma with fp32
+  accumulators; fp32 weights rounded to bf16 in shared memory), whose
+  tensors must also start on 16 bytes; every other case (float32 x, and
+  other widths) goes to the SIMT kernel ``moe_gmm_kernel`` (``"simt"``,
+  fp32 on the CUDA cores).  A count outside ``[0, C]`` raises on the CPU;
+  on the card either kernel traps, and the next synchronise raises (the
+  check costs no host read).
 * The TPU wrapper's ``block_c``, ``block_d`` and ``block_f`` were its VMEM
   tiling and do not change the function, so they are gone.
 
-``LAUNCHES`` counts kernel launches on the card; the CPU path never moves
-it.
+``LAUNCHES`` counts launches of the SIMT kernel and ``WGMMA_LAUNCHES``
+those of the tensor-core kernel on the card; the CPU path moves neither.
 """
 from __future__ import annotations
 
@@ -32,15 +39,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref, swiglu_gate
 
-#: kernel launches on the card since the count was last reset
+#: launches of the SIMT kernel on the card since the count was last reset
 LAUNCHES = 0
+#: launches of the tensor-core kernel on the card since the last reset
+WGMMA_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 #: capacity rows per block of the kernel: the capacity dispatch rounds C
 #: up to it
 ROW_TILE = 64
+ROUTES = ("simt", "wgmma")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -52,12 +63,12 @@ def build():
     """Build (or reuse) and load the kernel library; returns the
     `kernels._build.Built` record (path, build seconds, ptxas log)."""
     global _lib_handle
-    from repro_torch.kernels import _build
-
     built = _build.load("moe_gmm", [SOURCE])
     lib = built.lib
     lib.moe_gmm_launch.argtypes = [_P] * 4 + [_I] * 6 + [_P]
     lib.moe_gmm_launch.restype = _I
+    lib.moe_gmm_wgmma_launch.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    lib.moe_gmm_wgmma_launch.restype = _I
     lib.moe_gmm_error_string.argtypes = [_I]
     lib.moe_gmm_error_string.restype = ctypes.c_char_p
     lib.moe_gmm_row_tile.argtypes = []
@@ -114,24 +125,57 @@ def _check(x, w, counts):
                          f"{counts.tolist()}")
 
 
-def _launch(x, w, counts):
-    global LAUNCHES
+def kernel_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bfloat16 x whose
+    contraction and output widths are multiples of 8, ``"simt"`` for
+    everything else."""
+    if x.dtype == torch.bfloat16 and x.shape[2] % 8 == 0 and \
+            w.shape[2] % 8 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def _call(x: torch.Tensor, fn: str, *args):
+    """Launch ``fn`` of the library on x's device and current stream;
+    raise on the error code it returns."""
     if x.device.type != "cuda":
-        raise ValueError("the moe_gmm kernel takes CUDA tensors")
+        raise ValueError("the moe_gmm kernels take CUDA tensors")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.moe_gmm_error_string(rc).decode()
+        raise RuntimeError(f"moe_gmm {fn} failed: error {rc} ({msg})")
+
+
+def launch(x, w, counts, route: str) -> torch.Tensor:
+    """Run the named kernel (``"simt"`` or ``"wgmma"``) on CUDA tensors
+    that `grouped_matmul` has checked; raise if that kernel does not take
+    them."""
+    global LAUNCHES, WGMMA_LAUNCHES
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.moe_gmm_launch(
-            x.data_ptr(), w.data_ptr(),
-            None if counts is None else counts.data_ptr(), out.data_ptr(),
-            _DTYPES[x.dtype], _DTYPES[w.dtype], e, c, d, f,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        msg = lib.moe_gmm_error_string(rc).decode()
-        raise RuntimeError(f"moe_gmm launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES += 1
+    cnt = None if counts is None else counts.data_ptr()
+    if route == "wgmma":
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the tensor-core kernel takes bfloat16 x, got "
+                            f"{x.dtype}")
+        if d % 8 or f % 8:
+            raise ValueError(f"the tensor-core kernel takes widths that are "
+                             f"multiples of 8, got d={d}, f={f}")
+        for name, t in (("x", x), ("w", w), ("out", out)):
+            _build.check_tma(name, t)
+        _call(x, "moe_gmm_wgmma_launch", x.data_ptr(), w.data_ptr(), cnt,
+              out.data_ptr(), _DTYPES[w.dtype], e, c, d, f)
+        WGMMA_LAUNCHES += 1
+    else:
+        _call(x, "moe_gmm_launch", x.data_ptr(), w.data_ptr(), cnt,
+              out.data_ptr(), _DTYPES[x.dtype], _DTYPES[w.dtype], e, c, d, f)
+        LAUNCHES += 1
     return out
 
 
@@ -142,7 +186,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, counts)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, counts)
-    return _launch(x, w, counts)
+    return launch(x, w, counts, kernel_route(x, w))
 
 
 def expert_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -9,7 +9,10 @@ The port of ``src/repro/models/attention.py`` minus ``chunked_attention``
   calls it with, ``positions = arange``: exactly the function of the flash
   kernel, whose positions are the row and column indices.  It calls
   `kernels.flash_attention.ops.flash_attention` and raises for any other
-  positions.
+  positions.  Positions built by ``arange_positions`` (the model's prefill
+  builds its own there) carry a mark and pass without a look at their
+  values; any other positions are compared with arange, which on the card
+  costs a device read (a host sync).
 * ``decode_attention`` is plain torch, as in the reference (no kernel):
   fp32 scores, then P cast to the cache's dtype before P·V
   (``attention.py:184``).
@@ -50,7 +53,22 @@ def visibility_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     return vis
 
 
+_ARANGE_MARK = "_rows_are_arange"
+
+
+def arange_positions(batch: int, length: int, device) -> torch.Tensor:
+    """int32 positions [batch, length], ``arange(length)`` in every row (an
+    expanded view, so nothing can write them), marked as such: they pass
+    `prefill_attention`'s guard without a device read."""
+    pos = torch.arange(length, dtype=torch.int32, device=device)[None, :]
+    pos = pos.expand(batch, length)
+    setattr(pos, _ARANGE_MARK, True)
+    return pos
+
+
 def _is_arange(pos: torch.Tensor) -> bool:
+    if getattr(pos, _ARANGE_MARK, False):
+        return True                  # built so: no look at the values
     ar = torch.arange(pos.shape[-1], dtype=pos.dtype, device=pos.device)
     return bool(torch.equal(pos, ar.expand_as(pos)))
 

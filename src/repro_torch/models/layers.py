@@ -75,8 +75,10 @@ def rope_frequencies(head_dim: int, theta: float,
     """Inverse frequencies for RoPE, shape [head_dim // 2], float32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta as a scalar operand: a tensor made from it on the card would
+    # be a host-to-device copy, a host sync per call
+    return 1.0 / torch.pow(float(torch.tensor(theta, dtype=torch.float32)),
+                           exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -44,7 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import cache_pos_write
+from repro_torch.models.attention import arange_positions, cache_pos_write
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
@@ -188,7 +188,8 @@ class Model(nn.Module):
         if nm:
             meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
-        positions = self._positions(b, 0, t + nm)
+        # arange(S) by construction: the flash guard reads nothing back
+        positions = arange_positions(b, t + nm, self.device)
         # the mLSTM kernel starts from a zero state: a fresh cache only
         fresh = cfg.family == "ssm" and int(cache["length"]) == 0
         h, layers = self._trunk(params, x, positions, mode="prefill",

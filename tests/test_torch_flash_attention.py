@@ -19,10 +19,12 @@ from repro.kernels.flash_attention.ops import (  # noqa: E402
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref as jax_attention_ref,
 )
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
     flash_attention_ref,
+    visible,
 )
 
 # tests/test_kernels.py::FLASH_CASES, plus the smoke configs' head dim 8
@@ -134,11 +136,174 @@ def test_cuda_kernel_matches_plain_version_on_card(case):
     torch.backends.cudnn.allow_tf32 = False
     _, _, _, _, _, causal, win, meta, _, _, dtype = case
     q, k, v = (_torch(a, dtype).cuda() for a in _inputs(case))
-    before = ops.LAUNCHES
+    before = (ops.LAUNCHES, ops.WGMMA_LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=causal, window=win, n_meta=meta)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == before + 1
+    tc = ops.kernel_route(q) == "wgmma"
+    assert (ops.LAUNCHES, ops.WGMMA_LAUNCHES) == (
+        before[0] + (not tc), before[1] + tc)
     want = flash_attention_ref(q, k, v, causal=causal, window=win,
                                n_meta=meta)
     np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
                                atol=TOL[dtype])
+
+
+# -- the two kernels on the card: dispatch, refusals, the hi/lo split -----
+
+ROUTE_CASES = [("bfloat16", 16, "wgmma"), ("bfloat16", 64, "wgmma"),
+               ("bfloat16", 128, "wgmma"), ("bfloat16", 8, "simt"),
+               ("bfloat16", 40, "simt"), ("float32", 64, "simt"),
+               ("float32", 128, "simt")]
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTE_CASES,
+                         ids=[f"{c[0]}-d{c[1]}" for c in ROUTE_CASES])
+def test_kernel_route_rule(dtype, d, route):
+    """bf16 with a head dim that is a multiple of 16 takes the tensor-core
+    kernel; everything else the SIMT one."""
+    q = torch.empty((1, 4, 2, d), dtype=getattr(torch, dtype), device="meta")
+    assert ops.kernel_route(q) == route
+
+
+class _Calls:
+    """Stands in for the library: records each launch function called."""
+
+    def __init__(self, fail=False):
+        self.names, self.fail = [], fail
+
+    def __call__(self, x, fn, *args):
+        self.names.append(fn)
+        if self.fail:
+            raise RuntimeError(f"{fn} failed: error 1 (stand-in)")
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 8),
+                                     ("float32", 64)])
+def test_dispatch_takes_one_kernel_and_never_falls_back(monkeypatch, dtype,
+                                                         d):
+    """The kernel the rule names is the one launched, its own count moves,
+    and a failed launch raises without trying the other kernel."""
+    q = torch.zeros((1, 8, 4, d), dtype=getattr(torch, dtype))
+    k = torch.zeros((1, 8, 2, d), dtype=getattr(torch, dtype))
+    want = ops.kernel_route(q)
+    fn = {"wgmma": "flash_attention_fwd_wgmma_launch",
+          "simt": "flash_attention_fwd_launch"}[want]
+    moved = (1, 0) if want == "simt" else (0, 1)
+    calls = _Calls()
+    monkeypatch.setattr(ops, "_call", calls)
+    before = (ops.LAUNCHES, ops.WGMMA_LAUNCHES)
+    out = ops.launch(q, k, k, want, causal=True)
+    assert out.shape == q.shape and calls.names == [fn]
+    assert (ops.LAUNCHES - before[0], ops.WGMMA_LAUNCHES - before[1]) == moved
+    failing = _Calls(fail=True)
+    monkeypatch.setattr(ops, "_call", failing)
+    with pytest.raises(RuntimeError, match="stand-in"):
+        ops.launch(q, k, k, want, causal=True)
+    assert failing.names == [fn]                 # no second kernel tried
+    assert (ops.LAUNCHES - before[0], ops.WGMMA_LAUNCHES - before[1]) == moved
+
+
+def test_tensor_core_kernel_refusals(monkeypatch):
+    """The tensor-core kernel, asked for by name, refuses fp32, a head dim
+    that is not a multiple of 16, and a tensor that does not start on 16
+    bytes, before anything is launched; TMA's stride rule holds for any
+    tensor."""
+    calls = _Calls()
+    monkeypatch.setattr(ops, "_call", calls)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.launch(torch.zeros((1, 8, 4, 64)), kv.float(), kv.float(),
+                   "wgmma")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.launch(torch.zeros((1, 8, 4, 24), dtype=torch.bfloat16),
+                   kv[..., :24].contiguous(), kv[..., :24].contiguous(),
+                   "wgmma")
+    with pytest.raises(ValueError, match="up to 128"):
+        ops.launch(torch.zeros((1, 8, 4, 144), dtype=torch.bfloat16),
+                   torch.zeros((1, 8, 2, 144), dtype=torch.bfloat16),
+                   torch.zeros((1, 8, 2, 144), dtype=torch.bfloat16),
+                   "wgmma")
+    buf = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 8, 4, 64)          # contiguous, 2 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.launch(shifted, kv, kv, "wgmma")
+    assert calls.names == []
+    # strides of 30 and 10 bytes: not multiples of 16
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        _build.check_tma("x", torch.zeros((2, 3, 5), dtype=torch.bfloat16))
+    _build.check_tma("x", torch.zeros((2, 3, 8), dtype=torch.bfloat16))
+
+
+def split_p_attention(q, k, v, *, group, causal, window, n_meta):
+    """A plain model of the tensor-core kernel's arithmetic, over
+    [BH, S, d]: fp32 scores of the bf16 inputs, P = exp(s - max) in fp32,
+    P·V as P_hi·V + P_lo·V with P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+    divided by the fp32 row sum; also returns max |P - P_hi - P_lo| / P
+    over the visible entries."""
+    d = q.shape[-1]
+    kr = k.repeat_interleave(group, dim=0).float()
+    vr = v.repeat_interleave(group, dim=0).float()
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kr) * d ** -0.5
+    vis = visible(q.shape[1], k.shape[1], causal=causal, window=window,
+                  n_meta=n_meta)
+    s = torch.where(vis[None], s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    out = (torch.einsum("bqk,bkd->bqd", hi, vr)
+           + torch.einsum("bqk,bkd->bqd", lo, vr)) / p.sum(-1, keepdim=True)
+    rel = ((p - hi - lo).abs() / p.clamp_min(1e-30))[vis.expand_as(p)]
+    return out.to(q.dtype), float(rel.max())
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[4] % 16 == 0],
+                         ids=[i for c, i in zip(FLASH_CASES, IDS)
+                              if c[4] % 16 == 0])
+def test_hi_lo_split_of_p_keeps_the_function(case):
+    """The split that the tensor-core kernel makes of fp32 P leaves at most
+    2^-16 of P out (bf16 keeps 8 bits, the two halves 16 or more), and its
+    plain model, on the case's inputs rounded to bf16, agrees with the JAX
+    Pallas kernel in interpret mode at the reference's bf16 bar."""
+    b, s, h, kvh, d, causal, win, meta, bq, bk, _ = case
+    q, k, v = _inputs(case[:10] + ("bfloat16",))
+    tq, tk, tv = (_torch(a, "bfloat16") for a in (q, k, v))
+    flat = [t.transpose(1, 2).reshape(-1, s, d) for t in (tq, tk, tv)]
+    got, rel = split_p_attention(*flat, group=h // kvh, causal=causal,
+                                 window=win, n_meta=meta)
+    assert rel <= 2.0 ** -16
+    got = got.reshape(b, h, s, d).transpose(1, 2)
+    kernel = jax_flash_attention(*(_jax(a, "bfloat16") for a in (q, k, v)),
+                                 block_q=bq, block_k=bk, interpret=True,
+                                 causal=causal, window=win, n_meta=meta)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES + [
+    (1, 200, 4, 2, 32, True, 0, 0, 0, 0, "bfloat16", 72),
+    (2, 40, 4, 2, 16, False, 0, 0, 0, 0, "bfloat16", 72)],
+    ids=IDS + ["ragged-200x72", "ragged-40x72"])
+def test_cuda_tensor_core_kernel_matches_plain_version(case):
+    """The tensor-core kernel, by name, on each case's inputs in bf16 (the
+    cases with a head dim it takes), ragged Sq != Skv included."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper (sm_90) GPU")
+    if case[4] % 16:
+        pytest.skip(f"head dim {case[4]} goes to the SIMT kernel")
+    b, s, h, kvh, d, causal, win, meta = case[:8]
+    skv = case[11] if len(case) > 11 else s
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+        for shape in ((b, s, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    before = ops.WGMMA_LAUNCHES
+    got = ops.launch(q, k, v, "wgmma", causal=causal, window=win,
+                     n_meta=meta)
+    torch.cuda.synchronize()
+    assert ops.WGMMA_LAUNCHES == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=win,
+                               n_meta=meta)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               atol=TOL["bfloat16"])

@@ -195,6 +195,32 @@ def test_prefill_attention_takes_arange_positions_only():
         tattn.prefill_attention(q, q, q, pos + 1, pos + 1)
 
 
+def test_model_prefill_positions_pass_the_guard_without_a_read(monkeypatch):
+    """The model's prefill builds its positions with `arange_positions`,
+    whose mark passes the guard without comparing values (on the card a
+    comparison is a host sync per layer); unmarked positions are still
+    compared, and refused unless they are arange."""
+    marked = tattn.arange_positions(2, 5, "cpu")
+    assert torch.equal(marked, torch.arange(5, dtype=torch.int32).expand(2, 5))
+    q = torch.zeros(2, 5, 2, 8)
+
+    def no_read(*args, **kw):
+        raise AssertionError("the guard compared position values")
+
+    monkeypatch.setattr(torch, "equal", no_read)
+    tattn.prefill_attention(q, q, q, marked, marked)
+    cfg = tconfigs.get_smoke_config("internlm2-1.8b")
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((2, 6), dtype=torch.int32)
+    _, logits = model.prefill({"tokens": tokens}, model.init_cache(2, 8))
+    assert torch.isfinite(logits).all()
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="arange"):
+        tattn.prefill_attention(q, q, q, marked + 1, marked + 1)
+    with pytest.raises(ValueError, match="arange"):
+        tattn.prefill_attention(q, q, q, marked.flip(-1), marked.flip(-1))
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -334,12 +360,15 @@ def test_prefill_on_card_goes_through_the_flash_kernel():
         torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (2, 16), device="cuda",
                            dtype=torch.int32)
-    before = flash_ops.LAUNCHES
+    def launched():       # smoke head dim 8: the SIMT kernel
+        return flash_ops.LAUNCHES + flash_ops.WGMMA_LAUNCHES
+
+    before = launched()
     cache, logits = model.prefill({"tokens": tokens},
                                   model.init_cache(2, 20))
     torch.cuda.synchronize()
-    assert flash_ops.LAUNCHES - before == 2
+    assert launched() - before == 2
     assert torch.isfinite(logits).all()
     model.decode_step(cache, logits[:, -1].argmax(-1)[:, None].int())
     torch.cuda.synchronize()
-    assert flash_ops.LAUNCHES - before == 2
+    assert launched() - before == 2

@@ -299,11 +299,14 @@ def test_serve_path_on_card_goes_through_the_gmm_kernel():
         torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
                            dtype=torch.int32)
-    before = gmm_ops.LAUNCHES
+    def launched():       # smoke widths are bf16 multiples of 8: wgmma
+        return gmm_ops.LAUNCHES + gmm_ops.WGMMA_LAUNCHES
+
+    before = launched()
     cache, logits = model.prefill({"tokens": tokens},
                                   model.init_cache(2, 44))
     torch.cuda.synchronize()
-    assert gmm_ops.LAUNCHES - before == 6
+    assert launched() - before == 6
     model.decode_step(cache, logits[:, -1].argmax(-1)[:, None].int())
     torch.cuda.synchronize()
-    assert gmm_ops.LAUNCHES - before == 12
+    assert launched() - before == 12

@@ -135,7 +135,7 @@ def test_wrapper_contract_raises_without_a_card():
     with pytest.raises(ValueError, match="different devices"):
         ops.grouped_matmul(x, w.to("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ops._launch(x, w, counts)
+        ops.launch(x, w, counts, "simt")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.grouped_matmul(x.double(), w.double())
     with pytest.raises(TypeError, match="w has dtype"):
@@ -165,14 +165,16 @@ def test_cuda_kernel_matches_plain_version_on_card(shape, dtype):
     e, c = shape[:2]
     counts = torch.tensor([c // (i + 2) for i in range(e)], dtype=torch.int32,
                           device="cuda")
-    before = ops.LAUNCHES
+    before = (ops.LAUNCHES, ops.WGMMA_LAUNCHES)
     for cnt in (None, counts):
         out = ops.expert_swiglu(*arrs, counts=cnt)
         torch.cuda.synchronize()
         want = expert_swiglu_ref(*arrs, counts=cnt)
         np.testing.assert_allclose(_np(out.cpu()), _np(want.cpu()),
                                    atol=TOL[dtype])
-    assert ops.LAUNCHES == before + 6
+    tc = ops.kernel_route(arrs[0], arrs[1]) == "wgmma"
+    assert (ops.LAUNCHES, ops.WGMMA_LAUNCHES) == (
+        before[0] + (0 if tc else 6), before[1] + (6 if tc else 0))
     if dtype == "bfloat16":                      # fp32 weights under bf16 x
         w32 = torch.from_numpy(_inputs(shape)[1]).cuda()
         got = ops.grouped_matmul(arrs[0], w32, counts)
@@ -180,3 +182,110 @@ def test_cuda_kernel_matches_plain_version_on_card(shape, dtype):
         want = grouped_matmul_ref(arrs[0], w32, counts)
         np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
                                    atol=TOL[dtype])
+
+
+# -- the two kernels on the card: dispatch, refusals, the tensor-core one --
+
+ROUTE_CASES = [("bfloat16", "bfloat16", 160, 224, "wgmma"),
+               ("bfloat16", "float32", 2048, 1408, "wgmma"),
+               ("bfloat16", "bfloat16", 48, 96, "wgmma"),
+               ("bfloat16", "bfloat16", 32, 16, "wgmma"),
+               ("bfloat16", "bfloat16", 36, 64, "simt"),
+               ("bfloat16", "float32", 64, 20, "simt"),
+               ("float32", "float32", 64, 64, "simt")]
+
+
+@pytest.mark.parametrize("xdt,wdt,d,f,route", ROUTE_CASES,
+                         ids=[f"{c[0]}-{c[1]}-d{c[2]}-f{c[3]}"
+                              for c in ROUTE_CASES])
+def test_kernel_route_rule(xdt, wdt, d, f, route):
+    """bf16 x with d and f multiples of 8 takes the tensor-core kernel;
+    everything else the SIMT one."""
+    x = torch.empty((2, 4, d), dtype=getattr(torch, xdt), device="meta")
+    w = torch.empty((2, d, f), dtype=getattr(torch, wdt), device="meta")
+    assert ops.kernel_route(x, w) == route
+
+
+class _Calls:
+    """Stands in for the library: records each launch function called."""
+
+    def __init__(self, fail=False):
+        self.names, self.fail = [], fail
+
+    def __call__(self, x, fn, *args):
+        self.names.append(fn)
+        if self.fail:
+            raise RuntimeError(f"{fn} failed: error 1 (stand-in)")
+
+
+@pytest.mark.parametrize("xdt,wdt", [("bfloat16", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("float32", "float32")])
+def test_dispatch_takes_one_kernel_and_never_falls_back(monkeypatch, xdt,
+                                                         wdt):
+    """The kernel the rule names is the one launched, its own count moves,
+    and a failed launch raises without trying the other kernel."""
+    x = torch.zeros((2, 8, 64), dtype=getattr(torch, xdt))
+    w = torch.zeros((2, 64, 32), dtype=getattr(torch, wdt))
+    want = ops.kernel_route(x, w)
+    fn = {"wgmma": "moe_gmm_wgmma_launch", "simt": "moe_gmm_launch"}[want]
+    calls = _Calls()
+    monkeypatch.setattr(ops, "_call", calls)
+    before = (ops.LAUNCHES, ops.WGMMA_LAUNCHES)
+    ops.launch(x, w, None, want)
+    assert calls.names == [fn]
+    assert (ops.LAUNCHES - before[0], ops.WGMMA_LAUNCHES - before[1]) == (
+        (1, 0) if want == "simt" else (0, 1))
+    failing = _Calls(fail=True)
+    monkeypatch.setattr(ops, "_call", failing)
+    with pytest.raises(RuntimeError, match="stand-in"):
+        ops.launch(x, w, None, want)
+    assert failing.names == [fn]                 # no second kernel tried
+    assert (ops.LAUNCHES - before[0], ops.WGMMA_LAUNCHES - before[1]) == (
+        (1, 0) if want == "simt" else (0, 1))
+
+
+def test_tensor_core_kernel_refusals(monkeypatch):
+    """The tensor-core kernel, asked for by name, refuses fp32 x, widths
+    that are not multiples of 8 and a tensor that does not start on 16
+    bytes, before anything is launched."""
+    calls = _Calls()
+    monkeypatch.setattr(ops, "_call", calls)
+    w = torch.zeros((2, 64, 32))
+    with pytest.raises(TypeError, match="bfloat16 x"):
+        ops.launch(torch.zeros((2, 8, 64)), w, None, "wgmma")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.launch(torch.zeros((2, 8, 60), dtype=torch.bfloat16),
+                   torch.zeros((2, 60, 32)), None, "wgmma")
+    buf = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(2, 8, 64)             # contiguous, 2 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.launch(shifted, w, None, "wgmma")
+    with pytest.raises(ValueError, match="route"):
+        ops.launch(shifted, w, None, "tensor")
+    assert calls.names == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_cuda_tensor_core_kernel_matches_plain_version(shape, wdt):
+    """The tensor-core kernel, by name, on bf16 x with bf16 or fp32
+    weights, with and without counts, at the reference's bf16 bar."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper (sm_90) GPU")
+    x, w = (t.cuda() for t in _torch(_inputs(shape)[:2], "bfloat16"))
+    w = w.to(getattr(torch, wdt))
+    e, c = shape[:2]
+    counts = torch.tensor([c // (i + 2) for i in range(e)], dtype=torch.int32,
+                          device="cuda")
+    before = ops.WGMMA_LAUNCHES
+    for cnt in (None, counts):
+        got = ops.launch(x, w, cnt, "wgmma")
+        torch.cuda.synchronize()
+        want = grouped_matmul_ref(x, w, cnt)
+        np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                                   atol=TOL["bfloat16"])
+    assert ops.WGMMA_LAUNCHES == before + 2
