@@ -32,14 +32,16 @@ against the plain version and timed beside it in one run.
   prefill and one decode step under torch.profiler;
 * the recurrent families: the `ssm_scan` and `mlstm_scan` kernels against
   their plain versions on the reference's kernel-test shapes and at the
-  serving shapes, timed there beside their bounds; hymba-1.5b and
+  serving shapes (the mLSTM also from a carried state, and at S = 1),
+  timed there beside their bounds; hymba-1.5b and
   xlstm-350m at the full widths and depth 2 on the card against the CPU
   (fp32); then `repro_torch.launch.serve` on the full 32-layer hymba-1.5b
   (32 flash and 32 `ssm_scan` launches per prefill, 32 `ssm_scan` per
   decode step) and the full 24-layer xlstm-350m (12 `mlstm_scan` launches
-  per prefill, none per decode step), batch 4, prompt 2,048, 32 tokens,
-  with the share of xlstm's prefill spent in the sLSTM, and one prefill
-  and one decode step of each under torch.profiler;
+  per prefill and 12 per decode step, from the carried state), batch 4,
+  prompt 2,048, 32 tokens, with the share of xlstm's prefill spent in the
+  sLSTM, the host syncs of an xlstm prefill onto a non-empty cache, and
+  one prefill and one decode step of each under torch.profiler;
 * the MoE family, last, with every earlier model freed: the `moe_gmm`
   grouped-matmul kernel against its plain version on the reference's
   kernel-test shapes, at deepseek-moe-16b's prefill and decode capacity
@@ -130,6 +132,7 @@ from repro_torch.kernels.sched_select.ref import (  # noqa: E402
 )
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.timing import queued_ms  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
@@ -194,7 +197,10 @@ SERVE_CPU_TOL = 1e-3
 # SERVE_PROMPT (hymba adds its 128 meta tokens; one mLSTM block's heads)
 HYBRID_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-350m"
 _HYMBA, _XLSTM = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH)
-SSM_CASES = [(2, 100, 64, 8), (1, 64, 32, 16), (3, 33, 16, 4)]  # B S di ds
+# B S di ds; the last two: di not a multiple of a block's channels, and
+# di, ds odd (the kernel's 4-byte copies)
+SSM_CASES = [(2, 100, 64, 8), (1, 64, 32, 16), (3, 33, 16, 4),
+             (2, 257, 200, 16), (1, 70, 37, 5)]
 SSM_PREFILL = (SERVE_BATCH, SERVE_PROMPT + _HYMBA.n_meta_tokens,
                _HYMBA.ssm.expand * _HYMBA.d_model, _HYMBA.ssm.d_state)
 #: one layer of hymba-1.5b's prefill attention: the 128 meta tokens and
@@ -205,10 +211,19 @@ HYBRID_ATTN_SHAPE = (SERVE_BATCH, SSM_PREFILL[1], _HYMBA.n_heads,
                      _HYMBA.sliding_window, _HYMBA.n_meta_tokens)
 MLSTM_CASES = [(3, 80, 32, 32), (1, 64, 16, 32), (2, 100, 64, 64),
                (1, 37, 16, 16)]                                # BH S dh L
+#: dh not a multiple of 4: the kernel's 4-byte loads
+MLSTM_ODD = (2, 70, 33, 16)
 MLSTM_PREFILL = (SERVE_BATCH * _XLSTM.n_heads, SERVE_PROMPT,
                  int(_XLSTM.xlstm.proj_factor_mlstm * _XLSTM.d_model)
                  // _XLSTM.n_heads, 256)
 MLSTM_RAGGED_S = 2000
+#: a carried state is the plain version's state after this many steps of a
+#: prefill from the zero state on random inputs: C, n and m as a prefill
+#: leaves them
+MLSTM_STATE_STEPS = 256
+#: the H100's dense TF32 tensor-core rate: with 3xTF32, three times the
+#: function's FLOP over it is the mLSTM design's floor
+TF32_OPS_PER_S = 495e12
 #: kernel vs plain at the reference's test shapes: its own bars
 #: (tests/test_kernels.py).  At the serving shapes, the same bars times
 #: the largest magnitude of the compared output where it is above 1: the
@@ -1204,22 +1219,27 @@ def ssm_bound(b, s, di, ds):
 
 def phase_ssm_time():
     """The kernel and its plain version at Hymba's prefill shape and at one
-    decode step (S = 1), beside the bound.  No single PyTorch call computes
-    the scan."""
+    decode step (S = 1), beside the bound.  ``ms`` is the card's time of
+    back-to-back calls queued ahead (``queued_ms``); ``host_ms`` the same
+    calls timed as the host issues them, which at S = 1 is the wrapper's
+    host time.  No single PyTorch call computes the scan."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     saved = kernel_counts()
     rows = {}
     b, s, di, ds = SSM_PREFILL
     for name, steps in (("prefill", s), ("decode", 1)):
         args = ssm_inputs(gen, b, steps, di, ds)
-        ms = time_ms(lambda a=args: ssm_ops.selective_scan(*a), iters=20,
-                     warmup=3)
+        ms = queued_ms(lambda a=args: ssm_ops.selective_scan(*a),
+                       iters=20 if steps > 1 else 200)
+        host_ms = time_ms(lambda a=args: ssm_ops.selective_scan(*a),
+                          iters=20, warmup=3)
         plain_ms = time_ms(lambda a=args: ssm_scan_ref(*a),
                            iters=2 if steps > 1 else 20, warmup=1)
         bound = ssm_bound(b, steps, di, ds)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, **bound)
+        rows[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, **bound)
         log("ssm-time", step=name, B=b, S=steps, di=di, ds=ds,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            ms=f"{ms:.5f}", host_ms=f"{host_ms:.5f}",
+            plain_ms=f"{plain_ms:.4f}",
             bytes=bound["bytes"], flop=bound["flop"], exps=bound["exps"],
             bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
             share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
@@ -1237,90 +1257,131 @@ def mlstm_inputs(gen, bh, s, dh):
             torch.nn.functional.logsigmoid(rn(bh, s) + 3.0), rn(bh, s))
 
 
-def compare_mlstm(args, chunk, serving):
-    h, state = mlstm_ops.mlstm_scan(*args, chunk=chunk)
+def mlstm_state(gen, bh, dh):
+    """A carried (C0, n0, m0 [BH]): the plain version's state after
+    MLSTM_STATE_STEPS steps from the zero state on fresh random inputs."""
+    _, (c, n, m) = mlstm_scan_ref(*mlstm_inputs(gen, bh, MLSTM_STATE_STEPS,
+                                                dh), chunk=256)
+    return c, n, m[:, 0].contiguous()
+
+
+def compare_mlstm(args, chunk, serving, state=None):
+    h, st = mlstm_ops.mlstm_scan(*args, state, chunk=chunk)
     torch.cuda.synchronize()
-    hr, state_r = mlstm_scan_ref(*args, chunk=chunk)
+    hr, state_r = mlstm_scan_ref(*args, state, chunk=chunk)
     errs = {}
     for name, g, w, bar in (("h", h, hr, MLSTM_H_TOL),
                             *((n, g, w, MLSTM_STATE_TOL) for n, g, w in
-                              zip("Cnm", state, state_r))):
+                              zip("Cnm", st, state_r))):
         e = float((g - w).abs().max())
         limit = rel_bar(bar, w) if serving else bar
         if not e <= limit:
             raise AssertionError(f"mlstm_scan {name} differs from its plain "
                                  f"version by {e} > {limit} at "
-                                 f"{tuple(args[0].shape)}, chunk {chunk}")
+                                 f"{tuple(args[0].shape)}, chunk {chunk}, "
+                                 f"{'carried' if state else 'zero'} state")
         errs[name] = e
+    errs["max_h"] = float(hr.abs().max())
     return errs
 
 
 def phase_mlstm_compare():
+    """The reference's test shapes from the zero state and from a carried
+    one; xlstm-350m's prefill shape (S = 2,048, and a ragged 2,000) from
+    both, and one decode step (S = 1) from a carried state."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
     saved = kernel_counts()
     t0 = time.perf_counter()
     test = {"h": 0.0, "state": 0.0}
-    for bh, s, dh, chunk in MLSTM_CASES:
-        e = compare_mlstm(mlstm_inputs(gen, bh, s, dh), chunk, serving=False)
-        test["h"] = max(test["h"], e["h"])
-        test["state"] = max(test["state"], e["C"], e["n"], e["m"])
+    for bh, s, dh, chunk in (*MLSTM_CASES, MLSTM_ODD):
+        for state in (None, mlstm_state(gen, bh, dh)):
+            e = compare_mlstm(mlstm_inputs(gen, bh, s, dh), chunk,
+                              serving=False, state=state)
+            test["h"] = max(test["h"], e["h"])
+            test["state"] = max(test["state"], e["C"], e["n"], e["m"])
     bh, s, dh, chunk = MLSTM_PREFILL
-    serving = {f"S{n}": compare_mlstm(mlstm_inputs(gen, bh, n, dh), chunk,
-                                      serving=True)
-               for n in (s, MLSTM_RAGGED_S)}
+    serving = {}
+    for n in (s, MLSTM_RAGGED_S, 1):
+        if n > 1:
+            serving[f"S{n}"] = compare_mlstm(mlstm_inputs(gen, bh, n, dh),
+                                             chunk, serving=True)
+        serving[f"S{n}_carried"] = compare_mlstm(
+            mlstm_inputs(gen, bh, n, dh), chunk, serving=True,
+            state=mlstm_state(gen, bh, dh))
     set_kernel_counts(saved)
-    log("mlstm-compare", cases=len(MLSTM_CASES) + len(serving),
+    log("mlstm-compare", cases=2 * len(MLSTM_CASES) + 2 + len(serving),
         test_h_err=f"{test['h']:.3e}", test_state_err=f"{test['state']:.3e}",
         tol_h=MLSTM_H_TOL, tol_state=MLSTM_STATE_TOL,
-        **{f"{k}_{n}_err": f"{v:.3e}" for k, e in serving.items()
-           for n, v in e.items()},
+        **{f"{k}_{n}_err" if n != "max_h" else f"{k}_max_h": f"{v:.3e}"
+           for k, e in serving.items() for n, v in e.items()},
         serving_bar="tol x max(1, max|output|)",
         seconds=f"{time.perf_counter() - t0:.1f}")
     return max(test["h"], test["state"],
-               *(v for e in serving.values() for v in e.values()))
+               *(v for e in serving.values()
+                 for n, v in e.items() if n != "max_h"))
 
 
-def mlstm_bound(bh, s, dh, chunk):
+def mlstm_bound(bh, s, dh, chunk, carried=False):
     """FLOP the function needs (Q K^T and W V over the causal pairs of each
-    chunk, Q C0^T from the second chunk on, the carry V^T K and k^T wc),
-    bytes (q, k, v, lf, li read once; h, C, n, m written once), and the
-    least time: fp32 operations at the CUDA cores' rate against bytes."""
+    chunk, Q C0^T from the second chunk on, or from the first when a state
+    is carried in, the carry V^T K and k^T wc), bytes (q, k, v, lf, li and
+    a carried state read once; h, C, n, m written once), the least time
+    (fp32 operations at the CUDA cores' rate against bytes), and the
+    design's floor: 3xTF32 makes three tensor-core products of each, at
+    the TF32 rate."""
     flop = 0
     for i, c0 in enumerate(range(0, s, chunk)):
         n = min(chunk, s - c0)
         pairs = n * (n + 1) // 2
         flop += 2 * 2 * pairs * dh + 2 * n * dh * dh + 2 * n * dh
-        if i:
+        if i or carried:
             flop += 2 * n * dh * dh
     flop *= bh
-    nbytes = 4 * (4 * bh * s * dh + 2 * bh * s + bh * (dh * dh + dh + 1))
+    state_bytes = 4 * bh * (dh * dh + dh + 1)
+    nbytes = (4 * (4 * bh * s * dh + 2 * bh * s) + state_bytes
+              + (state_bytes if carried else 0))
     times = {"operations": flop / SCALAR_OPS_PER_S,
              "bytes": nbytes / HBM_BYTES_PER_S}
     by = max(times, key=times.get)
     return dict(flop=flop, bytes=nbytes, bound_ms=1e3 * times[by],
-                bound_by=by)
+                bound_by=by,
+                floor_ms=1e3 * max(3 * flop / TF32_OPS_PER_S, times["bytes"]))
 
 
 def phase_mlstm_time():
     """The kernel and its plain version at xlstm-350m's prefill shape (one
-    mLSTM block, batch 4), beside the bound.  No single PyTorch call
-    computes the scan."""
+    mLSTM block, batch 4) from the zero state and from a carried one, and
+    at one decode step (S = 1, carried), beside the bound and the design's
+    3xTF32 floor.  ``ms`` is the card's time of back-to-back calls queued
+    ahead (``queued_ms``); ``host_ms`` the same calls as the host issues
+    them.  No single PyTorch call computes the scan."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
     saved = kernel_counts()
     bh, s, dh, chunk = MLSTM_PREFILL
-    args = mlstm_inputs(gen, bh, s, dh)
-    ms = time_ms(lambda: mlstm_ops.mlstm_scan(*args, chunk=chunk), iters=10,
-                 warmup=2)
-    plain_ms = time_ms(lambda: mlstm_scan_ref(*args, chunk=chunk), iters=5,
-                       warmup=1)
+    rows = {}
+    state = mlstm_state(gen, bh, dh)
+    for name, steps, st in (("prefill_zero", s, None),
+                            ("prefill_carried", s, state),
+                            ("decode_carried", 1, state)):
+        args = mlstm_inputs(gen, bh, steps, dh)
+        fn = lambda a=args, st=st: mlstm_ops.mlstm_scan(*a, st, chunk=chunk)
+        ms = queued_ms(fn, iters=10 if steps > 1 else 100)
+        host_ms = time_ms(fn, iters=10, warmup=2)
+        plain_ms = time_ms(lambda a=args, st=st: mlstm_scan_ref(
+            *a, st, chunk=chunk), iters=5, warmup=1)
+        bound = mlstm_bound(bh, steps, dh, chunk, carried=st is not None)
+        rows[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, **bound)
+        log("mlstm-time", row=name, BH=bh, S=steps, dh=dh,
+            chunk=min(chunk, steps), ms=f"{ms:.4f}", host_ms=f"{host_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", flop=bound["flop"],
+            bytes=bound["bytes"], bound_ms=f"{bound['bound_ms']:.5f}",
+            bound_by=bound["bound_by"],
+            floor_3xtf32_ms=f"{bound['floor_ms']:.5f}",
+            share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
+            share_of_floor=f"{bound['floor_ms'] / ms:.5f}",
+            gflops=f"{bound['flop'] / ms / 1e6:.1f}", library_ms="none")
     set_kernel_counts(saved)
-    bound = mlstm_bound(bh, s, dh, chunk)
-    log("mlstm-time", BH=bh, S=s, dh=dh, chunk=chunk, ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", flop=bound["flop"], bytes=bound["bytes"],
-        bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
-        share_of_bound=f"{bound['bound_ms'] / ms:.5f}",
-        gflops=f"{bound['flop'] / ms / 1e6:.1f}", library_ms="none")
-    return dict(ms=ms, plain_ms=plain_ms, **bound)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1844,15 +1905,16 @@ def compare_routes(calls, k):
 
 
 
-def phase_prefill_syncs(model, tokens):
-    """One internlm2-1.8b prefill under
-    ``torch.cuda.set_sync_debug_mode("warn")``, under which each
+def phase_prefill_syncs(model, tokens, arch=SERVE_ARCH, cache=None):
+    """One prefill of ``arch`` (into a fresh cache, or onto ``cache``)
+    under ``torch.cuda.set_sync_debug_mode("warn")``, under which each
     synchronising op warns: every such warning, by the innermost line of
     the port's source on the Python stack when it was raised, and its
     text."""
     import traceback
 
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    if cache is None:
+        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
     saved = kernel_counts()
     src = str(Path(__file__).resolve().parent / "src")
     where, texts = [], set()
@@ -1880,21 +1942,54 @@ def phase_prefill_syncs(model, tokens):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     set_kernel_counts(saved)
-    log("serve-syncs", config=SERVE_ARCH, step="prefill", syncs=len(where),
+    log("serve-syncs", config=arch, step="prefill",
+        cache="carried" if int(cache["length"]) else "fresh",
+        tokens=tuple(tokens.shape), syncs=len(where),
         at={w: where.count(w) for w in sorted(set(where))} or "none",
         messages=sorted(texts) or "none")
     return where
 
 
-def kernel_entry(name, source, replaces, launches, err, t):
+#: [serve-syncs] for xlstm-350m: the first prefill's and the measured
+#: prefill's prompt (the sLSTM walks it token by token on the host)
+XLSTM_SYNC_PROMPT = 256
+
+
+def phase_xlstm_syncs(model, tokens):
+    """The host syncs of one xlstm-350m prefill onto a non-empty cache
+    (XLSTM_SYNC_PROMPT tokens after as many): none may come from
+    ``models/model.py``, from ``mlstm_forward`` in ``models/xlstm.py`` or
+    from the mLSTM kernel's wrapper."""
+    import inspect
+
+    n = XLSTM_SYNC_PROMPT
+    saved = kernel_counts()
+    cache = model.init_cache(SERVE_BATCH, 2 * n)
+    cache, _ = model.prefill({"tokens": tokens[:, :n]}, cache)
+    set_kernel_counts(saved)
+    where = phase_prefill_syncs(model, tokens[:, n:2 * n], XLSTM_ARCH, cache)
+    lines, first = inspect.getsourcelines(xlstm_mod.mlstm_forward)
+    mlstm_lines = range(first, first + len(lines))
+    bad = [w for w in where
+           if w.startswith(("repro_torch/models/model.py",
+                            "repro_torch/kernels/mlstm_scan/"))
+           or (w.startswith("repro_torch/models/xlstm.py:")
+               and int(w.rsplit(":", 1)[1]) in mlstm_lines)]
+    if bad:
+        raise AssertionError(f"xlstm-350m's prefill onto a carried cache "
+                             f"syncs on the mLSTM path: {sorted(set(bad))}")
+
+
+def kernel_entry(name, source, replaces, launches, err, t, extra=()):
     """One kernel's entry in the JSON record: ``t`` holds its ms, plain_ms,
     bound_ms, bound_by and library_ms (None where no library call computes
-    the same function)."""
+    the same function), and the keys named in ``extra``, which the entry
+    also carries."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t.get("library_ms")}
+            "library_ms": t.get("library_ms"), **{k: t[k] for k in extra}}
 
 
 def main():
@@ -1933,16 +2028,19 @@ def main():
                  {"flash_attention": CPU_LAYERS, "ssm_scan": CPU_LAYERS},
                  {"ssm_scan": CPU_LAYERS})
     phase_vs_cpu(XLSTM_ARCH, "xlstm-vs-cpu", {"mlstm_scan": CPU_LAYERS // 2},
-                 {})
+                 {"mlstm_scan": CPU_LAYERS // 2})
     recurrent = {}
     for arch, phase, per_prefill, per_decode, names in (
             (HYBRID_ARCH, "serve-hymba",
              {"flash_attention_wgmma": n_hybrid, "ssm_scan": n_hybrid},
              {"ssm_scan": n_hybrid}, ("flash_fwd", "ssm_scan_fwd")),
-            (XLSTM_ARCH, "serve-xlstm", {"mlstm_scan": n_mlstm}, {},
-             ("mlstm_scan_fwd",))):
+            (XLSTM_ARCH, "serve-xlstm", {"mlstm_scan": n_mlstm},
+             {"mlstm_scan": n_mlstm},
+             ("mlstm_gates", "mlstm_carry", "mlstm_out"))):
         model, tokens, recurrent[arch] = phase_serve(
             arch, phase, per_prefill, per_decode)
+        if arch == XLSTM_ARCH:
+            phase_xlstm_syncs(model, tokens)
         phase_profile(phase, arch, model, tokens, names, per_prefill,
                       per_decode)
         del model
@@ -1991,11 +2089,14 @@ def main():
                      "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:25",
                      recurrent[HYBRID_ARCH]["ssm_scan"], ssm_err,
-                     ssm["prefill"]),
+                     ssm["prefill"], extra=("host_ms",)),
         kernel_entry("mlstm_scan",
                      "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
                      "src/repro/kernels/mlstm_scan/kernel.py:46",
-                     recurrent[XLSTM_ARCH]["mlstm_scan"], mlstm_err, mlstm),
+                     recurrent[XLSTM_ARCH]["mlstm_scan"], mlstm_err,
+                     # every serving prefill passes the cache's state
+                     mlstm["prefill_carried"],
+                     extra=("host_ms", "floor_ms")),
         kernel_entry("moe_gmm", gmm_src,
                      "src/repro/kernels/moe_gmm/kernel.py:25",
                      moe_cpu["moe_gmm"], gmm_err["simt"],

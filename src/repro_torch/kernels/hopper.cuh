@@ -1,9 +1,11 @@
 // Building blocks of the port's tensor-core kernels for Hopper (sm_90a):
 // TMA tensor maps and tile loads, mbarriers, wgmma shared-memory
 // descriptors and the wgmma.mma_async wrappers with fp32 accumulators.
-// Included by flash_attention/csrc/flash_attention.cu and
-// moe_gmm/csrc/moe_gmm.cu; kernels/_build.py hashes this file into the
-// name of every library that includes it.
+// Included by flash_attention/csrc/flash_attention.cu,
+// moe_gmm/csrc/moe_gmm.cu, mlstm_scan/csrc/mlstm_scan.cu (which adds the
+// cp.async and tf32 blocks at the end) and ssm_scan/csrc/ssm_scan.cu (the
+// cp.async block); kernels/_build.py hashes this file into the name of
+// every library that includes it.
 //
 // Tiles in shared memory are bf16 in the 128-byte swizzle that TMA writes
 // under CU_TENSOR_MAP_SWIZZLE_128B: a tile is a run of 64-element
@@ -383,6 +385,130 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// device: cp.async (global -> shared without registers)
+// ---------------------------------------------------------------------------
+
+// 16 bytes from src, or zeros when !ok (src, which must still be a valid
+// address, is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from src, or zeros when !ok.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: tf32 operands (the 3xTF32 products of mlstm_scan)
+// ---------------------------------------------------------------------------
+
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma reads it through; each writing thread fences, then
+// the block synchronises, before a wgmma reads the tile.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x rounded to tf32 (to nearest, ties away), as its 32-bit pattern.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in fp32).  a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi (3xTF32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// Byte offset of the 16-byte unit u (4 tf32 or fp32 values of the
+// contraction dim) of row r in a 128-byte-swizzled K-major chunk of 32
+// four-byte values a row: the layout TMA writes under SWIZZLE_128B, here
+// written by threads.  A k8 step of wgmma .tf32 is 32 bytes, as a k16 step
+// of bf16 is, so sw128_desc(chunk + 32 * (k / 8 % 4) bytes, 16, 1,024)
+// describes the operand exactly as for bf16.  wgmma takes tf32 operands
+// K-major only (the transpose flags exist for 16-bit types alone).
+__device__ __forceinline__ uint32_t sw128_offset(int r, int u) {
+  return (uint32_t)(r * 128 + ((u ^ (r & 7)) << 4));
+}
+
+// wgmma.mma_async m64nNk8, fp32 += tf32 x tf32, A and B K-major in shared
+// memory (both descriptors).  scale_d = 0 overwrites the accumulator.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace hopper

@@ -1,18 +1,17 @@
 """Plain PyTorch version of the chunkwise mLSTM kernel: the chunked form from
-a zero state.
+a zero or a carried state.
 
 ``mlstm_chunk`` is the port of ``src/repro/models/xlstm.py:87
-_mlstm_chunk`` over any leading dims; the model's mLSTM calls the same
-function for a prefill onto a carried state and for every decode step.
-``mlstm_chunks`` runs it chunk by chunk from a carried state, with the
-ragged tail padded as ``mlstm_forward`` pads it (q, k, v 0, lf 0,
-li -1e30: a padded step writes nothing), which is the function of the TPU
-kernel ``src/repro/kernels/mlstm_scan/kernel.py:46`` when the state is
-C = n = 0, m = -1e30 (``mlstm_scan_ref``).
+_mlstm_chunk`` over any leading dims.  ``mlstm_chunks`` runs it chunk by
+chunk from a carried state, with the ragged tail padded as the reference's
+``mlstm_forward`` pads it (``:168-173``: q, k, v 0, lf 0, li -1e30, so a
+padded step writes nothing).  ``mlstm_scan_ref`` is that from the zero
+state C = n = 0, m = -1e30 of the TPU kernel's ``_init``
+(``src/repro/kernels/mlstm_scan/kernel.py:59-63``) or from a given one.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,17 +93,23 @@ def mlstm_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(hs, dim=-2)[..., :t, :], state
 
 
+def zero_state(bh: int, dh: int, device) -> State:
+    """The TPU kernel's ``_init``: C = n = 0, m = -1e30, fp32."""
+    return (torch.zeros((bh, dh, dh), device=device),
+            torch.zeros((bh, dh), device=device),
+            torch.full((bh,), NEG_BIG, device=device))
+
+
 def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   lf: torch.Tensor, li: torch.Tensor, *,
-                   chunk: int = 256):
-    """q, k, v [BH, S, dh]; lf, li [BH, S], from a zero state -> (h
+                   lf: torch.Tensor, li: torch.Tensor,
+                   state: Optional[State] = None, *, chunk: int = 256):
+    """q, k, v [BH, S, dh]; lf, li [BH, S], from ``state`` (C0 [BH, dh(v),
+    dh(k)], n0 [BH, dh], m0 [BH] fp32; None is ``zero_state``) -> (h
     [BH, S, dh] in q's dtype, (C [BH, dh, dh], n [BH, dh], m [BH, 1]) in
     fp32)."""
     bh, _, dh = q.shape
-    dev = q.device
-    state = (torch.zeros((bh, dh, dh), device=dev),
-             torch.zeros((bh, dh), device=dev),
-             torch.full((bh,), NEG_BIG, device=dev))
+    if state is None:
+        state = zero_state(bh, dh, q.device)
     h, (c, n, m) = mlstm_chunks(q, k, v, lf.float(), li.float(), state,
                                 chunk=chunk)
     return h.to(q.dtype), (c, n, m[:, None])

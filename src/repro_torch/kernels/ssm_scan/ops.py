@@ -12,9 +12,10 @@ cached state.
   ``sm_90a`` at first use by ``kernels._build``) on the current stream, or
   raise: there is no fallback to the plain version.
 * Both take float32 only (the model's scan is fp32 throughout), contiguous,
-  on one device; the kernel takes ``ds <= 16``.  The TPU wrapper's
-  ``chunk`` and ``block_d`` were its VMEM tiling and do not change the
-  function, so they are gone.
+  on one device; the kernel takes ``ds <= 16``, spread over a group of
+  lanes per channel (``csrc/ssm_scan.cu`` has the design).  The TPU
+  wrapper's ``chunk`` and ``block_d`` were its VMEM tiling and do not
+  change the function, so they are gone.
 
 ``LAUNCHES`` counts kernel launches on the card; the CPU path never moves
 it.

@@ -25,9 +25,9 @@ the training slice.  Methods:
 Weights are cast to the compute dtype at each use, as the reference does
 (a bf16 serving copy is later performance work).  ``prefill`` and
 ``decode_step`` write the cache's tensors **in place** and return a new
-dict over them with the new ``length``.  An xLSTM prefill into a fresh
-cache (``length`` 0, read once on the host) runs the mLSTM kernel; any
-other runs the chunk function in torch (`models.xlstm`).  An MoE layer
+dict over them with the new ``length``.  Every xLSTM prefill and decode
+step runs the mLSTM kernel from the cache's carried state
+(`models.xlstm`), reading nothing back to the host.  An MoE layer
 whose tokens exceed the grouped-matmul kernel's row tile reads its largest
 expert count once on the host (`models.moe`).  MLA, VLM and audio raise
 ``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
@@ -160,12 +160,11 @@ class Model(nn.Module):
 
     # -- trunk --------------------------------------------------------------
 
-    def _trunk(self, params, x, positions, *, mode, cache, fresh=False):
+    def _trunk(self, params, x, positions, *, mode, cache):
         cfg = self.cfg
         if cfg.family == "ssm":
             h, layers = xlstm_mod.xlstm_stack_apply(
-                cfg.xlstm, cfg.n_heads, params, x, cache["layers"],
-                fresh=fresh)
+                cfg.xlstm, cfg.n_heads, params, x, cache["layers"])
         else:
             kv_pos = cache["pos"] if "pos" in cache else None
             h, layers, _ = tfm.stack_apply(
@@ -190,10 +189,8 @@ class Model(nn.Module):
             x = torch.cat([meta, x], dim=1)
         # arange(S) by construction: the flash guard reads nothing back
         positions = arange_positions(b, t + nm, self.device)
-        # the mLSTM kernel starts from a zero state: a fresh cache only
-        fresh = cfg.family == "ssm" and int(cache["length"]) == 0
         h, layers = self._trunk(params, x, positions, mode="prefill",
-                                cache=cache, fresh=fresh)
+                                cache=cache)
         new_cache = dict(cache, layers=layers)
         if "pos" in cache:
             new_cache["pos"] = cache_pos_write(cache["pos"], positions,

@@ -3,16 +3,13 @@ of ``src/repro/models/xlstm.py``.
 
 * **mLSTM** runs in chunked-parallel form (the reference's
   ``_mlstm_chunk`` is ``kernels/mlstm_scan/ref.mlstm_chunk``, its chunk
-  loop ``ref.mlstm_chunks``).  The kernel
-  `repro_torch.kernels.mlstm_scan.ops.mlstm_scan` starts from a zero state
-  and has no initial-state input, so ``mlstm_forward`` calls it only when
-  the caller says the state is fresh (``fresh=True``: a prefill into a new
-  cache, which `repro_torch.models.model.Model.prefill` decides from one
-  read of the cache's length) and T > 1; one launch per mLSTM block.  A
-  prefill onto a carried state and every decode step (T = 1) run the chunk
-  function here, in torch, chunk by chunk, as the reference does.  q, k and
-  v go to the kernel upcast to fp32 (exact for bf16), so that h comes back
-  in fp32, where the reference keeps it until after the per-head norm.
+  loop ``ref.mlstm_chunks``) through one route:
+  `repro_torch.kernels.mlstm_scan.ops.mlstm_scan` from the block's carried
+  state, for every T (a prefill into a fresh cache or onto a carried
+  state, and every decode step), one launch per mLSTM block on the card
+  and its plain version on the CPU.  q, k and v go to it upcast to fp32
+  (exact for bf16), so that h comes back in fp32, where the reference
+  keeps it until after the per-head norm.
 * **sLSTM** reads h_{t-1} in its gates, so it has no parallel form and no
   TPU kernel: a plain loop over tokens (the reference's nested scan).
 
@@ -31,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
-from repro_torch.kernels.mlstm_scan.ref import NEG_BIG, mlstm_chunks
+from repro_torch.kernels.mlstm_scan.ref import NEG_BIG
 from repro_torch.models.layers import (
     causal_conv,
     dense_init,
@@ -113,11 +110,9 @@ def _head_norm(h: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
-                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256,
-                  fresh: bool = False) -> Tuple[torch.Tensor, MLSTMState]:
-    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state).
-    ``fresh`` promises that ``state`` is ``MLSTMState.init``'s (c = n = 0,
-    m = -1e30): the kernel's domain."""
+                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256
+                  ) -> Tuple[torch.Tensor, MLSTMState]:
+    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state)."""
     b_sz, t, d_model = x.shape
     di = int(xl.proj_factor_mlstm * d_model)
     dh = di // n_heads
@@ -138,20 +133,16 @@ def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
     li = (xcf @ params["w_i"] + params["b_i"]).transpose(1, 2)
     lf = F.logsigmoid((xcf @ params["w_f"] + params["b_f"]).transpose(1, 2))
 
-    if fresh and t > 1:
-        def flat(a):
-            return a.float().reshape(b_sz * n_heads, *a.shape[2:]).contiguous()
+    def flat(a):                     # [B, H, ...] -> [B * H, ...] fp32
+        return a.float().reshape(b_sz * n_heads, *a.shape[2:]).contiguous()
 
-        h, (c_f, n_f, m_f) = mlstm_scan(flat(q), flat(k), flat(v), flat(lf),
-                                        flat(li), chunk=chunk)
-        h = h.reshape(b_sz, n_heads, t, dh)
-        c_f = c_f.reshape(b_sz, n_heads, dh, dh)
-        n_f = n_f.reshape(b_sz, n_heads, dh)
-        m_f = m_f.reshape(b_sz, n_heads)
-    else:
-        h, (c_f, n_f, m_f) = mlstm_chunks(q, k, v, lf, li,
-                                          (state.c, state.n, state.m),
-                                          chunk=chunk)
+    h, (c_f, n_f, m_f) = mlstm_scan(
+        flat(q), flat(k), flat(v), flat(lf), flat(li),
+        (flat(state.c), flat(state.n), flat(state.m)), chunk=chunk)
+    h = h.reshape(b_sz, n_heads, t, dh)
+    c_f = c_f.reshape(b_sz, n_heads, dh, dh)
+    n_f = n_f.reshape(b_sz, n_heads, dh)
+    m_f = m_f.reshape(b_sz, n_heads)
     h = _head_norm(h.transpose(1, 2).reshape(b_sz, t, di), n_heads)
     h = h * params["gn"]
     h = h.to(x.dtype) * F.silu(z)
@@ -294,18 +285,17 @@ def _write(stacked: NamedTuple, i: int, new: NamedTuple) -> None:
 
 def xlstm_stack_apply(xl: XLSTMConfig, n_heads: int, params: dict,
                       x: torch.Tensor, state: XLSTMStackState, *,
-                      chunk: int = 256, fresh: bool = False
+                      chunk: int = 256
                       ) -> Tuple[torch.Tensor, XLSTMStackState]:
     """The pairs in order, each an mLSTM then an sLSTM residual block;
-    ``state``'s tensors are written in place.  ``fresh`` as in
-    ``mlstm_forward``."""
+    ``state``'s tensors are written in place."""
     n_pairs = params["m_blocks"]["norm"].shape[0]
     for i in range(n_pairs):
         p_m = {k: v[i] for k, v in params["m_blocks"].items()}
         p_s = {k: v[i] for k, v in params["s_blocks"].items()}
         out_m, st_m = mlstm_forward(
             xl, n_heads, p_m, x, MLSTMState(*(a[i] for a in state.m)),
-            chunk=chunk, fresh=fresh)
+            chunk=chunk)
         x = x + out_m
         _write(state.m, i, st_m)
         out_s, st_s = slstm_forward(

@@ -15,7 +15,7 @@ import torch  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py"))]
 
 
 def _forbidden(name: str) -> bool:

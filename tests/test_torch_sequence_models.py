@@ -72,20 +72,37 @@ def test_ssm_forward_matches_jax():
     np.testing.assert_allclose(_np(st.conv), _np(wst.conv), atol=1e-5)
 
 
-@pytest.mark.parametrize("fresh", [False, True], ids=["chunks", "kernel"])
-def test_mlstm_forward_matches_jax(fresh):
-    """Both of the port's routes from a zero state: the chunk loop and the
-    kernel's (its plain version here)."""
+def _mlstm_state(kind, cfg, seed=5):
+    """The port's mLSTM state: ``MLSTMState.init``'s zero state, or a
+    carried one drawn with numpy (C and n at a prefill's scale, m
+    finite)."""
+    st = txlstm.MLSTMState.init(B, D, H, cfg)
+    if kind == "zero":
+        return st
+    rng = np.random.default_rng(seed)
+    draw = lambda t, scale: torch.from_numpy(
+        (rng.standard_normal(tuple(t.shape)) * scale).astype(np.float32))
+    return st._replace(c=draw(st.c, 0.3), n=draw(st.n, 0.3),
+                       m=torch.from_numpy(rng.uniform(
+                           -1.0, 2.0, tuple(st.m.shape)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("state", ["zero", "carried"])
+def test_mlstm_forward_matches_jax(state):
+    """The port's one route (the kernel's plain version here) from the
+    zero state and from a carried one."""
     jcfg, tcfg = XLSTMConfig(**XL), TXLSTMConfig(**XL)
     params = build_params(jxlstm.mlstm_params_spec(D, H, jcfg, jnp.float32),
                           KEY)
     x = _x(1)
-    want, wst = jxlstm.mlstm_forward(
-        jcfg, H, params, jnp.asarray(x), jxlstm.MLSTMState.init(B, D, H, jcfg),
-        chunk=4)
-    got, st = txlstm.mlstm_forward(
-        tcfg, H, _t(params), torch.from_numpy(x),
-        txlstm.MLSTMState.init(B, D, H, tcfg), chunk=4, fresh=fresh)
+    st0 = _mlstm_state(state, tcfg)
+    jst0 = jxlstm.MLSTMState.init(B, D, H, jcfg)._replace(
+        c=jnp.asarray(st0.c.numpy()), n=jnp.asarray(st0.n.numpy()),
+        m=jnp.asarray(st0.m.numpy()))
+    want, wst = jxlstm.mlstm_forward(jcfg, H, params, jnp.asarray(x), jst0,
+                                     chunk=4)
+    got, st = txlstm.mlstm_forward(tcfg, H, _t(params), torch.from_numpy(x),
+                                   st0, chunk=4)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
     for name in ("c", "n", "m"):
         np.testing.assert_allclose(_np(getattr(st, name)),
@@ -145,20 +162,18 @@ def test_mlstm_chunk_sizes_agree(chunks):
     x = torch.from_numpy(_x(1))
     st0 = txlstm.MLSTMState.init(B, D, H, cfg)
     y_a, _ = txlstm.mlstm_forward(cfg, H, params, x, st0, chunk=big)
-    y_b, _ = txlstm.mlstm_forward(cfg, H, params, x, st0, chunk=small,
-                                  fresh=True)
+    y_b, _ = txlstm.mlstm_forward(cfg, H, params, x, st0, chunk=small)
     np.testing.assert_allclose(_np(y_a), _np(y_b), atol=1e-4)
 
 
-@pytest.mark.parametrize("fresh", [False, True], ids=["chunks", "kernel"])
-def test_mlstm_streaming_equals_one_shot(fresh):
+@pytest.mark.parametrize("state", ["zero", "carried"])
+def test_mlstm_streaming_equals_one_shot(state):
     cfg = TXLSTMConfig(**XL)
     params = _torch_params(txlstm.mlstm_params_spec, D, H, cfg, torch.float32)
     x = torch.from_numpy(_x(2))
-    st0 = txlstm.MLSTMState.init(B, D, H, cfg)
+    st0 = _mlstm_state(state, cfg)
     y_ref, _ = txlstm.mlstm_forward(cfg, H, params, x, st0, chunk=4)
-    y_a, st = txlstm.mlstm_forward(cfg, H, params, x[:, :7], st0, chunk=4,
-                                   fresh=fresh)
+    y_a, st = txlstm.mlstm_forward(cfg, H, params, x[:, :7], st0, chunk=4)
     y_b, _ = txlstm.mlstm_forward(cfg, H, params, x[:, 7:], st, chunk=4)
     np.testing.assert_allclose(_np(torch.cat([y_a, y_b], 1)), _np(y_ref),
                                atol=1e-4)
@@ -327,8 +342,8 @@ def test_prefill_and_decode_match_jax(arch, compute_dtype):
 
 
 def test_xlstm_prefill_onto_a_carried_state_continues_it():
-    """A second prefill (not fresh: the chunk function in torch) continues
-    the first one's state as one prefill over both would."""
+    """A second prefill (from the first one's carried state) continues it
+    as one prefill over both would."""
     cfg = tconfigs.get_smoke_config("xlstm-350m").replace(
         compute_dtype="float32")
     model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
@@ -341,3 +356,28 @@ def test_xlstm_prefill_onto_a_carried_state_continues_it():
     cache, got = model.prefill({"tokens": tokens[:, 9:]}, cache)
     assert int(cache["length"]) == 20
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-4)
+
+
+def test_xlstm_prefill_and_decode_read_nothing_back_to_the_host(
+        monkeypatch):
+    """A prefill onto a non-empty cache and a decode step with every host
+    read of a tensor refused: the mLSTM's one route needs no read of the
+    cache's length (on the card, each read would be a sync)."""
+    cfg = tconfigs.get_smoke_config("xlstm-350m").replace(
+        compute_dtype="float32")
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32))
+    cache, _ = model.prefill({"tokens": tokens[:, :9]},
+                             model.init_cache(2, 21, torch.float32))
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a tensor was read back to the host")
+
+    with monkeypatch.context() as patch:
+        for name in ("item", "__int__", "__bool__", "tolist"):
+            patch.setattr(torch.Tensor, name, refuse)
+        cache, logits = model.prefill({"tokens": tokens[:, 9:]}, cache)
+        cache, step = model.decode_step(cache, tokens[:, :1])
+    assert int(cache["length"]) == 21
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()

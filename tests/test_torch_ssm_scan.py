@@ -113,3 +113,59 @@ def test_cuda_kernel_matches_plain_version_on_card(case):
     yr, hr = ssm_scan_ref(*arrs)
     np.testing.assert_allclose(y.cpu().numpy(), yr.cpu().numpy(), atol=TOL)
     np.testing.assert_allclose(h.cpu().numpy(), hr.cpu().numpy(), atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [4, 8, 16])
+@pytest.mark.parametrize("steps", [1, 33, 2176])
+def test_cuda_kernel_lanes_over_states_on_card(steps, ds):
+    """d_state spread over a channel's lanes (fewer states than lanes
+    included), a prefill-long scan and a decode step, at a width that is
+    not a multiple of a block's channels; 1e-5 times max(1, max|output|),
+    as the serving shapes are held."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper (sm_90) GPU")
+    arrs = [torch.from_numpy(a).cuda()
+            for a in _inputs((2, steps, 200, ds), seed=steps + ds)]
+    y, h = ops.selective_scan(*arrs)
+    torch.cuda.synchronize()
+    yr, hr = ssm_scan_ref(*arrs)
+    for got, want in ((y, yr), (h, hr)):
+        bar = TOL * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= bar
+
+
+def _probe():
+    """tools/probe_ssm_lanes.py, loaded as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "probe_ssm_lanes.py"
+    spec = importlib.util.spec_from_file_location("probe_ssm_lanes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", [(4, True), (8, True), (16, True),
+                                     (2, True), (4, False)],
+                         ids=["G4-ex2", "G8-ex2", "G16-ex2", "G2-ex2",
+                              "G4-expf"])
+def test_lane_probe_still_rewrites_the_kernel(variant, tmp_path,
+                                              monkeypatch):
+    """The lane probe writes each of its variants from the kernel's source
+    (it raises if the lines it rewrites have changed): the lanes it names,
+    the header it includes, and expf in place of ex2.approx where asked."""
+    probe = _probe()
+    assert variant in probe.VARIANTS
+    monkeypatch.setattr(probe, "OUT_DIR", tmp_path)
+    lanes, ex2 = variant
+    text = probe.variant_source(lanes, ex2).read_text()
+    assert f"constexpr int kLanes = {lanes};" in text
+    header = text.split('#include "', 2)[1].split('"', 1)[0]
+    assert header.endswith("hopper.cuh") and \
+        (tmp_path / header).resolve().is_file()
+    assert ('asm("ex2.approx' in text) == ex2
+    assert ("return expf(dl * a);" in text) == (not ex2)
