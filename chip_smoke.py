@@ -13,7 +13,8 @@ against the plain version and timed beside it in one run.
 * the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
   16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
   `sched_select` kernel and match the eager "torch" backend column for
-  column; then the launcher;
+  column; one of its plans must be one or two device events and make no
+  host sync; then the launcher;
 * checkpoint-restart: the int8 `ckpt_codec` kernels bit for bit against
   their plain versions, then over a TrainState-shaped tree at the published
   widths of internlm2-1.8b (21.11 GiB on the card); a `CheckpointService`
@@ -281,8 +282,13 @@ def nvidia_smi_line():
 
 
 def random_case(rng, j, n_tiers, bounded):
-    """Random int32 columns; lattice values from a narrow range so the
-    placement argmin meets ties."""
+    """Random int32 columns on the card; lattice values from a narrow range
+    so the placement argmin meets ties."""
+    return on_card(*random_cols(rng, j, n_tiers, bounded))
+
+
+def random_cols(rng, j, n_tiers, bounded):
+    """`random_case`'s columns and scalars as numpy arrays and ints."""
     save_lat = rng.integers(0, 6, (j, n_tiers)).astype(np.int32)
     evictable = rng.random(j) < 0.5
     cpus = rng.integers(1, 8, j).astype(np.int32)
@@ -303,31 +309,123 @@ def random_case(rng, j, n_tiers, bounded):
         is_ckpt=rng.random(j) < 0.7,
         save_lat=save_lat,
     )
-    cols = {k: torch.from_numpy(v).to(DEV) for k, v in cols.items()}
     scal = dict(idle=int(rng.integers(0, 20)),
                 cpus_needed=int(rng.integers(0, max(2, total // 4))),
-                occ=torch.from_numpy(
-                    rng.integers(0, 128, n_tiers).astype(np.int32)).to(DEV),
+                occ=rng.integers(0, 128, n_tiers).astype(np.int32),
                 cap=[int(c) for c in cap])
     return cols, scal
 
 
-def plan_bytes(cols, n_tiers, cheap, tiered):
-    """Bytes the plan must move: each input it reads once, each output
-    written once."""
+def on_card(cols, scal):
+    cols = {k: torch.from_numpy(v).to(DEV) for k, v in cols.items()}
+    return cols, dict(scal, occ=torch.from_numpy(scal["occ"]).to(DEV))
+
+
+#: the cases `[kernel-vs-plain]` adds at J = 262,144, each over the six
+#: static variants: key tuples that repeat (the row decides), keys and
+#: lattice values at INT32_MAX and -1, no candidate, every row a
+#: candidate, capacities of 0, eight tiers
+SCHED_EDGE_CASES = ("ties", "extremes", "no_candidate", "all_candidates",
+                    "cap_zero", "eight_tiers")
+SCHED_EDGE_J = 262_144
+INT32_MAX = 2**31 - 1
+
+
+def edge_case(rng, name, j):
+    n_tiers = 8 if name == "eight_tiers" else 4
+    cols, scal = random_cols(rng, j, n_tiers, True)
+    keys = ("prio", "run_start", "jid", "key_cost")
+    if name == "ties":
+        for k in keys:
+            cols[k] = rng.integers(0, 2, j).astype(np.int32)
+    elif name == "extremes":
+        for k in keys:
+            cols[k] = rng.choice(np.array([-1, INT32_MAX], np.int32), j)
+        cols["save_lat"] = rng.choice(np.array([0, 3, INT32_MAX], np.int32),
+                                      (j, n_tiers))
+        cols["key_cost"] = np.ascontiguousarray(cols["save_lat"][:, 0])
+    elif name == "no_candidate":
+        cols["evictable"][:] = False
+    elif name == "all_candidates":
+        cols["evictable"][:] = True
+    elif name == "cap_zero":
+        scal["cap"] = [0, 0, 0, -1]
+        scal["occ"][:] = 0
+        cols["state_mib"][::3] = 0
+    total = int(cols["cpus"][cols["evictable"]].sum())
+    scal["cpus_needed"] = total // 2
+    return cols, scal
+
+
+#: runtime calls that put work on the card: launches, memsets, copies
+ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "Memset", "Memcpy")
+
+
+def plan_events(fn, calls=5):
+    """Device events (kernels, sets, copies) per call of ``fn`` over
+    ``calls`` calls under torch.profiler: counted from the runtime calls
+    that enqueue them (a short trace can drop device records), beside the
+    device records the trace kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    enqueued = sum(
+        1 for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == DeviceType.CPU
+        and any(k in ev.name() for k in ENQUEUE_CALLS))
+    return enqueued / calls, device_us(prof)[2] / calls
+
+def time_plan(cols, scal, flags, iters=100):
+    """A plan's time on the card (calls queued behind a sleep kernel), as
+    the host issues it, and its device events; launch counts restored."""
+    saved = sched_ops.LAUNCHES
+
+    def fn():
+        sched_ops.plan_evictions_fused(*cols.values(), *scal.values(),
+                                       **flags)
+
+    events, traced = plan_events(fn)
+    row = dict(ms=queued_ms(fn, iters=iters), host_ms=time_ms(fn, iters),
+               events=events, traced=traced)
+    sched_ops.LAUNCHES = saved
+    return row
+
+
+def sched_floor_ms():
+    """An empty cooperative launch of the plan's grid, on the card: the
+    floor of a one-launch plan."""
+    return queued_ms(lambda: sched_ops.floor_launch(DEV), iters=200)
+
+
+def plan_bytes(cols, n_tiers, cheap, tiered, bounded, planned):
+    """Bytes this plan must move, counted from its own inputs.  Rows that
+    are not candidates change no output, so it reads the J evictable
+    flags, the keys and CPUs of the E candidates, the checkpoint flag of
+    each planned victim, and the T lattice words (and, bounded, the size)
+    of each victim that saves a checkpoint; it writes ``planned``,
+    ``tier`` and ``enough`` once.  ``planned`` is the plain version's."""
     j = cols["prio"].shape[0]
-    read = 3 * 4 * j + j + 4 * j + 4 * (2 + n_tiers)  # keys, evict, cpus, scal
-    if cheap:
-        read += 4 * j
+    e = int(cols["evictable"].sum())
+    read = j + 4 * ((4 if cheap else 3) + 1) * e + 4 * (2 + n_tiers)
     if tiered:
-        read += 4 * j + j + 4 * j * n_tiers             # mib, ckpt, lattice
+        saves = int((planned & cols["is_ckpt"].to(torch.bool)).sum())
+        read += int(planned.sum()) + 4 * saves * (n_tiers + int(bounded))
     return read + j + 4 * j + 1                         # planned, tier, enough
 
 
-def plan_bound_ms(cols, n_tiers, cheap, tiered):
-    j = cols["prio"].shape[0]
-    byte_s = plan_bytes(cols, n_tiers, cheap, tiered) / HBM_BYTES_PER_S
-    ops_s = j * max(1, int(np.ceil(np.log2(max(j, 2))))) / SCALAR_OPS_PER_S
+def plan_bound_ms(cols, n_tiers, cheap, tiered, bounded, planned):
+    """The larger of the bytes over the memory rate and the sort's
+    E*log2(E) compares over the scalar rate, in ms, and which it was."""
+    e = int(cols["evictable"].sum())
+    byte_s = plan_bytes(cols, n_tiers, cheap, tiered, bounded,
+                        planned) / HBM_BYTES_PER_S
+    ops_s = e * int(np.ceil(np.log2(max(e, 2)))) / SCALAR_OPS_PER_S
     return 1e3 * max(byte_s, ops_s), ("bytes" if byte_s >= ops_s
                                       else "operations")
 
@@ -410,24 +508,43 @@ def phase_kernel_compare():
                                                 tiered=tiered,
                                                 bounded=bounded))
                     cases += 1
-    log("kernel-vs-plain", cases=cases, max_abs_err=err,
-        seconds=f"{time.perf_counter() - t0:.1f}")
-    # the bounded placement walks the planned prefix on one thread, so
-    # time each size with and without it; the prefix length is printed
+    # the edge cases draw from their own generator, so the timed cases
+    # below are the same columns whatever cases come before them
+    edge_rng = np.random.default_rng(SEED + 1)
+    for name in SCHED_EDGE_CASES:
+        case_cols, case_scal = edge_case(edge_rng, name, SCHED_EDGE_J)
+        for cheap in (False, True):
+            for tiered, bounded in ((False, False), (True, False),
+                                    (True, True)):
+                sc = dict(case_scal, cap=case_scal["cap"] if bounded
+                          else [-1] * len(case_scal["cap"]))
+                cols, scal = on_card(case_cols, sc)
+                err = max(err, compare_plan(cols, scal, cheap=cheap,
+                                            tiered=tiered, bounded=bounded))
+                cases += 1
+    log("kernel-vs-plain", cases=cases, edge_cases=",".join(SCHED_EDGE_CASES),
+        max_abs_err=err, seconds=f"{time.perf_counter() - t0:.1f}")
+    # each size with the bounded walk and without it; E (candidates) and
+    # the victims are printed
+    floor = sched_floor_ms()
     for j in (100_000, 262_144):
         cols, scal = random_case(rng, j, 4, True)
-        victims = int(plan_evictions_ref(*cols.values(), *scal.values(),
-                                         tiered=True)[0].sum())
+        planned = plan_evictions_ref(*cols.values(), *scal.values(),
+                                     tiered=True)[0]
+        victims = int(planned.sum())
         for bounded in (False, True):
             flags = dict(cheap=False, tiered=True, bounded=bounded)
             sc = scal if bounded else dict(scal, cap=[-1] * 4)
-            ms = time_ms(lambda c=cols, s=sc, f=flags:
-                         sched_ops.plan_evictions_fused(
-                             *c.values(), *s.values(), **f), iters=100)
-            bound, _ = plan_bound_ms(cols, 4, False, True)
-            log("kernel-time", J=j, T=4, bounded=bounded, victims=victims,
-                ms=f"{ms:.4f}", bytes=plan_bytes(cols, 4, False, True),
-                bound_ms=f"{bound:.5f}", share_of_bound=f"{bound / ms:.5f}")
+            t = time_plan(cols, sc, flags)
+            bound, _ = plan_bound_ms(cols, 4, False, True, bounded, planned)
+            log("kernel-time", J=j, T=4, bounded=bounded,
+                candidates=int(cols["evictable"].sum()), victims=victims,
+                ms=f"{t['ms']:.4f}", host_ms=f"{t['host_ms']:.4f}",
+                floor_ms=f"{floor:.4f}", device_events=t["events"],
+                traced_device_events=t["traced"],
+                bytes=plan_bytes(cols, 4, False, True, bounded, planned),
+                bound_ms=f"{bound:.5f}",
+                share_of_bound=f"{bound / t['ms']:.5f}")
     return err
 
 
@@ -563,9 +680,7 @@ def phase_fleet_profile():
         res = engine.simulate(users, jobs, fleet_config("cuda"),
                               FLEET_HORIZON, "omfs", pass_depth=FLEET_DEPTH,
                               device=DEV)
-    dev_us, sched_us, _ = device_us(prof, (
-        "build_keys", "bitonic_", "gather_freed", "scan_tiles", "scan_sums",
-        "plan(", "place_bounded"))
+    dev_us, sched_us, _ = device_us(prof, ("sched_select_plan",))
     ticks_s = res.seconds["ticks"]
     log("fleet-profile", ticks=FLEET_HORIZON, ticks_wall_s=f"{ticks_s:.4f}",
         device_busy_ms=f"{dev_us / 1e3:.3f}",
@@ -576,11 +691,11 @@ def phase_fleet_profile():
         host_syncs=res.stats.host_syncs)
 
 
-def phase_kernel_on_fleet(final):
-    """Time the kernel and its plain version on the plan a main-path
-    eviction would make from the fleet's final table (J=100k, T=4)."""
+def fleet_plan_columns(tbl):
+    """The columns and scalars of the plan a main-path eviction would make
+    from the fleet's table ``tbl`` at its last tick (J=100k, T=4): one
+    tenant's share of the CPUs needed, nothing idle."""
     cfg = fleet_config("cuda")
-    tbl = final.table
     t = FLEET_HORIZON - 1
     evictable = ((tbl.state == omfs_torch.RUNNING)
                  & (tbl.jclass != omfs_torch.NONP)
@@ -593,22 +708,46 @@ def phase_kernel_on_fleet(final):
     scal = dict(idle=0, cpus_needed=FLEET_CPUS // FLEET_TENANTS,
                 occ=omfs_torch.tier_occupancy(tbl, 4),
                 cap=list(cfg.cr_tiers.capacity_mib))
+    return cols, scal
+
+
+def phase_kernel_on_fleet(final):
+    """Time the kernel and its plain version on the plan a main-path
+    eviction would make from the fleet's final table (J=100k, T=4)."""
+    cols, scal = fleet_plan_columns(final.table)
     flags = dict(cheap=False, tiered=True, bounded=True)
     err = compare_plan(cols, scal, **flags)
-    victims = int(plan_evictions_ref(*cols.values(), *scal.values(),
-                                     **flags)[0].sum())
+    planned = plan_evictions_ref(*cols.values(), *scal.values(), **flags)[0]
+    victims = int(planned.sum())
     saved = sched_ops.LAUNCHES
-    ms = time_ms(lambda: sched_ops.plan_evictions_fused(
-        *cols.values(), *scal.values(), **flags), iters=200)
+    t = time_plan(cols, scal, flags)
+    floor = sched_floor_ms()
+    # the plan as the engine issues it must make no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched_ops.plan_evictions_fused(*cols.values(), *scal.values(),
+                                       **flags)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     plain_ms = time_ms(lambda: plan_evictions_ref(
         *cols.values(), *scal.values(), **flags), iters=20, warmup=2)
     sched_ops.LAUNCHES = saved
-    bound, bound_by = plan_bound_ms(cols, 4, False, True)
+    if not 0 < t["events"] <= 2:
+        raise AssertionError(f"a fleet plan made {t['events']} device "
+                             f"events (one launch, at most two)")
+    bound, bound_by = plan_bound_ms(cols, 4, False, True, True, planned)
     log("kernel-on-fleet", J=FLEET_JOBS, T=4,
-        victims=victims,
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
-        share_of_bound=f"{bound / ms:.4f}", max_abs_err=err)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        candidates=int(cols["evictable"].sum()), victims=victims,
+        ms=f"{t['ms']:.4f}", host_ms=f"{t['host_ms']:.4f}",
+        floor_ms=f"{floor:.4f}", device_events=t["events"],
+        traced_device_events=t["traced"], host_syncs=0,
+        plain_ms=f"{plain_ms:.4f}",
+        bytes=plan_bytes(cols, 4, False, True, True, planned),
+        bound_ms=f"{bound:.5f}",
+        share_of_bound=f"{bound / t['ms']:.4f}", max_abs_err=err)
+    return dict(ms=t["ms"], host_ms=t["host_ms"], floor_ms=floor,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=err)
 
 
@@ -2069,7 +2208,8 @@ def main():
         "sched_select",
         "src/repro_torch/kernels/sched_select/csrc/sched_select.cu",
         "src/repro/kernels/sched_select/kernel.py:59", launches,
-        max(err, timing["max_abs_err"]), timing)] + [kernel_entry(
+        max(err, timing["max_abs_err"]), timing,
+        extra=("host_ms", "floor_ms"))] + [kernel_entry(
             f"ckpt_{name}",
             "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
             f"src/repro/kernels/ckpt_codec/kernel.py:{line}",

@@ -11,17 +11,28 @@ Replaces the TPU kernel ``src/repro/kernels/sched_select/kernel.py:59``
   built for ``sm_90a`` at first use by ``kernels._build``) on the current
   stream, or raise: there is no fallback to the plain version.
 
-Bound on the H100: the plan reads the int32 key and value columns once
-(``4*J*(5+T)`` bytes, one column more with the cheap key, plus ``2*J``
-bytes of bool masks) and writes ``5*J`` bytes: 4.3 MB at J=100k and T=4,
-i.e. ~1.3 us at 3.35 TB/s.  It is bound by launch latency long before
-bandwidth: the design sorts only ``(key tuple, row)`` with a multi-launch
-bitonic network, gathers the value columns by sorted row, and walks the
-placement over the planned prefix only, so each launch is one coalesced
-sweep; fusing the launches is later work.
+One plan is one cooperative launch and no host read.  The kernel compacts
+the evictable rows (the candidates) and sorts only them, in one CTA when
+there are at most 512 (the fleet's case), else by 512-key tiles and merge
+levels across the grid; it scans the freed CPUs,
+plans, and walks the bounded placement 128 victims a round from shared
+memory (the source's header has the design).  ``idle`` and
+``cpus_needed`` go by value when they are Python ints (what the engine
+passes) and by pointer when they are 0-d tensors; ``occ`` goes by
+pointer; scratch comes from the caching allocator.  The wrapper launches
+nothing else.
 
-``LAUNCHES`` counts kernel launches (one per plan on a CUDA tensor); the
-CPU path never moves it.
+Bound on the H100, from a call's own inputs: rows that are not
+candidates change nothing, so the plan must read the J evictable flags,
+the E candidates' keys and CPUs, and the planned victims' checkpoint
+flags and lattice rows (and sizes, bounded), and write ``5*J + 1``
+bytes: ~0.6 MB for the fleet's plan (J=100k, E=91, 25 victims), ~0.18 us
+at 3.35 TB/s.  One cooperative launch of the grid costs more than that;
+``floor_launch`` makes an empty one, the floor the smoke run times
+beside the bound.
+
+``LAUNCHES`` counts plans launched on a CUDA tensor; the CPU path and
+``floor_launch`` never move it.
 """
 from __future__ import annotations
 
@@ -52,9 +63,11 @@ def build():
     built = _build.load("sched_select", [SOURCE])
     lib = built.lib
     lib.sched_select_launch.argtypes = (
-        [_P] * 11 + [_I] * 5 + [_P] * 5)
+        [_P] * 11 + [_I, _P, _I, _P] + [_I] * 5 + [_P] * 5)
     lib.sched_select_launch.restype = _I
-    lib.sched_select_scratch_words.argtypes = [_I]
+    lib.sched_select_floor.argtypes = [_P]
+    lib.sched_select_floor.restype = _I
+    lib.sched_select_scratch_words.argtypes = [_I, _I]
     lib.sched_select_scratch_words.restype = ctypes.c_longlong
     lib.sched_select_error_string.argtypes = [_I]
     lib.sched_select_error_string.restype = ctypes.c_char_p
@@ -83,12 +96,26 @@ def _check_col(name, x, j, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_scalar(name, x, device):
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def _int32(name, x):
+    x = int(x)
+    if not INT32_MIN <= x <= INT32_MAX:
+        raise ValueError(f"{name}={x} does not fit in int32")
+    return x
+
+
+def _scalar_arg(name, x, device):
+    """``(pointer, value)`` for the kernel: a 0-d int32 tensor on the card
+    goes by pointer, a Python int by value."""
     if isinstance(x, torch.Tensor):
         if x.device != device or x.dtype != torch.int32 or x.dim() != 0:
             raise ValueError(f"{name} must be a 0-d int32 tensor on {device}")
-    elif not isinstance(x, int):
+        return x.data_ptr(), 0
+    if not isinstance(x, int):
         raise TypeError(f"{name} must be an int or a 0-d int32 tensor")
+    return None, _int32(name, x)
 
 
 def plan_evictions_fused(prio, run_start, jid, key_cost, evictable, cpus,
@@ -135,17 +162,13 @@ def plan_evictions_fused(prio, run_start, jid, key_cost, evictable, cpus,
                          f"{lib.sched_select_max_tiers()}, got "
                          f"{tuple(save_lat.shape)}")
     _check_col("occ", occ, n_tiers, torch.int32, device)
-    cap = [int(c) for c in cap]
+    cap = [_int32("cap", c) for c in cap]
     if len(cap) != n_tiers:
         raise ValueError(f"cap has {len(cap)} entries, expected {n_tiers}")
-    _check_scalar("idle", idle, device)
-    _check_scalar("cpus_needed", cpus_needed, device)
+    idle_ptr, idle_val = _scalar_arg("idle", idle, device)
+    need_ptr, need_val = _scalar_arg("cpus_needed", cpus_needed, device)
 
-    scal = torch.empty(2 + n_tiers, dtype=torch.int32, device=device)
-    scal[0] = idle
-    scal[1] = cpus_needed
-    scal[2:] = occ
-    scratch = torch.empty(lib.sched_select_scratch_words(j),
+    scratch = torch.empty(lib.sched_select_scratch_words(j, n_tiers),
                           dtype=torch.int32, device=device)
     planned = torch.empty(j, dtype=torch.bool, device=device)
     enough = torch.empty((), dtype=torch.bool, device=device)
@@ -157,14 +180,30 @@ def plan_evictions_fused(prio, run_start, jid, key_cost, evictable, cpus,
             prio.data_ptr(), run_start.data_ptr(), jid.data_ptr(),
             key_cost.data_ptr(), evictable.data_ptr(), cpus.data_ptr(),
             state_mib.data_ptr(), is_ckpt.data_ptr(), save_lat.data_ptr(),
-            scal.data_ptr(), ctypes.addressof(caps_host), j, n_tiers,
-            int(cheap), int(tiered), int(bounded), scratch.data_ptr(),
-            planned.data_ptr(), enough.data_ptr(), tier.data_ptr(),
-            stream.cuda_stream)
-    if rc != 0:
-        msg = lib.sched_select_error_string(rc).decode()
-        raise RuntimeError(f"sched_select launch failed: CUDA error {rc} "
-                           f"({msg})")
+            occ.data_ptr(), idle_ptr, idle_val, need_ptr, need_val,
+            ctypes.addressof(caps_host), j, n_tiers, int(cheap), int(tiered),
+            int(bounded), scratch.data_ptr(), planned.data_ptr(),
+            enough.data_ptr(), tier.data_ptr(), stream.cuda_stream)
+    _raise_on(lib, rc, "launch")
     global LAUNCHES
     LAUNCHES += 1
     return planned, enough, tier
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        msg = lib.sched_select_error_string(rc).decode()
+        raise RuntimeError(f"sched_select {what} failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def floor_launch(device) -> None:
+    """One empty cooperative launch of the plan's grid, block and shared
+    memory on ``device``'s current stream (not counted in ``LAUNCHES``):
+    the card's cost of any one-launch plan before its work."""
+    device = torch.device(device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        rc = lib.sched_select_floor(torch.cuda.current_stream(device)
+                                    .cuda_stream)
+    _raise_on(lib, rc, "floor launch")
