@@ -10,11 +10,21 @@ bf16) that the bf16 serving paths take, and a SIMT one that keeps fp32
 (the depth-2 `-vs-cpu` comparisons) and every other shape; both are held
 against the plain version and timed beside it in one run.
 
-* the OMFS tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
-  16,384-CPU fleet with a T=4 checkpoint hierarchy: it must go through the
-  `sched_select` kernel and match the eager "torch" backend column for
-  column; one of its plans must be one or two device events and make no
-  host sync; then the launcher;
+* the tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
+  16,384-CPU fleet with a T=4 checkpoint hierarchy, for all seven
+  policies: OMFS, its cheap-victim variant and the five baselines (hard
+  division, capping, FCFS, backfill and backfill with C/R preemption).
+  The three that plan evictions (the OMFS pair and backfill_cr) must go
+  through the `sched_select` kernel, once per plan, and every policy must
+  match the eager "torch" backend column for column; one plan must be one
+  or two device events and make no host sync; each policy's host syncs
+  under torch.cuda's sync debug mode must be the ones its `PassStats`
+  counts; `simulate_matrix` over the seven must equal the per-policy runs;
+  then lifecycle-event capture: all seven policies on the launcher's
+  fleet (cut to 200 ticks) on the card against the Python backend's
+  EventBus, an undersized ring's drops, and omfs with capture on the
+  100k-job fleet (its table unchanged, the capture's device share); then
+  the launcher, also with ``--events --trace-out --metrics-out``;
 * checkpoint-restart: the int8 `ckpt_codec` kernels bit for bit against
   their plain versions, then over a TrainState-shaped tree at the published
   widths of internlm2-1.8b (21.11 GiB on the card); a `CheckpointService`
@@ -135,6 +145,11 @@ from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels.timing import queued_ms  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.obs import validate_trace  # noqa: E402
+from repro_torch.obs.events import (  # noqa: E402
+    EventType,
+    lossless_ring_size,
+)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -162,6 +177,17 @@ FLEET_TENANTS = 16
 FLEET_QUANTUM = 10
 FLEET_DEPTH = 32
 FLEET_HORIZON = 100
+#: the registered policies, and the three that plan evictions
+POLICIES = ("omfs", "omfs_cheap_victim", "static_partition", "capping",
+            "fcfs", "backfill", "backfill_cr")
+PLANNERS = ("omfs", "omfs_cheap_victim", "backfill_cr")
+#: [events]: the launcher's fleet (6 tenants, 1,024 CPUs, arrival rate
+#: 0.08, seed 0; its --pass-depth 64 and a 4 GiB fast tier) cut from 800
+#: ticks to 200, where no queue is longer than the pass depth, so the
+#: bounded tensor pass and the Python backend's full sweep must agree
+EVENTS_HORIZON = 200
+EVENTS_DEPTH = 64
+EVENTS_SMALL_RING = 16
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
@@ -604,31 +630,32 @@ def phase_fleet():
     runs = {}
     # the main path: every kernel count starts at 0 here
     zero_kernel_counts()
-    for policy in ("omfs", "omfs_cheap_victim"):
+    for policy in POLICIES:
         runs[policy, "cuda"] = engine.simulate(
             users, jobs, fleet_config("cuda"), FLEET_HORIZON, policy,
             pass_depth=FLEET_DEPTH, device=DEV)
     launches = sched_ops.LAUNCHES
-    branches = sum(runs[p, "cuda"].stats.evict_branches
-                   for p in ("omfs", "omfs_cheap_victim"))
-    if launches != branches or launches == 0:
+    branches = {p: runs[p, "cuda"].stats.evict_branches for p in PLANNERS}
+    if launches != sum(branches.values()) or min(branches.values()) == 0:
         raise AssertionError(f"sched_select launches {launches} != eviction "
-                             f"branches {branches} (must be > 0)")
-    for policy in ("omfs", "omfs_cheap_victim"):
+                             f"branches {branches} (each must be > 0)")
+    for policy in POLICIES:
         runs[policy, "torch"] = engine.simulate(
             users, jobs, fleet_config("torch"), FLEET_HORIZON, policy,
             pass_depth=FLEET_DEPTH, device=DEV)
     if sched_ops.LAUNCHES != launches:
         raise AssertionError("the torch backend launched sched_select")
     peak = torch.cuda.max_memory_allocated()
-    for policy in ("omfs", "omfs_cheap_victim"):
+    for policy in POLICIES:
         cu, to = runs[policy, "cuda"], runs[policy, "torch"]
         assert_same_run(cu, to, f"fleet {policy}")
         s = cu.summary()
-        if s["preemptions"] <= 0 or s["spills"] <= 0:
+        if policy in PLANNERS and (s["preemptions"] <= 0
+                                   or s["spills"] <= 0):
             raise AssertionError(f"fleet {policy} exercised no eviction or "
                                  f"no spill: {s}")
-        log("fleet", policy=policy, J=FLEET_JOBS, cpus=FLEET_CPUS, T=4,
+        log("fleet" if policy.startswith("omfs") else "policies",
+            policy=policy, J=FLEET_JOBS, cpus=FLEET_CPUS, T=4,
             horizon=FLEET_HORIZON, pass_depth=FLEET_DEPTH,
             ticks_per_s_cuda=f"{FLEET_HORIZON / cu.seconds['ticks']:.3f}",
             ticks_per_s_torch=f"{FLEET_HORIZON / to.seconds['ticks']:.3f}",
@@ -641,8 +668,217 @@ def phase_fleet():
             goodput=f"{s['goodput']:.4f}", done=s["done"],
             identical_to_torch_backend=True)
     log("fleet-memory", max_memory_allocated=peak,
-        workload_gen_s=f"{gen_s:.2f}")
-    return runs["omfs", "cuda"], launches
+        workload_gen_s=f"{gen_s:.2f}", sched_select_launches=launches,
+        **{f"branches_{p}": n for p, n in branches.items()})
+    return runs, launches
+
+
+def sync_sites(fn):
+    """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, under
+    which each synchronising op warns; returns (fn's result, every
+    warning's innermost line of the port's source on the Python stack, the
+    warnings' texts)."""
+    import traceback
+
+    src = str(Path(__file__).resolve().parent / "src")
+    where, texts = [], set()
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        # every warning but the notice that the debug mode is a prototype,
+        # which setting the mode prints
+        if "prototype" in str(message):
+            return
+        texts.add(str(message).splitlines()[0][:80])
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(src)]
+        where.append(f"{Path(ours[-1].filename).relative_to(src)}:"
+                     f"{ours[-1].lineno}" if ours
+                     else f"{Path(filename).name}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, where, texts
+
+
+def phase_policy_syncs(runs):
+    """Each policy's fleet run again on a copy of one built table, under
+    the sync debug mode: the host syncs the card sees must be the ones the
+    passes count in `PassStats` (the OMFS pair: one per queue position;
+    backfill_cr: one per tick; the other four: none), and the table the
+    run's."""
+    users, jobs = fleet_workload()
+    cfg = fleet_config("cuda")
+    built, ent = omfs_torch.table_from_jobs(jobs, users, FLEET_CPUS, cfg, DEV)
+    saved = kernel_counts()
+    for policy in POLICIES:
+        stats = omfs_torch.PassStats()
+        tbl = omfs_torch.JobTable(*(c.clone() for c in built))
+        pass_fn = engine.POLICIES[policy].torch_factory(FLEET_DEPTH)
+        (tbl, _), where, texts = sync_sites(lambda: engine.run_table(
+            cfg, ent, tbl, FLEET_HORIZON, pass_fn, stats=stats))
+        if len(where) != stats.host_syncs:
+            raise AssertionError(f"{policy}: {len(where)} host syncs on the "
+                                 f"card, PassStats counts {stats.host_syncs}:"
+                                 f" {sorted(set(where))}")
+        if not omfs_torch.tables_equal(tbl, runs[policy, "cuda"].table):
+            raise AssertionError(f"{policy}: the table differs from [fleet]'s")
+        log("policy-syncs", policy=policy, ticks=FLEET_HORIZON,
+            syncs=len(where), counted=stats.host_syncs,
+            at={w: where.count(w) for w in sorted(set(where))} or "none",
+            messages=sorted(texts) or "none")
+    set_kernel_counts(saved)
+
+
+def phase_policy_matrix(runs):
+    """`simulate_matrix` over the seven policies on the card, one table
+    build: each result must equal the policy's own `simulate` in [fleet]."""
+    users, jobs = fleet_workload()
+    saved = kernel_counts()
+    t0 = time.perf_counter()
+    matrix = engine.simulate_matrix(users, jobs, fleet_config("cuda"),
+                                    FLEET_HORIZON, list(POLICIES),
+                                    pass_depth=FLEET_DEPTH, device=DEV)
+    wall = time.perf_counter() - t0
+    set_kernel_counts(saved)
+    for res in matrix:
+        solo = runs[res.policy, "cuda"]
+        assert_same_run(res, solo, f"matrix {res.policy}")
+        if res.stats != solo.stats:
+            raise AssertionError(f"matrix {res.policy}: {res.stats} != "
+                                 f"{solo.stats}")
+    log("policy-matrix", policies=len(matrix), J=FLEET_JOBS,
+        horizon=FLEET_HORIZON, build_s=f"{matrix[0].seconds['build']:.2f}",
+        wall_s=f"{wall:.2f}",
+        per_policy_build_s=f"{runs['omfs', 'cuda'].seconds['build']:.2f}",
+        identical_to_simulate=True)
+
+
+def events_fleet():
+    """The launcher's fleet cut to EVENTS_HORIZON ticks, with a 4 GiB
+    fast tier (``--fast-tier-cap-mib 4096``)."""
+    spec = WorkloadSpec(n_users=6, horizon=EVENTS_HORIZON, cpu_total=1024,
+                        seed=0, arrival_rate=0.08)
+    users = make_users(spec)
+    tiers = TieredCRCostModel(
+        tiers=(CRCostModel(), CRCostModel(save_mib_per_tick=2048,
+                                          restore_mib_per_tick=4096)),
+        capacity_mib=(4096, UNBOUNDED))
+    cfg = SchedulerConfig(cpu_total=1024, quantum=20, cr_overhead=2,
+                          cr_tiers=tiers)
+    return users, make_jobs(spec, users), cfg
+
+
+def same_log(a, b, what):
+    if a.events != b.events:
+        raise AssertionError(f"{what}: event logs differ")
+    if not np.array_equal(a.event_counts, b.event_counts):
+        raise AssertionError(f"{what}: event counts differ")
+    if not np.array_equal(a.events_dropped, b.events_dropped):
+        raise AssertionError(f"{what}: drops differ")
+
+
+def phase_events():
+    """Lifecycle events of all seven policies on the card against the
+    Python backend's EventBus (the independent reference), the
+    instrumented table against the uninstrumented one, the host syncs with
+    capture on and off, and an undersized ring's drops."""
+    users, jobs, cfg = events_fleet()
+    saved = kernel_counts()
+    py_s = card_s = 0.0
+    for policy in POLICIES:
+        t0 = time.perf_counter()
+        py = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, policy,
+                             backend="python", record_events=True)
+        t1 = time.perf_counter()
+        card = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, policy,
+                               pass_depth=EVENTS_DEPTH, device=DEV,
+                               record_events=True)
+        card_s += time.perf_counter() - t1
+        py_s += t1 - t0
+        plain = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, policy,
+                                pass_depth=EVENTS_DEPTH, device=DEV)
+        queue = int((py.event_counts[:, EventType.DEFER]
+                     + py.event_counts[:, EventType.START]).max())
+        if queue > EVENTS_DEPTH:
+            raise AssertionError(f"{policy}: a queue of {queue} exceeds the "
+                                 f"pass depth {EVENTS_DEPTH}")
+        same_log(card, py, f"events {policy}: card vs python")
+        if card.signature() != py.signature():
+            raise AssertionError(f"events {policy}: schedules differ")
+        assert_same_run(card, plain, f"events {policy}: capture on vs off")
+        if card.stats != plain.stats:
+            raise AssertionError(f"events {policy}: host syncs {card.stats} "
+                                 f"with capture, {plain.stats} without")
+        per_type = card.event_counts.sum(axis=0)
+        log("events", policy=policy, jobs=len(jobs), cpus=1024,
+            horizon=EVENTS_HORIZON, pass_depth=EVENTS_DEPTH,
+            longest_queue=queue, events=len(card.events),
+            dropped=card.events_dropped_total(),
+            host_syncs=card.stats.host_syncs,
+            **{f"n_{e.name.lower()}": int(per_type[e]) for e in EventType},
+            identical_to_python_bus=True, table_unchanged=True)
+    full = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, "omfs",
+                           pass_depth=EVENTS_DEPTH, device=DEV,
+                           record_events=True)
+    tiny = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, "omfs",
+                           pass_depth=EVENTS_DEPTH, device=DEV,
+                           record_events=True, event_ring=EVENTS_SMALL_RING)
+    set_kernel_counts(saved)
+    want = np.maximum(full.event_counts.sum(axis=1) - EVENTS_SMALL_RING, 0)
+    if not np.array_equal(tiny.events_dropped, want) or want.sum() == 0:
+        raise AssertionError("an undersized ring miscounted its drops")
+    if (not np.array_equal(tiny.event_counts, full.event_counts)
+            or not set(tiny.events) <= set(full.events)
+            or len(tiny.events) + int(want.sum()) != len(full.events)):
+        raise AssertionError("an undersized ring lost or invented events")
+    log("events-ring", policy="omfs", ring=EVENTS_SMALL_RING,
+        dropped=int(want.sum()), kept=len(tiny.events),
+        total=len(full.events), drops_exact=True,
+        python_backend_s=f"{py_s:.2f}", card_s=f"{card_s:.2f}")
+
+
+def phase_events_fleet(fleet_omfs, plain_device_us):
+    """omfs with capture on the 100k-job fleet: the table must be
+    [fleet]'s; the capture's device share is this run's device time over
+    [fleet-profile]'s (the same run without capture), both profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    users, jobs = fleet_workload()
+    saved = kernel_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = engine.simulate(users, jobs, fleet_config("cuda"),
+                              FLEET_HORIZON, "omfs", pass_depth=FLEET_DEPTH,
+                              device=DEV, record_events=True)
+    set_kernel_counts(saved)
+    dev_us, _, _ = device_us(prof)
+    assert_same_run(res, fleet_omfs, "events-fleet vs fleet")
+    if res.stats != fleet_omfs.stats:
+        raise AssertionError(f"events-fleet: host syncs {res.stats} with "
+                             f"capture, {fleet_omfs.stats} without")
+    ring = lossless_ring_size(FLEET_JOBS)
+    ring_bytes = FLEET_HORIZON * (ring * 3 + len(EventType) + 1) * 4
+    per_tick = res.event_counts.sum(axis=1)
+    log("events-fleet", policy="omfs", J=FLEET_JOBS, horizon=FLEET_HORIZON,
+        ring=ring, ring_device_bytes=ring_bytes, events=len(res.events),
+        events_per_tick_mean=f"{per_tick.mean():.1f}",
+        events_per_tick_max=int(per_tick.max()),
+        dropped=res.events_dropped_total(),
+        device_busy_ms=f"{dev_us / 1e3:.3f}",
+        device_busy_ms_without_capture=f"{plain_device_us / 1e3:.3f}",
+        capture_device_share=(f"{(dev_us - plain_device_us) / dev_us:.4f}"
+                              if dev_us else "not measured"),
+        ticks_s=f"{res.seconds['ticks']:.3f}",
+        decode_host_s=f"{res.seconds['decode']:.3f}",
+        host_syncs=res.stats.host_syncs, table_unchanged=True)
 
 
 def device_us(prof, names=()):
@@ -669,26 +905,36 @@ def device_us(prof, names=()):
 
 
 def phase_fleet_profile():
-    """Device busy share of the tick loop: the fleet's `omfs` run under
-    torch.profiler, device time summed over all kernels (and over the
-    sched_select kernels) against the host wall time of the ticks."""
+    """Device busy share of the tick loop: the fleet's runs of omfs, fcfs
+    (for the four baselines that plan nothing, one loop shape) and
+    backfill_cr under torch.profiler, device time summed over all kernels
+    (and over the sched_select kernels) against the host wall time of the
+    ticks, and the device events per tick.  Returns omfs's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     users, jobs = fleet_workload()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = engine.simulate(users, jobs, fleet_config("cuda"),
-                              FLEET_HORIZON, "omfs", pass_depth=FLEET_DEPTH,
-                              device=DEV)
-    dev_us, sched_us, _ = device_us(prof, ("sched_select_plan",))
-    ticks_s = res.seconds["ticks"]
-    log("fleet-profile", ticks=FLEET_HORIZON, ticks_wall_s=f"{ticks_s:.4f}",
-        device_busy_ms=f"{dev_us / 1e3:.3f}",
-        sched_select_ms=f"{sched_us / 1e3:.3f}",
-        device_busy_share=(f"{dev_us / 1e6 / ticks_s:.4f}" if dev_us
-                           else "not measured"),
-        evict_branches=res.stats.evict_branches,
-        host_syncs=res.stats.host_syncs)
+    saved = kernel_counts()
+    out = {}
+    for policy in ("omfs", "fcfs", "backfill_cr"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = engine.simulate(users, jobs, fleet_config("cuda"),
+                                  FLEET_HORIZON, policy,
+                                  pass_depth=FLEET_DEPTH, device=DEV)
+        dev_us, sched_us, n_events = device_us(prof, ("sched_select_plan",))
+        ticks_s = res.seconds["ticks"]
+        out[policy] = dev_us
+        log("fleet-profile", policy=policy, ticks=FLEET_HORIZON,
+            ticks_wall_s=f"{ticks_s:.4f}",
+            device_busy_ms=f"{dev_us / 1e3:.3f}",
+            sched_select_ms=f"{sched_us / 1e3:.3f}",
+            device_busy_share=(f"{dev_us / 1e6 / ticks_s:.4f}" if dev_us
+                               else "not measured"),
+            device_events_per_tick=f"{n_events / FLEET_HORIZON:.1f}",
+            evict_branches=res.stats.evict_branches,
+            host_syncs=res.stats.host_syncs)
+    set_kernel_counts(saved)
+    return out["omfs"]
 
 
 def fleet_plan_columns(tbl):
@@ -760,6 +1006,26 @@ def phase_launcher():
     assert_same_run(res, ref, "launcher cuda vs cpu")
     log("launcher", ticks=len(res.busy_series()),
         seconds_cuda=f"{cuda_s:.2f}", identical_to_cpu_plain=True)
+    with scratch_dir() as root:
+        trace_path, metrics_path = (Path(root) / "trace.json",
+                                    Path(root) / "metrics.json")
+        t0 = time.perf_counter()
+        ev = cluster_sim.main(argv + [
+            "--device", "cuda", "--events", "--trace-out", str(trace_path),
+            "--metrics-out", str(metrics_path)])
+        events_s = time.perf_counter() - t0
+        trace = json.loads(trace_path.read_text())
+        metrics = json.loads(metrics_path.read_text())
+    problems = validate_trace(trace, events=ev.events)
+    if problems:
+        raise AssertionError(f"launcher trace invalid: {problems[:5]}")
+    if not metrics.get("sched_events_total"):
+        raise AssertionError("launcher metrics hold no event counters")
+    assert_same_run(ev, res, "launcher with events vs without")
+    log("launcher", events=len(ev.events), dropped=ev.events_dropped_total(),
+        trace_events=len(trace["traceEvents"]), metrics=len(metrics),
+        seconds_cuda=f"{events_s:.2f}", trace_valid=True,
+        table_unchanged=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2050,36 +2316,11 @@ def phase_prefill_syncs(model, tokens, arch=SERVE_ARCH, cache=None):
     synchronising op warns: every such warning, by the innermost line of
     the port's source on the Python stack when it was raised, and its
     text."""
-    import traceback
-
     if cache is None:
         cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
     saved = kernel_counts()
-    src = str(Path(__file__).resolve().parent / "src")
-    where, texts = [], set()
-
-    def keep(message, category, filename, lineno, file=None, line=None):
-        # every warning but the notice that the debug mode is a prototype,
-        # which setting the mode prints
-        if "prototype" in str(message):
-            return
-        texts.add(str(message).splitlines()[0][:80])
-        ours = [f for f in traceback.extract_stack()
-                if f.filename.startswith(src)]
-        where.append(f"{Path(ours[-1].filename).relative_to(src)}:"
-                     f"{ours[-1].lineno}" if ours
-                     else f"{Path(filename).name}:{lineno}")
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = keep
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            model.prefill({"tokens": tokens}, cache)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    _, where, texts = sync_sites(
+        lambda: model.prefill({"tokens": tokens}, cache))
     set_kernel_counts(saved)
     log("serve-syncs", config=arch, step="prefill",
         cache="carried" if int(cache["length"]) else "fresh",
@@ -2135,9 +2376,14 @@ def main():
     smi = phase_env()
     phase_build()
     err = phase_kernel_compare()
-    final, launches = phase_fleet()
-    timing = phase_kernel_on_fleet(final)
-    phase_fleet_profile()
+    runs, launches = phase_fleet()
+    timing = phase_kernel_on_fleet(runs["omfs", "cuda"])
+    plain_device_us = phase_fleet_profile()
+    phase_policy_syncs(runs)
+    phase_policy_matrix(runs)
+    phase_events()
+    phase_events_fleet(runs["omfs", "cuda"], plain_device_us)
+    del runs
     phase_launcher()
     codec_err = phase_codec_compare()
     codec = phase_codec_state()

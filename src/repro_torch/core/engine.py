@@ -1,5 +1,5 @@
-"""The scheduling engine over the torch `JobTable`: the port of
-``repro.core.engine``'s vectorized backend.
+"""The scheduling engine: the port of ``repro.core.engine``, one tick
+protocol, pluggable policies, two backends.
 
 The tick protocol is the reference's:
 
@@ -7,35 +7,140 @@ The tick protocol is the reference's:
   2. progress   — every running job accrues one work unit; completed jobs
                   free their CPUs,
   3. scheduling — one policy pass over the pending-queue snapshot,
-  4. metrics    — per-tick busy CPUs.
+  4. metrics    — per-tick busy CPUs (and per-user usage on the host).
 
-``simulate(users, jobs, cfg, horizon, policy=..., device=...)`` is the
-entry point; `EngineResult.signature()` and the final table are directly
-comparable with the reference engine's results.
+``tick_python`` runs it over `core.types.ClusterState` with any Python
+policy (`core.omfs.scheduler_pass`, `core.baselines.*`, or a callable);
+``tick_torch`` runs the same semantics over the tensor `JobTable`
+(`core.omfs_torch`) on its device with a registered pass.
+
+``simulate(users, jobs, cfg, horizon, policy=..., backend=...)`` is the
+entry point: every registered policy runs on both backends ("torch", the
+default, on ``device``; "python", the host reference), and
+`EngineResult.signature()` is comparable across backends and with the
+reference engine's results.  ``simulate_matrix`` runs many policies over
+one built table.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import omfs_torch
+from repro_torch.core import omfs_torch, policies_torch
+from repro_torch.core.baselines import ALL_BASELINES
+from repro_torch.core.omfs import Decision, cheap_victim_pass, scheduler_pass
 from repro_torch.core.omfs_torch import I32, JobTable, PassStats
-from repro_torch.core.types import Job, SchedulerConfig, User
+from repro_torch.core.types import (
+    ClusterState,
+    Job,
+    JobState,
+    SchedulerConfig,
+    User,
+)
 
-# policy contract: pass_fn(cfg, entitled[U], t, JobTable, stats) -> JobTable
+PythonPolicy = Callable[[ClusterState], List[Decision]]
+# tensor policy contract: pass_fn(cfg, entitled[U], t, JobTable, stats)
 TorchPass = Callable[..., JobTable]
+TorchPassFactory = Callable[[Optional[int]], TorchPass]
 
-#: every registered policy's pass factory, keyed by name
-POLICIES: Dict[str, Callable[[Optional[int]], TorchPass]] = {
-    "omfs": lambda pass_depth=None: omfs_torch.make_omfs_pass(pass_depth),
-    # beyond-paper OMFS variant: evict the cheapest-to-checkpoint first
-    "omfs_cheap_victim": lambda pass_depth=None: omfs_torch.make_omfs_pass(
-        pass_depth, cheap_victims=True),
-}
+
+# ---------------------------------------------------------------------------
+# Policy registry: every policy names its Python pass and its tensor-pass
+# factory
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PolicySpec:
+    name: str
+    python_pass: PythonPolicy
+    torch_factory: TorchPassFactory
+
+
+POLICIES: Dict[str, PolicySpec] = {}
+
+
+def register_policy(name: str, python_pass: PythonPolicy,
+                    torch_factory: TorchPassFactory) -> PolicySpec:
+    spec = PolicySpec(name, python_pass, torch_factory)
+    POLICIES[name] = spec
+    return spec
+
+
+register_policy("omfs", scheduler_pass,
+                lambda pass_depth=None: omfs_torch.make_omfs_pass(pass_depth))
+# beyond-paper OMFS variant: evict the cheapest-to-checkpoint first
+register_policy(
+    "omfs_cheap_victim", cheap_victim_pass,
+    lambda pass_depth=None: omfs_torch.make_omfs_pass(pass_depth,
+                                                      cheap_victims=True))
+for _name, _factory in policies_torch.TORCH_BASELINES.items():
+    register_policy(_name, ALL_BASELINES[_name], _factory)
+
+
+def _check_name(policy) -> None:
+    if policy not in POLICIES:
+        raise ValueError(
+            f"unknown policy {policy!r}; known: {sorted(POLICIES)}")
+
+
+def _resolve_python(policy: Union[str, PythonPolicy]) -> PythonPolicy:
+    if callable(policy):
+        return policy
+    _check_name(policy)
+    return POLICIES[policy].python_pass
+
+
+# ---------------------------------------------------------------------------
+# The tick — Python backend
+# ---------------------------------------------------------------------------
+
+
+def tick_python(
+    state: ClusterState,
+    policy: PythonPolicy,
+    *,
+    work_fn: Optional[Callable[[Job], None]] = None,
+    on_complete: Optional[Callable[[Job], None]] = None,
+) -> Tuple[List[Decision], List[Tuple[Job, JobState, JobState]]]:
+    """One tick at ``state.time``: arrivals -> progress -> policy pass.
+
+    ``work_fn(job)`` is called for each running job before its progress
+    accrues; ``on_complete`` fires when a job finishes.  Returns the pass's
+    decisions plus the state transitions it caused, ``[(job, was, now),
+    ...]``."""
+    t = state.time
+    # 1. arrivals
+    for j in state.jobs.values():
+        if j.state == JobState.UNSUBMITTED and j.submit_time <= t:
+            j.state = JobState.PENDING
+    # 2. progress + completions (jobs that ran during the previous tick)
+    for j in state.running_jobs():
+        if work_fn is not None:
+            work_fn(j)
+        j.progress += 1
+        if j.progress >= j.work + j.overhead:
+            j.state = JobState.DONE
+            j.finish_time = t
+            if on_complete is not None:
+                on_complete(j)
+    # 3. scheduling pass, with transition capture
+    pre = {jid: j.state for jid, j in state.jobs.items()}
+    decisions = policy(state)
+    transitions = [
+        (j, pre[jid], j.state)
+        for jid, j in state.jobs.items() if j.state != pre[jid]
+    ]
+    return decisions, transitions
+
+
+# ---------------------------------------------------------------------------
+# The tick — torch backend (same steps over the JobTable, in place)
+# ---------------------------------------------------------------------------
 
 
 def tick_torch(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
@@ -90,29 +195,108 @@ def run_table(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
     return tbl, busy
 
 
+def run_table_events(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
+                     horizon: int, pass_fn: TorchPass, ring_size: int,
+                     stats: Optional[PassStats] = None):
+    """`run_table` plus the per-tick event capture (`obs.torch_capture`):
+    the same ticks, each wrapped by a copy of the columns the capture
+    diffs and its ``(counts[E], ring[R, 3], dropped)``, stacked on the
+    device.  Returns ``(tbl, busy[T], counts[T, E], ring[T, R, 3],
+    dropped[T])``; nothing is read back per tick."""
+    from repro_torch.obs import torch_capture
+    from repro_torch.obs.events import N_EVENT_TYPES
+
+    dev = tbl.cpus.device
+    busy = torch.zeros(horizon, dtype=I32, device=dev)
+    counts = torch.zeros(horizon, N_EVENT_TYPES, dtype=I32, device=dev)
+    ring = torch.full((horizon, ring_size, len(torch_capture.RING_FIELDS)),
+                      -1, dtype=I32, device=dev)
+    dropped = torch.zeros(horizon, dtype=I32, device=dev)
+    if tbl.cpus.shape[0] == 0:
+        return tbl, busy, counts, ring, dropped
+    for t in range(horizon):
+        pre = torch_capture.snapshot(tbl)
+        tbl, busy[t] = _tick_step(cfg, ent, tbl, t, pass_fn, stats)
+        counts[t], ring[t], dropped[t] = torch_capture.capture_tick(
+            pre, tbl, t, ring_size)
+    return tbl, busy, counts, ring, dropped
+
+
+# ---------------------------------------------------------------------------
+# Results
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TickLog:
+    time: int
+    busy: int
+    pending: int
+    running: int
+    per_user_cpus: Dict[str, int]
+    decisions: List[Decision]
+
+
+@dataclass
+class SimResult:
+    state: ClusterState
+    log: List[TickLog]
+
+    # -- headline metrics (see core.metrics for derived scores) ------------
+    def utilization(self) -> float:
+        cfg = self.state.config
+        if not self.log:
+            return 0.0
+        return float(np.mean([t.busy for t in self.log]) / cfg.cpu_total)
+
+    def job_table(self) -> List[Job]:
+        return sorted(self.state.jobs.values(), key=lambda j: j.id)
+
+    def schedule_signature(self):
+        """Hashable summary used by the cross-backend equivalence tests."""
+        return tuple(
+            (j.id, int(j.state), j.first_start, j.finish_time, j.progress,
+             j.n_preemptions, j.n_checkpoints)
+            for j in self.job_table()
+        )
+
+
 @dataclass
 class EngineResult:
-    """Simulation outcome from `simulate`."""
+    """Simulation outcome from `simulate`, either backend."""
 
     policy: str
     config: SchedulerConfig
-    table: JobTable
-    busy: np.ndarray                  # busy[t]
-    stats: PassStats
+    table: Optional[JobTable] = None        # torch backend
+    busy: Optional[np.ndarray] = None       # busy[t], both backends
+    stats: PassStats = field(default_factory=PassStats)
     backend: str = "torch"
+    sim: Optional[SimResult] = None         # python backend
     #: host wall seconds: "build" (table from jobs) and "ticks" (the run,
-    #: up to the busy series on the host)
+    #: up to the busy series on the host); "decode" with record_events
     seconds: Dict[str, float] = field(default_factory=dict)
+    # -- observability (record_events=True); see repro_torch.obs -----------
+    events: Optional[list] = None                      # List[obs.Event]
+    event_counts: Optional[np.ndarray] = None          # [T, N_EVENT_TYPES]
+    events_dropped: Optional[np.ndarray] = None        # [T] ring overflow
 
     def busy_series(self) -> np.ndarray:
         return np.asarray(self.busy)
+
+    def events_dropped_total(self) -> int:
+        if self.events_dropped is None:
+            return 0
+        return int(np.asarray(self.events_dropped).sum())
 
     def utilization(self) -> float:
         b = self.busy_series()
         return float(b.mean() / self.config.cpu_total) if b.size else 0.0
 
     def signature(self):
-        """Id-free schedule signature, comparable with the reference's."""
+        """Id-free schedule signature, comparable across backends and
+        with the reference's."""
+        if self.sim is not None:
+            return tuple(s[1:] for s in self.sim.schedule_signature())
         return tuple(s[1:] for s in
                      omfs_torch.signature_from_table(self.table))
 
@@ -120,14 +304,30 @@ class EngineResult:
         """Utilization / wait / preemption counts plus goodput (cpu-ticks
         that advanced useful work, per machine capacity) and the fraction
         of executed cpu-ticks wasted on C/R overhead or killed jobs."""
-        t = {f: getattr(self.table, f).cpu().numpy()
-             for f in ("first_start", "submit", "n_preempt", "n_ckpt",
-                       "n_spill", "state", "progress", "work", "cpus")}
+        if self.sim is not None:
+            jobs = self.sim.job_table()
+            t = {
+                "first_start": [j.first_start for j in jobs],
+                "submit": [j.submit_time for j in jobs],
+                "n_preempt": [j.n_preemptions for j in jobs],
+                "n_ckpt": [j.n_checkpoints for j in jobs],
+                "n_spill": [j.n_spills for j in jobs],
+                "state": [int(j.state) for j in jobs],
+                "progress": [j.progress for j in jobs],
+                "work": [j.work for j in jobs],
+                "cpus": [j.cpus for j in jobs]}
+            t = {k: np.asarray(v, dtype=np.int64) for k, v in t.items()}
+        else:
+            t = {f: getattr(self.table, f).cpu().numpy()
+                 for f in ("first_start", "submit", "n_preempt", "n_ckpt",
+                           "n_spill", "state", "progress", "work", "cpus")}
         started = t["first_start"] >= 0
         waits = (t["first_start"] - t["submit"])[started]
         was_killed = t["state"] == omfs_torch.KILLED
         progress = t["progress"].astype(np.int64)
         cpus = t["cpus"].astype(np.int64)
+        # useful = progress toward `work` (overhead units come on top and
+        # count as waste); killed jobs' entire progress is lost work
         useful = np.where(was_killed, 0,
                           np.minimum(progress, t["work"])) * cpus
         executed = progress * cpus
@@ -149,27 +349,156 @@ class EngineResult:
         }
 
 
-def simulate(users: List[User], jobs: List[Job], config: SchedulerConfig,
-             horizon: int, policy: str = "omfs", *,
-             pass_depth: Optional[int] = None,
-             device="cuda") -> EngineResult:
-    """Run the registered ``policy`` for ``horizon`` ticks on ``device``.
+# ---------------------------------------------------------------------------
+# The entry point
+# ---------------------------------------------------------------------------
 
-    ``pass_depth`` bounds the per-tick queue sweep (SLURM's
-    sched_max_job_start); None sweeps the whole queue.  ``device`` defaults
-    to the card and raises where CUDA is absent."""
-    if policy not in POLICIES:
+
+def _simulate_python(users, jobs, config, horizon, policy, record_events):
+    """The host reference: ``tick_python`` over a `ClusterState`, with an
+    `obs.bus.EventBus` tick diff when ``record_events``."""
+    pol = _resolve_python(policy)
+    name = policy if isinstance(policy, str) else getattr(
+        policy, "__name__", "custom")
+    state = ClusterState(config=config, users={u.name: u for u in users})
+    for j in sorted(jobs, key=lambda x: x.id):
+        j = j.clone()
+        j.state = JobState.UNSUBMITTED
+        state.jobs[j.id] = j
+    bus = None
+    if record_events:
+        from repro_torch.obs.bus import EventBus
+        bus = EventBus()
+    log: List[TickLog] = []
+    t0 = time.perf_counter()
+    for t in range(horizon):
+        state.time = t
+        if bus is not None:
+            bus.snapshot(state.jobs)
+        decisions, _ = tick_python(state, pol)
+        if bus is not None:
+            bus.record_tick(state.jobs, t)
+        # 4. metrics
+        per_user = {u: 0 for u in state.users}
+        for j in state.running_jobs():
+            per_user[j.user] += j.cpus
+        log.append(TickLog(
+            time=t, busy=state.cpu_busy(),
+            pending=len(state.pending_jobs()),
+            running=len(state.running_jobs()),
+            per_user_cpus=per_user, decisions=decisions,
+        ))
+    res = EngineResult(
+        policy=name, config=config, backend="python",
+        sim=SimResult(state=state, log=log),
+        busy=np.asarray([tl.busy for tl in log], dtype=np.int64),
+        seconds={"ticks": time.perf_counter() - t0})
+    if bus is not None:
+        res.events = bus.events
+        res.event_counts = bus.counts_matrix(horizon)
+        res.events_dropped = bus.dropped_series(horizon)
+    return res
+
+
+def simulate(users: List[User], jobs: List[Job], config: SchedulerConfig,
+             horizon: int, policy: Union[str, PythonPolicy] = "omfs",
+             backend: str = "torch", *,
+             pass_depth: Optional[int] = None,
+             device="cuda",
+             record_events: bool = False,
+             event_ring: Optional[int] = None) -> EngineResult:
+    """Run ``policy`` for ``horizon`` ticks on ``backend``.
+
+    ``backend="torch"`` (the default) runs the registered policy's tensor
+    pass over a `JobTable` on ``device``, which defaults to the card and
+    raises where CUDA is absent; ``pass_depth`` bounds its per-tick queue
+    sweep (SLURM's sched_max_job_start; None sweeps the whole queue).
+    ``backend="python"`` runs the host reference, and takes a registry
+    name or any ``ClusterState -> List[Decision]`` callable.
+
+    ``record_events=True`` also captures the typed per-job lifecycle event
+    log (`repro_torch.obs`): on the python backend through an
+    `obs.bus.EventBus` tick diff, on the torch backend on the device with
+    a bounded per-tick ring (``event_ring`` overrides its capacity; the
+    default `obs.events.lossless_ring_size` can never drop — any overflow
+    of a smaller ring lands in ``EngineResult.events_dropped``), decoded
+    once after the run."""
+    if backend == "python":
+        return _simulate_python(users, jobs, config, horizon, policy,
+                                record_events)
+    if backend != "torch":
         raise ValueError(
-            f"unknown policy {policy!r}; known: {sorted(POLICIES)}")
+            f"unknown backend {backend!r}; use 'torch' or 'python'")
+    if not isinstance(policy, str):
+        raise ValueError(
+            "the torch backend needs a registered policy name, got a "
+            f"callable; known: {sorted(POLICIES)}")
+    _check_name(policy)
+    pass_fn = POLICIES[policy].torch_factory(pass_depth)
     stats = PassStats()
     t0 = time.perf_counter()
     tbl, ent = omfs_torch.table_from_jobs(jobs, users, config.cpu_total,
                                           config, device)
     t1 = time.perf_counter()
-    tbl, busy = run_table(config, ent, tbl, horizon,
-                          POLICIES[policy](pass_depth), stats=stats)
-    busy = busy.cpu().numpy()
+    res = EngineResult(policy=policy, config=config, stats=stats)
+    if not record_events:
+        tbl, busy = run_table(config, ent, tbl, horizon, pass_fn,
+                              stats=stats)
+        res.table, res.busy = tbl, busy.cpu().numpy()
+        res.seconds = {"build": t1 - t0, "ticks": time.perf_counter() - t1}
+        return res
+    from repro_torch.obs import torch_capture
+    from repro_torch.obs.events import lossless_ring_size
+
+    ring_size = (lossless_ring_size(tbl.cpus.shape[0]) if event_ring is None
+                 else event_ring)
+    tbl, busy, counts, ring, dropped = run_table_events(
+        config, ent, tbl, horizon, pass_fn, ring_size, stats=stats)
+    res.table, res.busy = tbl, busy.cpu().numpy()
     t2 = time.perf_counter()
-    return EngineResult(policy=policy, config=config, table=tbl, busy=busy,
-                        stats=stats, seconds={"build": t1 - t0,
-                                              "ticks": t2 - t1})
+    res.event_counts = counts.cpu().numpy().astype(np.int64)
+    res.events_dropped = dropped.cpu().numpy().astype(np.int64)
+    res.events = torch_capture.decode_events(res.event_counts, ring,
+                                             res.events_dropped)
+    res.seconds = {"build": t1 - t0, "ticks": t2 - t1,
+                   "decode": time.perf_counter() - t2}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Multi-policy matrix: one built table, a copy per policy
+# ---------------------------------------------------------------------------
+
+
+def simulate_matrix(users: List[User], jobs: List[Job],
+                    config: SchedulerConfig, horizon: int,
+                    policies: Optional[List[str]] = None, *,
+                    pass_depth: Optional[int] = None,
+                    device="cuda") -> List[EngineResult]:
+    """Run many registered policies on the torch backend over ONE table
+    build: each policy runs on its own copy of the built table (the run
+    updates it in place).  Per-policy results are bit-identical to
+    ``simulate(..., backend="torch")``; the saving is the table build,
+    which dominates a large fleet's set-up."""
+    names = list(policies) if policies is not None else sorted(POLICIES)
+    unknown = [n for n in names if n not in POLICIES]
+    if unknown:
+        raise ValueError(
+            f"unknown policies {unknown}; known: {sorted(POLICIES)}")
+    t0 = time.perf_counter()
+    built, ent = omfs_torch.table_from_jobs(jobs, users, config.cpu_total,
+                                            config, device)
+    build_s = time.perf_counter() - t0
+    out = []
+    for name in names:
+        stats = PassStats()
+        t1 = time.perf_counter()
+        tbl = JobTable(*(c.clone() for c in built))
+        tbl, busy = run_table(config, ent, tbl, horizon,
+                              POLICIES[name].torch_factory(pass_depth),
+                              stats=stats)
+        out.append(EngineResult(
+            policy=name, config=config, table=tbl, busy=busy.cpu().numpy(),
+            stats=stats, seconds={"build": build_s,
+                                  "ticks": time.perf_counter() - t1}))
+    return out

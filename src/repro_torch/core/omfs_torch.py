@@ -237,9 +237,11 @@ def admit_job(tbl: JobTable, idx: int, t: int, admit) -> JobTable:
     if isinstance(admit, bool):
         admit = torch.full((), admit, dtype=torch.bool,
                            device=tbl.state.device)
+    # a gather, not ``lat[idx, tier]``: indexing by the 0-d ``tier`` an int
+    # ``idx`` gives would read it back to the host
     tier = tbl.ckpt_tier[idx].clamp(min=0)
-    restore = torch.where(admit & (tbl.n_ckpt[idx] > 0),
-                          tbl.cost_restore_lat[idx, tier], 0)
+    cost = tbl.cost_restore_lat[idx].gather(-1, tier.unsqueeze(-1))
+    restore = torch.where(admit & (tbl.n_ckpt[idx] > 0), cost.squeeze(-1), 0)
     tbl.state[idx] = torch.where(admit, RUNNING, tbl.state[idx])
     tbl.run_start[idx] = torch.where(admit, t, tbl.run_start[idx])
     tbl.first_start[idx] = torch.where(admit & (tbl.first_start[idx] < 0),

@@ -1,5 +1,5 @@
-"""Cluster-simulation launcher for the torch engine: an OMFS policy on a
-synthetic fleet, on the card by default.
+"""Cluster-simulation launcher for the torch engine: any registered policy
+on a synthetic fleet, on the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.cluster_sim --policy omfs \
       --chips 1024 --tenants 6 --horizon 800
@@ -38,15 +38,18 @@ def main(argv=None):
                     help="per-tick queue sweep bound")
     ap.add_argument("--arrival-rate", type=float, default=0.08)
     ap.add_argument("--seed", type=int, default=0)
-    for flag in ("--events", "--trace-out", "--metrics-out"):
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help="not available yet: event capture is not "
-                             "ported to the torch engine")
+    ap.add_argument("--events", action="store_true",
+                    help="record the typed lifecycle event log "
+                         "(repro_torch.obs) and print its reconciliation "
+                         "summary")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="write a Perfetto/Chrome trace of the schedule "
+                         "(implies --events)")
+    ap.add_argument("--metrics-out", metavar="PATH", default=None,
+                    help="write the metrics-registry JSON snapshot "
+                         "(implies --events)")
     args = ap.parse_args(argv)
-    for name in ("events", "trace_out", "metrics_out"):
-        if getattr(args, name) is not None:
-            ap.error(f"--{name.replace('_', '-')} needs the lifecycle event "
-                     "capture, which the torch engine does not have yet")
+    record = bool(args.events or args.trace_out or args.metrics_out)
 
     spec = WorkloadSpec(n_users=args.tenants, horizon=args.horizon,
                         cpu_total=args.chips, seed=args.seed,
@@ -69,7 +72,31 @@ def main(argv=None):
           f"policy={args.policy}, device={args.device}")
 
     res = engine.simulate(users, jobs, cfg, args.horizon, policy=args.policy,
-                          pass_depth=args.pass_depth, device=args.device)
+                          pass_depth=args.pass_depth, device=args.device,
+                          record_events=record)
+
+    if record:
+        import json
+
+        from repro_torch.core.metrics import event_summary
+        from repro_torch.obs import registry_from_result, trace_from_result
+        ev = event_summary(res.events)
+        print(f"events: {len(res.events)} recorded, "
+              f"{res.events_dropped_total()} dropped | starts "
+              f"{ev['jobs_started']} | restores {ev['restores']} | evicts "
+              f"{ev['preemptions']} | saves {ev['checkpoints']} | spills "
+              f"{ev['spilled_checkpoints']} | done {ev['jobs_done']}")
+        if args.metrics_out:
+            reg = registry_from_result(res, users=users)
+            with open(args.metrics_out, "w") as fh:
+                json.dump(reg.to_json(), fh, indent=2)
+            print(f"metrics snapshot -> {args.metrics_out}")
+        if args.trace_out:
+            trace = trace_from_result(res, users=users)
+            with open(args.trace_out, "w") as fh:
+                json.dump(trace, fh)
+            print(f"perfetto trace -> {args.trace_out} "
+                  f"(open in ui.perfetto.dev or chrome://tracing)")
     s = res.summary()
     print(f"utilization {s['utilization']:.3f} | goodput "
           f"{s['goodput']:.3f} | wasted {s['wasted_frac']:.3f} | wait "

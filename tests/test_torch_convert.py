@@ -93,7 +93,7 @@ def test_mid_run_handoff_equals_full_jax_run(policy, backend):
                             backend="jax")
     tbl = convert.table_from_numpy(_numpy_table(head.table), device="cpu")
     ent = omfs_torch.entitlements(users, 32, device="cpu")
-    pass_fn = tengine.POLICIES[policy](None)
+    pass_fn = tengine.POLICIES[policy].torch_factory(None)
     busy = list(head.busy_series())
     for t in range(k, horizon):
         tbl = tengine.tick_torch(tcfg, ent, tbl, t, pass_fn)
@@ -126,8 +126,10 @@ def test_launchers_print_same_summary(policy):
 
 
 def test_launcher_refuses_event_flags_and_default_device_without_cuda():
-    with pytest.raises(SystemExit):
-        tlaunch.main(["--device", "cpu", "--events"])
+    # the event flags that write a file need its path
+    for flag in ("--trace-out", "--metrics-out"):
+        with pytest.raises(SystemExit):
+            tlaunch.main(["--device", "cpu", flag])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):

@@ -276,7 +276,7 @@ def test_empty_table_and_config_checks():
     with pytest.raises(ValueError, match="kernel_backend"):
         ttypes.SchedulerConfig(kernel_backend="lax")
     with pytest.raises(ValueError, match="unknown policy"):
-        tengine.simulate(tu, [], ttypes.SchedulerConfig(), 3, "fcfs",
+        tengine.simulate(tu, [], ttypes.SchedulerConfig(), 3, "nope",
                          device="cpu")
 
 
