@@ -24,7 +24,18 @@ against the plain version and timed beside it in one run.
   fleet (cut to 200 ticks) on the card against the Python backend's
   EventBus, an undersized ring's drops, and omfs with capture on the
   100k-job fleet (its table unchanged, the capture's device share); then
-  the launcher, also with ``--events --trace-out --metrics-out``;
+  the batch and stream engines: the batched `sched_select` launch bit for
+  bit against its plain version on random and edge cells stacked over
+  B = 1, 7 and 256, the fleet as one `simulate_batch` of the seven
+  policies (each cell equal to its `simulate`, the same host syncs and
+  plans) and one of omfs at four quanta (one group: 32 host syncs a tick
+  for the four), that batch's four-cell plan timed beside four single
+  launches, [events]'s fleet as one batch with capture (each log
+  [events]'s), `benchmarks/bench_sweep.py`'s 256-cell grid as one batch
+  against 256 sequential runs (16 host syncs a tick), and omfs on the
+  fleet's arrivals through `simulate_stream` at a capacity sized from a
+  first run's live peak, equal to the monolithic run with no deferral;
+  then the launcher, also with ``--events --trace-out --metrics-out``;
 * checkpoint-restart: the int8 `ckpt_codec` kernels bit for bit against
   their plain versions, then over a TrainState-shaped tree at the published
   widths of internlm2-1.8b (21.11 GiB on the card); a `CheckpointService`
@@ -80,6 +91,7 @@ kernels' JSON record and the device record.
 Exits non-zero without a result where no CUDA device is visible.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -112,6 +124,7 @@ from repro_torch.core.crcost import (  # noqa: E402
 from repro_torch.core.types import SchedulerConfig  # noqa: E402
 from repro_torch.core.workload import (  # noqa: E402
     WorkloadSpec,
+    arrival_stream,
     make_jobs,
     make_users,
 )
@@ -139,6 +152,7 @@ from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
 )
 from repro_torch.kernels.sched_select import ops as sched_ops  # noqa: E402
 from repro_torch.kernels.sched_select.ref import (  # noqa: E402
+    plan_evictions_batch_ref,
     plan_evictions_ref,
 )
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
@@ -146,6 +160,7 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels.timing import queued_ms  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
 from repro_torch.obs import validate_trace  # noqa: E402
+from repro_torch.obs.profile import ProfileTimers  # noqa: E402
 from repro_torch.obs.events import (  # noqa: E402
     EventType,
     lossless_ring_size,
@@ -188,6 +203,23 @@ PLANNERS = ("omfs", "omfs_cheap_victim", "backfill_cr")
 EVENTS_HORIZON = 200
 EVENTS_DEPTH = 64
 EVENTS_SMALL_RING = 16
+#: [batch-kernel]: the batched launch's batches, (B, cells' J, T), each
+#: over the six static variants; cell 0 of each has no candidate
+BATCH_SHAPES = ((1, (100_000,), 4),
+                (7, (1, 127, 129, 512, 4097, 100_000, 262_144), 1),
+                (7, (1, 127, 129, 512, 4097, 100_000, 262_144), 4),
+                (256, (1, 127, 129, 512, 1024, 4097), 2))
+#: [batch-fleet]: omfs on the fleet at these quanta, one batch
+BATCH_QUANTA = (5, 10, 20, 40)
+#: [batch-sweep]: benchmarks/bench_sweep.py's full grid, 256 cells
+SWEEP_QUANTA = (1, 2, 3, 4, 5, 6, 8, 12)
+SWEEP_DEPTHS = (1, 2, 3, 4, 5, 6, 7, 8)
+SWEEP_POLICIES = ("omfs", "omfs_cheap_victim")
+SWEEP_SEEDS = (0, 1)
+SWEEP_JOBS, SWEEP_CPUS, SWEEP_HORIZON = 32, 32, 100
+#: [stream-fleet]: the fleet's arrivals (8 a tick) through a stream of
+#: 100-tick segments; the first run's capacity holds every arrival
+STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 2500, 100, 1 << 15
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
@@ -410,7 +442,7 @@ def plan_events(fn, calls=5):
 def time_plan(cols, scal, flags, iters=100):
     """A plan's time on the card (calls queued behind a sleep kernel), as
     the host issues it, and its device events; launch counts restored."""
-    saved = sched_ops.LAUNCHES
+    saved = kernel_counts()
 
     def fn():
         sched_ops.plan_evictions_fused(*cols.values(), *scal.values(),
@@ -419,7 +451,7 @@ def time_plan(cols, scal, flags, iters=100):
     events, traced = plan_events(fn)
     row = dict(ms=queued_ms(fn, iters=iters), host_ms=time_ms(fn, iters),
                events=events, traced=traced)
-    sched_ops.LAUNCHES = saved
+    set_kernel_counts(saved)
     return row
 
 
@@ -793,6 +825,7 @@ def phase_events():
     users, jobs, cfg = events_fleet()
     saved = kernel_counts()
     py_s = card_s = 0.0
+    cards = {}
     for policy in POLICIES:
         t0 = time.perf_counter()
         py = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, policy,
@@ -803,6 +836,7 @@ def phase_events():
                                record_events=True)
         card_s += time.perf_counter() - t1
         py_s += t1 - t0
+        cards[policy] = card
         plain = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, policy,
                                 pass_depth=EVENTS_DEPTH, device=DEV)
         queue = int((py.event_counts[:, EventType.DEFER]
@@ -843,6 +877,7 @@ def phase_events():
         dropped=int(want.sum()), kept=len(tiny.events),
         total=len(full.events), drops_exact=True,
         python_backend_s=f"{py_s:.2f}", card_s=f"{card_s:.2f}")
+    return (users, jobs, cfg), cards
 
 
 def phase_events_fleet(fleet_omfs, plain_device_us):
@@ -965,7 +1000,7 @@ def phase_kernel_on_fleet(final):
     err = compare_plan(cols, scal, **flags)
     planned = plan_evictions_ref(*cols.values(), *scal.values(), **flags)[0]
     victims = int(planned.sum())
-    saved = sched_ops.LAUNCHES
+    saved = kernel_counts()
     t = time_plan(cols, scal, flags)
     floor = sched_floor_ms()
     # the plan as the engine issues it must make no host sync
@@ -978,7 +1013,7 @@ def phase_kernel_on_fleet(final):
         torch.cuda.set_sync_debug_mode("default")
     plain_ms = time_ms(lambda: plan_evictions_ref(
         *cols.values(), *scal.values(), **flags), iters=20, warmup=2)
-    sched_ops.LAUNCHES = saved
+    set_kernel_counts(saved)
     if not 0 < t["events"] <= 2:
         raise AssertionError(f"a fleet plan made {t['events']} device "
                              f"events (one launch, at most two)")
@@ -995,6 +1030,441 @@ def phase_kernel_on_fleet(final):
     return dict(ms=t["ms"], host_ms=t["host_ms"], floor_ms=floor,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
+# the batch and stream engines, and the batched sched_select launch
+# ---------------------------------------------------------------------------
+
+
+def stacked_case(rng, sizes, n_tiers, bounded):
+    """Cells of `random_cols` at the J of ``sizes``, padded with rows that
+    are not candidates to the largest and stacked ``[B, J]`` (numpy); cell
+    0 of a batch of several has no candidate.  The caps are one cell's (a
+    batch has one cap vector), idle and cpus_needed each cell's."""
+    j = max(sizes)
+    cells = [random_cols(rng, n, n_tiers, bounded) for n in sizes]
+    if len(sizes) > 1:
+        cells[0][0]["evictable"][:] = False
+    cols = {}
+    for k in cells[0][0]:
+        parts = []
+        for c, _ in cells:
+            v = c[k]
+            pad = np.zeros((j - v.shape[0],) + v.shape[1:], v.dtype)
+            parts.append(np.concatenate([v, pad]))
+        cols[k] = np.ascontiguousarray(np.stack(parts))
+    scal = dict(idle=np.array([s["idle"] for _, s in cells], np.int32),
+                cpus_needed=np.array([s["cpus_needed"] for _, s in cells],
+                                     np.int32),
+                occ=np.stack([s["occ"] for _, s in cells]),
+                cap=cells[0][1]["cap"])
+    return cols, scal
+
+
+def batch_on_card(cols, scal):
+    cols = {k: torch.from_numpy(v).to(DEV) for k, v in cols.items()}
+    return cols, dict(scal, **{k: torch.from_numpy(scal[k]).to(DEV)
+                               for k in ("idle", "cpus_needed", "occ")})
+
+
+def compare_batch(cols, scal, cells, **flags):
+    """The batched launch against its plain version on the same card
+    inputs; raises on any difference, returns the largest (0)."""
+    got = sched_ops.plan_evictions_fused(*cols.values(), *scal.values(),
+                                         cells=cells, **flags)
+    torch.cuda.synchronize()
+    want = plan_evictions_batch_ref(*cols.values(), *scal.values(),
+                                    cells=cells, **flags)
+    err = 0
+    for name, g, w in zip(("planned", "enough", "tier"), got, want):
+        d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        if d != 0:
+            raise AssertionError(
+                f"batched sched_select {name} differs from its plain version "
+                f"by {d} ({flags}, B={cols['prio'].shape[0]}, "
+                f"{len(cells)} cells)")
+        err = max(err, d)
+    return err
+
+
+def phase_batch_kernel_compare():
+    """The batched launch bit for bit against its plain version: random
+    cells of ragged J and E stacked over B in {1, 7, 256} (cell 0 with no
+    candidate, cells of E > 512 beside it), every cell or every other one
+    planned, and the [kernel-compare] edge cases stacked over B = 7."""
+    rng = np.random.default_rng(SEED + 2)
+    saved = kernel_counts()
+    err = cases = 0
+    t0 = time.perf_counter()
+    for b, sizes, n_tiers in BATCH_SHAPES:
+        sizes = [sizes[k % len(sizes)] for k in range(b)]
+        for k, (cheap, tiered, bounded) in enumerate(
+                (c, t, bd) for c in (False, True)
+                for t, bd in ((False, False), (True, False), (True, True))):
+            cols, scal = batch_on_card(*stacked_case(rng, sizes, n_tiers,
+                                                     bounded))
+            cells = list(range(b)) if k % 2 == 0 else list(range(0, b, 2))
+            err = max(err, compare_batch(cols, scal, cells, cheap=cheap,
+                                         tiered=tiered, bounded=bounded))
+            cases += 1
+        e = [int(x) for x in cols["evictable"].sum(1).tolist()]
+        log("batch-kernel", case="random", B=b, J=max(sizes), T=n_tiers,
+            candidates_min=min(e), candidates_max=max(e), max_abs_err=err)
+    # the edge cases as one batch at T = 4, under cap_zero's caps
+    edge_rng = np.random.default_rng(SEED + 3)
+    names = [n for n in SCHED_EDGE_CASES if n != "eight_tiers"]
+    edges = [edge_case(edge_rng, n, SCHED_EDGE_J) for n in names]
+    edges += [random_cols(edge_rng, SCHED_EDGE_J, 4, True) for _ in range(2)]
+    cols = {k: np.ascontiguousarray(np.stack([c[k] for c, _ in edges]))
+            for k in edges[0][0]}
+    scal = dict(idle=np.array([s["idle"] for _, s in edges], np.int32),
+                cpus_needed=np.array([s["cpus_needed"] for _, s in edges],
+                                     np.int32),
+                occ=np.stack([s["occ"] for _, s in edges]),
+                cap=edges[names.index("cap_zero")][1]["cap"])
+    cols, scal = batch_on_card(cols, scal)
+    for cheap in (False, True):
+        for tiered, bounded in ((False, False), (True, False), (True, True)):
+            sc = dict(scal, cap=scal["cap"] if bounded else [-1] * 4)
+            err = max(err, compare_batch(cols, sc, list(range(len(edges))),
+                                         cheap=cheap, tiered=tiered,
+                                         bounded=bounded))
+            cases += 1
+    set_kernel_counts(saved)
+    log("batch-kernel", case="edges", B=len(edges), J=SCHED_EDGE_J, T=4,
+        edge_cases=",".join(names), cases=cases, max_abs_err=err,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return err
+
+
+def phase_batch_kernel_time(captured):
+    """The B = 4 plan of [batch-fleet]'s quantum batch (J = 100k, T = 4,
+    a position where all four cells evict) as one batched launch beside
+    four single launches on the same cells, in turns, on the card's time
+    and as the host issues them; its bound is the four single plans'
+    (`plan_bytes`, summed)."""
+    args, flags = captured["args"], captured["flags"]
+    names = ("prio", "run_start", "jid", "key_cost", "evictable", "cpus",
+             "state_mib", "is_ckpt", "save_lat")
+    cols = dict(zip(names, args[:9]))
+    idle, need, occ, cap = args[9:13]
+    b = cols["prio"].shape[0]
+    scal = dict(idle=idle, cpus_needed=need, occ=occ, cap=cap)
+    cells = list(range(b))
+    err = compare_batch(cols, scal, cells, **flags)
+    singles = [({k: v[c] for k, v in cols.items()},
+                dict(idle=idle[c], cpus_needed=need[c], occ=occ[c], cap=cap))
+               for c in cells]
+    for c_cols, c_scal in singles:
+        err = max(err, compare_plan(c_cols, c_scal, **flags))
+    saved = kernel_counts()
+
+    def batched():
+        sched_ops.plan_evictions_fused(*cols.values(), *scal.values(),
+                                       cells=cells, **flags)
+
+    def four_singles():
+        for c_cols, c_scal in singles:
+            sched_ops.plan_evictions_fused(*c_cols.values(),
+                                           *c_scal.values(), **flags)
+
+    card = {"batched": [], "singles": []}
+    for name in ("batched", "singles", "singles", "batched"):
+        card[name].append(queued_ms(batched if name == "batched"
+                                    else four_singles, iters=40))
+    host, _ = in_turns({"batched": batched, "singles": four_singles},
+                       iters={"batched": 100, "singles": 100}, warmup=5)
+    events, _ = plan_events(batched)
+    plain_ms = time_ms(lambda: plan_evictions_batch_ref(
+        *cols.values(), *scal.values(), cells=cells, **flags), iters=10,
+        warmup=1)
+    set_kernel_counts(saved)
+    planned = plan_evictions_batch_ref(*cols.values(), *scal.values(),
+                                       cells=cells, **flags)[0]
+    n_tiers = cols["save_lat"].shape[-1]
+    nbytes = sum(plan_bytes({k: v[c] for k, v in cols.items()}, n_tiers,
+                            flags["cheap"], flags["tiered"], flags["bounded"],
+                            planned[c]) for c in cells)
+    e = [int(x) for x in cols["evictable"].sum(1).tolist()]
+    ops_s = sum(x * int(np.ceil(np.log2(max(x, 2)))) for x in e) \
+        / SCALAR_OPS_PER_S
+    byte_s = nbytes / HBM_BYTES_PER_S
+    bound = 1e3 * max(byte_s, ops_s)
+    ms = sum(card["batched"]) / 2
+    singles_ms = sum(card["singles"]) / 2
+    log("batch-kernel", case="fleet-quanta", B=b,
+        J=cols["prio"].shape[1], T=n_tiers, source=captured["source"],
+        candidates=e, victims=[int(x) for x in planned.sum(1).tolist()],
+        ms=f"{ms:.4f}", four_singles_ms=f"{singles_ms:.4f}",
+        host_ms=f"{host['batched']:.4f}",
+        four_singles_host_ms=f"{host['singles']:.4f}",
+        device_events=events, plain_ms=f"{plain_ms:.4f}", bytes=nbytes,
+        bound_ms=f"{bound:.5f}", share_of_bound=f"{bound / ms:.4f}",
+        max_abs_err=err)
+    return dict(ms=ms, singles_ms=singles_ms, host_ms=host["batched"],
+                plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if byte_s >= ops_s else "operations",
+                max_abs_err=err)
+
+
+def sweep_workload(seed):
+    """benchmarks/bench_sweep.py's workload: 4 tenants, 32 jobs, 32 CPUs."""
+    spec = WorkloadSpec(n_users=4, horizon=SWEEP_HORIZON, cpu_total=SWEEP_CPUS,
+                        seed=seed, arrival_rate=0.15, mean_work=20,
+                        class_mix=(0.15, 0.35, 0.5))
+    users = make_users(spec)
+    return users, make_jobs(spec, users)[:SWEEP_JOBS]
+
+
+def group_syncs(results):
+    """Host syncs of a batch: each policy group's, once."""
+    return sum({r.policy: r.stats.host_syncs for r in results}.values())
+
+
+def phase_batch_sweep():
+    """bench_sweep.py's full grid (quantum x pass depth x victim key x
+    seed, 256 cells) as one `simulate_batch` on the card: every cell must
+    equal its sequential `simulate` on the card and the "torch" backend's
+    batch; cells/s both ways, host syncs per tick, launches and plans."""
+    workloads = {s: sweep_workload(s) for s in SWEEP_SEEDS}
+    grid = [(q, d, p, s) for q in SWEEP_QUANTA for d in SWEEP_DEPTHS
+            for p in SWEEP_POLICIES for s in SWEEP_SEEDS]
+    cells = [engine.BatchCell(users=workloads[s][0], jobs=workloads[s][1],
+                              policy=p, quantum=q, pass_depth=d)
+             for q, d, p, s in grid]
+    base = SchedulerConfig(cpu_total=SWEEP_CPUS, quantum=1)
+    saved = kernel_counts()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    batch = engine.simulate_batch(cells, base, SWEEP_HORIZON, device=DEV)
+    cold_s = time.perf_counter() - t0
+    launches, plans = sched_ops.LAUNCHES, sched_ops.PLANS
+    t0 = time.perf_counter()
+    engine.simulate_batch(cells, base, SWEEP_HORIZON, device=DEV)
+    warm_s = time.perf_counter() - t0
+    eager = engine.simulate_batch(
+        cells, dataclasses.replace(base, kernel_backend="torch"),
+        SWEEP_HORIZON, device=DEV)
+    t0 = time.perf_counter()
+    seq = [engine.simulate(workloads[s][0], workloads[s][1],
+                           SchedulerConfig(cpu_total=SWEEP_CPUS, quantum=q),
+                           SWEEP_HORIZON, p, pass_depth=d, device=DEV)
+           for q, d, p, s in grid]
+    seq_s = time.perf_counter() - t0
+    set_kernel_counts(saved)
+    for (q, d, p, s), b, e, r in zip(grid, batch, eager, seq):
+        what = f"sweep q={q} d={d} {p} seed={s}"
+        assert_same_run(b, r, what + ": batch vs simulate")
+        assert_same_run(b, e, what + ": cuda vs torch batch")
+        if b.stats.evict_branches != r.stats.evict_branches:
+            raise AssertionError(f"{what}: {b.stats} vs {r.stats}")
+    branches = sum(r.stats.evict_branches for r in seq)
+    syncs = group_syncs(batch) / SWEEP_HORIZON
+    if plans != branches or syncs != len(SWEEP_POLICIES) * max(SWEEP_DEPTHS):
+        raise AssertionError(f"sweep: {plans} plans for {branches} branches, "
+                             f"{syncs} host syncs a tick")
+    n = len(cells)
+    seq_syncs = sum(r.stats.host_syncs for r in seq) / SWEEP_HORIZON
+    log("batch-sweep", cells=n, jobs=SWEEP_JOBS, cpus=SWEEP_CPUS,
+        horizon=SWEEP_HORIZON, grid="quantum*depth*policy*seed",
+        batch_cells_per_s=f"{n / warm_s:.2f}",
+        batch_cold_cells_per_s=f"{n / cold_s:.2f}",
+        seq_cells_per_s=f"{n / seq_s:.2f}",
+        speedup_warm=f"{seq_s / warm_s:.2f}",
+        host_syncs_per_tick=f"{syncs:.2f}",
+        seq_host_syncs_per_tick=f"{seq_syncs:.2f}",
+        evict_branches=branches, launches=launches, plans=plans,
+        identical_to_simulate=True, identical_to_torch_backend=True)
+
+
+def phase_batch_fleet(runs):
+    """The 100k-job fleet as two batches on the card: the seven policies
+    (B = 7, one cell a group: each must equal its [fleet] run, with the
+    same host syncs and plans) and omfs at four quanta (B = 4, one group:
+    32 host syncs a tick for the four, each cell equal to its own
+    `simulate`).  Returns the launches of both, and the columns of one
+    four-cell plan for [batch-kernel]."""
+    users, jobs = fleet_workload()
+    cfg = fleet_config("cuda")
+    saved = kernel_counts()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    seven = engine.simulate_batch(
+        [engine.BatchCell(users=users, jobs=jobs, policy=p,
+                          pass_depth=FLEET_DEPTH) for p in POLICIES],
+        cfg, FLEET_HORIZON, device=DEV)
+    seven_s = time.perf_counter() - t0
+    launches7, plans7 = sched_ops.LAUNCHES, sched_ops.PLANS
+    for res in seven:
+        solo = runs[res.policy, "cuda"]
+        assert_same_run(res, solo, f"batch-fleet {res.policy}")
+        if res.stats != solo.stats:
+            raise AssertionError(f"batch-fleet {res.policy}: {res.stats} != "
+                                 f"{solo.stats}")
+    branches7 = sum(runs[p, "cuda"].stats.evict_branches for p in POLICIES)
+    syncs7 = group_syncs(seven) / FLEET_HORIZON
+    want7 = sum(runs[p, "cuda"].stats.host_syncs
+                for p in POLICIES) / FLEET_HORIZON
+    if launches7 != branches7 or plans7 != branches7 or syncs7 != want7:
+        raise AssertionError(f"batch-fleet seven: {launches7} launches, "
+                             f"{plans7} plans, {branches7} branches, "
+                             f"{syncs7} syncs a tick against {want7}")
+    seq7_s = sum(runs[p, "cuda"].seconds["build"]
+                 + runs[p, "cuda"].seconds["ticks"] for p in POLICIES)
+    log("batch-fleet", batch="seven-policies", B=len(seven), J=FLEET_JOBS,
+        horizon=FLEET_HORIZON, wall_s=f"{seven_s:.2f}",
+        seq_wall_s=f"{seq7_s:.2f}",
+        ticks_s=f"{sum(r.seconds['ticks'] for r in seven):.2f}",
+        host_syncs_per_tick=f"{syncs7:.2f}", launches=launches7,
+        plans=plans7, identical_to_fleet=True)
+
+    # omfs at four quanta: one group
+    seq = {}
+    for q in BATCH_QUANTA:
+        seq[q] = (runs["omfs", "cuda"] if q == FLEET_QUANTUM else
+                  engine.simulate(users, jobs,
+                                  dataclasses.replace(cfg, quantum=q),
+                                  FLEET_HORIZON, "omfs",
+                                  pass_depth=FLEET_DEPTH, device=DEV))
+    captured = {}
+    real = sched_ops.plan_evictions_fused
+
+    def spy(*args, cells=None, **flags):
+        if cells is not None and len(cells) == len(BATCH_QUANTA) \
+                and "args" not in captured:
+            captured.update(args=[a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args], flags=flags,
+                            source="a position where all four evict")
+        return real(*args, cells=cells, **flags)
+
+    sched_ops.plan_evictions_fused = spy
+    launches_before = sched_ops.LAUNCHES
+    plans_before = sched_ops.PLANS
+    t0 = time.perf_counter()
+    try:
+        quanta = engine.simulate_batch(
+            [engine.BatchCell(users=users, jobs=jobs, policy="omfs",
+                              quantum=q, pass_depth=FLEET_DEPTH)
+             for q in BATCH_QUANTA], cfg, FLEET_HORIZON, device=DEV)
+    finally:
+        sched_ops.plan_evictions_fused = real
+    quanta_s = time.perf_counter() - t0
+    launches4 = sched_ops.LAUNCHES - launches_before
+    plans4 = sched_ops.PLANS - plans_before
+    set_kernel_counts(saved)
+    branches = [seq[q].stats.evict_branches for q in BATCH_QUANTA]
+    for q, res in zip(BATCH_QUANTA, quanta):
+        assert_same_run(res, seq[q], f"batch-fleet quantum {q}")
+        if res.stats.evict_branches != seq[q].stats.evict_branches:
+            raise AssertionError(f"batch-fleet quantum {q}: {res.stats}")
+    syncs4 = group_syncs(quanta) / FLEET_HORIZON
+    if (syncs4 != FLEET_DEPTH or plans4 != sum(branches)
+            or not max(branches) <= launches4 <= sum(branches)):
+        raise AssertionError(f"batch-fleet quanta: {syncs4} syncs a tick, "
+                             f"{plans4} plans, {launches4} launches, "
+                             f"branches {branches}")
+    if "args" not in captured:
+        # no position had all four evict: plan the four final tables at the
+        # last tick, as [kernel-on-fleet] plans the fleet's
+        per = [fleet_plan_columns(r.table) for r in quanta]
+        args = [torch.stack([c[k] for c, _ in per]).contiguous()
+                for k in per[0][0]]
+        args += [torch.full((4,), per[0][1]["idle"], dtype=torch.int32,
+                            device=DEV),
+                 torch.full((4,), per[0][1]["cpus_needed"],
+                            dtype=torch.int32, device=DEV),
+                 torch.stack([s["occ"] for _, s in per]), per[0][1]["cap"]]
+        captured.update(args=args, source="the final tables",
+                        flags=dict(cheap=False, tiered=True, bounded=True))
+    seq4_s = sum(seq[q].seconds["build"] + seq[q].seconds["ticks"]
+                 for q in BATCH_QUANTA)
+    seq4_ticks = sum(seq[q].seconds["ticks"] for q in BATCH_QUANTA)
+    seq4_syncs = sum(seq[q].stats.host_syncs
+                     for q in BATCH_QUANTA) / FLEET_HORIZON
+    log("batch-fleet", batch="omfs-quanta", quanta=BATCH_QUANTA, B=len(quanta),
+        J=FLEET_JOBS, horizon=FLEET_HORIZON, wall_s=f"{quanta_s:.2f}",
+        ticks_s=f"{quanta[0].seconds['ticks']:.2f}",
+        seq_wall_s=f"{seq4_s:.2f}",
+        seq_ticks_s=f"{seq4_ticks:.2f}",
+        host_syncs_per_tick=f"{syncs4:.2f}",
+        seq_host_syncs_per_tick=f"{seq4_syncs:.2f}",
+        evict_branches=branches, launches=launches4, plans=plans4,
+        identical_to_simulate=True)
+    return launches7 + launches4, captured
+
+
+def phase_batch_events(workload, card_runs):
+    """[events]'s fleet (the same jobs, so the same ids), the seven
+    policies as one batch with capture on: each cell's log, counts and
+    drops must be [events]'s for its policy."""
+    users, jobs, cfg = workload
+    saved = kernel_counts()
+    t0 = time.perf_counter()
+    batch = engine.simulate_batch(
+        [engine.BatchCell(users=users, jobs=jobs, policy=p,
+                          pass_depth=EVENTS_DEPTH) for p in POLICIES],
+        cfg, EVENTS_HORIZON, record_events=True, device=DEV)
+    wall = time.perf_counter() - t0
+    set_kernel_counts(saved)
+    for res in batch:
+        solo = card_runs[res.policy]
+        same_log(res, solo, f"batch-events {res.policy}")
+        assert_same_run(res, solo, f"batch-events {res.policy}")
+    log("batch-events", B=len(batch), jobs=len(jobs), horizon=EVENTS_HORIZON,
+        pass_depth=EVENTS_DEPTH, events=sum(len(r.events) for r in batch),
+        wall_s=f"{wall:.2f}", identical_to_events=True)
+
+
+def phase_stream_fleet():
+    """omfs on the fleet's arrivals through `simulate_stream`: a first run
+    whose capacity holds every arrival measures the live peak, the second
+    runs at the smallest power of two above it (profiled) and must equal
+    the monolithic `simulate` over the jobs submitted before the horizon,
+    with no deferral."""
+    users, jobs = fleet_workload()
+    cfg = fleet_config("cuda")
+    due = [j for j in jobs if j.submit_time < STREAM_HORIZON]
+    saved = kernel_counts()
+    zero_kernel_counts()
+    kw = dict(segment_len=STREAM_SEGMENT, pass_depth=FLEET_DEPTH, device=DEV)
+    first = engine.simulate_stream(users, arrival_stream(jobs), cfg,
+                                   STREAM_HORIZON, "omfs",
+                                   capacity=STREAM_AMPLE, **kw)
+    peak = first.stream_stats["peak_live"]
+    capacity = 1 << max(0, peak - 1).bit_length()
+    timers = ProfileTimers()
+    t0 = time.perf_counter()
+    res = engine.simulate_stream(users, arrival_stream(jobs), cfg,
+                                 STREAM_HORIZON, "omfs", capacity=capacity,
+                                 profile=timers, **kw)
+    stream_s = time.perf_counter() - t0
+    launches = sched_ops.LAUNCHES
+    mono = engine.simulate(users, due, cfg, STREAM_HORIZON, "omfs",
+                           pass_depth=FLEET_DEPTH, device=DEV)
+    set_kernel_counts(saved)
+    stats = res.stream_stats
+    if stats["deferrals"] or first.stream_stats["deferrals"] \
+            or stats["inserted"] != len(due):
+        raise AssertionError(f"stream-fleet deferred or lost arrivals: "
+                             f"{stats}, first run {first.stream_stats}")
+    assert_same_run(res, mono, "stream-fleet vs monolithic")
+    assert_same_run(first, mono, "stream-fleet (ample) vs monolithic")
+    prof = timers.snapshot()
+    reads = res.stats.table_reads / stats["segments"]
+    log("stream-fleet", policy="omfs", horizon=STREAM_HORIZON,
+        segment_len=STREAM_SEGMENT, arrivals=len(due),
+        peak_live=peak, capacity=capacity, segments=stats["segments"],
+        deferrals=stats["deferrals"], dropped=stats["dropped"],
+        ticks_per_s_stream=f"{STREAM_HORIZON / stream_s:.3f}",
+        ticks_per_s_monolithic=f"{STREAM_HORIZON / mono.seconds['ticks']:.3f}",
+        # compile: 0 where an earlier phase had loaded the kernel library
+        **{f"{k}_s": f"{prof.get(k, {'total_s': 0.0})['total_s']:.3f}"
+           for k in ("compile", "dispatch", "compaction")},
+        host_reads_per_boundary=f"{reads:.2f}",
+        host_syncs_per_tick=f"{res.stats.host_syncs / STREAM_HORIZON:.2f}",
+        launches=launches, spills=int(res.table.n_spill.sum()),
+        identical_to_monolithic=True)
 
 
 def phase_launcher():
@@ -1520,8 +1990,10 @@ def collect_garbage():
 
 
 def kernel_counts():
-    """Every kernel's launch count, by name."""
-    return dict(sched_select=sched_ops.LAUNCHES, **{
+    """Every kernel's launch count, by name (and the cells that
+    `sched_select`'s launches planned)."""
+    return dict(sched_select=sched_ops.LAUNCHES,
+                sched_select_plans=sched_ops.PLANS, **{
         f"ckpt_{k}": v for k, v in codec_ops.LAUNCHES.items()},
         flash_attention=flash_ops.LAUNCHES,
         flash_attention_wgmma=flash_ops.WGMMA_LAUNCHES,
@@ -1532,6 +2004,7 @@ def kernel_counts():
 def set_kernel_counts(counts):
     """Set every kernel's launch count (``kernel_counts()``'s keys)."""
     sched_ops.LAUNCHES = counts["sched_select"]
+    sched_ops.PLANS = counts["sched_select_plans"]
     codec_ops.LAUNCHES.update(quantize=counts["ckpt_quantize"],
                               dequantize=counts["ckpt_dequantize"])
     flash_ops.LAUNCHES = counts["flash_attention"]
@@ -2376,14 +2849,21 @@ def main():
     smi = phase_env()
     phase_build()
     err = phase_kernel_compare()
+    batch_err = phase_batch_kernel_compare()
     runs, launches = phase_fleet()
     timing = phase_kernel_on_fleet(runs["omfs", "cuda"])
     plain_device_us = phase_fleet_profile()
     phase_policy_syncs(runs)
     phase_policy_matrix(runs)
-    phase_events()
+    events_workload, card_logs = phase_events()
     phase_events_fleet(runs["omfs", "cuda"], plain_device_us)
+    batch_launches, captured = phase_batch_fleet(runs)
     del runs
+    batch_timing = phase_batch_kernel_time(captured)
+    del captured
+    phase_batch_events(events_workload, card_logs)
+    phase_batch_sweep()
+    phase_stream_fleet()
     phase_launcher()
     codec_err = phase_codec_compare()
     codec = phase_codec_state()
@@ -2455,7 +2935,12 @@ def main():
         "src/repro_torch/kernels/sched_select/csrc/sched_select.cu",
         "src/repro/kernels/sched_select/kernel.py:59", launches,
         max(err, timing["max_abs_err"]), timing,
-        extra=("host_ms", "floor_ms"))] + [kernel_entry(
+        extra=("host_ms", "floor_ms")), kernel_entry(
+        "sched_select_batched",
+        "src/repro_torch/kernels/sched_select/csrc/sched_select.cu",
+        "src/repro/kernels/sched_select/kernel.py:59", batch_launches,
+        max(batch_err, batch_timing["max_abs_err"]), batch_timing,
+        extra=("host_ms", "singles_ms"))] + [kernel_entry(
             f"ckpt_{name}",
             "src/repro_torch/kernels/ckpt_codec/csrc/ckpt_codec.cu",
             f"src/repro/kernels/ckpt_codec/kernel.py:{line}",

@@ -20,6 +20,13 @@ default, on ``device``; "python", the host reference), and
 `EngineResult.signature()` is comparable across backends and with the
 reference engine's results.  ``simulate_matrix`` runs many policies over
 one built table.
+
+Two engines build on the same tick: ``simulate_batch`` runs many
+independent cells (workload x policy x quantum x pass depth) as ``[B, J]``
+tables, one batch per policy (the reference's ``jax.vmap`` with a
+``lax.switch`` over policies, written out), and ``simulate_stream`` runs
+unbounded arrivals through a fixed-capacity table in segments, compacting
+finished rows out on the host between them.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import torch
 from repro_torch.core import omfs_torch, policies_torch
 from repro_torch.core.baselines import ALL_BASELINES
 from repro_torch.core.omfs import Decision, cheap_victim_pass, scheduler_pass
-from repro_torch.core.omfs_torch import I32, JobTable, PassStats
+from repro_torch.core.omfs_torch import I32, JobTable, Knobs, PassStats
 from repro_torch.core.types import (
     ClusterState,
     Job,
@@ -43,7 +50,8 @@ from repro_torch.core.types import (
 )
 
 PythonPolicy = Callable[[ClusterState], List[Decision]]
-# tensor policy contract: pass_fn(cfg, entitled[U], t, JobTable, stats)
+# tensor policy contract: pass_fn(cfg, entitled[U], t, JobTable, stats,
+# knobs=None), over [J] tables or [B, J] batches (entitled [B, U])
 TorchPass = Callable[..., JobTable]
 TorchPassFactory = Callable[[Optional[int]], TorchPass]
 
@@ -145,8 +153,11 @@ def tick_python(
 
 def tick_torch(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
                t: int, policy_pass: TorchPass,
-               stats: Optional[PassStats] = None) -> JobTable:
-    """One tick at ``t`` (steps 1-3), updating ``tbl`` in place."""
+               stats: Optional[PassStats] = None,
+               knobs: Optional[Knobs] = None) -> JobTable:
+    """One tick at ``t`` (steps 1-3), updating ``tbl`` in place; a
+    ``[B, J]`` table ticks every cell (``knobs``: their quantum and pass
+    depth)."""
     # 1. arrivals
     tbl.state.masked_fill_((tbl.state == omfs_torch.UNSUB)
                            & (tbl.submit <= t), omfs_torch.PENDING)
@@ -157,16 +168,18 @@ def tick_torch(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
     tbl.state.masked_fill_(done, omfs_torch.DONE)
     tbl.finish.masked_fill_(done, t)
     # 3. scheduling pass over the submitted queue snapshot
-    return policy_pass(cfg, ent, t, tbl, stats)
+    return policy_pass(cfg, ent, t, tbl, stats, knobs)
 
 
 def _tick_step(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
                t: int, pass_fn: TorchPass,
-               stats: Optional[PassStats] = None):
-    """The tick plus the per-tick busy reduction (protocol step 4)."""
-    tbl = tick_torch(cfg, ent, tbl, t, pass_fn, stats)
+               stats: Optional[PassStats] = None,
+               knobs: Optional[Knobs] = None):
+    """The tick plus the per-tick busy reduction (protocol step 4), one
+    int32 per cell."""
+    tbl = tick_torch(cfg, ent, tbl, t, pass_fn, stats, knobs)
     busy = torch.where(tbl.state == omfs_torch.RUNNING, tbl.cpus,
-                       0).sum(dtype=I32)
+                       0).sum(-1, dtype=I32)
     return tbl, busy
 
 
@@ -183,42 +196,54 @@ def run_torch(users: List[User], jobs: List[Job], cfg: SchedulerConfig,
 
 def run_table(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
               horizon: int, pass_fn: TorchPass, t0: int = 0,
-              stats: Optional[PassStats] = None
+              stats: Optional[PassStats] = None,
+              knobs: Optional[Knobs] = None
               ) -> Tuple[JobTable, torch.Tensor]:
     """Ticks ``t0 .. t0 + horizon - 1`` over an existing table (a run
-    resumed from a carried-over state), in place."""
-    busy = torch.zeros(horizon, dtype=I32, device=tbl.cpus.device)
-    if tbl.cpus.shape[0] == 0:
+    resumed from a carried-over state, or a stream's segment), in place.
+    Returns ``(tbl, busy[..., T])``: one series per cell of a batch."""
+    lead = tbl.cpus.shape[:-1]
+    busy = torch.zeros(lead + (horizon,), dtype=I32, device=tbl.cpus.device)
+    if tbl.cpus.shape[-1] == 0:
         return tbl, busy
     for i in range(horizon):
-        tbl, busy[i] = _tick_step(cfg, ent, tbl, t0 + i, pass_fn, stats)
+        tbl, busy[..., i] = _tick_step(cfg, ent, tbl, t0 + i, pass_fn, stats,
+                                       knobs)
     return tbl, busy
 
 
 def run_table_events(cfg: SchedulerConfig, ent: torch.Tensor, tbl: JobTable,
                      horizon: int, pass_fn: TorchPass, ring_size: int,
-                     stats: Optional[PassStats] = None):
+                     t0: int = 0, stats: Optional[PassStats] = None,
+                     knobs: Optional[Knobs] = None):
     """`run_table` plus the per-tick event capture (`obs.torch_capture`):
     the same ticks, each wrapped by a copy of the columns the capture
     diffs and its ``(counts[E], ring[R, 3], dropped)``, stacked on the
-    device.  Returns ``(tbl, busy[T], counts[T, E], ring[T, R, 3],
-    dropped[T])``; nothing is read back per tick."""
+    device.  Returns ``(tbl, busy[..., T], counts[..., T, E],
+    ring[..., T, R, 3], dropped[..., T])`` (the leading axes a batch's);
+    nothing is read back per tick."""
     from repro_torch.obs import torch_capture
     from repro_torch.obs.events import N_EVENT_TYPES
 
     dev = tbl.cpus.device
-    busy = torch.zeros(horizon, dtype=I32, device=dev)
-    counts = torch.zeros(horizon, N_EVENT_TYPES, dtype=I32, device=dev)
-    ring = torch.full((horizon, ring_size, len(torch_capture.RING_FIELDS)),
+    lead = tbl.cpus.shape[:-1]
+    busy = torch.zeros(lead + (horizon,), dtype=I32, device=dev)
+    counts = torch.zeros(lead + (horizon, N_EVENT_TYPES), dtype=I32,
+                         device=dev)
+    ring = torch.full(lead + (horizon, ring_size,
+                              len(torch_capture.RING_FIELDS)),
                       -1, dtype=I32, device=dev)
-    dropped = torch.zeros(horizon, dtype=I32, device=dev)
-    if tbl.cpus.shape[0] == 0:
+    dropped = torch.zeros(lead + (horizon,), dtype=I32, device=dev)
+    if tbl.cpus.shape[-1] == 0:
         return tbl, busy, counts, ring, dropped
-    for t in range(horizon):
+    for i in range(horizon):
+        t = t0 + i
         pre = torch_capture.snapshot(tbl)
-        tbl, busy[t] = _tick_step(cfg, ent, tbl, t, pass_fn, stats)
-        counts[t], ring[t], dropped[t] = torch_capture.capture_tick(
-            pre, tbl, t, ring_size)
+        tbl, busy[..., i] = _tick_step(cfg, ent, tbl, t, pass_fn, stats,
+                                       knobs)
+        (counts[..., i, :], ring[..., i, :, :],
+         dropped[..., i]) = torch_capture.capture_tick(pre, tbl, t,
+                                                       ring_size)
     return tbl, busy, counts, ring, dropped
 
 
@@ -275,6 +300,7 @@ class EngineResult:
     #: host wall seconds: "build" (table from jobs) and "ticks" (the run,
     #: up to the busy series on the host); "decode" with record_events
     seconds: Dict[str, float] = field(default_factory=dict)
+    stream_stats: Optional[Dict[str, int]] = None   # simulate_stream only
     # -- observability (record_events=True); see repro_torch.obs -----------
     events: Optional[list] = None                      # List[obs.Event]
     event_counts: Optional[np.ndarray] = None          # [T, N_EVENT_TYPES]
@@ -502,3 +528,341 @@ def simulate_matrix(users: List[User], jobs: List[Job],
             stats=stats, seconds={"build": build_s,
                                   "ticks": time.perf_counter() - t1}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Batched sweep engine: many independent cells as [B, J] tables
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchCell:
+    """One cell of a `simulate_batch` sweep: a workload (scenario x seed),
+    a registered policy, and optional overrides of ``cfg.quantum`` and the
+    full-queue sweep, carried per cell as `omfs_torch.Knobs`."""
+
+    users: List[User]
+    jobs: List[Job]
+    policy: str = "omfs"
+    quantum: Optional[int] = None
+    pass_depth: Optional[int] = None
+
+
+def simulate_batch(
+    cells: List[BatchCell],
+    config: SchedulerConfig,
+    horizon: int,
+    *,
+    devices: Optional[int] = None,
+    record_events: bool = False,
+    event_ring: Optional[int] = None,
+    device="cuda",
+) -> List[EngineResult]:
+    """Run ``B`` independent simulations as batches over ``[B, J]`` tables.
+
+    Every cell's table is padded to the batch's largest (inert rows, see
+    `omfs_torch.stack_tables`) and its entitlements to its group's most
+    users; the cells of one policy are stacked and run as one batch for the
+    whole
+    horizon, each with its quantum and pass depth as `omfs_torch.Knobs`
+    (the reference's ``lax.switch`` over policies becomes one batch per
+    policy: the cells are independent, so the results are the same).  At
+    a queue position the OMFS passes read every cell's branch in one host
+    synchronisation and plan the cells that evict in one batched
+    `sched_select` launch, so a tick makes as many host syncs as the
+    group's deepest cell has positions, whatever its size.  Per-cell
+    results are bit-identical to ``simulate`` with the matching config,
+    and to the reference's ``simulate_batch``; each result's ``stats``
+    holds its group's host syncs and its own eviction branches.
+
+    ``devices`` takes only 1 (one card; slice 11 brings more).  Empty
+    corners match the sequential paths: ``cells == []`` returns ``[]``,
+    a batch whose tables are all empty takes ``simulate``'s early return,
+    and a mixed batch keeps its empty cells as all-pad tables.  Runs on
+    ``device``, the card by default."""
+    cells = list(cells)
+    if not cells:
+        return []
+    names = sorted({c.policy for c in cells})
+    unknown = [n for n in names if n not in POLICIES]
+    if unknown:
+        raise ValueError(
+            f"unknown policies {unknown}; known: {sorted(POLICIES)}")
+    if devices is not None and int(devices) != 1:
+        raise ValueError(
+            f"devices={devices}: the port runs a batch on one card; "
+            "batches across cards come with slice 11")
+    # each distinct workload is built once and shared by its cells
+    built, memo = [], {}
+    t0 = time.perf_counter()
+    for c in cells:
+        key = (id(c.users), id(c.jobs))
+        if key not in memo:
+            memo[key] = omfs_torch.table_from_jobs(
+                c.jobs, c.users, config.cpu_total, config, device)
+        built.append(memo[key])
+    build_s = time.perf_counter() - t0
+    sizes = [t.cpus.shape[0] for t, _ in built]
+    if max(sizes) == 0:
+        # all-empty batch: the early return simulate takes
+        out = [EngineResult(policy=c.policy, config=config, table=t,
+                            busy=np.zeros(horizon, np.int32),
+                            seconds={"build": build_s, "ticks": 0.0})
+               for c, (t, _) in zip(cells, built)]
+        if record_events:
+            from repro_torch.obs.events import N_EVENT_TYPES
+            for r in out:
+                r.events = []
+                r.event_counts = np.zeros((horizon, N_EVENT_TYPES), np.int64)
+                r.events_dropped = np.zeros(horizon, np.int64)
+        return out
+
+    rows = max(sizes)
+    ring_size = None
+    if record_events:
+        from repro_torch.obs import torch_capture
+        from repro_torch.obs.events import lossless_ring_size
+        ring_size = (lossless_ring_size(rows) if event_ring is None
+                     else event_ring)
+    # the cells' depths bound every group's loop alike: the batch-wide
+    # deepest when each cell caps its depth, else the whole queue
+    depths = [c.pass_depth for c in cells]
+    bound = None if any(d is None for d in depths) else max(depths)
+    out: List[Optional[EngineResult]] = [None] * len(cells)
+    for name in names:
+        group = [k for k, c in enumerate(cells) if c.policy == name]
+        tbl, ent = omfs_torch.stack_tables(
+            [omfs_torch.pad_table(built[k][0], rows) for k in group],
+            [built[k][1] for k in group])
+        knobs = omfs_torch.make_knobs(
+            [config.quantum if cells[k].quantum is None else cells[k].quantum
+             for k in group], [cells[k].pass_depth for k in group],
+            tbl.cpus.device)
+        stats = PassStats(cell_branches=[0] * len(group))
+        pass_fn = POLICIES[name].torch_factory(bound)
+        t1 = time.perf_counter()
+        if record_events:
+            tbl, busy, counts, ring, dropped = run_table_events(
+                config, ent, tbl, horizon, pass_fn, ring_size, stats=stats,
+                knobs=knobs)
+            counts = counts.cpu().numpy().astype(np.int64)
+            dropped = dropped.cpu().numpy().astype(np.int64)
+        else:
+            tbl, busy = run_table(config, ent, tbl, horizon, pass_fn,
+                                  stats=stats, knobs=knobs)
+        busy = busy.cpu().numpy()
+        ticks_s = time.perf_counter() - t1
+        for g, k in enumerate(group):
+            # the cell's rows: rows never move in the table
+            res = EngineResult(
+                policy=name, config=config,
+                table=JobTable(*(c[g, :sizes[k]] for c in tbl)),
+                busy=busy[g],
+                stats=PassStats(stats.host_syncs, stats.cell_branches[g]),
+                seconds={"build": build_s, "ticks": ticks_s})
+            if record_events:
+                res.event_counts = counts[g]
+                res.events_dropped = dropped[g]
+                res.events = torch_capture.decode_events(
+                    counts[g], ring[g], dropped[g])
+            out[k] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Chunked-epoch streaming engine: unbounded arrivals at bounded memory
+# ---------------------------------------------------------------------------
+
+
+def _table_to_host(tbl: JobTable) -> Dict[str, np.ndarray]:
+    """The whole table in ONE read: its columns packed into one int32
+    block on the device, then split on the host."""
+    n = tbl.cpus.shape[0]
+    block = torch.cat([c.reshape(n, -1) for c in tbl], 1).cpu().numpy()
+    out, at = {}, 0
+    for f, c in zip(JobTable._fields, tbl):
+        w = 1 if c.dim() == 1 else c.shape[1]
+        out[f] = block[:, at:at + w].reshape(c.shape)
+        at += w
+    return out
+
+
+def simulate_stream(
+    users: List[User],
+    jobs,
+    config: SchedulerConfig,
+    horizon: int,
+    policy: str = "omfs",
+    *,
+    capacity: int,
+    segment_len: int,
+    pass_depth: Optional[int] = None,
+    record_events: bool = False,
+    event_ring: Optional[int] = None,
+    profile=None,
+    device="cuda",
+) -> EngineResult:
+    """Run an arrival *stream* through a fixed-``capacity`` table in
+    ``segment_len``-tick segments: unbounded workloads at bounded memory
+    (the reference's ``simulate_stream``).
+
+    ``jobs`` is any iterable of `core.types.Job` in ascending
+    ``(submit_time, id)`` order (`core.workload.arrival_stream` sorts a
+    list; `core.workload.endless_arrivals` generates forever).  Each
+    segment:
+
+      1. host boundary: pull every job due before the segment's end from
+         the iterator, read the table back (one read, counted in
+         ``stats.table_reads``), archive its finished (DONE/KILLED) rows on
+         the host, and scatter the arrivals into the freed slots
+         (`omfs_torch.insert_rows`, in place on the device).  Arrivals
+         land as UNSUBMITTED rows and fire at their true submit tick, so
+         inserting a segment early changes nothing.
+      2. `run_table` from the segment's start tick.
+
+    When every due arrival finds a slot (live jobs never exceed
+    ``capacity``), the merged result (archive and live rows in ``jid``
+    order) is bit-identical to the monolithic ``simulate`` over the same
+    jobs: queue and victim tie-breaks ride the ``jid`` column, not the
+    row.  When slots run out, surplus arrivals are DEFERRED to a later
+    boundary; ``stream_stats["deferrals"]`` counts those events and
+    ``"dropped"`` the arrivals still waiting at the end.  Jobs submitted
+    at or after ``horizon`` stay in the iterator.
+
+    ``record_events`` captures the lifecycle log per segment with true job
+    ids.  ``profile`` (an `obs.profile.ProfileTimers`) is charged three
+    sections: ``compile`` (the segment during which the `sched_select`
+    kernel library was built or loaded), ``dispatch`` (the other
+    segments, each ending in a synchronisation when profiled) and
+    ``compaction`` (the host boundary).  The busy series stays on the
+    device until the end.  Runs on ``device``, the card by default."""
+    if capacity <= 0:
+        raise ValueError(f"capacity must be positive, got {capacity}")
+    if segment_len <= 0:
+        raise ValueError(f"segment_len must be positive, got {segment_len}")
+    if not isinstance(policy, str) or policy not in POLICIES:
+        raise ValueError(
+            f"unknown policy {policy!r}; known: {sorted(POLICIES)}")
+    from repro_torch.kernels.sched_select import ops as sched_ops
+    from repro_torch.obs.profile import ProfileTimers
+
+    pass_fn = POLICIES[policy].torch_factory(pass_depth)
+    timers = profile if profile is not None else ProfileTimers()
+    ring: Optional[int] = None
+    if record_events:
+        from repro_torch.obs import torch_capture
+        from repro_torch.obs.events import N_EVENT_TYPES, lossless_ring_size
+        ring = (lossless_ring_size(capacity) if event_ring is None
+                else event_ring)
+
+    ent = omfs_torch.entitlements(users, config.cpu_total, device)
+    empty, _ = omfs_torch.table_from_jobs([], users, config.cpu_total, config,
+                                          device)
+    tbl = omfs_torch.pad_table(empty, capacity)
+    pass_stats = PassStats()
+    feed = iter(jobs)
+    lookahead: Optional[Job] = None
+    due: List[Job] = []
+    archived: List[Dict[str, np.ndarray]] = []   # host-side finished rows
+    busy_parts: List[torch.Tensor] = []
+    stats = {"segments": 0, "inserted": 0, "deferrals": 0, "peak_live": 0,
+             "capacity": capacity}
+    ev_counts: List[np.ndarray] = []
+    ev_dropped: List[np.ndarray] = []
+    events: list = []
+
+    def boundary(tbl: JobTable) -> JobTable:
+        """Compact finished rows out, insert due arrivals; host-side."""
+        host = _table_to_host(tbl)
+        pass_stats.table_reads += 1
+        pad = (host["jid"] == omfs_torch.BIG) & (host["submit"]
+                                                == omfs_torch.BIG)
+        finished = np.isin(host["state"],
+                           (omfs_torch.DONE, omfs_torch.KILLED)) & ~pad
+        if finished.any():
+            idx = np.flatnonzero(finished)
+            archived.append({f: v[idx] for f, v in host.items()})
+        free = np.flatnonzero(finished | pad)
+        stats["peak_live"] = max(stats["peak_live"], capacity - free.size)
+        k = min(len(due), free.size)
+        if k < len(due):
+            stats["deferrals"] += len(due) - k
+        if k == 0 and not finished.any():
+            return tbl
+        take, due[:] = due[:k], due[k:]
+        block, _ = omfs_torch.table_from_jobs(take, users, config.cpu_total,
+                                              config, device)
+        rows = omfs_torch.pad_table(block, capacity)
+        # arrivals fill the first k free slots, pad rows clear the rest of
+        # the freed ones, occupied slots are written back as they are:
+        # `slots` is a permutation of arange(capacity) by construction
+        slots = np.concatenate([free,
+                                np.setdiff1d(np.arange(capacity), free)])
+        stats["inserted"] += k
+        return omfs_torch.insert_rows(tbl, slots, rows,
+                                      np.arange(capacity) < free.size)
+
+    t0 = 0
+    while t0 < horizon:
+        seg = min(segment_len, horizon - t0)
+        while True:
+            if lookahead is None:
+                lookahead = next(feed, None)
+            if lookahead is None or lookahead.submit_time >= t0 + seg:
+                break
+            due.append(lookahead)
+            lookahead = None
+        with timers.section("compaction"):
+            tbl = boundary(tbl)
+        unbuilt = sched_ops._lib_handle is None
+        start = time.perf_counter()
+        if record_events:
+            tbl, busy, cnt, rbuf, drp = run_table_events(
+                config, ent, tbl, seg, pass_fn, ring, t0=t0,
+                stats=pass_stats)
+            cnt = cnt.cpu().numpy().astype(np.int64)
+            drp = drp.cpu().numpy().astype(np.int64)
+            events.extend(torch_capture.decode_events(cnt, rbuf, drp, t0=t0))
+            ev_counts.append(cnt)
+            ev_dropped.append(drp)
+        else:
+            tbl, busy = run_table(config, ent, tbl, seg, pass_fn, t0=t0,
+                                  stats=pass_stats)
+        busy_parts.append(busy)
+        if profile is not None and busy.is_cuda:
+            torch.cuda.synchronize(busy.device)
+        # the segment in which the kernel library was built or loaded
+        timers.charge("compile" if unbuilt and sched_ops._lib_handle
+                      is not None else "dispatch",
+                      time.perf_counter() - start)
+        stats["segments"] += 1
+        t0 += seg
+
+    # final extraction: archive + still-live rows, merged in job-id order
+    # (the monolithic table's row order).  Arrivals still deferred here
+    # never entered the table; they stay out of the result (counted).
+    stats["dropped"] = len(due)
+    host = _table_to_host(tbl)
+    pass_stats.table_reads += 1
+    live = np.flatnonzero(~((host["jid"] == omfs_torch.BIG)
+                            & (host["submit"] == omfs_torch.BIG)))
+    parts = archived + [{f: v[live] for f, v in host.items()}]
+    merged = {f: np.concatenate([p[f] for p in parts])
+              for f in JobTable._fields}
+    order = np.argsort(merged["jid"], kind="stable")
+    dev = tbl.cpus.device
+    res = EngineResult(
+        policy=policy, config=config, stats=pass_stats,
+        table=JobTable(*(torch.from_numpy(np.ascontiguousarray(
+            merged[f][order])).to(dev) for f in JobTable._fields)),
+        busy=(torch.cat(busy_parts).cpu().numpy() if busy_parts
+              else np.zeros(0, np.int32)),
+        stream_stats=stats)
+    if record_events:
+        res.events = events
+        res.event_counts = (np.concatenate(ev_counts) if ev_counts
+                            else np.zeros((0, N_EVENT_TYPES), np.int64))
+        res.events_dropped = (np.concatenate(ev_dropped) if ev_dropped
+                              else np.zeros(0, np.int64))
+        stats["events_dropped"] = int(res.events_dropped.sum())
+    return res

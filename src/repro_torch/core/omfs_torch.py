@@ -12,12 +12,20 @@ passes:
   ``[U]`` and the busy scalar are carried across admissions, and the
   victim plan runs only on the eviction branch.
 
+**A batch axis.** Every primitive and pass works over ``[B, J]`` columns
+(``[B, J, T]`` lattices, ``[B, U]`` entitlements): B independent tables,
+the reference's ``jax.vmap`` written out.  A ``[J]`` table runs as the
+batch of one (`batched_pass`), so the sequential engine and
+``engine.simulate_batch`` share one implementation of each pass.  Per-cell
+quantum and pass depth ride `Knobs`.
+
 The reference's ``lax.cond`` on ``need_evict`` becomes a branch on the
-host: each queue position reads its job's row and the carried aggregates
-back in ONE synchronisation (``PassStats.host_syncs`` counts them), so the
-eviction machinery runs only where eviction is needed.  A host branch per
-position rules out capturing a tick in a CUDA graph; that is left to later
-work.
+host: each queue position decides every cell's branch on the device and
+reads the ``[2, B]`` decision back in ONE synchronisation
+(``PassStats.host_syncs`` counts them), so the eviction machinery runs
+only where a cell needs it, as one batched plan over those cells.  A host
+branch per position rules out capturing a tick in a CUDA graph; that is
+left to later work.
 
 **In-place updates.** JAX's functions are pure and the engine donates the
 table; here the run owns its table, so `admit_job`, `apply_evictions`,
@@ -39,7 +47,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
 
 import torch
 
@@ -124,11 +134,16 @@ class JobTable(NamedTuple):
 @dataclass
 class PassStats:
     """What a run's passes did on the host: synchronisations with the
-    device (one per processed queue position) and eviction-branch
-    entries (one victim plan each)."""
+    device (one per processed queue position, whatever the batch) and
+    eviction-branch entries (one victim plan per cell that takes one).
+    ``cell_branches``, when a list, gets each cell's branches too
+    (``engine.simulate_batch``); ``table_reads`` counts the stream
+    engine's table reads at its segment boundaries."""
 
     host_syncs: int = 0
     evict_branches: int = 0
+    cell_branches: Optional[List[int]] = None
+    table_reads: int = 0
 
 
 def table_from_jobs(jobs, users, cpu_total: int,
@@ -150,8 +165,13 @@ def table_from_jobs(jobs, users, cpu_total: int,
     def arr(f):
         return torch.tensor([f(x) for x in j], dtype=I32, device=dev)
 
+    # a lattice row is a function of the image size alone: evaluated once
+    # per distinct size (a fleet of 100k jobs has ~7k)
+    mibs = [x.state_mib for x in j]
+
     def lat(f):
-        return torch.tensor([[f(x, k) for k in range(n_tiers)] for x in j],
+        rows = {m: [f(m, k) for k in range(n_tiers)] for m in set(mibs)}
+        return torch.tensor([rows[m] for m in mibs],
                             dtype=I32, device=dev).reshape(n, n_tiers)
 
     def full(v):
@@ -165,14 +185,11 @@ def table_from_jobs(jobs, users, cpu_total: int,
         priority=arr(lambda x: x.priority),
         jclass=arr(lambda x: int(x.job_class)),
         submit=arr(lambda x: x.submit_time),
-        state_mib=arr(lambda x: x.state_mib),
-        cost_save_lat=lat(
-            lambda x, k: cfg.eviction_save_cost(x.state_mib, k)),
+        state_mib=torch.tensor(mibs, dtype=I32, device=dev),
+        cost_save_lat=lat(lambda m, k: cfg.eviction_save_cost(m, k)),
         cost_rsave_lat=lat(
-            lambda x, k: cfg.eviction_save_cost(x.state_mib, k,
-                                                recurrent=True)),
-        cost_restore_lat=lat(
-            lambda x, k: cfg.restart_restore_cost(x.state_mib, k)),
+            lambda m, k: cfg.eviction_save_cost(m, k, recurrent=True)),
+        cost_restore_lat=lat(lambda m, k: cfg.restart_restore_cost(m, k)),
         state=full(UNSUB),
         progress=full(0),
         run_start=full(-1),
@@ -194,18 +211,121 @@ def entitlements(users, cpu_total: int, device="cuda") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# JobTable primitives
+# Batch stacking and the stream engine's slot scatter
+# ---------------------------------------------------------------------------
+
+#: pad-row values per column; unlisted columns pad with 0.  A pad row is
+#: inert: ``submit=BIG`` never arrives (it stays UNSUB), ``cpus=0`` moves no
+#: aggregate, ``jid=BIG`` sorts it last in every tie-break.
+_PAD_VALUES = {"jid": BIG, "submit": BIG, "run_start": -1,
+               "first_start": -1, "finish": -1, "ckpt_tier": -1}
+
+
+def pad_table(tbl: JobTable, rows: int) -> JobTable:
+    """Grow a ``[J]`` table to ``rows`` with inert pad rows (the same table
+    if equal)."""
+    n = tbl.cpus.shape[0]
+    if rows == n:
+        return tbl
+    if rows < n:
+        raise ValueError(f"cannot shrink a table of {n} rows to {rows}")
+    return JobTable(*(
+        torch.cat([col, torch.full((rows - n,) + col.shape[1:],
+                                   _PAD_VALUES.get(f, 0), dtype=I32,
+                                   device=col.device)])
+        for f, col in zip(JobTable._fields, tbl)))
+
+
+def is_pad(tbl: JobTable) -> torch.Tensor:
+    """Mask of inert pad rows (see ``_PAD_VALUES``)."""
+    return (tbl.jid == BIG) & (tbl.submit == BIG)
+
+
+def stack_tables(tables, ents) -> Tuple[JobTable, torch.Tensor]:
+    """Stack per-cell ``(JobTable[Ji], ent[Ui])`` pairs onto a leading batch
+    axis: tables padded to max(Ji) rows (`pad_table`) and entitlements to
+    max(Ui) users with 0 CPUs (a user that owns no row).  Pad rows are
+    never eligible, never running and sort last, so no cell's schedule
+    changes."""
+    rows = max(t.cpus.shape[0] for t in tables)
+    n_users = max(e.shape[0] for e in ents)
+    padded = [pad_table(t, rows) for t in tables]
+    ents = [torch.cat([e, e.new_zeros(n_users - e.shape[0])]) for e in ents]
+    return (JobTable(*(torch.stack(cols) for cols in zip(*padded))),
+            torch.stack(ents))
+
+
+def insert_rows(tbl: JobTable, slots, rows: JobTable, valid) -> JobTable:
+    """The stream engine's slot scatter, in place: row ``tbl[slots[i]]``
+    becomes ``rows[i]`` where ``valid[i]``, else stays.  ``slots`` is built
+    on the host (a sequence, numpy array or CPU tensor) and must be a
+    permutation of ``arange(J)``, so no two writes meet; anything else
+    raises.  ``valid`` is ``[J]`` bool, host or device."""
+    if isinstance(slots, torch.Tensor) and slots.device.type != "cpu":
+        raise TypeError("slots are checked on the host: pass them from the "
+                        "CPU")
+    host = np.asarray(slots.numpy() if isinstance(slots, torch.Tensor)
+                      else slots)
+    n = tbl.cpus.shape[0]
+    if host.shape != (n,) or not np.array_equal(np.sort(host), np.arange(n)):
+        raise ValueError(f"slots must be a permutation of arange({n})")
+    dev = tbl.cpus.device
+    idx = torch.as_tensor(host, dtype=torch.long).to(dev)
+    keep = torch.as_tensor(valid, dtype=torch.bool).to(dev)
+    for col, new in zip(tbl, rows):
+        v = keep.view((-1,) + (1,) * (col.dim() - 1))
+        col[idx] = torch.where(v, new, col[idx])
+    return tbl
+
+
+class Knobs(NamedTuple):
+    """Per-cell scheduling knobs of a batch (``engine.simulate_batch``):
+    ``quantum`` overrides ``cfg.quantum`` and ``depth`` bounds each cell's
+    queue sweep, positions past it masked (the reference's traced
+    `Knobs`).  ``depth`` is known on the host (the loop bound is a host
+    int) and ``depth_t`` is its copy on the device."""
+
+    quantum: torch.Tensor          # int32 [B] on the table's device
+    depth: Tuple[int, ...]         # per cell; BIG sweeps the whole queue
+    depth_t: torch.Tensor          # int32 [B], the same on the device
+
+
+def make_knobs(quantum: Sequence[int], depth: Sequence[Optional[int]],
+               device="cuda") -> Knobs:
+    """Knobs from per-cell host values (``None`` depth: the whole queue);
+    one copy to the device each."""
+    dev = resolve_device(device)
+    d = tuple(BIG if x is None else int(x) for x in depth)
+    return Knobs(torch.tensor([int(q) for q in quantum], dtype=I32,
+                              device=dev), d,
+                 torch.tensor(d, dtype=I32, device=dev))
+
+
+def default_knobs(cfg: SchedulerConfig, pass_depth: Optional[int] = None,
+                  batch: int = 1, device="cuda") -> Knobs:
+    """``batch`` cells at ``cfg.quantum`` and ``pass_depth``."""
+    return make_knobs([cfg.quantum] * batch, [pass_depth] * batch, device)
+
+
+# ---------------------------------------------------------------------------
+# JobTable primitives, over [J] or [B, J] columns
 # ---------------------------------------------------------------------------
 
 
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int):
-    """int32 sum of ``vals`` per segment id (``jax.ops.segment_sum``)."""
-    return torch.zeros(n, dtype=I32, device=vals.device).index_add_(
-        0, seg, vals)
+    """int32 sums of ``vals`` per segment id along the last axis
+    (``jax.ops.segment_sum``): ``[J] -> [n]`` or ``[B, J] -> [B, n]``."""
+    if vals.dim() == 1:
+        return torch.zeros(n, dtype=I32, device=vals.device).index_add_(
+            0, seg, vals)
+    b = vals.shape[0]
+    cell = torch.arange(b, device=vals.device).unsqueeze(1) * n
+    return torch.zeros(b * n, dtype=I32, device=vals.device).index_add_(
+        0, (seg + cell).reshape(-1), vals.reshape(-1)).view(b, n)
 
 
 def queue_order(tbl: JobTable) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Snapshot the submitted queue: (order[J], eligible[J]).
+    """Snapshot the submitted queue: (order[..., J], eligible[..., J]).
 
     Order is (-priority, submit, id) with ineligible rows pushed to the
     end; the id tie-break is the ``jid`` column."""
@@ -216,43 +336,86 @@ def queue_order(tbl: JobTable) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def running_usage(tbl: JobTable, num_users: int):
-    """Aggregates at pass start: (usage[U], non_preemptible_usage[U], busy)."""
+    """Aggregates at pass start: (usage[..., U], non_preemptible_usage[...,
+    U], busy[...])."""
     running = tbl.state == RUNNING
     run_cpus = torch.where(running, tbl.cpus, 0)
     usage = _segment_sum(run_cpus, tbl.user, num_users)
     nonp = _segment_sum(torch.where(running & (tbl.jclass == NONP),
                                     tbl.cpus, 0), tbl.user, num_users)
-    return usage, nonp, run_cpus.sum(dtype=I32)
+    return usage, nonp, run_cpus.sum(-1, dtype=I32)
 
 
-def admit_job(tbl: JobTable, idx: int, t: int, admit) -> JobTable:
-    """Start job ``idx`` (lines 37-38) iff ``admit`` — a Python bool from
-    the host branch or a 0-d bool tensor decided on the device; O(1)
-    in-place writes.
+class Snapshot(NamedTuple):
+    """The first ``depth`` positions of every cell's queue snapshot,
+    position-major (``[D, B]``), so that a position is one contiguous row
+    of each.  Rows index the flattened ``[B * J]`` table and users the
+    flattened ``[B * U]`` aggregates; ``elig`` is False past a cell's
+    ``Knobs.depth`` (the reference's ``_mask_depth``)."""
+
+    q: torch.Tensor          # [D, B] long: the row within its cell
+    rows: torch.Tensor       # [D, B] long: the row of the flattened table
+    elig: torch.Tensor       # [D, B] bool
+    users: torch.Tensor      # [D, B] long: the user of the flattened [B*U]
+    cpus: torch.Tensor       # [D, B] int32
+
+
+def queue_snapshot(tbl: JobTable, n_users: int, depth: int,
+                   knobs: Optional[Knobs] = None, order=None,
+                   eligible=None) -> Snapshot:
+    """Gather the `Snapshot` of a ``[B, J]`` table once per pass."""
+    if order is None:
+        order, eligible = queue_order(tbl)
+    b, n = tbl.cpus.shape
+    q = order[:, :depth]
+    cell = torch.arange(b, device=q.device).unsqueeze(1)
+    elig = eligible.gather(1, q)
+    if knobs is not None:
+        pos = torch.arange(q.shape[1], device=q.device)
+        elig = elig & (pos < knobs.depth_t.unsqueeze(1))
+    users = tbl.user.gather(1, q).long() + cell * n_users
+
+    def pm(x):
+        return x.t().contiguous()
+
+    return Snapshot(pm(q), pm(q + cell * n), pm(elig), pm(users),
+                    pm(tbl.cpus.gather(1, q)))
+
+
+def _flat(col: torch.Tensor) -> torch.Tensor:
+    """A ``[B, J]`` (or ``[B, J, T]``) column as ``[B * J]`` (``[B * J,
+    T]``) rows: a view, so writes land in the table."""
+    return col.view(-1) if col.dim() == 2 else col.view(-1, col.shape[-1])
+
+
+def admit_job(tbl: JobTable, rows: torch.Tensor, t: int,
+              admit: torch.Tensor) -> JobTable:
+    """Start job ``rows[b]`` of each cell (lines 37-38) where ``admit[b]``:
+    ``rows`` index the flattened ``[B * J]`` table (`Snapshot.rows`),
+    ``admit`` is ``[B]`` bool decided on the device; O(B) in-place writes.
 
     A job with a checkpoint restores its latest snapshot: admission charges
     the restore cost of the tier the snapshot was placed on (``ckpt_tier``;
     column 0 when untiered) and clears ``ckpt_tier``, freeing that tier's
     capacity."""
-    if isinstance(admit, bool):
-        admit = torch.full((), admit, dtype=torch.bool,
-                           device=tbl.state.device)
-    # a gather, not ``lat[idx, tier]``: indexing by the 0-d ``tier`` an int
-    # ``idx`` gives would read it back to the host
-    tier = tbl.ckpt_tier[idx].clamp(min=0)
-    cost = tbl.cost_restore_lat[idx].gather(-1, tier.unsqueeze(-1))
-    restore = torch.where(admit & (tbl.n_ckpt[idx] > 0), cost.squeeze(-1), 0)
-    tbl.state[idx] = torch.where(admit, RUNNING, tbl.state[idx])
-    tbl.run_start[idx] = torch.where(admit, t, tbl.run_start[idx])
-    tbl.first_start[idx] = torch.where(admit & (tbl.first_start[idx] < 0),
-                                       t, tbl.first_start[idx])
-    tbl.overhead[idx] += restore
-    tbl.ckpt_tier[idx] = torch.where(admit, -1, tbl.ckpt_tier[idx])
+    state, tier_col = _flat(tbl.state), _flat(tbl.ckpt_tier)
+    run_start, first = _flat(tbl.run_start), _flat(tbl.first_start)
+    overhead = _flat(tbl.overhead)
+    # a gather of the tier's column, read on the device
+    tier = tier_col[rows].clamp(min=0)
+    cost = _flat(tbl.cost_restore_lat)[rows].gather(-1, tier.unsqueeze(-1))
+    restore = torch.where(admit & (_flat(tbl.n_ckpt)[rows] > 0),
+                          cost.squeeze(-1), 0)
+    state[rows] = torch.where(admit, RUNNING, state[rows])
+    run_start[rows] = torch.where(admit, t, run_start[rows])
+    first[rows] = torch.where(admit & (first[rows] < 0), t, first[rows])
+    overhead[rows] += restore
+    tier_col[rows] = torch.where(admit, -1, tier_col[rows])
     return tbl
 
 
 def effective_save_lat(tbl: JobTable) -> torch.Tensor:
-    """The ``[J, T]`` save costs evicting each job *now* would charge:
+    """The ``[..., J, T]`` save costs evicting each job *now* would charge:
     recurrent (delta) rows for warm jobs (``n_ckpt > 0``), first-save rows
     otherwise — read before the eviction bumps ``n_ckpt``."""
     return torch.where((tbl.n_ckpt > 0)[..., None],
@@ -260,7 +423,7 @@ def effective_save_lat(tbl: JobTable) -> torch.Tensor:
 
 
 def tier_occupancy(tbl: JobTable, n_tiers: int) -> torch.Tensor:
-    """Per-tier MiB held by evicted-and-pending snapshots, ``[T]``."""
+    """Per-tier MiB held by evicted-and-pending snapshots, ``[..., T]``."""
     held = (tbl.state == PENDING) & (tbl.ckpt_tier >= 0)
     return _segment_sum(torch.where(held, tbl.state_mib, 0),
                         tbl.ckpt_tier.clamp(0, n_tiers - 1), n_tiers)
@@ -279,45 +442,50 @@ def victim_order(tbl: JobTable, cheap: bool = False) -> torch.Tensor:
 def select_victims(tbl: JobTable, evictable: torch.Tensor, idle, cpus_needed,
                    order: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The paper's while-loop (lines 32-36) as lexsort+cumsum: the minimal
-    prefix of evictable jobs in ``order`` whose release makes
-    ``cpus_needed`` fit.  Returns (planned[J], enough)."""
+    """The paper's while-loop (lines 32-36) as lexsort+cumsum, per cell: the
+    minimal prefix of evictable jobs in ``order`` whose release makes
+    ``cpus_needed`` fit.  ``idle``/``cpus_needed`` are ``[B]``.  Returns
+    (planned[B, J], enough[B])."""
     if order is None:
         order = victim_order(tbl)
-    evict_sorted = evictable[order]
-    cpus_sorted = torch.where(evict_sorted, tbl.cpus[order], 0)
-    freed_cum = torch.cumsum(cpus_sorted, 0, dtype=I32)
-    need = torch.clamp(torch.as_tensor(cpus_needed - idle, dtype=I32), min=0)
-    planned_sorted = evict_sorted & (freed_cum - cpus_sorted < need)
-    enough = idle + freed_cum[-1] >= cpus_needed
-    planned = torch.zeros_like(evictable)
-    planned[order] = planned_sorted
+    evict_sorted = evictable.gather(-1, order)
+    cpus_sorted = torch.where(evict_sorted, tbl.cpus.gather(-1, order), 0)
+    freed_cum = torch.cumsum(cpus_sorted, -1, dtype=I32)
+    need = torch.clamp(cpus_needed - idle, min=0)
+    planned_sorted = evict_sorted & (freed_cum - cpus_sorted
+                                     < need.unsqueeze(-1))
+    enough = idle + freed_cum[..., -1] >= cpus_needed
+    planned = torch.zeros_like(evictable).scatter_(-1, order, planned_sorted)
     return planned, enough
 
 
 def place_checkpoints(cfg: SchedulerConfig, tbl: JobTable, ckpt: torch.Tensor,
                       order: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tier placement for the ``ckpt`` victims: greedy cheapest-feasible
-    over the T lattice columns in victim ``order``, spilling down the
-    hierarchy when capacity-bounded tiers are full.  Returns
-    ``(tier[J], save_cost[J])`` (0 on non-victims); ties go to the faster
-    tier, the last tier is always feasible."""
+    """Tier placement for the ``ckpt`` victims, per cell: greedy
+    cheapest-feasible over the T lattice columns in victim ``order``,
+    spilling down the hierarchy when capacity-bounded tiers are full.
+    Returns ``(tier[B, J], save_cost[B, J])`` (0 on non-victims); ties go
+    to the faster tier, the last tier is always feasible."""
     tiers = cfg.cr_tiers
     if order is None:
         order = victim_order(tbl)
-    ckpt_sorted = ckpt[order]
+    ckpt_sorted = ckpt.gather(-1, order)
     eff = effective_save_lat(tbl)
-    lat_sorted = eff[order]
+    lat_sorted = eff.gather(
+        -2, order.unsqueeze(-1).expand(-1, -1, eff.shape[-1]))
     if all(c < 0 for c in tiers.capacity_mib):
         tier_sorted = first_argmin(lat_sorted)
     else:
-        tier_sorted = greedy_place(
-            ckpt_sorted, tbl.state_mib[order], lat_sorted,
-            tier_occupancy(tbl, tiers.n_tiers), tiers.capacity_mib)
-    tier = torch.zeros_like(tbl.ckpt_tier)
-    tier[order] = torch.where(ckpt_sorted, tier_sorted, 0)
-    save = torch.gather(eff, 1, tier.long()[:, None])[:, 0]
+        occ = tier_occupancy(tbl, tiers.n_tiers)
+        mib_sorted = tbl.state_mib.gather(-1, order)
+        tier_sorted = torch.stack([
+            greedy_place(ckpt_sorted[b], mib_sorted[b], lat_sorted[b],
+                         occ[b], tiers.capacity_mib)
+            for b in range(order.shape[0])])
+    tier = torch.zeros_like(tbl.ckpt_tier).scatter_(
+        -1, order, torch.where(ckpt_sorted, tier_sorted, 0))
+    save = eff.gather(-1, tier.long().unsqueeze(-1)).squeeze(-1)
     return tier, torch.where(ckpt, save, 0)
 
 
@@ -327,21 +495,25 @@ def _tiered(cfg: SchedulerConfig) -> bool:
 
 def plan_evictions(cfg: SchedulerConfig, tbl: JobTable,
                    evictable: torch.Tensor, idle, cpus_needed,
-                   cheap: bool = False, order: Optional[torch.Tensor] = None):
-    """The whole per-eviction decision, dispatched on ``cfg.kernel_backend``.
+                   cheap: bool = False, order: Optional[torch.Tensor] = None,
+                   cells: Optional[Sequence[int]] = None):
+    """The whole per-eviction decision for the cells of a ``[B, J]`` table,
+    dispatched on ``cfg.kernel_backend``; ``idle``/``cpus_needed`` are
+    ``[B]`` int32 tensors and ``cells`` the host list of the cells that
+    need the plan (default all; the others' outputs are not used).
 
     Returns ``(planned, enough, order, placement)``: the minimal victim
     prefix, the feasibility bit, the victim order to reuse downstream
     ("torch" only) and the ``(tier, save_cost)`` placement ("cuda" only;
     `apply_evictions` computes it from ``order`` when absent).
 
-    * ``"torch"`` — `victim_order` + `select_victims`; placement deferred
-      to `place_checkpoints` inside `apply_evictions`.
-    * ``"cuda"`` — the fused `kernels.sched_select` plan.  Its placement is
-      computed on the pre-feasibility-mask ``planned``; callers mask
-      ``planned`` with an all-or-nothing scalar and every write in
-      `apply_evictions` is gated on the masked set, so both backends give
-      the same table."""
+    * ``"torch"`` — `victim_order` + `select_victims` over every cell;
+      placement deferred to `place_checkpoints` inside `apply_evictions`.
+    * ``"cuda"`` — the fused `kernels.sched_select` plan of ``cells``, one
+      batched launch.  Its placement is computed on the
+      pre-feasibility-mask ``planned``; callers mask ``planned`` with an
+      all-or-nothing bit per cell and every write in `apply_evictions` is
+      gated on the masked set, so both backends give the same table."""
     if cfg.kernel_backend == "torch":
         if order is None:
             order = victim_order(tbl, cheap)
@@ -359,18 +531,19 @@ def plan_evictions(cfg: SchedulerConfig, tbl: JobTable,
     else:
         caps = (-1,)
         bounded = False
-        occ = torch.zeros(1, dtype=I32, device=evictable.device)
+        occ = torch.zeros((evictable.shape[0], 1), dtype=I32,
+                          device=evictable.device)
         is_ckpt = torch.zeros_like(evictable)
-        eff_lat = eff_lat[:, :1]
+        eff_lat = eff_lat[..., :1]
     planned, enough, tier = plan_evictions_fused(
-        tbl.priority, tbl.run_start, tbl.jid, eff_lat[:, 0].contiguous(),
+        tbl.priority, tbl.run_start, tbl.jid, eff_lat[..., 0].contiguous(),
         evictable, tbl.cpus, tbl.state_mib, is_ckpt, eff_lat.contiguous(),
         idle, cpus_needed, occ, caps,
-        cheap=cheap, tiered=tiered, bounded=bounded)
+        cheap=cheap, tiered=tiered, bounded=bounded, cells=cells)
     placement = None
     if tiered:
-        save = torch.gather(eff_lat, 1, tier.long()[:, None])[:, 0]
-        placement = (tier, save)
+        save = torch.gather(eff_lat, -1, tier.long().unsqueeze(-1))
+        placement = (tier, save.squeeze(-1))
     return planned, enough, None, placement
 
 
@@ -409,42 +582,90 @@ def apply_evictions(cfg: SchedulerConfig, t: int, tbl: JobTable,
     return tbl
 
 
+def evictable_mask(cfg: SchedulerConfig, tbl: JobTable, t: int,
+                   knobs: Optional[Knobs] = None) -> torch.Tensor:
+    """Running, preemptible and past the quantum (per cell under
+    ``knobs``): the victims' candidates before the beyond-paper filters."""
+    quantum = cfg.quantum if knobs is None else knobs.quantum.unsqueeze(1)
+    return ((tbl.state == RUNNING) & (tbl.jclass != NONP)
+            & ((t - tbl.run_start) >= quantum))
+
+
+def _note_branches(stats: PassStats, cells: Sequence[int]) -> None:
+    stats.evict_branches += len(cells)
+    if stats.cell_branches is not None:
+        for b in cells:
+            stats.cell_branches[b] += 1
+
+
+def batched_pass(pass_fn):
+    """A pass written over ``[B, J]`` tables that also takes a ``[J]``
+    table (with ``[U]`` entitlements) as the batch of one: its columns are
+    viewed as ``[1, J]``, so the in-place updates land in the caller's
+    table."""
+
+    def run(cfg: SchedulerConfig, ent: torch.Tensor, t: int, tbl: JobTable,
+            stats: Optional[PassStats] = None,
+            knobs: Optional[Knobs] = None) -> JobTable:
+        stats = stats if stats is not None else PassStats()
+        if tbl.cpus.dim() == 1:
+            pass_fn(cfg, ent.unsqueeze(0), t,
+                    JobTable(*(c.unsqueeze(0) for c in tbl)), stats, knobs)
+            return tbl
+        return pass_fn(cfg, ent, t, tbl, stats, knobs)
+
+    return run
+
+
+def pass_depth_of(n: int, pass_depth: Optional[int],
+                  knobs: Optional[Knobs]) -> int:
+    """Queue positions a pass visits: the factory's ``pass_depth``, and
+    under ``knobs`` no further than the deepest cell (the reference's
+    truncation at the batch-wide maximum when every cell caps its depth);
+    positions past a cell's own depth are masked in its `Snapshot`."""
+    depth = n if pass_depth is None else min(pass_depth, n)
+    return depth if knobs is None else min(depth, max(knobs.depth))
+
+
 # ---------------------------------------------------------------------------
 # Reference pass: one Algorithm-1 admission, everything recomputed (O(J))
 # ---------------------------------------------------------------------------
 
 
-def _hoistable(cfg: SchedulerConfig) -> bool:
+def _hoistable(cfg: SchedulerConfig, knobs: Optional[Knobs]) -> bool:
     """Whether one `victim_order` per tick serves every admission.  With
     ``quantum >= 1`` mid-pass admissions and evictions only move rows *out*
     of the evictable set and untouched rows keep their keys, so the stale
     order restricted to the still-evictable rows is the fresh order;
     ``quantum == 0`` makes a just-admitted job evictable at once, so it
-    keeps the per-admission recompute."""
-    return cfg.quantum >= 1
+    keeps the per-admission recompute, and so does a batch under
+    ``knobs``, as the reference's does."""
+    return knobs is None and cfg.quantum >= 1
 
 
 def _try_admit(cfg: SchedulerConfig, ent: torch.Tensor, t: int,
-               tbl: JobTable, idx, eligible: torch.Tensor,
-               cheap_victims: bool = False,
+               tbl: JobTable, rows: torch.Tensor, eligible: torch.Tensor,
+               cheap_victims: bool = False, knobs: Optional[Knobs] = None,
                order: Optional[torch.Tensor] = None) -> JobTable:
-    """Process job ``idx`` (runner, lines 18-38); no-op unless eligible and
-    still pending.  Decided entirely on the device, with no branch — the
-    un-optimized reference the incremental pass is tested against."""
+    """Process job ``rows[b]`` of each cell (runner, lines 18-38); no-op
+    unless eligible and still pending.  Decided entirely on the device,
+    with no branch — the un-optimized reference the incremental pass is
+    tested against."""
     running = tbl.state == RUNNING
     preempt_able = tbl.jclass != NONP
 
-    ju = tbl.user[idx]
-    jc = tbl.cpus[idx]
-    same_user = tbl.user == ju
+    ju = _flat(tbl.user)[rows]
+    jc = _flat(tbl.cpus)[rows]
+    same_user = tbl.user == ju.unsqueeze(1)
     non_p_usage = torch.where(running & same_user & ~preempt_able,
-                              tbl.cpus, 0).sum(dtype=I32)
-    total_usage = torch.where(running & same_user, tbl.cpus, 0).sum(dtype=I32)
-    busy = torch.where(running, tbl.cpus, 0).sum(dtype=I32)
+                              tbl.cpus, 0).sum(-1, dtype=I32)
+    total_usage = torch.where(running & same_user, tbl.cpus,
+                              0).sum(-1, dtype=I32)
+    busy = torch.where(running, tbl.cpus, 0).sum(-1, dtype=I32)
     idle = cfg.cpu_total - busy
-    entitled = ent[ju.long()]
+    entitled = ent.gather(1, ju.long().unsqueeze(1)).squeeze(1)
 
-    job_non_p = tbl.jclass[idx] == NONP
+    job_non_p = _flat(tbl.jclass)[rows] == NONP
     # line 23 (note >=): non-preemptible beyond (or exactly at) entitlement
     reject_23 = job_non_p & (non_p_usage + jc >= entitled)
     # line 26 (note >): enough idle -> run anyways
@@ -453,128 +674,141 @@ def _try_admit(cfg: SchedulerConfig, ent: torch.Tensor, t: int,
     reject_28 = jc > entitled - total_usage
 
     # lines 31-36: victim selection among quantum-expired running jobs
-    evictable = running & preempt_able & ((t - tbl.run_start) >= cfg.quantum)
+    evictable = evictable_mask(cfg, tbl, t, knobs)
     if cfg.avoid_self_eviction:                # beyond-paper flag
         evictable = evictable & ~same_user
     if cfg.victim_filter_over_entitlement:     # beyond-paper flag
+        users = tbl.user.long()
         usage_per_user = _segment_sum(torch.where(running, tbl.cpus, 0),
-                                      tbl.user, ent.shape[0])
-        evictable = evictable & (usage_per_user[tbl.user.long()]
-                                 > ent[tbl.user.long()])
+                                      tbl.user, ent.shape[1])
+        evictable = evictable & (usage_per_user.gather(1, users)
+                                 > ent.gather(1, users))
 
     planned, enough, order, placement = plan_evictions(
         cfg, tbl, evictable, idle, jc, cheap_victims, order)
 
     admit_evict = (~reject_23) & (~admit_26) & (~reject_28) & enough
-    admit = eligible & (tbl.state[idx] == PENDING) & (~reject_23) & (
+    admit = eligible & (_flat(tbl.state)[rows] == PENDING) & (~reject_23) & (
         admit_26 | admit_evict)
-    planned = planned & admit & ~admit_26
+    planned = planned & (admit & ~admit_26).unsqueeze(1)
 
     tbl = apply_evictions(cfg, t, tbl, planned, order, placement)
-    return admit_job(tbl, idx, t, admit)
+    return admit_job(tbl, rows, t, admit)
 
 
 # ---------------------------------------------------------------------------
-# The OMFS scheduling pass (policy contract: pass_fn(cfg, ent, t, tbl) -> tbl)
+# The OMFS scheduling pass (policy contract:
+# pass_fn(cfg, ent, t, tbl, stats=None, knobs=None) -> tbl)
 # ---------------------------------------------------------------------------
 
 
 @lru_cache(maxsize=None)
 def make_omfs_pass(pass_depth: Optional[int] = None, incremental: bool = True,
                    cheap_victims: bool = False):
-    """Build the Algorithm-1 scheduling pass for `core.engine`.
+    """Build the Algorithm-1 scheduling pass for `core.engine`, over
+    ``[B, J]`` tables (a ``[J]`` table is the batch of one).
 
-    ``incremental=True`` carries (usage[U], non_preemptible_usage[U], busy)
-    across admissions and runs the victim plan only on the eviction branch,
-    chosen on the host.  ``incremental=False`` is the reference pass.
+    ``incremental=True`` carries (usage[B, U], non_preemptible_usage[B, U],
+    busy[B]) across admissions; at each queue position every cell's branch
+    (idle-admit, evict, nothing) is decided on the device and read back in
+    one synchronisation, and the victim plan runs only for the cells that
+    evict.  ``incremental=False`` is the reference pass.
     ``cheap_victims=True`` is the `omfs_cheap_victim` registry policy:
     victims order by ``(save_cost, priority, run_start, id)``.
 
     The pass takes an optional ``stats`` (`PassStats`) that it counts
-    host synchronisations and eviction branches into."""
+    host synchronisations and eviction branches into, and optional
+    per-cell ``knobs``."""
 
+    @batched_pass
     def pass_fn(cfg: SchedulerConfig, ent: torch.Tensor, t: int,
-                tbl: JobTable, stats: Optional[PassStats] = None) -> JobTable:
-        stats = stats if stats is not None else PassStats()
-        n = tbl.cpus.shape[0]
+                tbl: JobTable, stats: PassStats,
+                knobs: Optional[Knobs]) -> JobTable:
         order, eligible = queue_order(tbl)
-        depth = n if pass_depth is None else min(pass_depth, n)
+        n_users = ent.shape[1]
+        depth = pass_depth_of(tbl.cpus.shape[1], pass_depth, knobs)
+        snap = queue_snapshot(tbl, n_users, depth, knobs, order, eligible)
 
         # one victim_order per tick (see _hoistable) on the torch path; the
         # fused kernel sorts internally, so a hoisted sort would be waste
-        hoist = cfg.kernel_backend == "torch" and _hoistable(cfg)
+        hoist = cfg.kernel_backend == "torch" and _hoistable(cfg, knobs)
         vorder0 = victim_order(tbl, cheap_victims) if hoist else None
 
         if not incremental:
             for i in range(depth):
-                idx = order[i]
-                tbl = _try_admit(cfg, ent, t, tbl, idx, eligible[idx],
-                                 cheap_victims, vorder0)
+                tbl = _try_admit(cfg, ent, t, tbl, snap.rows[i],
+                                 snap.elig[i], cheap_victims, knobs, vorder0)
             return tbl
 
-        usage, nonp_usage, busy = running_usage(tbl, ent.shape[0])
-        # the queue snapshot's static rows: (row, eligible, user, cpus, jclass)
-        q = order[:depth]
-        qrows = torch.stack([q.to(I32), eligible[q].to(I32), tbl.user[q],
-                             tbl.cpus[q], tbl.jclass[q]], 1)
+        usage, nonp_usage, busy = running_usage(tbl, n_users)
+        usage, nonp_usage = usage.view(-1), nonp_usage.view(-1)
+        # the snapshot's static thresholds of lines 23 / 26 / 28, so that a
+        # position compares the carried aggregates once each
+        job_non_p = _flat(tbl.jclass)[snap.rows] == NONP
+        room = ent.view(-1)[snap.users] - snap.cpus     # entitled - jc
+        reject_23_at = torch.where(job_non_p, room, BIG)
+        admit_26_below = cfg.cpu_total - snap.cpus      # idle > jc
         for i in range(depth):
-            row = qrows[i]
-            ix, ux = row[0:1].long(), row[2:3].long()
+            rows, users, jc = snap.rows[i], snap.users[i], snap.cpus[i]
+            ok = (snap.elig[i] & (_flat(tbl.state)[rows] == PENDING)
+                  & (nonp_usage[users] < reject_23_at[i]))
+            admit_26 = busy < admit_26_below[i]
+            fast = ok & admit_26
+            evict = ok & ~admit_26 & (usage[users] <= room[i])
             # the one host synchronisation of this queue position
-            (idx, elig, ju, jc, jcls, st, u_use, u_nonp, u_ent,
-             b) = torch.cat([row, tbl.state[ix], usage[ux], nonp_usage[ux],
-                             ent[ux], busy.view(1)]).tolist()
+            fast_h, evict_h = torch.stack([fast, evict]).tolist()
             stats.host_syncs += 1
-            job_non_p = jcls == NONP
-            idle = cfg.cpu_total - b
-            # lines 23 / 26 / 28 from the carried aggregates
-            reject_23 = job_non_p and u_nonp + jc >= u_ent
-            admit_26 = idle > jc
-            reject_28 = jc > u_ent - u_use
-            ok = bool(elig) and st == PENDING and not reject_23
-            if ok and admit_26:
-                # idle-admit fast path: no victim machinery, O(1) updates
-                admit_job(tbl, idx, t, True)
-                usage[ju] += jc
-                if job_non_p:
-                    nonp_usage[ju] += jc
-                busy = busy + jc
-            elif ok and not reject_28:
-                stats.evict_branches += 1
-                tbl, usage, nonp_usage, busy = _evict_branch(
-                    cfg, ent, t, tbl, idx, ju, jc, job_non_p, idle, usage,
-                    nonp_usage, busy, cheap_victims, vorder0)
+            if any(fast_h):
+                # idle-admit: no victim machinery, O(B) updates
+                admit_job(tbl, rows, t, fast)
+                grant = torch.where(fast, jc, 0)
+                usage.index_add_(0, users, grant)
+                nonp_usage.index_add_(
+                    0, users, torch.where(job_non_p[i], grant, 0))
+                busy = busy + grant
+            cells = [b for b, e in enumerate(evict_h) if e]
+            if cells:
+                _note_branches(stats, cells)
+                busy = _evict_branch(
+                    cfg, ent, t, tbl, rows, users, jc, job_non_p[i], evict,
+                    cells, busy, usage, nonp_usage, cheap_victims, knobs,
+                    vorder0)
         return tbl
 
     return pass_fn
 
 
-def _evict_branch(cfg, ent, t, tbl, idx, ju, jc, job_non_p, idle, usage,
-                  nonp_usage, busy, cheap_victims, vorder0):
-    """The eviction branch of one queue position (lines 31-38), decided on
-    the device: plan the victims, evict them iff the plan is enough, admit
-    ``idx`` on the same condition, and update the carried aggregates."""
-    running = tbl.state == RUNNING
-    preempt_able = tbl.jclass != NONP
-    evictable = running & preempt_able & ((t - tbl.run_start) >= cfg.quantum)
+def _evict_branch(cfg, ent, t, tbl, rows, users, jc, job_non_p, branch,
+                  cells, busy, usage, nonp_usage, cheap_victims, knobs,
+                  vorder0):
+    """The eviction branch of one queue position (lines 31-38) for the
+    cells in ``branch`` (``cells`` on the host), decided on the device:
+    plan their victims in one batched plan, evict them iff a cell's plan
+    is enough, admit its job on the same condition, and update the carried
+    aggregates (in place; returns ``busy``)."""
+    evictable = evictable_mask(cfg, tbl, t, knobs)
     if cfg.avoid_self_eviction:            # beyond-paper flag
-        evictable = evictable & (tbl.user != ju)
+        evictable = evictable & (tbl.user != _flat(tbl.user)[rows]
+                                 .unsqueeze(1))
     if cfg.victim_filter_over_entitlement:  # beyond-paper flag
-        users = tbl.user.long()
-        evictable = evictable & (usage[users] > ent[users])
+        u = tbl.user.long()
+        evictable = evictable & (usage.view(ent.shape).gather(1, u)
+                                 > ent.gather(1, u))
+    idle = cfg.cpu_total - busy
     planned, enough, vorder, placement = plan_evictions(
-        cfg, tbl, evictable, idle, jc, cheap_victims, vorder0)
-    planned = planned & enough
+        cfg, tbl, evictable, idle, jc.contiguous(), cheap_victims, vorder0,
+        cells)
+    go = enough & branch
+    planned = planned & go.unsqueeze(1)
     freed = torch.where(planned, tbl.cpus, 0)
-    usage = usage - _segment_sum(freed, tbl.user, ent.shape[0])
-    busy = busy - freed.sum(dtype=I32)
-    tbl = apply_evictions(cfg, t, tbl, planned, vorder, placement)
-    tbl = admit_job(tbl, idx, t, enough)
-    grant = torch.where(enough, jc, 0)
-    usage[ju] += grant
-    if job_non_p:
-        nonp_usage[ju] += grant
-    return tbl, usage, nonp_usage, busy + grant
+    usage.sub_(_segment_sum(freed, tbl.user, ent.shape[1]).view(-1))
+    busy = busy - freed.sum(-1, dtype=I32)
+    apply_evictions(cfg, t, tbl, planned, vorder, placement)
+    admit_job(tbl, rows, t, go)
+    grant = torch.where(go, jc, 0)
+    usage.index_add_(0, users, grant)
+    nonp_usage.index_add_(0, users, torch.where(job_non_p, grant, 0))
+    return busy + grant
 
 
 def update_state_mib(tbl: JobTable, idx: int, state_mib: int,

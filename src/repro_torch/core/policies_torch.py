@@ -3,20 +3,25 @@
 
 Twins of `core.baselines` (static_partition / capping / fcfs / backfill /
 backfill_cr), built from the OMFS pass's primitives (`core.omfs_torch`:
-queue_order, running_usage, admit_job, plan_evictions, apply_evictions).
-Every pass follows the engine's contract ``pass_fn(cfg, ent, t, tbl,
-stats=None) -> tbl`` and updates ``tbl`` in place.
+queue_order, queue_snapshot, running_usage, admit_job, plan_evictions,
+apply_evictions).  Every pass follows the engine's contract ``pass_fn(cfg,
+ent, t, tbl, stats=None, knobs=None) -> tbl``, updates ``tbl`` in place
+and runs over ``[B, J]`` tables (a ``[J]`` table is the batch of one,
+`omfs_torch.batched_pass`); ``knobs`` carries each cell's quantum and
+pass depth, positions past a cell's depth masked in its snapshot (the
+reference's ``_mask_depth``).
 
 **Admissions are decided on the device.**  The reference's ``fori_loop``
 carries (usage, busy, blocked, head reservation) as arrays; here they are
-tensors too, each queue position is indexed by a one-element index tensor
-(a 0-d one would be read back by torch's indexing) and `admit_job` takes
-the admission as a bool tensor.  No pass reads the device per queue
-position.  The one host read is backfill_cr's, once per tick: whether the
-queue head is pending and does not fit, which is where Niu et al.'s C/R
-preemption needs an eviction plan (`plan_evictions`, the `sched_select`
-kernel under ``kernel_backend="cuda"``).  ``stats`` (`PassStats`) counts
-that read in ``host_syncs`` and each plan in ``evict_branches``.
+``[B]``/``[B, U]`` tensors too, each queue position is one row of the
+position-major snapshot (no 0-d index, which torch's indexing would read
+back to the host) and `admit_job` takes the admission as a ``[B]`` bool
+tensor.  No pass reads the device per queue position.  The one host read
+is backfill_cr's, once per tick: which cells' queue heads are pending and
+do not fit, where Niu et al.'s C/R preemption needs an eviction plan (one
+batched `plan_evictions` over those cells, the `sched_select` kernel
+under ``kernel_backend="cuda"``).  ``stats`` (`PassStats`) counts that
+read in ``host_syncs`` and each cell's plan in ``evict_branches``.
 """
 from __future__ import annotations
 
@@ -28,34 +33,25 @@ import torch
 from repro_torch.core.omfs_torch import (
     BIG,
     I32,
-    NONP,
     PENDING,
     RUNNING,
     JobTable,
+    Knobs,
     PassStats,
+    _flat,
+    _note_branches,
     admit_job,
     apply_evictions,
+    batched_pass,
+    evictable_mask,
+    pass_depth_of,
     plan_evictions,
     queue_order,
+    queue_snapshot,
     running_usage,
 )
 from repro_torch.core.types import SchedulerConfig
 from repro_torch.kernels.sched_select.ref import lexsort
-
-
-def _depth(n: int, pass_depth: Optional[int]) -> int:
-    return n if pass_depth is None else min(pass_depth, n)
-
-
-def _snapshot(tbl: JobTable, pass_depth: Optional[int], order=None,
-              eligible=None):
-    """The queue snapshot's first ``depth`` positions and their static
-    columns ``(rows, eligible, user, cpus)``, gathered once per pass; a
-    position is then a one-element slice of each."""
-    if order is None:
-        order, eligible = queue_order(tbl)
-    q = order[:_depth(tbl.cpus.shape[0], pass_depth)]
-    return q, eligible[q], tbl.user[q].long(), tbl.cpus[q]
 
 
 def _est_remaining(work, overhead, progress, error: float) -> torch.Tensor:
@@ -74,16 +70,19 @@ def _est_remaining(work, overhead, progress, error: float) -> torch.Tensor:
 def make_static_partition_pass(pass_depth: Optional[int] = None):
     """Hard divisions: user blocks sized by entitlement; no pooling at all."""
 
+    @batched_pass
     def pass_fn(cfg: SchedulerConfig, ent, t, tbl: JobTable,
-                stats: Optional[PassStats] = None) -> JobTable:
-        q, elig, user, cpus = _snapshot(tbl, pass_depth)
-        usage, _, _ = running_usage(tbl, ent.shape[0])
-        for i in range(q.shape[0]):
-            idx, ju, jc = q[i:i + 1], user[i:i + 1], cpus[i:i + 1]
-            admit = (elig[i:i + 1] & (tbl.state[idx] == PENDING)
-                     & (usage[ju] + jc <= ent[ju]))
-            admit_job(tbl, idx, t, admit)
-            usage.index_add_(0, ju, torch.where(admit, jc, 0))
+                stats: PassStats, knobs: Optional[Knobs]) -> JobTable:
+        snap = queue_snapshot(tbl, ent.shape[1], pass_depth_of(
+            tbl.cpus.shape[1], pass_depth, knobs), knobs)
+        usage = running_usage(tbl, ent.shape[1])[0].view(-1)
+        ent_flat = ent.view(-1)
+        for i in range(snap.rows.shape[0]):
+            rows, users, jc = snap.rows[i], snap.users[i], snap.cpus[i]
+            admit = (snap.elig[i] & (_flat(tbl.state)[rows] == PENDING)
+                     & (usage[users] + jc <= ent_flat[users]))
+            admit_job(tbl, rows, t, admit)
+            usage.index_add_(0, users, torch.where(admit, jc, 0))
         return tbl
 
     return pass_fn
@@ -93,18 +92,21 @@ def make_static_partition_pass(pass_depth: Optional[int] = None):
 def make_capping_pass(pass_depth: Optional[int] = None):
     """Pooled CPUs + per-user cap at the entitlement (no over-subscription)."""
 
+    @batched_pass
     def pass_fn(cfg: SchedulerConfig, ent, t, tbl: JobTable,
-                stats: Optional[PassStats] = None) -> JobTable:
-        q, elig, user, cpus = _snapshot(tbl, pass_depth)
-        usage, _, busy = running_usage(tbl, ent.shape[0])
-        for i in range(q.shape[0]):
-            idx, ju, jc = q[i:i + 1], user[i:i + 1], cpus[i:i + 1]
-            admit = (elig[i:i + 1] & (tbl.state[idx] == PENDING)
-                     & (usage[ju] + jc <= ent[ju])
+                stats: PassStats, knobs: Optional[Knobs]) -> JobTable:
+        snap = queue_snapshot(tbl, ent.shape[1], pass_depth_of(
+            tbl.cpus.shape[1], pass_depth, knobs), knobs)
+        usage, _, busy = running_usage(tbl, ent.shape[1])
+        usage, ent_flat = usage.view(-1), ent.view(-1)
+        for i in range(snap.rows.shape[0]):
+            rows, users, jc = snap.rows[i], snap.users[i], snap.cpus[i]
+            admit = (snap.elig[i] & (_flat(tbl.state)[rows] == PENDING)
+                     & (usage[users] + jc <= ent_flat[users])
                      & (cfg.cpu_total - busy >= jc))
-            admit_job(tbl, idx, t, admit)
+            admit_job(tbl, rows, t, admit)
             grant = torch.where(admit, jc, 0)
-            usage.index_add_(0, ju, grant)
+            usage.index_add_(0, users, grant)
             busy = busy + grant
         return tbl
 
@@ -115,18 +117,20 @@ def make_capping_pass(pass_depth: Optional[int] = None):
 def make_fcfs_pass(pass_depth: Optional[int] = None):
     """Strict first-come-first-served: the queue head blocks everyone."""
 
+    @batched_pass
     def pass_fn(cfg: SchedulerConfig, ent, t, tbl: JobTable,
-                stats: Optional[PassStats] = None) -> JobTable:
-        q, elig, _, cpus = _snapshot(tbl, pass_depth)
-        _, _, busy = running_usage(tbl, ent.shape[0])
-        blocked = torch.zeros(1, dtype=torch.bool, device=busy.device)
-        for i in range(q.shape[0]):
-            idx, jc = q[i:i + 1], cpus[i:i + 1]
-            ok = elig[i:i + 1] & (tbl.state[idx] == PENDING)
+                stats: PassStats, knobs: Optional[Knobs]) -> JobTable:
+        snap = queue_snapshot(tbl, ent.shape[1], pass_depth_of(
+            tbl.cpus.shape[1], pass_depth, knobs), knobs)
+        _, _, busy = running_usage(tbl, ent.shape[1])
+        blocked = torch.zeros_like(busy, dtype=torch.bool)
+        for i in range(snap.rows.shape[0]):
+            rows, jc = snap.rows[i], snap.cpus[i]
+            ok = snap.elig[i] & (_flat(tbl.state)[rows] == PENDING)
             fits = cfg.cpu_total - busy >= jc
             admit = ok & ~blocked & fits
             blocked = blocked | (ok & ~fits)  # head blocked: noone overtakes
-            admit_job(tbl, idx, t, admit)
+            admit_job(tbl, rows, t, admit)
             busy = busy + torch.where(admit, jc, 0)
         return tbl
 
@@ -142,16 +146,18 @@ def make_backfill_pass(estimate_error: float = 0.0, with_cr: bool = False,
     remaining runtimes (a stable sort + int32 cumsum over running jobs);
     the rest of the queue carries (busy, reservation) as tensors."""
 
+    @batched_pass
     def pass_fn(cfg: SchedulerConfig, ent, t, tbl: JobTable,
-                stats: Optional[PassStats] = None) -> JobTable:
-        stats = stats if stats is not None else PassStats()
+                stats: PassStats, knobs: Optional[Knobs]) -> JobTable:
         order, eligible = queue_order(tbl)
-        any_pending = eligible.any()
+        n = tbl.cpus.shape[1]
+        any_pending = eligible.any(-1)
         running = tbl.state == RUNNING
-        busy = torch.where(running, tbl.cpus, 0).sum(dtype=I32)
+        busy = torch.where(running, tbl.cpus, 0).sum(-1, dtype=I32)
         idle = cfg.cpu_total - busy
-        head = order[:1]
-        head_cpus = tbl.cpus[head].squeeze(0)
+        cell = torch.arange(order.shape[0], device=order.device)
+        head = order[:, 0] + cell * n        # the head's flat row
+        head_cpus = _flat(tbl.cpus)[head]
         est = _est_remaining(tbl.work, tbl.overhead, tbl.progress,
                              estimate_error)
         head_fits = any_pending & (idle >= head_cpus)
@@ -161,49 +167,56 @@ def make_backfill_pass(estimate_error: float = 0.0, with_cr: bool = False,
         # pre-eviction state; ties broken by job id
         key = torch.where(running, est, BIG)
         ordr = lexsort((tbl.jid, key))
-        cum = idle + torch.cumsum(torch.where(running[ordr], tbl.cpus[ordr],
-                                              0), 0, dtype=I32)
-        crossed = cum >= head_cpus
-        first = crossed.to(I32).argmax(0, keepdim=True)  # first True
+        cum = idle.unsqueeze(1) + torch.cumsum(
+            torch.where(running.gather(1, ordr), tbl.cpus.gather(1, ordr), 0),
+            1, dtype=I32)
+        crossed = cum >= head_cpus.unsqueeze(1)
+        first = crossed.to(I32).argmax(1, keepdim=True)  # first True
         reservation = torch.where(
-            crossed.any(), t + est[ordr][first],
-            t + torch.where(running, est, 0).sum(dtype=I32) + 1)
+            crossed.any(1), t + est.gather(1, ordr).gather(1, first)[:, 0],
+            t + torch.where(running, est, 0).sum(1, dtype=I32) + 1)
 
         head_admit = head_fits
         if with_cr:
             # Niu et al.: preempt checkpointable *backfilled* jobs to start
             # the head now instead of waiting for the reservation.  The
             # plan is needed only where the head is pending and does not
-            # fit: the pass's one host read
+            # fit: the pass's one host read, a bit per cell
+            need = any_pending & ~head_fits
+            cells = [b for b, x in enumerate(need.tolist()) if x]
             stats.host_syncs += 1
-            if bool(any_pending & ~head_fits):
-                stats.evict_branches += 1
-                evictable = (running & (tbl.jclass != NONP)
-                             & ((t - tbl.run_start) >= cfg.quantum)
+            if cells:
+                _note_branches(stats, cells)
+                evictable = (evictable_mask(cfg, tbl, t, knobs)
                              & (tbl.backfilled > 0))
                 planned, enough, vorder, placement = plan_evictions(
-                    cfg, tbl, evictable, idle, head_cpus)
-                planned = planned & enough
-                busy = busy - torch.where(planned, tbl.cpus, 0).sum(dtype=I32)
+                    cfg, tbl, evictable, idle, head_cpus, cells=cells)
+                do_cr = need & enough
+                planned = planned & do_cr.unsqueeze(1)
+                busy = busy - torch.where(planned, tbl.cpus,
+                                          0).sum(1, dtype=I32)
                 apply_evictions(cfg, t, tbl, planned, vorder, placement)
-                head_admit = enough
+                head_admit = head_fits | do_cr
 
         admit_job(tbl, head, t, head_admit)
         busy = busy + torch.where(head_admit, head_cpus, 0)
         head_start = torch.where(any_pending & ~head_admit, reservation, BIG)
 
-        q, elig, _, cpus = _snapshot(tbl, pass_depth, order, eligible)
-        end = t + est[q]       # each queued job's estimated end if started
-        for i in range(1, q.shape[0]):
-            idx, jc = q[i:i + 1], cpus[i:i + 1]
-            ok = elig[i:i + 1] & (tbl.state[idx] == PENDING)
+        snap = queue_snapshot(tbl, ent.shape[1],
+                              pass_depth_of(n, pass_depth, knobs), knobs,
+                              order, eligible)
+        # each queued job's estimated end if started
+        end = t + _flat(est)[snap.rows]
+        backfilled = _flat(tbl.backfilled)
+        for i in range(1, snap.rows.shape[0]):
+            rows, jc = snap.rows[i], snap.cpus[i]
+            ok = snap.elig[i] & (_flat(tbl.state)[rows] == PENDING)
             cur_idle = cfg.cpu_total - busy
             # conservative: only backfill if the head reservation is kept
-            no_delay = ((end[i:i + 1] <= head_start)
-                        | (cur_idle - jc >= head_cpus))
+            no_delay = (end[i] <= head_start) | (cur_idle - jc >= head_cpus)
             admit = ok & (cur_idle >= jc) & no_delay
-            admit_job(tbl, idx, t, admit)
-            tbl.backfilled[idx] = torch.where(admit, 1, tbl.backfilled[idx])
+            admit_job(tbl, rows, t, admit)
+            backfilled[rows] = torch.where(admit, 1, backfilled[rows])
             busy = busy + torch.where(admit, jc, 0)
         return tbl
 

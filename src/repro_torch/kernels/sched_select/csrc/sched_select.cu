@@ -73,6 +73,17 @@
 //
 // Everything is int32 (bool for the two masks, int64 room), so the kernel
 // is bit-identical to the plain version in ref.py by construction.
+//
+// The batched launch (sched_select_launch_batch) plans many cells of [B, J]
+// columns at once, the counterpart of the reference's vmapped pallas_call:
+// the grid splits into cell-major groups of max(1, grid / n) CTAs, one group
+// a cell, each planning its cell as the single launch plans its one table
+// (the single launch is the batch of one).  Every CTA of the launch must
+// meet the same grid barriers, so the path (one CTA a cell, or tiles and
+// merge levels) and the number of merge levels follow the launch's largest
+// E, read from the CTA counts after the first barrier; a cell with fewer
+// candidates passes the levels it does not need.  A batch of more cells
+// than the co-resident grid (or kMaxCells) goes out as several launches.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,6 +106,7 @@ constexpr int kMaxGrid = 1024;       // CTAs at most (block-sum arrays)
 constexpr int kWalkWarps = 4;        // warps of CTA 0 that walk, a victim a lane
 constexpr int kKeyWords = 5;
 constexpr int kSmemBytes = 80 * 1024;   // every phase's, the walk's buffers
+constexpr int kMaxCells = 256;       // cells of one batched launch
 
 static_assert(kStage * 4 * 4 <= kSmemBytes, "staging exceeds shared memory");
 static_assert(kTile * (kKeyWords + 12) * 4 <= kSmemBytes,
@@ -123,16 +135,23 @@ struct Params {
   int need_val;
   int caps[kMaxTiers];
   int J, T, cheap, tiered, bounded;
+  int group;                   // CTAs per cell
   int rows_per_cta;
   int* counts;                 // [kMaxGrid] candidates per CTA
   int* sums;                   // [kMaxGrid] freed CPUs per CTA
   int* wsums;                  // [kMaxGrid] placement records per CTA
-  Key* keys_a;                 // [J]
-  Key* keys_b;                 // [J]
-  int* rec;                    // [J, rec_words(T)], 16-byte aligned
+  Key* keys_a;                 // [cells, J]
+  Key* keys_b;                 // [cells, J]
+  int* rec;                    // [cells, J, rec_words(T)], 16-byte aligned
   bool* planned;
   bool* enough;
   int* tier;
+};
+
+// The cells of one launch: group g of CTAs plans cell idx[g] of the batch.
+struct Cells {
+  int n;
+  int idx[kMaxCells];
 };
 
 __host__ __device__ __forceinline__ int rec_words(int T) {
@@ -204,6 +223,23 @@ __device__ void cta_sum_prefix(const int* v, int n, int upto, unsigned* all,
   }
   cta_excl_scan(a, all);
   cta_excl_scan(b, before);
+}
+
+// The largest of the launch's cells' candidate counts (every thread): the
+// sum of each group's CTA counts, one cell a thread.
+__device__ int launch_max_count(const int* counts, int cells, int group) {
+  __shared__ int top;
+  if (threadIdx.x == 0) top = 0;
+  __syncthreads();
+  if (threadIdx.x < cells) {
+    unsigned e = 0;
+    for (int k = 0; k < group; ++k) e += (unsigned)counts[threadIdx.x * group + k];
+    atomicMax(&top, (int)e);
+  }
+  __syncthreads();
+  const int m = top;
+  __syncthreads();
+  return m;
 }
 
 __device__ __forceinline__ int next_pow2(int n) {
@@ -564,13 +600,48 @@ __device__ unsigned plan_range(const Params& q, const Key* keys, int p0,
   return freed_here;
 }
 
+// The launch's parameters as cell `c` of the batch sees them from group
+// `slot`: its columns, lattice, occupancy, scalars and outputs, its keys and
+// records in the scratch, its group's CTA sums.
+__device__ __forceinline__ Params cell_params(const Params& p, int slot,
+                                              int c) {
+  Params q = p;
+  const size_t r = (size_t)c * p.J;
+  q.prio += r;
+  q.rstart += r;
+  q.jid += r;
+  q.keycost += r;
+  q.evict += r;
+  q.cpus += r;
+  q.mib += r;
+  q.ckpt += r;
+  q.lat += r * p.T;
+  q.occ += (size_t)c * p.T;
+  if (q.idle_ptr) q.idle_ptr += c;
+  if (q.need_ptr) q.need_ptr += c;
+  q.planned += r;
+  q.tier += r;
+  q.enough += c;
+  const size_t s = (size_t)slot * p.J;
+  q.keys_a += s;
+  q.keys_b += s;
+  q.rec += s * rec_words(p.T);
+  q.counts += slot * p.group;
+  q.sums += slot * p.group;
+  q.wsums += slot * p.group;
+  return q;
+}
+
 __global__ void __launch_bounds__(kThreads)
-    sched_select_plan(const Params q) {
+    sched_select_plan(const Params launch, const Cells cells) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* smem = reinterpret_cast<int*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  const int cta = blockIdx.x;
+  // this CTA's cell and its place in the cell's group of G CTAs
+  const int G = launch.group;
+  const int cta = blockIdx.x % G;
+  const int slot = blockIdx.x / G;
+  const Params q = cell_params(launch, slot, cells.idx[slot]);
   const int tid = threadIdx.x;
   const int idle = q.idle_ptr ? *q.idle_ptr : q.idle_val;
   const int cpus_needed = q.need_ptr ? *q.need_ptr : q.need_val;
@@ -602,6 +673,8 @@ __global__ void __launch_bounds__(kThreads)
   unsigned E_u, off;
   cta_sum_prefix(q.counts, G, cta, &E_u, &off);
   const int E = (int)E_u;
+  // the path and the merge levels every CTA of the launch takes
+  const int E_top = launch_max_count(launch.counts, cells.n, G);
   for (int c0 = lo; c0 < hi; c0 += kStage) {
     if (c0 != lo) stage(c0);
     hopper::cp_async_wait<0>();
@@ -644,7 +717,7 @@ __global__ void __launch_bounds__(kThreads)
   unsigned W = 0;
   int* srec = nullptr;
 
-  if (E <= kTile) {
+  if (E_top <= kTile) {
     // ---- 2-4, small E: CTA 0 alone, the records beside the keys -------
     if (cta != 0) return;
     const int n2 = sort_in_smem(q.keys_a, E, sk);
@@ -668,13 +741,16 @@ __global__ void __launch_bounds__(kThreads)
     Key* src = q.keys_a;
     Key* dst = q.keys_b;
     const int n_chunks = (E + kMergeChunk - 1) / kMergeChunk;
-    for (int w = kTile; w < E; w <<= 1) {
-      for (int c = cta; c < n_chunks; c += G)
-        merge_chunk(src, dst, E, w, c, sk);
+    for (int w = kTile; w < E_top; w <<= 1) {
+      if (w < E)
+        for (int c = cta; c < n_chunks; c += G)
+          merge_chunk(src, dst, E, w, c, sk);
       grid.sync();
-      Key* t = src;
-      src = dst;
-      dst = t;
+      if (w < E) {
+        Key* t = src;
+        src = dst;
+        dst = t;
+      }
     }
     // ---- 3, large E: CTA sums, then scan + plan -----------------------
     const int per = (E + G - 1) / G;
@@ -754,9 +830,63 @@ int setup(int* grid) {
 
 size_t key_offset_words() { return 3 * (size_t)kMaxGrid; }
 
-size_t rec_offset_words(int J) {
-  size_t end = key_offset_words() + 2 * (size_t)J * kKeyWords;
+// `rows`: the rows of every cell of one launch (cells x J)
+size_t rec_offset_words(size_t rows) {
+  size_t end = key_offset_words() + 2 * rows * kKeyWords;
   return (end + 3) & ~(size_t)3;
+}
+
+size_t scratch_words(int J, int T, int cells) {
+  const size_t rows = (size_t)J * cells;
+  return rec_offset_words(rows) + rows * rec_words(T);
+}
+
+// One cooperative launch over `cells`: q's group, rows and scratch views
+// are set here, the rest by the caller.
+int launch_cells(Params& q, const Cells& cells, int grid, int* scratch,
+                 cudaStream_t stream) {
+  q.group = grid / cells.n;
+  q.rows_per_cta = (((q.J + q.group - 1) / q.group) + 15) & ~15;
+  const size_t rows = (size_t)q.J * cells.n;
+  q.counts = scratch;
+  q.sums = scratch + kMaxGrid;
+  q.wsums = scratch + 2 * kMaxGrid;
+  q.keys_a = reinterpret_cast<Key*>(scratch + key_offset_words());
+  q.keys_b = q.keys_a + rows;
+  q.rec = scratch + rec_offset_words(rows);
+  void* args[] = {&q, const_cast<Cells*>(&cells)};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)sched_select_plan, dim3(cells.n * q.group), dim3(kThreads),
+      args, kSmemBytes, stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return (int)err;
+}
+
+void fill_params(Params& q, const int* prio, const int* rstart,
+                 const int* jid, const int* keycost, const bool* evict,
+                 const int* cpus, const int* mib, const bool* ckpt,
+                 const int* lat, const int* occ, const int* caps_host, int J,
+                 int T, int cheap, int tiered, int bounded, bool* planned,
+                 bool* enough, int* tier) {
+  q.prio = prio;
+  q.rstart = rstart;
+  q.jid = jid;
+  q.keycost = keycost;
+  q.evict = reinterpret_cast<const unsigned char*>(evict);
+  q.cpus = cpus;
+  q.mib = mib;
+  q.ckpt = reinterpret_cast<const unsigned char*>(ckpt);
+  q.lat = lat;
+  q.occ = occ;
+  for (int k = 0; k < kMaxTiers; ++k) q.caps[k] = k < T ? caps_host[k] : -1;
+  q.J = J;
+  q.T = T;
+  q.cheap = cheap;
+  q.tiered = tiered;
+  q.bounded = bounded;
+  q.planned = planned;
+  q.enough = enough;
+  q.tier = tier;
 }
 
 }  // namespace
@@ -768,7 +898,21 @@ int sched_select_max_tiers() { return kMaxTiers; }
 // int32 words of scratch a plan over J rows and T tiers needs: the CTA
 // sums, two key buffers and the placement records.
 long long sched_select_scratch_words(int J, int T) {
-  return (long long)(rec_offset_words(J) + (size_t)J * rec_words(T));
+  return (long long)scratch_words(J, T, 1);
+}
+
+// The same for one batched launch of `cells` cells.
+long long sched_select_batch_scratch_words(int J, int T, int cells) {
+  return (long long)scratch_words(J, T, cells);
+}
+
+// The most cells one batched launch plans (the co-resident grid, at most
+// kMaxCells), or minus the CUDA error that setting up the grid met.
+int sched_select_cells_per_launch() {
+  int grid = 0;
+  const int rc = setup(&grid);
+  if (rc != 0) return -rc;
+  return grid < kMaxCells ? grid : kMaxCells;
 }
 
 const char* sched_select_error_string(int code) {
@@ -795,42 +939,61 @@ int sched_select_launch(const int* prio, const int* rstart, const int* jid,
   int rc = setup(&grid);
   if (rc != 0) return rc;
   Params q;
-  q.prio = prio;
-  q.rstart = rstart;
-  q.jid = jid;
-  q.keycost = keycost;
-  q.evict = reinterpret_cast<const unsigned char*>(evict);
-  q.cpus = cpus;
-  q.mib = mib;
-  q.ckpt = reinterpret_cast<const unsigned char*>(ckpt);
-  q.lat = lat;
-  q.occ = occ;
+  fill_params(q, prio, rstart, jid, keycost, evict, cpus, mib, ckpt, lat, occ,
+              caps_host, J, T, cheap, tiered, bounded, planned, enough, tier);
   q.idle_ptr = idle_ptr;
   q.need_ptr = need_ptr;
   q.idle_val = idle_val;
   q.need_val = need_val;
-  for (int k = 0; k < kMaxTiers; ++k) q.caps[k] = k < T ? caps_host[k] : -1;
-  q.J = J;
-  q.T = T;
-  q.cheap = cheap;
-  q.tiered = tiered;
-  q.bounded = bounded;
-  q.rows_per_cta = (((J + grid - 1) / grid) + 15) & ~15;
-  q.counts = scratch;
-  q.sums = scratch + kMaxGrid;
-  q.wsums = scratch + 2 * kMaxGrid;
-  q.keys_a = reinterpret_cast<Key*>(scratch + key_offset_words());
-  q.keys_b = q.keys_a + J;
-  q.rec = scratch + rec_offset_words(J);
-  q.planned = planned;
-  q.enough = enough;
-  q.tier = tier;
-  void* args[] = {&q};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)sched_select_plan, dim3(grid), dim3(kThreads), args,
-      kSmemBytes, static_cast<cudaStream_t>(stream_ptr));
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return (int)err;
+  Cells cells;
+  cells.n = 1;
+  cells.idx[0] = 0;
+  return launch_cells(q, cells, grid, scratch,
+                      static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The batched plan: columns are [B, J] (bool for evict/ckpt), lat [B, J, T],
+// occ [B, T], idle and need [B], all int32 on the card; caps_host T host ints;
+// cells_host the n_cells distinct batch indices to plan.  The other cells'
+// outputs are left as they are.  scratch holds
+// sched_select_batch_scratch_words(J, T, min(n_cells, per launch)) words,
+// 16-byte aligned, reused by each launch in stream order.  Returns 0 or the
+// first CUDA error code; ceil(n_cells / sched_select_cells_per_launch())
+// cooperative launches on `stream`.
+int sched_select_launch_batch(const int* prio, const int* rstart,
+                              const int* jid, const int* keycost,
+                              const bool* evict, const int* cpus,
+                              const int* mib, const bool* ckpt,
+                              const int* lat, const int* occ, const int* idle,
+                              const int* need, const int* caps_host, int B,
+                              int J, int T, int cheap, int tiered, int bounded,
+                              const int* cells_host, int n_cells, int* scratch,
+                              bool* planned, bool* enough, int* tier,
+                              void* stream_ptr) {
+  if (B < 1 || J < 1 || T < 1 || T > kMaxTiers || n_cells < 0)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(scratch) % 16) return cudaErrorInvalidValue;
+  for (int i = 0; i < n_cells; ++i)
+    if (cells_host[i] < 0 || cells_host[i] >= B) return cudaErrorInvalidValue;
+  int grid = 0;
+  int rc = setup(&grid);
+  if (rc != 0) return rc;
+  const int per = grid < kMaxCells ? grid : kMaxCells;
+  Params q;
+  fill_params(q, prio, rstart, jid, keycost, evict, cpus, mib, ckpt, lat, occ,
+              caps_host, J, T, cheap, tiered, bounded, planned, enough, tier);
+  q.idle_ptr = idle;
+  q.need_ptr = need;
+  q.idle_val = q.need_val = 0;
+  Cells cells;
+  for (int i0 = 0; i0 < n_cells; i0 += per) {
+    cells.n = n_cells - i0 < per ? n_cells - i0 : per;
+    for (int i = 0; i < cells.n; ++i) cells.idx[i] = cells_host[i0 + i];
+    rc = launch_cells(q, cells, grid, scratch,
+                      static_cast<cudaStream_t>(stream_ptr));
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // An empty cooperative launch of the plan's grid, block and shared memory

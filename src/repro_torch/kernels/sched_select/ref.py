@@ -14,6 +14,9 @@ lattice (delta-aware — the caller already selected first vs recurrent
 rows), ``occ``/``cap`` are ``[T]`` occupancy/capacity vectors, and the
 chosen tier per victim is the first-occurrence argmin over feasible
 columns (ties toward the faster tier, the last tier always feasible).
+
+``plan_evictions_batch_ref`` is the batched launch's plain version: the
+same plan for each requested cell of ``[B, J]`` columns, in a loop.
 """
 from __future__ import annotations
 
@@ -23,23 +26,25 @@ MASK = 2**31 - 1      # int32 max: the infeasible-tier sentinel
 
 
 def lexsort(keys):
-    """Stable lexicographic order with the LAST key primary (numpy/jax
-    ``lexsort`` semantics): a chain of stable sorts starting from the
-    least significant key."""
-    order = torch.argsort(keys[0], stable=True)
+    """Stable lexicographic order along the last axis with the LAST key
+    primary (numpy/jax ``lexsort`` semantics): a chain of stable sorts
+    starting from the least significant key.  Leading axes are batch
+    axes, each sorted on its own."""
+    order = torch.argsort(keys[0], dim=-1, stable=True)
     for k in keys[1:]:
-        order = order[torch.argsort(k[order], stable=True)]
+        order = order.gather(-1, torch.argsort(k.gather(-1, order), dim=-1,
+                                               stable=True))
     return order
 
 
 def first_argmin(lat: torch.Tensor) -> torch.Tensor:
-    """Row-wise argmin of ``[J, T]`` int32 with ties to the lowest column
+    """Row-wise argmin of ``[..., T]`` int32 with ties to the lowest column
     (strict ``<`` over an ascending scan), as int32."""
-    best_c = lat[:, 0]
+    best_c = lat[..., 0]
     best_t = torch.zeros_like(best_c)
-    for k in range(1, lat.shape[1]):
-        better = lat[:, k] < best_c
-        best_c = torch.where(better, lat[:, k], best_c)
+    for k in range(1, lat.shape[-1]):
+        better = lat[..., k] < best_c
+        best_c = torch.where(better, lat[..., k], best_c)
         best_t = torch.where(better, k, best_t)
     return best_t
 
@@ -106,4 +111,27 @@ def plan_evictions_ref(prio, run_start, jid, key_cost, evictable, cpus,
         tier_sorted = greedy_place(want_sorted, state_mib[order], lat_sorted,
                                    occ, cap)
     tier[order] = torch.where(want_sorted, tier_sorted, 0)
+    return planned, enough, tier
+
+
+def plan_evictions_batch_ref(prio, run_start, jid, key_cost, evictable, cpus,
+                             state_mib, is_ckpt, save_lat, idle, cpus_needed,
+                             occ, cap, *, cells=None, cheap: bool = False,
+                             tiered: bool = False, bounded: bool = False):
+    """The batched plan: `plan_evictions_ref` for each cell of ``cells``
+    (default: all ``B``) over ``[B, J]`` columns, ``[B, J, T]`` lattices,
+    ``[B]`` ``idle``/``cpus_needed`` and ``[B, T]`` ``occ``.  Returns
+    ``(planned[B, J] bool, enough[B] bool, tier[B, J] int32)``; the cells
+    not planned are all False / False / 0."""
+    b, j = prio.shape
+    planned = torch.zeros((b, j), dtype=torch.bool, device=prio.device)
+    enough = torch.zeros(b, dtype=torch.bool, device=prio.device)
+    tier = torch.zeros((b, j), dtype=torch.int32, device=prio.device)
+    for c in (range(b) if cells is None else cells):
+        p, e, t = plan_evictions_ref(
+            prio[c], run_start[c], jid[c], key_cost[c], evictable[c],
+            cpus[c], state_mib[c], is_ckpt[c], save_lat[c], idle[c],
+            cpus_needed[c], occ[c], cap, cheap=cheap, tiered=tiered,
+            bounded=bounded)
+        planned[c], enough[c], tier[c] = p, e, t
     return planned, enough, tier

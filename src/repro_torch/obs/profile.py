@@ -28,9 +28,13 @@ class ProfileTimers:
         try:
             yield
         finally:
-            dt = time.perf_counter() - start
-            self.total_s[name] = self.total_s.get(name, 0.0) + dt
-            self.calls[name] = self.calls.get(name, 0) + 1
+            self.charge(name, time.perf_counter() - start)
+
+    def charge(self, name: str, seconds: float) -> None:
+        """Add one call of ``seconds`` to ``name``: for a section named
+        only once it has run."""
+        self.total_s[name] = self.total_s.get(name, 0.0) + seconds
+        self.calls[name] = self.calls.get(name, 0) + 1
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         """``{section: {"total_s": ..., "calls": ...}}`` — JSON-ready."""

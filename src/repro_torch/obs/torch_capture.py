@@ -15,6 +15,9 @@ Each tick yields three fixed-shape int32 tensors:
 The engine stacks them on the device over the run and `decode_events`
 reads them once after it: the capture makes no host read per tick.
 
+A ``[B, J]`` table (``engine.simulate_batch``) gives every cell its own
+``counts[B, E]``, ``ring[B, R, 3]`` and ``dropped[B]``.
+
 The capture is a pure function of ``(pre, post, t)`` — the diff rules of
 `obs.events` — and writes nothing to the table.  The port's tick updates
 the table in place, so ``pre`` must hold copies of the columns the tick
@@ -53,10 +56,10 @@ def snapshot(tbl: JobTable) -> JobTable:
 
 def event_flags(pre: JobTable, post: JobTable, t: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(flags[E, J] bool, args[E, J] int32)`` for one tick diff — the
-    schema table of `obs.events`, vectorized.  Row order = EventType code
-    order, so the flattened matrix enumerates events in (etype, table-row)
-    order."""
+    """``(flags[..., E, J] bool, args[..., E, J] int32)`` for one tick diff
+    — the schema table of `obs.events`, vectorized.  Row order = EventType
+    code order, so the flattened matrix enumerates events in (etype,
+    table-row) order."""
     start = (post.state == RUNNING) & (post.run_start == t)
     rules = {
         EventType.SUBMIT: ((pre.state == UNSUB) & (pre.submit <= t),
@@ -73,38 +76,40 @@ def event_flags(pre: JobTable, post: JobTable, t: int
     }
     assert len(rules) == N_EVENT_TYPES
     flags = torch.stack([rules[EventType(e)][0]
-                         for e in range(N_EVENT_TYPES)])
+                         for e in range(N_EVENT_TYPES)], -2)
     args = torch.stack([rules[EventType(e)][1].to(I32)
-                        for e in range(N_EVENT_TYPES)])
+                        for e in range(N_EVENT_TYPES)], -2)
     return flags, args
 
 
 def capture_tick(pre: JobTable, post: JobTable, t: int, ring_size: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One tick's ``(counts[E], ring[R, 3], dropped)``, all int32 on the
-    table's device, shapes fixed by ``ring_size``."""
+    """One tick's ``(counts[..., E], ring[..., R, 3], dropped[...])``, all
+    int32 on the table's device, shapes fixed by ``ring_size``; the
+    leading axes are the table's batch axes."""
     flags, args = event_flags(pre, post, t)
     dev = flags.device
-    n_rows = pre.jid.shape[0]
-    counts = flags.sum(1, dtype=I32)
-    flat = flags.reshape(-1)
-    pos = torch.cumsum(flat.to(I32), 0, dtype=I32) - 1
+    lead, n_rows = pre.jid.shape[:-1], pre.jid.shape[-1]
+    counts = flags.sum(-1, dtype=I32)
+    flat = flags.reshape(lead + (-1,))
+    n_flat = flat.shape[-1]
+    pos = torch.cumsum(flat.to(I32), -1, dtype=I32) - 1
     # non-events and overflow go to rows past R, one each (flat position k
     # to row R + k), which are cut off: the reference's scatter with
     # mode="drop", without a read of how many fit.  Distinct rows, because
     # E*J writes to one row serialise on the card
-    flat_pos = torch.arange(flat.shape[0], dtype=I32, device=dev)
+    flat_pos = torch.arange(n_flat, dtype=I32, device=dev)
     slot = torch.where(flat & (pos < ring_size), pos, ring_size + flat_pos)
     etype = torch.arange(N_EVENT_TYPES, dtype=I32,
                          device=dev).repeat_interleave(n_rows)
-    jid = post.jid.repeat(N_EVENT_TYPES)
-    rows = torch.stack([etype, jid, args.reshape(-1)], 1)
-    ring = torch.full((ring_size + flat.shape[0], len(RING_FIELDS)), -1,
+    jid = post.jid.repeat((1,) * len(lead) + (N_EVENT_TYPES,))
+    rows = torch.stack([etype.expand(lead + (n_flat,)), jid,
+                        args.reshape(lead + (-1,))], -1)
+    ring = torch.full(lead + (ring_size + n_flat, len(RING_FIELDS)), -1,
                       dtype=I32, device=dev)
-    ring.index_copy_(0, slot.long(), rows)
-    total = counts.sum(dtype=I32)
-    dropped = (total - ring_size).clamp(min=0)
-    return counts, ring[:ring_size], dropped
+    ring.scatter_(-2, slot.long().unsqueeze(-1).expand(rows.shape), rows)
+    dropped = (counts.sum(-1, dtype=I32) - ring_size).clamp(min=0)
+    return counts, ring[..., :ring_size, :], dropped
 
 
 def decode_events(counts, ring, dropped, t0: int = 0) -> List[Event]:
