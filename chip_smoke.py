@@ -36,13 +36,23 @@ against the plain version and timed beside it in one run.
   fleet's arrivals through `simulate_stream` at a capacity sized from a
   first run's live peak, equal to the monolithic run with no deferral;
   then the launcher, also with ``--events --trace-out --metrics-out``;
-* checkpoint-restart: the int8 `ckpt_codec` kernels bit for bit against
-  their plain versions, then over a TrainState-shaped tree at the published
-  widths of internlm2-1.8b (21.11 GiB on the card); a `CheckpointService`
-  fast-tier save/save/restore cycle at depth 1 (4.94 GiB); and
-  `repro_torch.launch.cr_cost.measure` on two snapshots of the job that
-  `benchmarks/bench_cr_cost.py` measures, whose calibrated cost lattice
-  then prices the launcher's default fleet on both backends;
+* training and checkpoint-restart: the int8 `ckpt_codec` kernels bit for
+  bit against their plain versions; one train step of internlm2-1.8b at
+  its published widths, cut to depth 2, on the card against the CPU from
+  one seeded init (fp32 and bf16 compute); `repro_torch.launch.train` on
+  the full 24-layer internlm2-1.8b (1.89 B fp32 master weights, bf16
+  compute), batch 4 x 2,048 tokens, 10 steps, then 2 steps rerun from its
+  fast-tier snapshot bit for bit, its host syncs and its device busy
+  share; the codec over that trained state (21.11 GiB on the card); the
+  cluster executor, OMFS preempting real training jobs (the transparency
+  scenario of tests/test_e2e_train.py on the card, then two full-width
+  internlm2-1.8b jobs, the larger evicted, checkpointed and restored once,
+  its losses bit-equal to the launcher's uninterrupted run, one job's
+  state resident at a time); a `CheckpointService` fast-tier
+  save/save/restore cycle at depth 1 (4.94 GiB) around a real train step;
+  and `repro_torch.launch.cr_cost.measure` on two trained snapshots of the
+  job that `benchmarks/bench_cr_cost.py` measures, whose calibrated cost
+  lattice then prices the launcher's default fleet on both backends;
 * serving: the flash-attention kernel against its plain version on every
   shape of the reference's kernel tests and on one layer at the serving
   shape, and timed there beside the SDPA library call; the serve path at
@@ -81,10 +91,10 @@ TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
 products on the card are full fp32.
 
-The state is synthetic: filled from a seeded generator and advanced by one
-AdamW-style update (the port cannot train yet), so the delta rows it
-prints describe that update, not a trained job.  Every phase prints one
-line per result (the launchers print their own lines too); any failure
+The training steps run under ``torch.use_deterministic_algorithms(True)``
+(inside `repro_torch.train.steps`); ``CUBLAS_WORKSPACE_CONFIG`` is set to
+``:4096:8`` before torch loads, for every phase, and `[env]` prints it.
+Every phase prints one line per result (the launchers print their own lines too); any failure
 raises.  The last three lines are the card's name and power limit, the
 kernels' JSON record and the device record.
 
@@ -94,6 +104,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -102,8 +114,11 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS reads this at its first call: the deterministic train steps need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -114,6 +129,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.checkpoint import serialize  # noqa: E402
 from repro_torch.checkpoint.manager import ManagerConfig  # noqa: E402
 from repro_torch.checkpoint.service import CheckpointService  # noqa: E402
+from repro_torch.cluster.executor import (  # noqa: E402
+    ClusterExecutor,
+    ManagedJob,
+    TrainJob,
+    small_train_job,
+)
 from repro_torch.core import engine, omfs_torch  # noqa: E402
 from repro_torch.core.crcost import (  # noqa: E402
     UNBOUNDED,
@@ -121,14 +142,25 @@ from repro_torch.core.crcost import (  # noqa: E402
     TieredCRCostModel,
     measured_delta_num,
 )
-from repro_torch.core.types import SchedulerConfig  # noqa: E402
+from repro_torch.core.types import (  # noqa: E402
+    Job,
+    JobClass,
+    JobState,
+    SchedulerConfig,
+    User,
+)
 from repro_torch.core.workload import (  # noqa: E402
     WorkloadSpec,
     arrival_stream,
     make_jobs,
     make_users,
 )
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    DataConfig,
+    SyntheticLM,
+    shard_batch,
+)
 from repro_torch.kernels.ckpt_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.ckpt_codec.ref import (  # noqa: E402
     LANE,
@@ -159,6 +191,7 @@ from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels.timing import queued_ms  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.obs import validate_trace  # noqa: E402
 from repro_torch.obs.profile import ProfileTimers  # noqa: E402
 from repro_torch.obs.events import (  # noqa: E402
@@ -169,9 +202,11 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
-    INTERNLM2_1_8B,
-    dense_state_template,
+    bind_state,
+    init_train_state,
+    train_state_shapes,
 )
+from repro_torch.train.steps import TrainConfig, make_train_step  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -198,9 +233,11 @@ POLICIES = ("omfs", "omfs_cheap_victim", "static_partition", "capping",
 PLANNERS = ("omfs", "omfs_cheap_victim", "backfill_cr")
 #: [events]: the launcher's fleet (6 tenants, 1,024 CPUs, arrival rate
 #: 0.08, seed 0; its --pass-depth 64 and a 4 GiB fast tier) cut from 800
-#: ticks to 200, where no queue is longer than the pass depth, so the
-#: bounded tensor pass and the Python backend's full sweep must agree
-EVENTS_HORIZON = 200
+#: ticks to 120, where no queue is longer than the pass depth, so the
+#: bounded tensor pass and the Python backend's full sweep must agree;
+#: 120 still evicts, restores and spills under both planners and
+#: overflows a ring of 16 (at 100 ticks nothing overflows)
+EVENTS_HORIZON = 120
 EVENTS_DEPTH = 64
 EVENTS_SMALL_RING = 16
 #: [batch-kernel]: the batched launch's batches, (B, cells' J, T), each
@@ -218,8 +255,9 @@ SWEEP_POLICIES = ("omfs", "omfs_cheap_victim")
 SWEEP_SEEDS = (0, 1)
 SWEEP_JOBS, SWEEP_CPUS, SWEEP_HORIZON = 32, 32, 100
 #: [stream-fleet]: the fleet's arrivals (8 a tick) through a stream of
-#: 100-tick segments; the first run's capacity holds every arrival
-STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 2500, 100, 1 << 15
+#: 100-tick segments, 12 of them; the first run's capacity holds every
+#: arrival
+STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 1200, 100, 1 << 15
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
@@ -228,6 +266,32 @@ FAST_TIER_DEPTH = 1
 CR_JOB = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
               vocab=8192)
 TICK_SECONDS = 0.1
+
+# training: the launcher at internlm2-1.8b's full widths and depth, the
+# serving shape (batch 4 x 2,048), the model's attention chunks (1,024); the launcher
+# snapshots the state after TRAIN_SNAPSHOT (fast tier only, sized above the
+# 21.11 GiB state) and 2 steps rerun from there; [train-vs-cpu] is one step
+# at the full widths and depth 2, batch 1 x 256, on the card and the CPU;
+# its bars are tests/test_torch_train.py's: loss and grad norm relative
+# (STEP_TOL), the parameters after the step within 1e-6 + 1e-3 lr where the
+# gradient is at least GRAD_TOL of its leaf's largest, 1e-6 + 2 lr
+# elsewhere
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 10
+TRAIN_SNAPSHOT = 8
+TRAIN_FAST_TIER_GIB = 24
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 2, 1, 256, 1e-3
+STEP_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 1e-2)}
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# [executor]: tests/test_e2e_train.py's scenario at the smoke config (its
+# work, quantum and steps per tick), then two full-width jobs: B (12 CPUs,
+# EXEC_WORK[0] units, the launcher's run: its twin is [train]'s losses)
+# and A (8 CPUs, EXEC_WORK[1] units, submitted at EXEC_SUBMIT_A) on 16
+# CPUs at quantum 3, one step a tick; a tick of EXEC_TICK_S charges each
+# measured save and restore in whole ticks, so B runs EXEC_WORK[0] plus
+# those ticks, at most TRAIN_STEPS steps
+EXEC_SMOKE_TICK_S = 0.05
+EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 
 # serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
 # window, n_meta), two ragged Sq != Skv cases (B, Sq, Skv, H, KVH, D,
@@ -528,6 +592,7 @@ def compare_plan(cols, scal, **flags):
 def phase_env():
     smi = nvidia_smi_line()
     log("env", torch=torch.__version__, cuda=torch.version.cuda,
+        cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         device=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(),
         capability=torch.cuda.get_device_capability(0), nvidia_smi=repr(smi))
@@ -859,9 +924,7 @@ def phase_events():
             host_syncs=card.stats.host_syncs,
             **{f"n_{e.name.lower()}": int(per_type[e]) for e in EventType},
             identical_to_python_bus=True, table_unchanged=True)
-    full = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, "omfs",
-                           pass_depth=EVENTS_DEPTH, device=DEV,
-                           record_events=True)
+    full = cards["omfs"]
     tiny = engine.simulate(users, jobs, cfg, EVENTS_HORIZON, "omfs",
                            pass_depth=EVENTS_DEPTH, device=DEV,
                            record_events=True, event_ring=EVENTS_SMALL_RING)
@@ -1567,38 +1630,23 @@ def compare_codec(x):
     return err
 
 
-def synthetic_state(template, gen):
-    """A TrainState on the card shaped like ``template``, filled from a
-    seeded generator: weights N(0, 0.02), first moments N(0, 1e-3), second
-    moments U(0, 1e-6), step and cursor 0, a random uint32 key."""
-    key = np.random.default_rng(SEED).integers(0, 2**32, 2, dtype=np.uint32)
-
-    def fill(path, t):
-        if path == ".rng":
-            return torch.from_numpy(key).to(DEV)
-        if t.dtype == torch.int32:
-            return torch.zeros(t.shape, dtype=torch.int32, device=DEV)
-        x = torch.empty(t.shape, dtype=t.dtype, device=DEV)
-        if path.startswith(".opt.v"):
-            return x.uniform_(0.0, 1e-6, generator=gen)
-        std = 0.02 if path.startswith(".params") else 1e-3
-        return x.normal_(0.0, std, generator=gen)
-
-    return serialize.map_with_path(fill, template)
-
-
-def adamw_step(state, gen, lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
-    """One AdamW-style update of ``state`` in place, from seeded random
-    gradients (the port cannot compute real ones yet)."""
-    m = dict(serialize.leaf_paths(state.opt.m))
-    v = dict(serialize.leaf_paths(state.opt.v))
-    for path, w in serialize.leaf_paths(state.params):
-        g = torch.randn(w.shape, generator=gen, device=DEV) * 1e-3
-        m[path].mul_(b1).add_(g, alpha=1 - b1)
-        v[path].mul_(b2).addcmul_(g, g, value=1 - b2)
-        w.sub_(lr * (m[path] / (v[path].sqrt() + eps) + wd * w))
-    state.opt.step.add_(1)
-    state.data_cursor.add_(1)
+def trained_snapshots(cfg, steps, *, seq, batch, chunk, seed=SEED):
+    """The states after each of ``steps`` train steps of ``cfg`` on the
+    card, copies taken as benchmarks/bench_cr_cost.py takes them:
+    `TrainConfig()` defaults, `SyntheticLM` batches from cursor 0."""
+    model = Model(cfg, device=DEV, q_chunk=chunk, kv_chunk=chunk)
+    model.init(torch.Generator(device=DEV).manual_seed(seed))
+    state = init_train_state(model.params(), seed)
+    step = make_train_step(model, TrainConfig())
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+    states = []
+    for i in range(steps):
+        state, _ = step(state, shard_batch(data.batch_at(i), DEV))
+        states.append(serialize.map_with_path(
+            lambda _k, t: t.detach().clone(), state))
+    torch.cuda.synchronize()
+    return states
 
 
 def scratch_dir():
@@ -1645,13 +1693,12 @@ def time_leaves(fn, leaves, iters, warmup=1):
     return time_ms(one_pass, iters=iters, warmup=warmup)
 
 
-def phase_codec_state():
-    """The codec over every fp32 leaf of a TrainState at the published
-    widths and depth of internlm2-1.8b."""
+def phase_codec_state(state, cfg):
+    """The codec over every fp32 leaf of ``state``: `[train]`'s trained
+    TrainState at the published widths and depth of internlm2-1.8b."""
     t0 = time.perf_counter()
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     torch.cuda.reset_peak_memory_stats()
-    state = synthetic_state(dense_state_template(**INTERNLM2_1_8B), gen)
+    state = serialize.map_with_path(lambda _k, t: t.detach(), state)
     leaves = serialize.leaf_paths(state)
     state_bytes = serialize.tree_bytes(state)
     coded = [t for _, t in leaves
@@ -1692,8 +1739,8 @@ def phase_codec_state():
                  "dequantize": codec_bound_ms([big.numel()], 2)[0]}
     for name, tm in timing.items():
         bound, bound_by = tm["bound"]
-        log("codec-state", kernel=name, config="internlm2-1.8b",
-            layers=INTERNLM2_1_8B["n_layers"], leaves=len(leaves),
+        log("codec-state", kernel=name, config=cfg.name, state="trained",
+            step=int(state.step), layers=cfg.n_layers, leaves=len(leaves),
             coded_leaves=len(coded), state_bytes=state_bytes,
             state_gib=f"{state_bytes / 2**30:.2f}", ms=f"{tm['ms']:.4f}",
             plain_ms=f"{tm['plain_ms']:.4f}", bound_ms=f"{bound:.4f}",
@@ -1703,7 +1750,7 @@ def phase_codec_state():
             largest_bound_ms=f"{big_bound[name]:.4f}",
             largest_share=f"{big_bound[name] / tm['big_ms']:.4f}",
             max_abs_err=err, max_memory_allocated=peak)
-    del state, leaves, coded, codes, big
+    del leaves, coded, codes, big
     torch.cuda.empty_cache()
     log("codec-state-done", seconds=f"{time.perf_counter() - t0:.1f}")
     return {name: dict(ms=tm["ms"], plain_ms=tm["plain_ms"],
@@ -1715,11 +1762,16 @@ def phase_codec_state():
 def phase_cr_fast_tier():
     """A CheckpointService save, save, restore cycle on the card at the
     widths of internlm2-1.8b and depth FAST_TIER_DEPTH: the fast tier
-    only (8 GiB, no delta, no durable save)."""
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
-    template = dense_state_template(**dict(INTERNLM2_1_8B,
-                                           n_layers=FAST_TIER_DEPTH))
-    state = synthetic_state(template, gen)
+    only (8 GiB, no delta, no durable save), around one real train step
+    (batch 1 x 256 tokens)."""
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=FAST_TIER_DEPTH)
+    model = Model(cfg, device=DEV)
+    model.init(torch.Generator(device=DEV).manual_seed(SEED + 2))
+    state = init_train_state(model.params(), SEED + 2)
+    step = make_train_step(model, TrainConfig(lr=1e-3, warmup_steps=0))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                  global_batch=1, seed=SEED))
+    template = train_state_shapes(model)
     state_bytes = serialize.tree_bytes(state)
     with scratch_dir() as root:
         svc = CheckpointService(ManagerConfig(
@@ -1727,7 +1779,7 @@ def phase_cr_fast_tier():
             durable_every=1 << 30), device=DEV)
         try:
             svc.save(0, state)
-            adamw_step(state, gen)
+            state, _ = step(state, shard_batch(data.batch_at(0), DEV))
             torch.cuda.synchronize()
             svc.save(1, state)
             restored, name = svc.restore(template)
@@ -1739,21 +1791,360 @@ def phase_cr_fast_tier():
     want = dict(serialize.leaf_paths(state))
     got = dict(serialize.leaf_paths(restored))
     if name != "step_00000001" or got.keys() != want.keys() or not all(
-            same_bits(got[k], want[k]) for k in want):
+            same_bits(got[k], want[k].to(got[k].device)) for k in want):
         raise AssertionError(f"fast-tier restore of {name} is not the saved "
                              "state bit for bit")
     if got[".params['embed']"].device != DEV or durable:
         raise AssertionError("fast-tier restore left the card or wrote a "
                              "durable checkpoint")
-    log("cr-fast-tier", config="internlm2-1.8b", layers=FAST_TIER_DEPTH,
-        state_bytes=state_bytes, state_gib=f"{state_bytes / 2**30:.2f}",
+    log("cr-fast-tier", config=cfg.name, layers=FAST_TIER_DEPTH,
+        state="trained", state_bytes=state_bytes,
+        state_gib=f"{state_bytes / 2**30:.2f}",
         saves=stats.saves, restores=stats.restores,
         save_s=f"{stats.save_seconds:.3f}",
         restore_s=f"{stats.restore_seconds:.3f}",
         device_to_host_GBps=f"{stats.save_bytes_per_s / 1e9:.3f}",
         host_to_device_GBps=f"{stats.restore_bytes_per_s / 1e9:.3f}",
         mem_evictions=evictions, bit_equal=True)
-    del state, restored, got, want
+    del state, restored, got, want, model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# training: one step against the CPU, the launcher, the cluster executor
+# ---------------------------------------------------------------------------
+
+
+def step_bars(card, cpu, dtype, lr):
+    """The parameters after one step on the card against the CPU's: the
+    largest difference where |g| >= GRAD_TOL of the leaf's largest (the
+    first moment after one step is 0.1 g, clipped), and everywhere."""
+    m = dict(serialize.leaf_paths(cpu.opt.m))
+    got = dict(serialize.leaf_paths(card.params))
+    tight = loose = 0.0
+    for path, want in serialize.leaf_paths(cpu.params):
+        g = m[path].abs()
+        err = (got[path].detach().cpu().float() - want.detach().float()).abs()
+        sel = g >= GRAD_TOL[dtype] * g.max()
+        tight = max(tight, float(err[sel].max()) if sel.any() else 0.0)
+        loose = max(loose, float(err.max()))
+    if tight > 1e-6 + 1e-3 * lr or loose > 1e-6 + 2 * lr:
+        raise AssertionError(f"train step ({dtype}): parameters differ by "
+                             f"{tight} where |g| is large, {loose} anywhere")
+    return tight, loose
+
+
+def phase_train_vs_cpu():
+    """One train step of internlm2-1.8b at its published widths, depth
+    TRAIN_CPU_LAYERS, on the card and on the CPU from one seeded init, in
+    fp32 and in bf16 compute, fp32 master weights: loss, grad norm and the
+    parameters after the step to the CPU tests' bars."""
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS,
+                                             compute_dtype=dtype)
+        cpu = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED))
+        card = Model(cfg, device=DEV)
+        card.load_state_dict(cpu.state_dict())
+        tcfg = TrainConfig(lr=TRAIN_CPU_LR, warmup_steps=0, total_steps=100)
+        batch = SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ,
+            global_batch=TRAIN_CPU_BATCH, seed=SEED)).batch_at(0)
+        states, metrics, secs = {}, {}, {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            ts = time.perf_counter()
+            state = init_train_state(model.params(), SEED)
+            state, met = make_train_step(model, tcfg)(
+                state, shard_batch(batch, model.device))
+            metrics[name] = {k: float(v) for k, v in met.items()}
+            secs[name] = time.perf_counter() - ts
+            states[name] = state
+        loss_tol, gnorm_tol = STEP_TOL[dtype]
+        rel = {k: abs(metrics["card"][k] - metrics["cpu"][k])
+               / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+        if rel["loss"] > loss_tol or rel["grad_norm"] > gnorm_tol:
+            raise AssertionError(f"train step ({dtype}): card {metrics['card']}"
+                                 f" vs cpu {metrics['cpu']}")
+        tight, loose = step_bars(states["card"], states["cpu"], dtype,
+                                 TRAIN_CPU_LR)
+        if not torch.equal(states["card"].rng.cpu(), states["cpu"].rng):
+            raise AssertionError("the card's key differs from the CPU's")
+        log("train-vs-cpu", config=TRAIN_ARCH, layers=TRAIN_CPU_LAYERS,
+            compute=dtype, batch=TRAIN_CPU_BATCH, seq=TRAIN_CPU_SEQ,
+            params=sum(p.numel() for p in cpu.parameters()),
+            loss_card=metrics["card"]["loss"], loss_cpu=metrics["cpu"]["loss"],
+            loss_rel=f"{rel['loss']:.3g}", loss_bar=loss_tol,
+            grad_norm_card=metrics["card"]["grad_norm"],
+            grad_norm_cpu=metrics["cpu"]["grad_norm"],
+            grad_norm_rel=f"{rel['grad_norm']:.3g}", grad_norm_bar=gnorm_tol,
+            param_err_large_g=f"{tight:.3g}",
+            param_bar_large_g=f"{1e-6 + 1e-3 * TRAIN_CPU_LR:.3g}",
+            param_err_any=f"{loose:.3g}",
+            param_bar_any=f"{1e-6 + 2 * TRAIN_CPU_LR:.3g}",
+            step_s_card=f"{secs['card']:.2f}", step_s_cpu=f"{secs['cpu']:.2f}",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        del cpu, card, states
+        collect_garbage()
+        torch.cuda.empty_cache()
+
+
+def state_fingerprint(state):
+    """One int64 per leaf: the sum of its raw 32-bit words (every leaf of a
+    TrainState is 4 bytes wide), computed where the leaf lies."""
+    out = []
+    for _, t in serialize.leaf_paths(state):
+        words = t.detach().reshape(-1)
+        words = (words.view(torch.int32) if t.dtype == torch.float32
+                 else words.to(torch.int64))
+        out.append(words.sum(dtype=torch.int64))
+    return [int(x) for x in out]
+
+
+def phase_train():
+    """`repro_torch.launch.train` at internlm2-1.8b's full widths and depth
+    (fp32 master weights from a seeded generator, bf16 compute), batch
+    TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps, a fast-tier snapshot after
+    TRAIN_SNAPSHOT; then the last steps rerun from that snapshot (losses
+    and every leaf's fingerprint bit-equal), one step under the sync debug
+    mode and one under torch.profiler.  The path runs no kernel of the
+    port (the reference's training runs no Pallas kernel): every count
+    must stay 0.  Returns the launcher's record, its state after the
+    extra steps, and the run's peak device memory."""
+    cfg = get_config(TRAIN_ARCH)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with scratch_dir() as root:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                "--ckpt-every", str(TRAIN_SNAPSHOT),
+                "--fast-tier-gib", str(TRAIN_FAST_TIER_GIB),
+                "--ckpt-dir", root, "--seed", str(SEED), "--device", DEV.type]
+        # this training path: every kernel count starts at 0 here
+        zero_kernel_counts()
+        rec = train_launcher.run(train_launcher.parser().parse_args(argv))
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        run_s = time.perf_counter() - t0
+        if any(launches.values()):
+            raise AssertionError(f"training launched a kernel: {launches}")
+        losses = rec.losses
+        if len(losses) != TRAIN_STEPS or not all(
+                np.isfinite(x) for x in losses + rec.grad_norms):
+            raise AssertionError(f"train losses {losses}")
+        state_bytes = serialize.tree_bytes(rec.state)
+        want = state_fingerprint(rec.state)
+        # the last steps again, from the fast-tier snapshot
+        rec.state = None
+        t1 = time.perf_counter()
+        restored, name = rec.mgr.restore(train_state_shapes(rec.model),
+                                         device=DEV)
+        restore_s = time.perf_counter() - t1
+        rec.state = bind_state(rec.model, restored)
+        del restored
+        rerun = [train_launcher.step_once(rec)[1]
+                 for _ in range(TRAIN_STEPS - TRAIN_SNAPSHOT)]
+        got = state_fingerprint(rec.state)
+        if rerun != losses[TRAIN_SNAPSHOT:] or got != want:
+            raise AssertionError(f"rerun from {name}: losses {rerun} vs "
+                                 f"{losses[TRAIN_SNAPSHOT:]}, leaves equal "
+                                 f"{got == want}")
+        save_s = rec.mgr.timings["fast_save_s"]
+        rec.mgr.close()
+        rec.mgr = None
+    # the host syncs of one step, by source line
+    _, where, texts = sync_sites(lambda: train_launcher.step_once(rec))
+    # one step under the profiler: the card's busy share
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        train_launcher.step_once(rec)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - ts) * 1e6
+    busy_us, _, events = device_us(prof)
+    top = top_kernels(prof, busy_us)
+    timed = rec.step_seconds[2:]
+    median_s = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train", config=TRAIN_ARCH, layers=cfg.n_layers,
+        params=sum(p.numel() for p in rec.model.parameters()),
+        weights=f"{cfg.param_dtype}-seeded-random", compute=cfg.compute_dtype,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, attn_chunk=rec.model.q_chunk,
+        steps=TRAIN_STEPS, median_step_ms_3_to_10=f"{median_s * 1e3:.1f}",
+        step_ms=[f"{x * 1e3:.1f}" for x in rec.step_seconds],
+        tokens_per_s=f"{tokens / median_s:.1f}",
+        loss_step1=losses[0], loss_step10=losses[-1],
+        grad_norm_step1=rec.grad_norms[0],
+        max_memory_allocated=peak,
+        max_memory_gb=f"{peak / 1e9:.2f}", state_bytes=state_bytes,
+        run_s=f"{run_s:.1f}", launches=launches)
+    log("train-rerun", snapshot=name, steps=TRAIN_STEPS - TRAIN_SNAPSHOT,
+        losses_bit_equal=True, leaves_bit_equal=True,
+        fast_tier_save_s=f"{save_s:.3f}", restore_s=f"{restore_s:.3f}",
+        deterministic_algorithms=True,
+        cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    log("train-syncs", host_syncs_per_step=len(where),
+        sites=sorted(set(where)), kinds=sorted(texts))
+    log("train-profile", device_busy_us=f"{busy_us:.1f}",
+        wall_us=f"{wall_us:.1f}", busy_share=f"{busy_us / wall_us:.4f}",
+        device_events=events, top_kernels_share=top)
+    return rec, peak
+
+
+def top_kernels(prof, busy_us, n=8):
+    """The ``n`` kernel names with the most device time in a profile, each
+    with its share of ``busy_us`` (names cut to 60 characters)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CPU or ev.is_user_annotation():
+            continue
+        key = ev.name()[:60]
+        by_name[key] = by_name.get(key, 0.0) + ev.duration_ns() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return [(k, f"{us / busy_us:.4f}") for k, us in top]
+
+
+def exec_scenario(mk_job, root, *, work, submit_a, quantum, steps_per_tick,
+                  tick_seconds, fast_tier_bytes=8 << 30):
+    """tests/test_e2e_train.py's scenario: B (12 CPUs) runs alone until A
+    (8 CPUs) arrives and OMFS evicts B, on 16 CPUs; each job's checkpoints
+    go through its own `CheckpointService` on the card (fast tier only).
+    Ticks until both are DONE; returns (executor, B, A, seconds)."""
+    users = [User("A", 50.0), User("B", 50.0)]
+    ex = ClusterExecutor(users, SchedulerConfig(cpu_total=16, quantum=quantum),
+                         steps_per_tick=steps_per_tick,
+                         tick_seconds=tick_seconds)
+    descs = [Job(user="B", cpus=12, work=work[0], submit_time=0,
+                 job_class=JobClass.CHECKPOINTABLE),
+             Job(user="A", cpus=8, work=work[1], submit_time=submit_a,
+                 job_class=JobClass.CHECKPOINTABLE)]
+    mjs = [ManagedJob(d, mk_job(seed), CheckpointService(ManagerConfig(
+        root=Path(root) / d.user, mem_capacity_bytes=fast_tier_bytes,
+        use_delta=False, durable_every=1 << 30), device=DEV))
+        for seed, d in enumerate(descs)]
+    for mj in mjs:
+        ex.submit(mj)
+    t0 = time.perf_counter()
+    while not all(d.state == JobState.DONE for d in descs):
+        if ex.state.time > 1000:
+            raise AssertionError(f"jobs not done: {ex.events}")
+        ex.tick()
+    for mj in mjs:
+        mj.ckpt.close()
+    return ex, mjs[0], mjs[1], time.perf_counter() - t0
+
+
+def check_scenario(ex, mb, ma, twin_losses, what):
+    """The phase's assertions on one scenario; returns the calibrated
+    flat cost model."""
+    if mb.checkpoints < 1 or mb.restores < 1:
+        raise AssertionError(f"{what}: no checkpoint/restore: {ex.events}")
+    if mb.measured_cr_ticks < 1:
+        raise AssertionError(f"{what}: no measured C/R tick was charged")
+    n = len(mb.train_job.losses)
+    if n > len(twin_losses) or mb.train_job.losses != twin_losses[:n]:
+        raise AssertionError(f"{what}: the preempted run's {n} losses are "
+                             "not the uninterrupted run's")
+    model = ex.calibrate()
+    if not isinstance(model, CRCostModel):
+        raise AssertionError(f"{what}: calibrate() returned {model!r}")
+    return model
+
+
+def phase_executor(train_losses, train_peak):
+    """The cluster executor, OMFS preempting real training jobs on the
+    card: test_e2e_train's transparency scenario at the smoke config,
+    then two internlm2-1.8b jobs at full width (B the launcher's run of
+    `[train]`, whose losses are its uninterrupted twin).  Both jobs DONE,
+    B checkpointed and restored, its losses bit-equal to the twin's,
+    measured C/R ticks charged, ``calibrate()`` a model; at full width the
+    peak shows one job's state resident at a time (below ``train_peak``,
+    one job's, plus half a state), and once both are done the jobs hold
+    no device memory."""
+    smoke = get_smoke_config(TRAIN_ARCH)
+    with scratch_dir() as root:
+        zero_kernel_counts()
+        ex, mb, ma, secs = exec_scenario(
+            lambda seed: small_train_job(root, arch_cfg=smoke, seq=32,
+                                         batch=4, seed=seed, device=DEV),
+            root, work=(30, 6), submit_a=5, quantum=3, steps_per_tick=2,
+            tick_seconds=EXEC_SMOKE_TICK_S)
+        twin = small_train_job(root, arch_cfg=smoke, seq=32, batch=4,
+                               seed=0, device=DEV)
+        twin.cold_start()
+        twin_losses = [twin.run_step()
+                       for _ in range(len(mb.train_job.losses))]
+        model = check_scenario(ex, mb, ma, twin_losses, "smoke")
+    stats = ex.cr_stats()
+    log("executor", scenario="test_e2e_train", config=smoke.name,
+        events=ex.events, steps_b=len(mb.train_job.losses),
+        steps_a=len(ma.train_job.losses), checkpoints=mb.checkpoints,
+        restores=mb.restores, measured_cr_ticks=mb.measured_cr_ticks,
+        tick_s=EXEC_SMOKE_TICK_S, state_bytes=mb.descriptor.state_bytes,
+        save_s=f"{stats.save_seconds:.4f}",
+        restore_s=f"{stats.restore_seconds:.4f}",
+        cost_model=(model.save_mib_per_tick, model.restore_mib_per_tick),
+        losses_bit_equal=True, seconds=f"{secs:.1f}",
+        launches=kernel_counts())
+
+    cfg = get_config(TRAIN_ARCH)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    with scratch_dir() as root:
+        def full_job(seed):
+            return TrainJob(
+                Model(cfg, device="meta"),
+                TrainConfig(lr=3e-4, warmup_steps=10, total_steps=10_000),
+                DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=seed),
+                seed=seed, device=DEV)
+
+        zero_kernel_counts()
+        ex, mb, ma, secs = exec_scenario(
+            full_job, root, work=EXEC_WORK, submit_a=EXEC_SUBMIT_A,
+            quantum=3, steps_per_tick=1, tick_seconds=EXEC_TICK_S,
+            fast_tier_bytes=TRAIN_FAST_TIER_GIB << 30)
+        launches = kernel_counts()
+        model = check_scenario(ex, mb, ma, train_losses, "full width")
+    held = torch.cuda.memory_allocated() - baseline
+    peak = torch.cuda.max_memory_allocated()
+    stats = ex.cr_stats()
+    state_bytes = mb.descriptor.state_bytes
+    if peak - baseline >= train_peak + state_bytes // 2:
+        raise AssertionError(f"peak {peak - baseline} B: more than one "
+                             f"job's state ({state_bytes} B) was resident")
+    if held > 1 << 30:
+        raise AssertionError(f"the finished, released jobs still hold "
+                             f"{held} B on the card")
+    if any(launches.values()):
+        raise AssertionError(f"the executor launched a kernel: {launches}")
+    log("executor", scenario="full-width", config=TRAIN_ARCH,
+        layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        events=ex.events, steps_b=len(mb.train_job.losses),
+        steps_a=len(ma.train_job.losses), checkpoints=mb.checkpoints,
+        restores=mb.restores, measured_cr_ticks=mb.measured_cr_ticks,
+        tick_s=EXEC_TICK_S, state_bytes=state_bytes,
+        save_s=f"{stats.save_seconds:.3f}",
+        restore_s=f"{stats.restore_seconds:.3f}",
+        save_GBps=f"{stats.save_bytes_per_s / 1e9:.3f}",
+        restore_GBps=f"{stats.restore_bytes_per_s / 1e9:.3f}",
+        cost_model=(model.save_mib_per_tick, model.restore_mib_per_tick),
+        peak_over_allocated=peak - baseline,
+        max_memory_gb=f"{peak / 1e9:.2f}",
+        train_peak_gb=f"{train_peak / 1e9:.2f}",
+        held_after_done=held,
+        losses_bit_equal_to_train=True, seconds=f"{secs:.1f}",
+        launches=launches)
+    del ex, mb, ma
+    collect_garbage()
     torch.cuda.empty_cache()
 
 
@@ -1769,14 +2160,12 @@ def launcher_fleet(tiers, backend):
 
 
 def phase_cr_path():
-    """`launch.cr_cost.measure` on two snapshots of the job that
-    bench_cr_cost.py measures, then the calibrated lattice on the
-    launcher's fleet, both backends: the C/R path, counted on its own."""
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
-    prev = synthetic_state(dense_state_template(**CR_JOB), gen)
-    cur = serialize.map_with_path(lambda _k, t: t.clone(), prev)
-    adamw_step(cur, gen)
-    torch.cuda.synchronize()
+    """`launch.cr_cost.measure` on two trained snapshots (steps 2 and 3)
+    of the job that bench_cr_cost.py measures, then the calibrated lattice
+    on the launcher's fleet, both backends: the C/R path, counted on its
+    own."""
+    cfg = get_smoke_config(TRAIN_ARCH).replace(**CR_JOB)
+    prev, cur = trained_snapshots(cfg, 3, seq=64, batch=8, chunk=64)[-2:]
     runs = {}
     # the C/R path: every kernel count starts at 0 here
     zero_kernel_counts()
@@ -1808,7 +2197,8 @@ def phase_cr_path():
                  for k, v in rows.items()
                  if k not in ("cost_model", "tiered_cost_model")}
     log("cr-path", config="internlm2-1.8b-smoke-heads", **CR_JOB,
-        state="synthetic", measure_s=f"{measure_s:.2f}", **printable)
+        state="trained", steps=(int(prev.step), int(cur.step)),
+        measure_s=f"{measure_s:.2f}", **printable)
     summary = runs["cuda"].summary()
     log("cr-path-fleet", tiers=[(m.save_mib_per_tick, m.restore_mib_per_tick)
                                 for m in tiers.tiers],
@@ -2457,7 +2847,10 @@ def phase_serve(arch, phase, per_prefill, per_decode):
         cache_bytes=cache_size, allocated_before=baseline,
         max_memory_allocated=peak,
         peak_over_allocated=peak - baseline, logits_finite=True,
-        init_s=f"{init_s:.2f}", **extra)
+        init_s=f"{init_s:.2f}",
+        deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
+        cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        **extra)
     return model, tokens, launches
 
 
@@ -2866,7 +3259,12 @@ def main():
     phase_stream_fleet()
     phase_launcher()
     codec_err = phase_codec_compare()
-    codec = phase_codec_state()
+    phase_train_vs_cpu()
+    rec, train_peak = phase_train()
+    codec = phase_codec_state(rec.state, rec.cfg)
+    train_losses = rec.losses
+    del rec
+    phase_executor(train_losses, train_peak)
     phase_cr_fast_tier()
     cr_launches = phase_cr_path()
     attn_err = phase_attn_compare()

@@ -64,50 +64,59 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
+# The walkers are module-level functions, not closures: a nested function
+# that calls itself is a reference cycle, and one that also holds the
+# leaves would keep every tensor of the tree allocated until Python's
+# cyclic collector runs (gigabytes of a model's state on the card).
+
+
+def _collect_leaves(node, prefix: str, out: list) -> None:
+    kids = _children(node)
+    if kids is None:
+        out.append((prefix, node))
+        return
+    for key, child in kids:
+        _collect_leaves(child, prefix + key, out)
+
+
 def leaf_paths(tree) -> List[Tuple[str, Any]]:
     """[(path_key, leaf), ...] in ``jax.tree_util`` flattening order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            out.append((prefix, node))
-            return
-        for key, child in kids:
-            walk(child, prefix + key)
-
-    walk(tree, "")
+    _collect_leaves(tree, "", out)
     return out
+
+
+def _map_leaves(fn, node, prefix: str):
+    if _is_namedtuple(node):
+        return type(node)(*(_map_leaves(fn, getattr(node, f), f"{prefix}.{f}")
+                            for f in node._fields))
+    if isinstance(node, dict):
+        return {k: _map_leaves(fn, node[k], f"{prefix}[{k!r}]") for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_leaves(fn, c, f"{prefix}[{i}]")
+                          for i, c in enumerate(node))
+    if node is None:
+        return None
+    return fn(prefix, node)
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree):
     """The tree with each leaf replaced by ``fn(path_key, leaf)``; dicts,
     lists, tuples and NamedTuples keep their types."""
-
-    def walk(node, prefix):
-        if _is_namedtuple(node):
-            return type(node)(*(walk(getattr(node, f), f"{prefix}.{f}")
-                                for f in node._fields))
-        if isinstance(node, dict):
-            return {k: walk(node[k], f"{prefix}[{k!r}]") for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c, f"{prefix}[{i}]")
-                              for i, c in enumerate(node))
-        if node is None:
-            return None
-        return fn(prefix, node)
-
-    return walk(tree, "")
+    return _map_leaves(fn, tree, "")
 
 
 def to_numpy(leaf) -> np.ndarray:
-    """A leaf on the host: tensors are copied off their device; bfloat16
+    """A leaf on the host: a tensor is always copied, from the card or
+    from host memory alike, so that the array is a snapshot that a later
+    in-place update of the tensor (a train step) cannot change; bfloat16
     becomes `BFLOAT16_BITS`."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).cpu().numpy().view(BFLOAT16_BITS)
-        return t.cpu().numpy()
+            return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+                BFLOAT16_BITS)
+        return t.to("cpu", copy=True).numpy()
     return np.asarray(leaf)
 
 

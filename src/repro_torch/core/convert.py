@@ -6,7 +6,8 @@ their column names and int32 layout), reference ``User``/``Job``
 objects are read attribute by attribute, and a reference tree of arrays
 (a ``TrainState``) crosses leaf by leaf through ``__array__``.  A
 reference model's params tree crosses into a port `models.model.Model`
-by `load_reference_params`.
+by `load_reference_params`, and a reference ``TrainState`` into a port
+`train.state.TrainState` over that model by `load_reference_train_state`.
 """
 from __future__ import annotations
 
@@ -99,12 +100,12 @@ def tree_to_numpy(tree):
     return serialize.map_with_path(lambda _k, t: serialize.to_numpy(t), tree)
 
 
-def _flat_paths(tree, prefix=""):
+def flat_paths(tree, prefix=""):
     """``{"a.b.c": leaf}`` for a nested dict of leaves."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(_flat_paths(v, f"{prefix}{k}."))
+            out.update(flat_paths(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v
     return out
@@ -115,7 +116,7 @@ def load_reference_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     ``__array__``) into ``model``'s parameters, on their device.  Raises on
     a missing or extra path, or on a leaf of another shape or dtype;
     bfloat16 crosses by its raw bits."""
-    leaves = _flat_paths(tree)
+    leaves = flat_paths(tree)
     params = dict(model.named_parameters())
     missing, extra = sorted(params.keys() - leaves), sorted(leaves.keys() -
                                                             params)
@@ -137,3 +138,59 @@ def load_reference_params(model: torch.nn.Module, tree) -> torch.nn.Module:
         for path, host in staged.items():
             params[path].copy_(host)
     return model
+
+
+def _checked_leaf(path: str, leaf, shape, dtype) -> torch.Tensor:
+    host = serialize.host_tensor(np.asarray(leaf))
+    if tuple(host.shape) != tuple(shape):
+        raise ValueError(f"{path}: shape {tuple(host.shape)}, expected "
+                         f"{tuple(shape)}")
+    if host.dtype != dtype:
+        raise TypeError(f"{path}: dtype {host.dtype}, expected {dtype}")
+    return host
+
+
+def _moments(model: torch.nn.Module, tree, name: str) -> dict:
+    """A reference moment tree (fp32, the params' paths and shapes) as a
+    nested dict of tensors on the model's device."""
+    leaves = flat_paths(tree)
+    params = dict(model.named_parameters())
+    missing, extra = sorted(params.keys() - leaves), sorted(leaves.keys() -
+                                                            params)
+    if missing or extra:
+        raise KeyError(f"{name} paths differ: missing {missing}, "
+                       f"extra {extra}")
+    out: dict = {}
+    for path, leaf in leaves.items():
+        host = _checked_leaf(f"{name}.{path}", leaf, params[path].shape,
+                             torch.float32)
+        node = out
+        *owners, last = path.split(".")
+        for k in owners:
+            node = node.setdefault(k, {})
+        node[last] = host.to(params[path].device, copy=True)
+    return out
+
+
+def load_reference_train_state(model: torch.nn.Module, state):
+    """A reference ``TrainState`` (``params``, ``opt`` = ``(step, m, v)``,
+    ``rng``, ``data_cursor``; leaves with ``__array__``: JAX or numpy
+    arrays) as a port `train.state.TrainState` over ``model``: the
+    parameters are copied into the model (`load_reference_params`), the
+    moments, step and key onto its device, the cursor onto the host.
+    Raises on a missing or extra path, or on a leaf of another shape or
+    dtype."""
+    from repro_torch.train.state import AdamWState, TrainState
+
+    load_reference_params(model, state.params)
+    dev = next(model.parameters()).device
+    step = _checked_leaf("opt.step", state.opt.step, (), torch.int32)
+    rng = _checked_leaf("rng", state.rng, (2,), torch.uint32)
+    cursor = _checked_leaf("data_cursor", state.data_cursor, (), torch.int32)
+    return TrainState(
+        params=model.params(),
+        opt=AdamWState(step=step.to(dev, copy=True),
+                       m=_moments(model, state.opt.m, "opt.m"),
+                       v=_moments(model, state.opt.v, "opt.v")),
+        rng=rng.to(dev, copy=True),
+        data_cursor=cursor.clone())

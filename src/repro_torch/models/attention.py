@@ -1,8 +1,17 @@
-"""Attention for the serving path: prefill through the flash kernel, decode
-against a padded KV cache, and the ring KV cache itself.
+"""Attention: the training primitive, prefill through the flash kernel,
+decode against a padded KV cache, and the ring KV cache itself.
 
-The port of ``src/repro/models/attention.py`` minus ``chunked_attention``
-(the training primitive, which waits for slice 8b).
+The port of ``src/repro/models/attention.py``.
+
+* ``chunked_attention`` is the reference's training primitive, plain torch
+  with autograd (the reference runs no kernel on this path): an online
+  softmax over KV chunks inside a loop over Q chunks, fp32 scores and
+  sums, P cast to V's dtype before P·V (the reference's
+  ``p.astype(vc.dtype)``, ``attention.py:124``), so that bf16 training
+  rounds as the reference does.  Each Q chunk runs under
+  ``torch.utils.checkpoint``: backward recomputes its KV loop (the
+  reference's ``jax.checkpoint``), so that what a Q chunk keeps for
+  backward is its inputs and output, never its ``[Sq, Skv]`` scores.
 
 * ``prefill_attention`` is the reference prefill's ``chunked_attention(q,
   k, v, positions, positions, causal=True, ...)`` for the one case the model
@@ -29,6 +38,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -51,6 +61,91 @@ def visibility_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
             in_window = in_window | (kp < n_meta)
         vis = vis & in_window
     return vis
+
+
+def _pad_axis(x: torch.Tensor, axis: int, multiple: int, value=0):
+    """``x`` padded with ``value`` along ``axis`` to a multiple of
+    ``multiple``."""
+    n = x.shape[axis]
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target - n
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=axis)
+
+
+def _attend_q_chunk(qc, qp, kr, vr, kpr, *, causal, window, n_meta,
+                    out_dtype):
+    """One Q chunk against every KV chunk: qc [B, qc, KVH, G, Dk], qp
+    [B, qc]; kr [B, nk, kc, KVH, Dk], vr [B, nk, kc, KVH, Dv], kpr
+    [B, nk, kc] -> [B, qc, KVH, G, Dv] in ``out_dtype``."""
+    b, n, kvh, g, dk = qc.shape
+    scale = 1.0 / math.sqrt(dk)
+    f32 = torch.float32
+    m = torch.full((b, kvh, g, n), NEG_INF, dtype=f32, device=qc.device)
+    l = torch.zeros((b, kvh, g, n), dtype=f32, device=qc.device)
+    acc = torch.zeros((b, kvh, g, n, vr.shape[-1]), dtype=f32,
+                      device=qc.device)
+    qf = qc.float()
+    for j in range(kr.shape[1]):
+        kc, vc, kp = kr[:, j], vr[:, j], kpr[:, j]
+        # the products of the inputs' values, summed in fp32 (the
+        # reference's preferred_element_type=float32)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kc.float()) * scale
+        vis = visibility_mask(qp, kp, causal=causal, window=window,
+                              n_meta=n_meta)
+        s = torch.where(vis[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(vc.dtype).float(),
+                          vc.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(out_dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                      causal: bool = True, window: int = 0, n_meta: int = 0,
+                      q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style attention with autograd: q [B, Sq, H, Dk], k [B, Skv,
+    KVH, Dk], v [B, Skv, KVH, Dv], positions [B, Sq] and [B, Skv] (-1 an
+    invalid slot) -> [B, Sq, H, Dv] in q's dtype.  GQA: H a multiple of
+    KVH; fp32 softmax sums."""
+    b, sq, h, dk = q.shape
+    _, skv, kvh, _ = k.shape
+    dv = v.shape[-1]
+    g = h // kvh
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    q = _pad_axis(q, 1, q_chunk)
+    q_pos = _pad_axis(q_pos, 1, q_chunk, 0)
+    k = _pad_axis(k, 1, kv_chunk)
+    v = _pad_axis(v, 1, kv_chunk)
+    kv_pos = _pad_axis(kv_pos, 1, kv_chunk, -1)  # padded slots invisible
+    nq = q.shape[1] // q_chunk
+    nk = k.shape[1] // kv_chunk
+    qr = q.reshape(b, nq, q_chunk, kvh, g, dk)
+    qpr = q_pos.reshape(b, nq, q_chunk)
+    kr = k.reshape(b, nk, kv_chunk, kvh, dk)
+    vr = v.reshape(b, nk, kv_chunk, kvh, dv)
+    kpr = kv_pos.reshape(b, nk, kv_chunk)
+    outs = []
+    for i in range(nq):
+        # backward recomputes the chunk's KV loop (the reference's
+        # jax.checkpoint); the model has no randomness to replay
+        outs.append(checkpoint(
+            _attend_q_chunk, qr[:, i], qpr[:, i], kr, vr, kpr,
+            causal=causal, window=window, n_meta=n_meta, out_dtype=q.dtype,
+            use_reentrant=False, preserve_rng_state=False))
+    out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, dv)
+    return out[:, :sq]
 
 
 _ARANGE_MARK = "_rows_are_arange"
@@ -83,7 +178,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_pos is not q_pos and not _is_arange(kv_pos)):
         raise ValueError("prefill_attention takes positions arange(S) only "
                          "(the flash kernel's row and column indices); "
-                         "other positions need chunked_attention (slice 8b)")
+                         "other positions need chunked_attention")
     return flash_attention(q, k, v, causal=causal, window=window,
                            n_meta=n_meta)
 

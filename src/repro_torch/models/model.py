@@ -2,7 +2,7 @@
 (internlm2-1.8b, glm4-9b, mistral-nemo-12b), the MoE family
 (deepseek-moe-16b, dbrx-132b), the hybrid family (hymba-1.5b) and the
 xLSTM family (xlstm-350m); the port of ``src/repro/models/model.py``'s
-serving path.
+serving path, and the dense family's training loss.
 
 `Model` is an ``nn.Module`` whose parameters keep the reference's tree and
 shapes (``embed``, ``norm_f``, ``unembed``, ``meta``, then ``blocks/...``
@@ -12,6 +12,13 @@ xLSTM's ``[P, ...]`` pairs) in the config's ``param_dtype``, so one
 the training slice.  Methods:
 
 * ``init(generator)`` — fill the parameters from a ``torch.Generator``.
+* ``loss(batch, params=None)`` — the causal-LM loss, with autograd, for
+  the dense family (chunked CE: the ``[B, T, V]`` logits are never
+  materialised); ``params`` defaults to the model's own.
+* ``release()`` / ``materialise(device)`` / ``adopt(params)`` — drop every
+  parameter's storage (meta tensors), allocate it again, or take a tree
+  of tensors (a restored checkpoint) as the parameters without a copy:
+  the hooks a preemptible training job needs.
 * ``prefill(batch, cache)`` — populate the cache, return last logits.
 * ``decode_step(cache, tokens)`` — one serve step.
 * ``init_cache(batch, max_seq, dtype)`` — the reference's cache layout:
@@ -30,8 +37,8 @@ step runs the mLSTM kernel from the cache's carried state
 (`models.xlstm`), reading nothing back to the host.  An MoE layer
 whose tokens exceed the grouped-matmul kernel's row tile reads its largest
 expert count once on the host (`models.moe`).  MLA, VLM and audio raise
-``NotImplementedError`` (ROADMAP slice 10); ``loss`` and
-``chunked_ce_loss`` wait for slice 8b.
+``NotImplementedError`` (ROADMAP slice 10); the MoE, hybrid and xLSTM
+losses raise too (slice 8c).
 """
 from __future__ import annotations
 
@@ -39,8 +46,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.convert import flat_paths
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
@@ -55,6 +64,43 @@ from repro_torch.models.layers import (
 
 Batch = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (the [B, T, V] logits are never materialised)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(hx: torch.Tensor, lx: torch.Tensor, unembed: torch.Tensor):
+    """One chunk's (sum of token losses, token count): fp32 logits from
+    the products of h's values and the weights rounded to h's dtype."""
+    logits = hx.float() @ unembed.to(hx.dtype).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lx.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lx >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, *, chunk: int = 512
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h [B, T, d], unembed [d, V], labels [B, T] (-1 = ignore) -> (sum of
+    token losses, token count), fp32.  Each chunk of ``chunk`` positions
+    runs under ``torch.utils.checkpoint`` (the reference's checkpointed
+    scan body), so at most one chunk's ``[B, chunk, V]`` logits live at a
+    time, in backward too; the last chunk may be shorter."""
+    t = h.shape[1]
+    chunk = min(chunk, t)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, t, chunk):
+        ls, c = checkpoint(_ce_chunk, h[:, lo:lo + chunk],
+                           labels[:, lo:lo + chunk], unembed,
+                           use_reentrant=False, preserve_rng_state=False)
+        loss_sum = loss_sum + ls
+        count = count + c
+    return loss_sum, count
+
 
 def _logits_last(h_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
     """h_last [B, T, d] -> fp32 logits [B, T, V] (small T only): the
@@ -93,9 +139,13 @@ class Model(nn.Module):
     """A dense, MoE, hybrid or xLSTM decoder on ``device`` (``"cuda"``
     unless the caller asks for ``"cpu"``; ``"meta"`` for shapes only)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", *,
+                 q_chunk: int = 1024, kv_chunk: int = 1024):
         super().__init__()
         self.cfg = cfg
+        # train-mode attention chunk sizes (the reference's Model fields)
+        self.q_chunk = q_chunk
+        self.kv_chunk = kv_chunk
         self._inits: Dict[str, Any] = {}
         _materialise(self, self.param_spec(), resolve_device(device),
                      self._inits, "")
@@ -142,6 +192,37 @@ class Model(nn.Module):
         """The parameters as the reference's nested dict of tensors."""
         return _as_dict(self)
 
+    def release(self) -> "Model":
+        """Drop every parameter's storage: the parameters become
+        ``device="meta"`` tensors of the same shapes and dtypes."""
+        return self.to_empty(device="meta")
+
+    def materialise(self, device) -> "Model":
+        """Allocate every parameter, uninitialised, on ``device``."""
+        return self.to_empty(device=resolve_device(device))
+
+    @torch.no_grad()
+    def adopt(self, params: dict) -> "Model":
+        """Make the tensors of ``params`` (a tree shaped like ``params()``,
+        e.g. a restored checkpoint's) the model's parameters, sharing their
+        storage.  Raises on a missing or extra path, a shape or a dtype."""
+        mine = dict(self.named_parameters())
+        leaves = flat_paths(params)
+        if mine.keys() != leaves.keys():
+            raise KeyError(f"params paths differ: missing "
+                           f"{sorted(mine.keys() - leaves.keys())}, extra "
+                           f"{sorted(leaves.keys() - mine.keys())}")
+        for path, t in leaves.items():
+            p = mine[path]
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, the "
+                                 f"model holds {tuple(p.shape)} {p.dtype}")
+        for path, t in leaves.items():
+            owner, _, name = path.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            module._parameters[name] = nn.Parameter(t.detach())
+        return self
+
     # -- embedding helpers --------------------------------------------------
 
     def _embed(self, params, tokens):
@@ -171,6 +252,31 @@ class Model(nn.Module):
                 cfg, params["blocks"], x, positions, mode=mode,
                 cache=cache["layers"], kv_pos=kv_pos, cursor=cache["length"])
         return rms_norm(h, params["norm_f"], cfg.norm_eps), layers
+
+    # -- training -----------------------------------------------------------
+
+    def loss(self, batch: Batch, params=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The causal-LM loss over a [B, T] batch of ``tokens`` and
+        ``labels``: (``ce + aux / n_layers``, {ce_loss, aux_loss, tokens}),
+        fp32, with autograd through ``params`` (default: the model's
+        own)."""
+        cfg = self.cfg
+        tfm.check_trainable(cfg)
+        params = self.params() if params is None else params
+        tokens, labels = batch["tokens"], batch["labels"]
+        b, t = tokens.shape
+        x = self._embed(params, tokens)
+        positions = self._positions(b, 0, t)
+        h, _, aux = tfm.stack_apply(
+            cfg, params["blocks"], x, positions, mode="train",
+            q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+        h = rms_norm(h, params["norm_f"], cfg.norm_eps)
+        loss_sum, count = chunked_ce_loss(h, self._unembed_matrix(params),
+                                          labels)
+        loss = loss_sum / torch.clamp(count, min=1.0)
+        total = loss + aux / max(cfg.n_layers, 1)
+        return total, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
 
     # -- serving ------------------------------------------------------------
 

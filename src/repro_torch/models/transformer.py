@@ -1,5 +1,4 @@
-"""Decoder stack of the dense GQA, MoE and hybrid (Hymba) families: the
-serving path.
+"""Decoder stack of the dense GQA, MoE and hybrid (Hymba) families.
 
 The port of the dense, MoE and hybrid branches of
 ``src/repro/models/transformer.py``.  Stacked ``[L, ...]`` layer weights,
@@ -9,11 +8,16 @@ of the cache.
 
 Modes
 -----
+``train``   — full sequence, no cache, returns hidden states: attention
+              through `models.attention.chunked_attention` (plain torch
+              with autograd, the reference's rounding), and each layer
+              under ``torch.utils.checkpoint``, so that backward recomputes
+              it from its input (the reference's layer remat).  The dense
+              family only: the MoE and hybrid train modes raise (ROADMAP
+              slice 8c).
 ``prefill`` — full sequence; attention through the flash kernel; writes the
               layer's cache in place; returns hidden states.
 ``decode``  — T new tokens (usually 1) against the cache.
-``train``   — raises: the training path (``chunked_attention`` with
-              autograd) is ROADMAP slice 8b.
 
 A hybrid layer runs attention and the selective SSM (`models.ssm`) in
 parallel on the same normed input and mixes them as ``0.5 * (rms(attn) +
@@ -30,12 +34,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     cache_write,
+    chunked_attention,
     decode_attention,
     prefill_attention,
 )
@@ -55,6 +61,18 @@ def _ported_block(cfg: ModelConfig) -> None:
             f"{cfg.name}: the ported archs are internlm2-1.8b, glm4-9b, "
             "mistral-nemo-12b, deepseek-moe-16b, dbrx-132b, hymba-1.5b and "
             "xlstm-350m; MLA, VLM and audio are ROADMAP slice 10")
+
+
+TRAIN_FAMILIES = ("dense",)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless the port trains ``cfg``'s family."""
+    if cfg.family not in TRAIN_FAMILIES or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: train mode is ported for the dense family "
+            "(internlm2-1.8b, glm4-9b, mistral-nemo-12b); the MoE, hybrid "
+            "and xLSTM train modes are ROADMAP slice 8c")
 
 
 # ---------------------------------------------------------------------------
@@ -90,31 +108,38 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, mode: str,
                   layer_cache: Optional[dict] = None,
                   kv_pos: Optional[torch.Tensor] = None,
-                  cursor=None) -> Tuple[torch.Tensor, Optional[dict]]:
+                  cursor=None, q_chunk: int = 1024,
+                  kv_chunk: int = 1024) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention sub-layer (pre-norm residual applied by the caller).
-    Returns (out [B, T, d], the layer's cache {k, v}, written in place)."""
+    Returns (out [B, T, d], the layer's cache {k, v}, written in place;
+    None in train mode)."""
     b, t, _ = x.shape
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
+    new_cache = None
     if mode == "train":
-        raise NotImplementedError("train mode needs chunked_attention with "
-                                  "autograd: ROADMAP slice 8b")
-    if mode == "prefill":
+        out = chunked_attention(q, k, v, positions, positions, causal=True,
+                                window=cfg.sliding_window,
+                                n_meta=cfg.n_meta_tokens, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
+    elif mode == "prefill":
         out = prefill_attention(q, k, v, positions, positions, causal=True,
                                 window=cfg.sliding_window,
                                 n_meta=cfg.n_meta_tokens)
         ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
                              n_pinned=cfg.n_meta_tokens)
+        new_cache = {"k": ck, "v": cv}
     elif mode == "decode":
         ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
                              n_pinned=cfg.n_meta_tokens)
         out = decode_attention(q, ck, cv, positions, kv_pos,
                                window=cfg.sliding_window,
                                n_meta=cfg.n_meta_tokens)
+        new_cache = {"k": ck, "v": cv}
     else:
         raise ValueError(mode)
     hd = cfg.resolved_head_dim
     out = out.reshape(b, t, cfg.n_heads * hd) @ p["w_o"].to(x.dtype)
-    return out, {"k": ck, "v": cv}
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +167,19 @@ def block_params_spec(cfg: ModelConfig, dtype) -> dict:
 def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, mode: str,
                   layer_cache: Optional[dict] = None,
-                  kv_pos: Optional[torch.Tensor] = None, cursor=None
+                  kv_pos: Optional[torch.Tensor] = None, cursor=None,
+                  q_chunk: int = 1024, kv_chunk: int = 1024
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One dense, MoE or hybrid decoder layer.  Returns (x, layer_cache,
     aux_loss): the MoE layer's load-balance loss, else 0."""
     _ported_block(cfg)
+    if mode == "train":
+        check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     attn_out, new_cache = gqa_attention(
         cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
-        kv_pos=kv_pos, cursor=cursor)
+        kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
     if cfg.family == "hybrid" and cfg.ssm is not None:
         # Hymba: attention and mamba heads in parallel on the same normed
         # input, each output normed, then averaged
@@ -183,20 +211,36 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _train_block(cfg, p, x, positions, q_chunk, kv_chunk):
+    x, _, aux = decoder_block(cfg, p, x, positions, mode="train",
+                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return x, aux
+
+
 def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
                 cache: Optional[dict] = None,
-                kv_pos: Optional[torch.Tensor] = None, cursor=None
+                kv_pos: Optional[torch.Tensor] = None, cursor=None,
+                q_chunk: int = 1024, kv_chunk: int = 1024
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Homogeneous decoder stack.  Returns (h, cache, aux_loss_sum); the
     stacked cache (``k``, ``v`` [L, B, S, KVH, D], and for the hybrid family
     ``ssm_h``, ``ssm_conv``) is written in place, one layer's view at a
-    time."""
+    time.  In train mode each layer runs under ``torch.utils.checkpoint``:
+    what it keeps for backward is its input."""
+    if mode == "train":
+        check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        cache_i = _layer(cache, i) if cache is not None else None
-        x, _, aux_i = decoder_block(
-            cfg, _layer(blocks_params, i), x, positions, mode=mode,
-            layer_cache=cache_i, kv_pos=kv_pos, cursor=cursor)
+        p_i = _layer(blocks_params, i)
+        if mode == "train":
+            x, aux_i = checkpoint(_train_block, cfg, p_i, x, positions,
+                                  q_chunk, kv_chunk, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            cache_i = _layer(cache, i) if cache is not None else None
+            x, _, aux_i = decoder_block(
+                cfg, p_i, x, positions, mode=mode, layer_cache=cache_i,
+                kv_pos=kv_pos, cursor=cursor)
         aux = aux + aux_i
     return x, cache, aux

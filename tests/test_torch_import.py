@@ -42,14 +42,17 @@ def test_every_port_module_imports_without_jax_or_repro():
     names = set(out.stdout.split())
     # packages and modules: core (6 modules), checkpoint (7), kernels
     # (_build; sched_select, ckpt_codec and flash_attention {ops,ref}),
-    # launch (cluster_sim, cr_cost, serve), train (state), configs (base
-    # + 10 archs), models (layers, attention, transformer, model)
-    assert len(names) >= 49, sorted(names)
+    # launch (cluster_sim, cr_cost, serve, train), train (state, steps),
+    # configs (base + 10 archs), models (layers, attention, transformer,
+    # model), data (pipeline), optim (adamw), cluster (executor)
+    assert len(names) >= 58, sorted(names)
     for mod in ("configs", "configs.base", "configs.internlm2_1_8b",
                 "models.layers", "models.attention", "models.transformer",
                 "models.model", "models.moe", "kernels.flash_attention.ops",
                 "kernels.flash_attention.ref", "kernels.moe_gmm.ops",
-                "kernels.moe_gmm.ref", "launch.serve"):
+                "kernels.moe_gmm.ref", "launch.serve", "launch.train",
+                "data.pipeline", "optim.adamw", "train.state", "train.steps",
+                "cluster.executor"):
         assert f"repro_torch.{mod}" in names, mod
 
 
