@@ -21,7 +21,7 @@ against the plain version and timed beside it in one run.
   under torch.cuda's sync debug mode must be the ones its `PassStats`
   counts; `simulate_matrix` over the seven must equal the per-policy runs;
   then lifecycle-event capture: all seven policies on the launcher's
-  fleet (cut to 200 ticks) on the card against the Python backend's
+  fleet (cut to 120 ticks) on the card against the Python backend's
   EventBus, an undersized ring's drops, and omfs with capture on the
   100k-job fleet (its table unchanged, the capture's device share); then
   the batch and stream engines: the batched `sched_select` launch bit for
@@ -35,7 +35,11 @@ against the plain version and timed beside it in one run.
   against 256 sequential runs (16 host syncs a tick), and omfs on the
   fleet's arrivals through `simulate_stream` at a capacity sized from a
   first run's live peak, equal to the monolithic run with no deferral;
-  then the launcher, also with ``--events --trace-out --metrics-out``;
+  then the launcher, also with ``--events --trace-out --metrics-out`` and
+  with ``--backend torch`` (on the card) against ``--backend python`` (one
+  schedule); and ``launch.serve --sched-status``, whose payloads built on
+  the card (through `sched_select`) equal the host reference's and are
+  served over a socket on 127.0.0.1;
 * training and checkpoint-restart: the int8 `ckpt_codec` kernels bit for
   bit against their plain versions; one train step of internlm2-1.8b at
   its published widths, cut to depth 2, on the card against the CPU from
@@ -53,6 +57,15 @@ against the plain version and timed beside it in one run.
   and `repro_torch.launch.cr_cost.measure` on two trained snapshots of the
   job that `benchmarks/bench_cr_cost.py` measures, whose calibrated cost
   lattice then prices the launcher's default fleet on both backends;
+  then the other families' training: one step card against CPU for
+  deepseek-moe-16b, hymba-1.5b and xlstm-350m at published widths, depth
+  2 (fp32); `repro_torch.launch.train` on deepseek-moe-16b cut to depth 2
+  (batch 4 x 2,048), on the full 32-layer hymba-1.5b and the full
+  24-layer xlstm-350m (shorter rows: their per-token loops), each with a
+  bit-equal rerun from its snapshot, 0 kernel launches, its host syncs,
+  its profile and, for the recurrent two, the per-token loop's share of a
+  step; and the executor preempting the deepseek job, bit-equal to the
+  launcher's run;
 * serving: the flash-attention kernel against its plain version on every
   shape of the reference's kernel tests and on one layer at the serving
   shape, and timed there beside the SDPA library call; the serve path at
@@ -119,6 +132,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -199,6 +213,7 @@ from repro_torch.obs.events import (  # noqa: E402
     lossless_ring_size,
 )
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
@@ -232,13 +247,15 @@ POLICIES = ("omfs", "omfs_cheap_victim", "static_partition", "capping",
             "fcfs", "backfill", "backfill_cr")
 PLANNERS = ("omfs", "omfs_cheap_victim", "backfill_cr")
 #: [events]: the launcher's fleet (6 tenants, 1,024 CPUs, arrival rate
-#: 0.08, seed 0; its --pass-depth 64 and a 4 GiB fast tier) cut from 800
-#: ticks to 120, where no queue is longer than the pass depth, so the
-#: bounded tensor pass and the Python backend's full sweep must agree;
-#: 120 still evicts, restores and spills under both planners and
-#: overflows a ring of 16 (at 100 ticks nothing overflows)
+#: 0.08, seed 0; a 4 GiB fast tier) cut from 800 ticks to 120, where no
+#: queue is longer than the pass depth (the longest is 29, fcfs's), so the
+#: bounded tensor pass and the Python backend's full sweep must agree (the
+#: phase raises otherwise); 32 positions a tick, not the launcher's 64,
+#: since every position costs the tensor passes their ops whether a job
+#: is there or not; 120 still evicts, restores and spills under both
+#: planners and overflows a ring of 16 (at 100 ticks nothing overflows)
 EVENTS_HORIZON = 120
-EVENTS_DEPTH = 64
+EVENTS_DEPTH = 32
 EVENTS_SMALL_RING = 16
 #: [batch-kernel]: the batched launch's batches, (B, cells' J, T), each
 #: over the six static variants; cell 0 of each has no candidate
@@ -254,10 +271,14 @@ SWEEP_DEPTHS = (1, 2, 3, 4, 5, 6, 7, 8)
 SWEEP_POLICIES = ("omfs", "omfs_cheap_victim")
 SWEEP_SEEDS = (0, 1)
 SWEEP_JOBS, SWEEP_CPUS, SWEEP_HORIZON = 32, 32, 100
+#: ticks each sweep cell runs (the workload's arrivals span SWEEP_HORIZON;
+#: half of it still evicts in both planners, and the sequential loop the
+#: batch is held against is the phase's cost)
+SWEEP_TICKS = 50
 #: [stream-fleet]: the fleet's arrivals (8 a tick) through a stream of
-#: 100-tick segments, 12 of them; the first run's capacity holds every
+#: 100-tick segments, 6 of them; the first run's capacity holds every
 #: arrival
-STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 1200, 100, 1 << 15
+STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 600, 100, 1 << 15
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
@@ -292,6 +313,28 @@ GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 # those ticks, at most TRAIN_STEPS steps
 EXEC_SMOKE_TICK_S = 0.05
 EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
+# the other families' training (`launch.train.run` with the config passed
+# in): deepseek-moe-16b at its published widths cut to MOE_TRAIN_LAYERS
+# (its TrainState, 19.1 GB, fits the 24 GiB fast tier; depth 3 would be
+# 26.2 GB), batch TRAIN_BATCH x TRAIN_SEQ; hymba-1.5b and xlstm-350m at
+# their published widths and depths, TRAIN_BATCH rows of HYBRID_TRAIN_SEQ
+# and XLSTM_TRAIN_SEQ tokens (hymba adds its 128 meta tokens): the SSM's
+# and the sLSTM's per-token loops make a longer row cost the script more
+# than its limit allows (PERF.md section 4); their one step reruns from a
+# snapshot of the initial state.
+# [executor-moe] is [executor]'s scenario with B the deepseek launcher run
+# (its losses are [train-moe]'s) and A a smoke internlm2 job.
+# [train-families-vs-cpu] is [train-vs-cpu] for each family at its depth,
+# TRAIN_CPU_LAYERS (xlstm one pair), in fp32
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 8
+HYBRID_TRAIN_SEQ, XLSTM_TRAIN_SEQ, RECURRENT_TRAIN_STEPS = 512, 512, 1
+# [launcher]'s backend check: the launcher's fleet cut to 256 CPUs and 300
+# ticks, where pass depth 64 covers every queue, so the tensor pass sees
+# what the host reference sees; [sched-status] the launcher's defaults
+LAUNCHER_BACKENDS_ARGV = ["--fast-tier-cap-mib", "4096", "--chips", "256",
+                          "--horizon", "300"]
+LAUNCHER_TICKS = 400
+SCHED_STATUS_REQUESTS = 4
 
 # serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
 # window, n_meta), two ragged Sq != Skv cases (B, Sq, Skv, H, KVH, D,
@@ -1300,19 +1343,19 @@ def phase_batch_sweep():
     saved = kernel_counts()
     zero_kernel_counts()
     t0 = time.perf_counter()
-    batch = engine.simulate_batch(cells, base, SWEEP_HORIZON, device=DEV)
+    batch = engine.simulate_batch(cells, base, SWEEP_TICKS, device=DEV)
     cold_s = time.perf_counter() - t0
     launches, plans = sched_ops.LAUNCHES, sched_ops.PLANS
     t0 = time.perf_counter()
-    engine.simulate_batch(cells, base, SWEEP_HORIZON, device=DEV)
+    engine.simulate_batch(cells, base, SWEEP_TICKS, device=DEV)
     warm_s = time.perf_counter() - t0
     eager = engine.simulate_batch(
         cells, dataclasses.replace(base, kernel_backend="torch"),
-        SWEEP_HORIZON, device=DEV)
+        SWEEP_TICKS, device=DEV)
     t0 = time.perf_counter()
     seq = [engine.simulate(workloads[s][0], workloads[s][1],
                            SchedulerConfig(cpu_total=SWEEP_CPUS, quantum=q),
-                           SWEEP_HORIZON, p, pass_depth=d, device=DEV)
+                           SWEEP_TICKS, p, pass_depth=d, device=DEV)
            for q, d, p, s in grid]
     seq_s = time.perf_counter() - t0
     set_kernel_counts(saved)
@@ -1323,14 +1366,14 @@ def phase_batch_sweep():
         if b.stats.evict_branches != r.stats.evict_branches:
             raise AssertionError(f"{what}: {b.stats} vs {r.stats}")
     branches = sum(r.stats.evict_branches for r in seq)
-    syncs = group_syncs(batch) / SWEEP_HORIZON
+    syncs = group_syncs(batch) / SWEEP_TICKS
     if plans != branches or syncs != len(SWEEP_POLICIES) * max(SWEEP_DEPTHS):
         raise AssertionError(f"sweep: {plans} plans for {branches} branches, "
                              f"{syncs} host syncs a tick")
     n = len(cells)
-    seq_syncs = sum(r.stats.host_syncs for r in seq) / SWEEP_HORIZON
+    seq_syncs = sum(r.stats.host_syncs for r in seq) / SWEEP_TICKS
     log("batch-sweep", cells=n, jobs=SWEEP_JOBS, cpus=SWEEP_CPUS,
-        horizon=SWEEP_HORIZON, grid="quantum*depth*policy*seed",
+        ticks=SWEEP_TICKS, grid="quantum*depth*policy*seed",
         batch_cells_per_s=f"{n / warm_s:.2f}",
         batch_cold_cells_per_s=f"{n / cold_s:.2f}",
         seq_cells_per_s=f"{n / seq_s:.2f}",
@@ -1531,7 +1574,8 @@ def phase_stream_fleet():
 
 
 def phase_launcher():
-    argv = ["--fast-tier-cap-mib", "4096"]
+    # the launcher's default fleet, its first LAUNCHER_TICKS ticks
+    argv = ["--fast-tier-cap-mib", "4096", "--horizon", str(LAUNCHER_TICKS)]
     t0 = time.perf_counter()
     res = cluster_sim.main(argv + ["--device", "cuda"])
     cuda_s = time.perf_counter() - t0
@@ -1559,6 +1603,115 @@ def phase_launcher():
         trace_events=len(trace["traceEvents"]), metrics=len(metrics),
         seconds_cuda=f"{events_s:.2f}", trace_valid=True,
         table_unchanged=True)
+    # --backend torch (on the card) against --backend python
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    card = cluster_sim.main(LAUNCHER_BACKENDS_ARGV + [
+        "--backend", "torch", "--device", DEV.type])
+    card_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    t0 = time.perf_counter()
+    host = cluster_sim.main(LAUNCHER_BACKENDS_ARGV + ["--backend", "python"])
+    host_s = time.perf_counter() - t0
+    if card.signature() != host.signature():
+        raise AssertionError("launcher: --backend torch and python schedule "
+                             "differently")
+    if launches["sched_select"] != card.stats.evict_branches or not launches[
+            "sched_select"]:
+        raise AssertionError(f"launcher: sched_select launches {launches} "
+                             f"for {card.stats.evict_branches} branches")
+    log("launcher", backends="torch-vs-python", argv=LAUNCHER_BACKENDS_ARGV,
+        ticks=len(card.busy_series()),
+        preemptions=card.summary()["preemptions"], same_signature=True,
+        seconds_torch=f"{card_s:.2f}", seconds_python=f"{host_s:.2f}",
+        launches_sched_select=launches["sched_select"])
+
+
+def trace_without_ids(body):
+    """A trace's JSON with its job ids counted from its first span's and
+    its backend's name blanked: each build of a workload draws its job ids
+    from the process's counter, and the trace names its backend."""
+    trace = json.loads(body)
+    first = min(e["args"]["jid"] for e in trace["traceEvents"]
+                if e.get("ph") == "X")
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X":
+            e["args"]["jid"] -= first
+            e["name"] = f"job {e['args']['jid']}"
+        elif e.get("ph") in ("s", "f"):
+            e["id"] -= first
+    trace["otherData"]["backend"] = "any"
+    return trace
+
+
+def phase_sched_status():
+    """`launch.serve --sched-status`'s payloads built on the card
+    (``--backend torch``, through the `sched_select` kernel) and by the
+    host reference (``--backend python``): ``/metrics`` byte-equal,
+    ``/trace.json`` equal but for the job ids' origin and the backend's
+    name, ``/healthz`` equal but for the backend; then the card's served on
+    127.0.0.1 for SCHED_STATUS_REQUESTS requests and read back over a
+    socket."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    argv = ["--sched-status", "--port", "0", "--max-requests",
+            str(SCHED_STATUS_REQUESTS), "--device", DEV.type]
+    payloads, secs = {}, {}
+    for backend in ("torch", "python"):
+        args = serve.parser().parse_args(argv + ["--backend", backend])
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        payloads[backend] = serve.sched_status_payloads(args)
+        secs[backend] = time.perf_counter() - t0
+        if backend == "torch":
+            launches = kernel_counts()
+    card, host = payloads["torch"], payloads["python"]
+    if card["/metrics"] != host["/metrics"]:
+        raise AssertionError("sched-status: /metrics differ by backend")
+    if trace_without_ids(card["/trace.json"][1]) != trace_without_ids(
+            host["/trace.json"][1]):
+        raise AssertionError("sched-status: /trace.json differs by backend")
+    health = {k: json.loads(p["/healthz"][1]) for k, p in payloads.items()}
+    if ({k: v for k, v in health["torch"].items() if k != "backend"}
+            != {k: v for k, v in health["python"].items() if k != "backend"}):
+        raise AssertionError(f"sched-status: /healthz differ: {health}")
+    if launches["sched_select"] < 1:
+        raise AssertionError(f"sched-status: no sched_select launch: "
+                             f"{launches}")
+    server = serve.sched_status_server(args, card)
+    addr, port = server.server_address[:2]
+    thread = threading.Thread(target=serve.serve_sched_status,
+                              args=(args, server))
+    thread.start()
+    got, missing = {}, None
+    try:
+        for path in ("/metrics", "/trace.json", "/healthz"):
+            with urllib.request.urlopen(f"http://{addr}:{port}{path}",
+                                        timeout=60) as resp:
+                got[path] = (resp.headers["Content-Type"], resp.read())
+        try:
+            urllib.request.urlopen(f"http://{addr}:{port}/nope", timeout=60)
+        except urllib.error.HTTPError as err:
+            missing = err.code
+    finally:
+        thread.join(timeout=60)
+    if thread.is_alive() or got != card or missing != 404:
+        raise AssertionError(f"sched-status: served {sorted(got)}, equal "
+                             f"{got == card}, 404 {missing}, server ended "
+                             f"{not thread.is_alive()}")
+    summary = health["torch"]["summary"]
+    log("sched-status", policy=args.policy, tenants=args.tenants,
+        chips=args.chips, horizon=args.horizon, events=health["torch"][
+            "events"], preemptions=summary["preemptions"],
+        checkpoints=summary["checkpoints"], metrics_bytes=len(
+            card["/metrics"][1]), trace_bytes=len(card["/trace.json"][1]),
+        torch_equals_python=True, seconds_torch=f"{secs['torch']:.2f}",
+        seconds_python=f"{secs['python']:.2f}",
+        served=SCHED_STATUS_REQUESTS, host=addr,
+        launches_sched_select=launches["sched_select"],
+        plans=launches["sched_select_plans"])
 
 
 # ---------------------------------------------------------------------------
@@ -1834,24 +1987,29 @@ def step_bars(card, cpu, dtype, lr):
     return tight, loose
 
 
-def phase_train_vs_cpu():
-    """One train step of internlm2-1.8b at its published widths, depth
-    TRAIN_CPU_LAYERS, on the card and on the CPU from one seeded init, in
-    fp32 and in bf16 compute, fp32 master weights: loss, grad norm and the
-    parameters after the step to the CPU tests' bars."""
-    for dtype in ("float32", "bfloat16"):
+def phase_train_vs_cpu(phase="train-vs-cpu", arch=TRAIN_ARCH,
+                       layers=TRAIN_CPU_LAYERS,
+                       dtypes=("float32", "bfloat16")):
+    """One train step of ``arch`` at its published widths, depth
+    ``layers``, on the card and on the CPU from one seeded init, in each
+    compute dtype of ``dtypes``, fp32 master weights: loss, grad norm and
+    the parameters after the step to the CPU tests' bars, 0 kernel
+    launches on the card."""
+    for dtype in dtypes:
         t0 = time.perf_counter()
-        cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CPU_LAYERS,
-                                             compute_dtype=dtype)
-        cpu = Model(cfg, device="cpu").init(
-            torch.Generator().manual_seed(SEED))
-        card = Model(cfg, device=DEV)
-        card.load_state_dict(cpu.state_dict())
+        cfg = get_config(arch).replace(n_layers=layers, compute_dtype=dtype)
+        # drawn on the card (a CPU generator takes ~20 s for deepseek's
+        # 1.6 B weights), copied to the CPU
+        card = Model(cfg, device=DEV).init(
+            torch.Generator(device=DEV).manual_seed(SEED))
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
         tcfg = TrainConfig(lr=TRAIN_CPU_LR, warmup_steps=0, total_steps=100)
         batch = SyntheticLM(DataConfig(
             vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ,
             global_batch=TRAIN_CPU_BATCH, seed=SEED)).batch_at(0)
         states, metrics, secs = {}, {}, {}
+        zero_kernel_counts()
         for name, model in (("cpu", cpu), ("card", card)):
             ts = time.perf_counter()
             state = init_train_state(model.params(), SEED)
@@ -1870,7 +2028,11 @@ def phase_train_vs_cpu():
                                  TRAIN_CPU_LR)
         if not torch.equal(states["card"].rng.cpu(), states["cpu"].rng):
             raise AssertionError("the card's key differs from the CPU's")
-        log("train-vs-cpu", config=TRAIN_ARCH, layers=TRAIN_CPU_LAYERS,
+        launches = kernel_counts()
+        if any(launches.values()):
+            raise AssertionError(f"{phase}: a train step launched a kernel: "
+                                 f"{launches}")
+        log(phase, config=arch, layers=layers,
             compute=dtype, batch=TRAIN_CPU_BATCH, seq=TRAIN_CPU_SEQ,
             params=sum(p.numel() for p in cpu.parameters()),
             loss_card=metrics["card"]["loss"], loss_cpu=metrics["cpu"]["loss"],
@@ -1901,98 +2063,241 @@ def state_fingerprint(state):
     return [int(x) for x in out]
 
 
-def phase_train():
-    """`repro_torch.launch.train` at internlm2-1.8b's full widths and depth
-    (fp32 master weights from a seeded generator, bf16 compute), batch
-    TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps, a fast-tier snapshot after
-    TRAIN_SNAPSHOT; then the last steps rerun from that snapshot (losses
-    and every leaf's fingerprint bit-equal), one step under the sync debug
-    mode and one under torch.profiler.  The path runs no kernel of the
-    port (the reference's training runs no Pallas kernel): every count
-    must stay 0.  Returns the launcher's record, its state after the
-    extra steps, and the run's peak device memory."""
-    cfg = get_config(TRAIN_ARCH)
+def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
+                activities=None):
+    """`repro_torch.launch.train.run` on ``cfg`` (``arch``'s config, as the
+    caller cut it; fp32 master weights from a seeded generator, bf16
+    compute), batch TRAIN_BATCH x ``seq``: ``snapshot`` steps, then one
+    fast-tier snapshot through the run's manager, then the launcher's step
+    (`step_once`) up to ``steps``; then the steps after the snapshot rerun
+    from it (losses and every leaf's fingerprint bit-equal), the last of
+    them under the sync debug mode, then one step more under
+    torch.profiler (``activities``; CPU and CUDA by default).  The path runs no kernel of the port (the
+    reference's training runs no Pallas kernel): every count must stay 0.
+    Logs ``[phase]``, ``[phase-rerun]``, ``[phase-syncs]`` and
+    ``[phase-profile]``; returns the launcher's record, the run's peak
+    device memory and the median step in ms."""
     collect_garbage()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    reads0 = moe_mod.HOST_READS
     with scratch_dir() as root:
-        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-                "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
-                "--ckpt-every", str(TRAIN_SNAPSHOT),
+        argv = ["--arch", arch, "--steps", str(snapshot), "--seq", str(seq),
+                "--batch", str(TRAIN_BATCH), "--ckpt-every", "0",
                 "--fast-tier-gib", str(TRAIN_FAST_TIER_GIB),
                 "--ckpt-dir", root, "--seed", str(SEED), "--device", DEV.type]
         # this training path: every kernel count starts at 0 here
         zero_kernel_counts()
-        rec = train_launcher.run(train_launcher.parser().parse_args(argv))
-        launches = kernel_counts()
+        # the launcher's loop up to the snapshot (0 steps: the initial
+        # state), its manager's fast-tier save, then the loop's body
+        # (`step_once`) for the rest, each step timed as the loop times it
+        rec = train_launcher.run(train_launcher.parser().parse_args(argv),
+                                 cfg=cfg)
+        rec.mgr.save(snapshot, rec.state)
+        for _ in range(steps - snapshot):
+            ts = time.perf_counter()
+            _, loss, gnorm, _ = train_launcher.step_once(rec)
+            rec.step_seconds.append(time.perf_counter() - ts)
+            rec.losses.append(loss)
+            rec.grad_norms.append(gnorm)
         peak = torch.cuda.max_memory_allocated()
         run_s = time.perf_counter() - t0
-        if any(launches.values()):
-            raise AssertionError(f"training launched a kernel: {launches}")
+        reads = moe_mod.HOST_READS - reads0
         losses = rec.losses
-        if len(losses) != TRAIN_STEPS or not all(
+        if len(losses) != steps or not all(
                 np.isfinite(x) for x in losses + rec.grad_norms):
-            raise AssertionError(f"train losses {losses}")
+            raise AssertionError(f"{phase}: losses {losses}")
         state_bytes = serialize.tree_bytes(rec.state)
         want = state_fingerprint(rec.state)
-        # the last steps again, from the fast-tier snapshot
+        # the last steps again, from the fast-tier snapshot; the last one
+        # under the sync debug mode and the profiler
         rec.state = None
         t1 = time.perf_counter()
         restored, name = rec.mgr.restore(train_state_shapes(rec.model),
+                                         name=f"step_{snapshot:08d}",
                                          device=DEV)
+        # the restore's copies to the card end here, not in the step after
+        torch.cuda.synchronize()
         restore_s = time.perf_counter() - t1
         rec.state = bind_state(rec.model, restored)
         del restored
         rerun = [train_launcher.step_once(rec)[1]
-                 for _ in range(TRAIN_STEPS - TRAIN_SNAPSHOT)]
+                 for _ in range(steps - snapshot - 1)]
+        last, where, texts = sync_sites(
+            lambda: train_launcher.step_once(rec))
+        rerun.append(last[1])
         got = state_fingerprint(rec.state)
-        if rerun != losses[TRAIN_SNAPSHOT:] or got != want:
-            raise AssertionError(f"rerun from {name}: losses {rerun} vs "
-                                 f"{losses[TRAIN_SNAPSHOT:]}, leaves equal "
-                                 f"{got == want}")
+        if rerun != losses[snapshot:] or got != want:
+            raise AssertionError(f"{phase}: rerun from {name}: losses "
+                                 f"{rerun} vs {losses[snapshot:]}, leaves "
+                                 f"equal {got == want}")
+        # one step more, under the profiler alone: profiled within the
+        # sync count too, a full-width internlm2-1.8b step's wall on an
+        # H100 grew from 2.18 s to 3.1-3.4 s and its busy share fell to
+        # 0.53-0.67
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities or [
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            train_launcher.step_once(rec)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - ts) * 1e6
+        launches = kernel_counts()
+        if any(launches.values()):
+            raise AssertionError(f"{phase}: training launched a kernel: "
+                                 f"{launches}")
         save_s = rec.mgr.timings["fast_save_s"]
         rec.mgr.close()
         rec.mgr = None
-    # the host syncs of one step, by source line
-    _, where, texts = sync_sites(lambda: train_launcher.step_once(rec))
-    # one step under the profiler: the card's busy share
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ts = time.perf_counter()
-        train_launcher.step_once(rec)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - ts) * 1e6
     busy_us, _, events = device_us(prof)
     top = top_kernels(prof, busy_us)
-    timed = rec.step_seconds[2:]
-    median_s = statistics.median(timed)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log("train", config=TRAIN_ARCH, layers=cfg.n_layers,
+    timed = rec.step_seconds[2:] if steps > 3 else rec.step_seconds[-1:]
+    median_ms = statistics.median(timed) * 1e3
+    tokens = TRAIN_BATCH * seq
+    log(phase, config=arch, layers=cfg.n_layers,
         params=sum(p.numel() for p in rec.model.parameters()),
         weights=f"{cfg.param_dtype}-seeded-random", compute=cfg.compute_dtype,
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, attn_chunk=rec.model.q_chunk,
-        steps=TRAIN_STEPS, median_step_ms_3_to_10=f"{median_s * 1e3:.1f}",
+        batch=TRAIN_BATCH, seq=seq, meta_tokens=cfg.n_meta_tokens,
+        attn_chunk=rec.model.q_chunk, steps=steps,
+        median_step_ms=f"{median_ms:.1f}",
+        median_of_steps=f"{steps - len(timed) + 1}-{steps}",
         step_ms=[f"{x * 1e3:.1f}" for x in rec.step_seconds],
-        tokens_per_s=f"{tokens / median_s:.1f}",
-        loss_step1=losses[0], loss_step10=losses[-1],
-        grad_norm_step1=rec.grad_norms[0],
-        max_memory_allocated=peak,
+        tokens_per_s=f"{tokens / median_ms * 1e3:.1f}",
+        losses=[f"{x:.4f}" for x in losses],
+        grad_norm_step1=rec.grad_norms[0], max_memory_allocated=peak,
         max_memory_gb=f"{peak / 1e9:.2f}", state_bytes=state_bytes,
-        run_s=f"{run_s:.1f}", launches=launches)
-    log("train-rerun", snapshot=name, steps=TRAIN_STEPS - TRAIN_SNAPSHOT,
+        moe_host_reads_per_step=reads / steps, run_s=f"{run_s:.1f}",
+        launches=launches)
+    log(f"{phase}-rerun", snapshot=name, steps=steps - snapshot,
         losses_bit_equal=True, leaves_bit_equal=True,
         fast_tier_save_s=f"{save_s:.3f}", restore_s=f"{restore_s:.3f}",
         deterministic_algorithms=True,
         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
-    log("train-syncs", host_syncs_per_step=len(where),
+    log(f"{phase}-syncs", host_syncs_per_step=len(where),
         sites=sorted(set(where)), kinds=sorted(texts))
-    log("train-profile", device_busy_us=f"{busy_us:.1f}",
+    log(f"{phase}-profile", device_busy_us=f"{busy_us:.1f}",
         wall_us=f"{wall_us:.1f}", busy_share=f"{busy_us / wall_us:.4f}",
         device_events=events, top_kernels_share=top)
+    return rec, peak, median_ms
+
+
+def phase_train():
+    """[train]: internlm2-1.8b at its full widths and depth, TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ, the last two rerun from the
+    TRAIN_SNAPSHOT snapshot (`train_phase`).  Returns the launcher's record
+    and the run's peak device memory."""
+    rec, peak, _ = train_phase("train", TRAIN_ARCH, get_config(TRAIN_ARCH),
+                               seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                               snapshot=TRAIN_SNAPSHOT)
     return rec, peak
+
+
+def loop_ms(loop, inputs, runs=3):
+    """ms of a train step's part in ``loop(*inputs)``, measured alone: the
+    loop under ``torch.utils.checkpoint`` (the layer's remat), its output
+    summed and differentiated; the median of ``runs`` after a warm-up (the
+    host's time varies by a third between runs)."""
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = checkpoint(loop, *inputs, use_reentrant=False,
+                         preserve_rng_state=False)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    return statistics.median(once() for _ in range(runs))
+
+
+def phase_loop_share(phase, rec, seq):
+    """The per-token loop's share of a train step: the hybrid's SSM scan
+    (`ssm.chunked_scan`, chunks of 128) or the sLSTM recurrence
+    (`xlstm.slstm_chunked`, chunks of 64) alone at the step's shapes, with
+    its remat and backward, times the layers that run it, over one step
+    of ``rec`` (the launcher's record) timed right after it: the host's
+    speed drifts by more than the loop's share between the phase's own
+    steps and this measurement."""
+    cfg = rec.cfg
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale
+                ).requires_grad_()
+
+    b = TRAIN_BATCH
+    if cfg.family == "hybrid":
+        di, ds = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+        t = seq + cfg.n_meta_tokens
+        # S4D's A = -[1 .. d_state]; delta in softplus's start range
+        a = -torch.arange(1, ds + 1, device=DEV).float().expand(di, ds)
+        delta = (torch.rand((b, t, di), generator=gen, device=DEV) * 0.1
+                 + 1e-3).requires_grad_()
+        inputs = (torch.zeros((b, di, ds), device=DEV),
+                  a.clone().requires_grad_(), delta, rand(b, t, ds),
+                  rand(b, t, ds), rand(b, t, di))
+
+        def loop(h, a, delta, bm, cm, xf):
+            return ssm_mod.chunked_scan(h, a, delta, bm, cm, xf, 128)[1]
+
+        layers, name = cfg.n_layers, "ssm_scan_loop"
+    else:
+        d, nh = cfg.d_model, cfg.n_heads
+        dh = d // nh
+        zeros = torch.zeros((b, d), device=DEV)
+        inputs = (rand(nh, dh, 4 * dh, scale=dh ** -0.5), rand(4 * d),
+                  rand(b, seq, 4 * d), zeros, zeros, zeros,
+                  torch.full((b, d), -1e30, device=DEV))
+
+        def loop(r, bias, gx, h, c, n, m):
+            return xlstm_mod.slstm_chunked(nh, r, bias, gx, h, c, n, m,
+                                           64)[0]
+
+        layers = cfg.n_layers // cfg.xlstm.slstm_every
+        name = "slstm_loop"
+    ms = loop_ms(loop, inputs)
+    del inputs
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    train_launcher.step_once(rec)
+    step_ms = (time.perf_counter() - ts) * 1e3
+    log(f"{phase}-loop", loop=name, ms_per_layer=f"{ms:.1f}", layers=layers,
+        step_ms=f"{step_ms:.1f}", share=f"{layers * ms / step_ms:.4f}",
+        tokens_per_row=t if cfg.family == "hybrid" else seq)
+
+
+def phase_train_families():
+    """[train-moe], [train-hybrid], [train-xlstm]: `train_phase` on
+    deepseek-moe-16b cut to MOE_TRAIN_LAYERS (batch TRAIN_BATCH x
+    TRAIN_SEQ) and on hymba-1.5b and xlstm-350m at full depth (rows of
+    HYBRID_TRAIN_SEQ and XLSTM_TRAIN_SEQ tokens), each with 0 kernel
+    launches and a bit-equal rerun; the recurrent two also with their
+    loops' share.
+    Returns deepseek's cut config, its losses and its run's peak."""
+    moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    rec, moe_peak, _ = train_phase(
+        "train-moe", MOE_ARCH, moe_cfg, seq=TRAIN_SEQ,
+        steps=MOE_TRAIN_STEPS, snapshot=MOE_TRAIN_STEPS - 2)
+    moe_losses = rec.losses
+    del rec
+    cuda_only = [torch.profiler.ProfilerActivity.CUDA]
+    for phase, arch, seq in (
+            ("train-hybrid", HYBRID_ARCH, HYBRID_TRAIN_SEQ),
+            ("train-xlstm", XLSTM_ARCH, XLSTM_TRAIN_SEQ)):
+        cfg = get_config(arch)
+        rec, _, _ = train_phase(
+            phase, arch, cfg, seq=seq,
+            steps=RECURRENT_TRAIN_STEPS, snapshot=0,
+            activities=cuda_only)
+        phase_loop_share(phase, rec, seq)
+        del rec
+        collect_garbage()
+        torch.cuda.empty_cache()
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return moe_cfg, moe_losses, moe_peak
 
 
 def top_kernels(prof, busy_us, n=8):
@@ -2142,6 +2447,68 @@ def phase_executor(train_losses, train_peak):
         train_peak_gb=f"{train_peak / 1e9:.2f}",
         held_after_done=held,
         losses_bit_equal_to_train=True, seconds=f"{secs:.1f}",
+        launches=launches)
+    del ex, mb, ma
+    collect_garbage()
+    torch.cuda.empty_cache()
+
+
+def phase_executor_moe(cfg, train_losses, train_peak):
+    """[executor]'s scenario on the MoE family: B the deepseek-moe-16b job
+    of `[train-moe]` (its config, seed and data: the launcher's run is its
+    uninterrupted twin), A a smoke internlm2 job.  B checkpointed,
+    restored and DONE, its losses bit-equal to `[train-moe]`'s, 0 kernel
+    launches, one MoE state resident at a time, nothing held once done."""
+    collect_garbage()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    smoke = get_smoke_config(TRAIN_ARCH)
+    with scratch_dir() as root:
+        def job(seed):
+            if seed:
+                return small_train_job(root, arch_cfg=smoke, seq=32, batch=4,
+                                       seed=seed, device=DEV)
+            return TrainJob(
+                Model(cfg, device="meta"),
+                TrainConfig(lr=3e-4, warmup_steps=10, total_steps=10_000),
+                DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=SEED),
+                seed=SEED, device=DEV)
+
+        zero_kernel_counts()
+        ex, mb, ma, secs = exec_scenario(
+            job, root, work=EXEC_WORK, submit_a=EXEC_SUBMIT_A, quantum=3,
+            steps_per_tick=1, tick_seconds=EXEC_TICK_S,
+            fast_tier_bytes=TRAIN_FAST_TIER_GIB << 30)
+        launches = kernel_counts()
+        model = check_scenario(ex, mb, ma, train_losses, "executor-moe")
+    held = torch.cuda.memory_allocated() - baseline
+    peak = torch.cuda.max_memory_allocated()
+    stats = ex.cr_stats()
+    state_bytes = mb.descriptor.state_bytes
+    if peak - baseline >= train_peak + state_bytes // 2:
+        raise AssertionError(f"executor-moe: peak {peak - baseline} B: more "
+                             f"than one job's state ({state_bytes} B)")
+    if held > 1 << 30:
+        raise AssertionError(f"executor-moe: the released jobs still hold "
+                             f"{held} B on the card")
+    if any(launches.values()):
+        raise AssertionError(f"executor-moe launched a kernel: {launches}")
+    log("executor-moe", config=MOE_ARCH, layers=cfg.n_layers,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, job_a=smoke.name, events=ex.events,
+        steps_b=len(mb.train_job.losses), steps_a=len(ma.train_job.losses),
+        checkpoints=mb.checkpoints, restores=mb.restores,
+        measured_cr_ticks=mb.measured_cr_ticks, tick_s=EXEC_TICK_S,
+        state_bytes=state_bytes, save_s=f"{stats.save_seconds:.3f}",
+        restore_s=f"{stats.restore_seconds:.3f}",
+        save_GBps=f"{stats.save_bytes_per_s / 1e9:.3f}",
+        restore_GBps=f"{stats.restore_bytes_per_s / 1e9:.3f}",
+        cost_model=(model.save_mib_per_tick, model.restore_mib_per_tick),
+        peak_over_allocated=peak - baseline,
+        max_memory_gb=f"{peak / 1e9:.2f}",
+        train_peak_gb=f"{train_peak / 1e9:.2f}", held_after_done=held,
+        losses_bit_equal_to_train_moe=True, seconds=f"{secs:.1f}",
         launches=launches)
     del ex, mb, ma
     collect_garbage()
@@ -3258,6 +3625,7 @@ def main():
     phase_batch_sweep()
     phase_stream_fleet()
     phase_launcher()
+    phase_sched_status()
     codec_err = phase_codec_compare()
     phase_train_vs_cpu()
     rec, train_peak = phase_train()
@@ -3267,6 +3635,11 @@ def main():
     phase_executor(train_losses, train_peak)
     phase_cr_fast_tier()
     cr_launches = phase_cr_path()
+    for arch in (MOE_ARCH, HYBRID_ARCH, XLSTM_ARCH):
+        phase_train_vs_cpu("train-families-vs-cpu", arch, TRAIN_CPU_LAYERS,
+                           ("float32",))
+    moe_cfg, moe_losses, moe_peak = phase_train_families()
+    phase_executor_moe(moe_cfg, moe_losses, moe_peak)
     attn_err = phase_attn_compare()
     attn = phase_attn_time()
     n_dense = get_config(SERVE_ARCH).n_layers

@@ -1,13 +1,21 @@
-"""Cluster-simulation launcher for the torch engine: any registered policy
-on a synthetic fleet, on the card by default.
+"""Cluster-simulation launcher: any registered policy on a synthetic fleet,
+on either engine backend (the port of ``src/repro/launch/cluster_sim.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.cluster_sim --policy omfs \
-      --chips 1024 --tenants 6 --horizon 800
+      --chips 1024 --tenants 6 --horizon 800 [--backend torch|python] \
+      [--device cpu]
+
+``--backend torch`` (the default; the reference's ``jax``) runs the tensor
+pass on ``--device``, the card unless ``cpu`` is asked for, and ``python``
+the host reference (``engine.tick_python``).  The summary line is the
+reference's for each backend: the engine's summary for ``torch``,
+`core.metrics.compute_metrics` (with Jain's fairness) for ``python``.
 """
 import argparse
 
 from repro_torch.core import engine
 from repro_torch.core.crcost import UNBOUNDED, CRCostModel, TieredCRCostModel
+from repro_torch.core.metrics import compute_metrics
 from repro_torch.core.types import SchedulerConfig
 from repro_torch.core.workload import WorkloadSpec, make_jobs, make_users
 
@@ -15,6 +23,7 @@ from repro_torch.core.workload import WorkloadSpec, make_jobs, make_users
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--policy", default="omfs", choices=sorted(engine.POLICIES))
+    ap.add_argument("--backend", default="torch", choices=["torch", "python"])
     ap.add_argument("--device", default="cuda",
                     help="torch device of the job table (cuda or cpu)")
     ap.add_argument("--chips", type=int, default=1024)
@@ -35,7 +44,7 @@ def main(argv=None):
     ap.add_argument("--spill-restore-mib-per-tick", type=int, default=4096,
                     help="durable spill tier read bandwidth")
     ap.add_argument("--pass-depth", type=int, default=64,
-                    help="per-tick queue sweep bound")
+                    help="per-tick queue sweep bound on the torch backend")
     ap.add_argument("--arrival-rate", type=float, default=0.08)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--events", action="store_true",
@@ -69,11 +78,15 @@ def main(argv=None):
         cpu_total=args.chips, quantum=args.quantum,
         cr_overhead=args.cr_overhead, cr_cost=fast, cr_tiers=tiers)
     print(f"{len(jobs)} jobs, {args.tenants} tenants, {args.chips} chips, "
-          f"policy={args.policy}, device={args.device}")
+          f"policy={args.policy}, backend={args.backend}, "
+          f"device={args.device}")
 
-    res = engine.simulate(users, jobs, cfg, args.horizon, policy=args.policy,
-                          pass_depth=args.pass_depth, device=args.device,
-                          record_events=record)
+    torch_backend = args.backend == "torch"
+    res = engine.simulate(
+        users, jobs, cfg, args.horizon, policy=args.policy,
+        backend=args.backend,
+        pass_depth=args.pass_depth if torch_backend else None,
+        device=args.device, record_events=record)
 
     if record:
         import json
@@ -97,12 +110,19 @@ def main(argv=None):
                 json.dump(trace, fh)
             print(f"perfetto trace -> {args.trace_out} "
                   f"(open in ui.perfetto.dev or chrome://tracing)")
-    s = res.summary()
-    print(f"utilization {s['utilization']:.3f} | goodput "
-          f"{s['goodput']:.3f} | wasted {s['wasted_frac']:.3f} | wait "
-          f"{s['mean_wait']:.1f} | preemptions {s['preemptions']} | "
-          f"checkpoints {s['checkpoints']} | killed {s['killed']} | "
-          f"done {s['done']}")
+    if torch_backend:
+        s = res.summary()
+        print(f"utilization {s['utilization']:.3f} | goodput "
+              f"{s['goodput']:.3f} | wasted {s['wasted_frac']:.3f} | wait "
+              f"{s['mean_wait']:.1f} | preemptions {s['preemptions']} | "
+              f"checkpoints {s['checkpoints']} | killed {s['killed']} | "
+              f"done {s['done']}")
+        return res
+    m = compute_metrics(res.sim)
+    print(f"utilization {m.utilization:.3f} | goodput {m.goodput:.3f} | "
+          f"wasted {m.wasted_work_frac:.3f} | jain {m.jain_fairness:.3f} | "
+          f"wait {m.mean_wait:.1f} | preemptions {m.preemptions} | "
+          f"checkpoints {m.checkpoints} | killed {m.killed_jobs}")
     return res
 
 

@@ -1,9 +1,20 @@
 """Serve launcher: prefill + greedy decode of a batch of seeded random
-prompts on seeded random weights (the port of the model path of
-``src/repro/launch/serve.py``; ``--sched-status`` is ROADMAP slice 6).
+prompts on seeded random weights, or, with ``--sched-status``, a
+fleet-status HTTP endpoint serving the scheduler's telemetry for a
+simulated schedule (Prometheus ``/metrics``, Perfetto ``/trace.json``,
+``/healthz``); the port of ``src/repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --smoke --batch 4 --prompt-len 16 --gen 24 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --sched-status \\
+      --port 9090 --policy omfs --tenants 4 --chips 64 --horizon 300 \\
+      [--backend torch|python] [--device cpu] [--max-requests 3]
+
+``--sched-status`` takes the reference's flags and defaults, with
+``--backend torch`` (the default; the reference's ``jax``) on ``--device``
+or ``python``; the schedule is simulated once and every endpoint's body
+is built before the first request, so a scrape reads memory.  ``--arch``
+is required without it.
 
 Runs on the card unless ``--device cpu`` is given, and raises without
 CUDA.  Seven archs are ported: the dense GQA family (internlm2-1.8b,
@@ -20,8 +31,10 @@ the first generated row.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from dataclasses import dataclass
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
@@ -106,16 +119,118 @@ def report(res: ServeResult, batch: int, prompt_len: int, gen: int) -> None:
     print("sample generation row 0:", res.tokens[0].tolist())
 
 
-def main(argv=None) -> ServeResult:
+def sched_status_payloads(args) -> dict:
+    """Simulate the configured fleet once, with lifecycle events, and build
+    every endpoint's body: ``{path: (content_type, bytes)}``."""
+    from repro_torch.core import engine
+    from repro_torch.core.metrics import event_summary
+    from repro_torch.core.types import SchedulerConfig
+    from repro_torch.core.workload import WorkloadSpec, make_jobs, make_users
+    from repro_torch.obs import registry_from_result, trace_from_result
+
+    spec = WorkloadSpec(n_users=args.tenants, horizon=args.horizon,
+                        cpu_total=args.chips, seed=args.seed,
+                        arrival_rate=args.arrival_rate)
+    users = make_users(spec)
+    jobs = make_jobs(spec, users)
+    cfg = SchedulerConfig(cpu_total=args.chips, quantum=args.quantum,
+                          cr_overhead=2)
+    res = engine.simulate(users, jobs, cfg, args.horizon, policy=args.policy,
+                          backend=args.backend, device=args.device,
+                          record_events=True)
+    reg = registry_from_result(res, users=users)
+    trace = trace_from_result(res, users=users)
+    health = {"status": "ok", "policy": args.policy, "backend": args.backend,
+              "horizon": args.horizon, "events": len(res.events),
+              "events_dropped": res.events_dropped_total(),
+              "summary": event_summary(res.events)}
+    return {
+        "/metrics": ("text/plain; version=0.0.4",
+                     reg.to_prometheus().encode()),
+        "/trace.json": ("application/json", json.dumps(trace).encode()),
+        "/healthz": ("application/json", json.dumps(health).encode()),
+    }
+
+
+def sched_status_server(args, payloads: dict) -> ThreadingHTTPServer:
+    """An HTTP server on ``(args.host, args.port)`` (port 0: any free one)
+    that answers GET from ``payloads`` and 404 elsewhere."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            hit = payloads.get(self.path.split("?", 1)[0])
+            if hit is None:
+                self.send_error(404, explain=f"known: {sorted(payloads)}")
+                return
+            ctype, body = hit
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *a):   # no line per scrape
+            pass
+
+    return ThreadingHTTPServer((args.host, args.port), Handler)
+
+
+def serve_sched_status(args, server: ThreadingHTTPServer = None) -> int:
+    """Serve the scheduler-status payloads: ``args.max_requests`` requests,
+    or until interrupted when it is 0.  ``server`` is one that
+    `sched_status_server` built (a caller that must know its port before
+    the first request); by default one is built on ``args``."""
+    if server is None:
+        server = sched_status_server(args, sched_status_payloads(args))
+    host, port = server.server_address[:2]
+    print(f"sched-status on http://{host}:{port}")
+    try:
+        if args.max_requests > 0:
+            for _ in range(args.max_requests):
+                server.handle_request()
+        else:
+            server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    # the scheduler's fleet status (repro_torch.obs telemetry over HTTP)
+    ap.add_argument("--sched-status", action="store_true",
+                    help="serve scheduler telemetry for a simulated fleet "
+                         "instead of running a model")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=9090)
+    ap.add_argument("--policy", default="omfs")
+    ap.add_argument("--backend", default="torch", choices=["torch", "python"])
+    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--chips", type=int, default=64)
+    ap.add_argument("--horizon", type=int, default=300)
+    ap.add_argument("--quantum", type=int, default=10)
+    ap.add_argument("--arrival-rate", type=float, default=0.08)
+    ap.add_argument("--max-requests", type=int, default=0,
+                    help="serve N requests then exit (0 = forever)")
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
+    if args.sched_status:
+        return serve_sched_status(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --sched-status is given")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

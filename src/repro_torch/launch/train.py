@@ -1,4 +1,4 @@
-"""Train launcher: the dense family, one device, full C/R (the port of
+"""Train launcher: one device, full C/R (the port of
 ``src/repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
@@ -13,20 +13,25 @@ memory the checkpoint manager's fast tier may hold, default 4 as
 attention chunks are the model's default, 1,024 (the reference's launcher
 takes 64: the chunk changes only the order of the softmax sums, and a
 chunk of 64 at 2,048 tokens is a thousand small launches per layer on the
-card).  The dense family trains (internlm2-1.8b, glm4-9b,
-mistral-nemo-12b); the other archs raise ``NotImplementedError`` naming
-their ROADMAP slice.  The reference imports ``optim/compression`` without
-calling it; the port leaves it out (ROADMAP slice 11).
+card).  The dense (internlm2-1.8b, glm4-9b, mistral-nemo-12b), MoE
+(deepseek-moe-16b, dbrx-132b), hybrid (hymba-1.5b) and xLSTM (xlstm-350m)
+families train, and no kernel of the port runs in a step; MLA, VLM and
+audio raise ``NotImplementedError`` naming ROADMAP slice 10.  The
+reference imports ``optim/compression`` without calling it; the port
+leaves it out (ROADMAP slice 11).
 
 `run` is the loop, with its periodic fast-tier checkpoints; it returns a
 `TrainRun` record (per-step losses, grad norms and wall seconds, the
 model, the final state, the checkpoint manager, the step function and the
-data).  ``main`` runs it, then writes the durable checkpoint of the final
-state and closes the manager.  `step_once` is the loop's body, one step
-of a record: each step reads its metrics back to the host once, as one
-stacked tensor, which is the step's one host sync and closes its wall
-time.  ``__main__`` sets ``CUBLAS_WORKSPACE_CONFIG`` before any CUDA work,
-as the deterministic train step needs on the card.
+data).  A caller may pass the model config to `run` (the arch cut to a
+depth that fits, say); the command line has no flag for it, as the
+reference's has none.  ``main`` runs it, then writes the durable
+checkpoint of the final state and closes the manager.  `step_once` is the
+loop's body, one step of a record: each step reads its metrics back to the
+host once, as one stacked tensor, which is the step's one host sync and
+closes its wall time (an MoE layer adds its capacity read,
+``models.moe.HOST_READS``).  ``__main__`` sets ``CUBLAS_WORKSPACE_CONFIG``
+before any CUDA work, as the deterministic train step needs on the card.
 """
 from __future__ import annotations
 
@@ -99,8 +104,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace) -> TrainRun:
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
+        ) -> TrainRun:
+    """The training loop of ``args``; ``cfg`` replaces the arch's config
+    (its published or ``--smoke`` one) where given."""
+    if cfg is None:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
     check_trainable(cfg)
     dev = resolve_device(args.device)
     tcfg = TrainConfig(lr=args.lr, warmup_steps=10, total_steps=10_000,

@@ -13,8 +13,10 @@ the training slice.  Methods:
 
 * ``init(generator)`` — fill the parameters from a ``torch.Generator``.
 * ``loss(batch, params=None)`` — the causal-LM loss, with autograd, for
-  the dense family (chunked CE: the ``[B, T, V]`` logits are never
-  materialised); ``params`` defaults to the model's own.
+  the dense, MoE, hybrid (its meta tokens prepended) and xLSTM families
+  (chunked CE: the ``[B, T, V]`` logits are never materialised);
+  ``params`` defaults to the model's own.  No kernel of the port runs in
+  it: each family's mixers take their train forms.
 * ``release()`` / ``materialise(device)`` / ``adopt(params)`` — drop every
   parameter's storage (meta tensors), allocate it again, or take a tree
   of tensors (a restored checkpoint) as the parameters without a copy:
@@ -37,8 +39,7 @@ step runs the mLSTM kernel from the cache's carried state
 (`models.xlstm`), reading nothing back to the host.  An MoE layer
 whose tokens exceed the grouped-matmul kernel's row tile reads its largest
 expert count once on the host (`models.moe`).  MLA, VLM and audio raise
-``NotImplementedError`` (ROADMAP slice 10); the MoE, hybrid and xLSTM
-losses raise too (slice 8c).
+``NotImplementedError`` (ROADMAP slice 10).
 """
 from __future__ import annotations
 
@@ -267,11 +268,24 @@ class Model(nn.Module):
         tokens, labels = batch["tokens"], batch["labels"]
         b, t = tokens.shape
         x = self._embed(params, tokens)
-        positions = self._positions(b, 0, t)
-        h, _, aux = tfm.stack_apply(
-            cfg, params["blocks"], x, positions, mode="train",
-            q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
-        h = rms_norm(h, params["norm_f"], cfg.norm_eps)
+        nm = cfg.n_meta_tokens
+        if nm:
+            meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
+            x = torch.cat([meta, x], dim=1)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "ssm":
+            n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
+            fresh = xlstm_mod.XLSTMStackState.init(
+                n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, x.dtype,
+                x.device)
+            h, _ = xlstm_mod.xlstm_stack_apply(cfg.xlstm, cfg.n_heads,
+                                               params, x, fresh, mode="train")
+        else:
+            positions = self._positions(b, 0, t + nm)
+            h, _, aux = tfm.stack_apply(
+                cfg, params["blocks"], x, positions, mode="train",
+                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+        h = rms_norm(h, params["norm_f"], cfg.norm_eps)[:, nm:]
         loss_sum, count = chunked_ce_loss(h, self._unembed_matrix(params),
                                           labels)
         loss = loss_sum / torch.clamp(count, min=1.0)

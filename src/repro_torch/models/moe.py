@@ -26,12 +26,22 @@ most once, so no count exceeds T: every decode step at small batch);
 otherwise it is the largest count rounded up to the row tile, which takes
 **one host read per MoE layer** (``HOST_READS`` counts them).  That read
 is what stands in the way of capturing a prefill in a CUDA graph.
+
+Training (`moe_ffn_train`) never reaches the kernel, which has no
+backward: the same routing and dispatch feed a capacity buffer whose three
+products are ``torch.bmm`` with autograd, the weights cast to x's dtype as
+the reference's ``ragged_dot`` casts them (``w_gate.astype(dt)``), and the
+same capacity, with its host read, in forward and again in the layer's
+recompute.  Every op of it has a deterministic backward on the card: the
+buffer is filled by ``index_copy`` and read back by ``index_select``, and
+the combine gathers through the pair order instead of scattering.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -70,12 +80,22 @@ def route_topk(router_logits: torch.Tensor, top_k: int
     return weights, idx[:, :top_k].to(torch.int32), probs
 
 
+def expert_counts(flat: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Pairs per expert [E] int64 of the int64 expert ids ``flat``: a
+    scatter-add of ones, which reads nothing back to the host
+    (``torch.bincount`` on the card reads the largest id to size its
+    output)."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-style auxiliary loss ``E * sum_e f_e * p_e``: f_e the fraction
     of routed (token, slot) pairs sent to e, p_e the mean router probability
     of e; 1 at a perfectly uniform router."""
-    counts = torch.bincount(experts.reshape(-1).long(), minlength=n_experts)
+    counts = expert_counts(experts.reshape(-1).long(), n_experts)
     f = counts.float() / experts.numel()
     return n_experts * (f * probs.mean(dim=0)).sum()
 
@@ -97,13 +117,21 @@ def dispatch(experts: torch.Tensor, n_experts: int):
     within its expert, in flat order)."""
     flat = experts.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=n_experts)
+    counts = expert_counts(flat, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     ranks = (torch.arange(flat.numel(), device=flat.device)
              - starts[flat[order]])
     pos = torch.empty_like(ranks)
     pos[order] = ranks
     return counts.to(torch.int32), pos.view(experts.shape)
+
+
+def _route(moe: MoEConfig, params: dict, xf: torch.Tensor):
+    """Router logits in fp32, top-k and the scaled load-balance loss."""
+    logits = xf.float() @ params["router"].float()
+    weights, experts, probs = route_topk(logits, moe.top_k)
+    aux = load_balance_loss(probs, experts, moe.n_routed)
+    return weights, experts, aux * moe.router_aux_coef
 
 
 def moe_ffn(moe: MoEConfig, params: dict,
@@ -115,10 +143,7 @@ def moe_ffn(moe: MoEConfig, params: dict,
     t = xf.shape[0]
     e = moe.n_routed
 
-    logits = xf.float() @ params["router"].float()
-    weights, experts, probs = route_topk(logits, moe.top_k)
-    aux = load_balance_loss(probs, experts, e) * moe.router_aux_coef
-
+    weights, experts, aux = _route(moe, params, xf)
     counts, pos = dispatch(experts, e)
     rows = experts.long()
     buf = torch.zeros((e, capacity(t, counts), d), dtype=x.dtype,
@@ -131,3 +156,40 @@ def moe_ffn(moe: MoEConfig, params: dict,
     if moe.n_shared:
         y = y + swiglu(params["shared"], xf).float()
     return y.reshape(*lead, d).to(x.dtype), aux
+
+
+def moe_ffn_train(moe: MoEConfig, params: dict,
+                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_ffn`'s train form, with autograd and no kernel: the reference's
+    ``grouped_expert_ffn`` over expert-sorted pairs (``src/repro/models/
+    moe.py:60-108``) as three ``torch.bmm`` over a zero-padded ``[E, C,
+    d]`` buffer.  The pairs keep `moe_ffn`'s places (each pair's row is
+    its rank among its expert's pairs in flat order, the reference's stable
+    sort); the padding rows are zeros that no output reads, so they add
+    exact zeros to every gradient.  Each token's k contributions are summed
+    in fp32 in slot order.  Returns (y [..., d] in x's dtype, aux loss)."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, d)
+    t, k, e = xf.shape[0], moe.top_k, moe.n_routed
+    dt = x.dtype
+
+    weights, experts, aux = _route(moe, params, xf)
+    counts, pos = dispatch(experts, e)
+    c = capacity(t, counts)
+    # each (token, slot) pair's row of the [E * C, d] buffer, in flat order
+    slot = (experts.long() * c + pos).reshape(-1)
+    token = torch.arange(t * k, device=x.device) // k
+    buf = xf.new_zeros((e * c, d)).index_copy(
+        0, slot, xf.index_select(0, token))
+    buf = buf.view(e, c, d)
+    gate = torch.bmm(buf, params["w_gate"].to(dt))
+    up = torch.bmm(buf, params["w_up"].to(dt))
+    out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
+    ys = out.view(e * c, d).index_select(0, slot).view(t, k, d).float()
+    y = ys[:, 0] * weights[:, :1]
+    for j in range(1, k):
+        y = y + ys[:, j] * weights[:, j:j + 1]
+
+    if moe.n_shared:
+        y = y + swiglu(params["shared"], xf).float()
+    return y.reshape(*lead, d).to(dt), aux

@@ -8,6 +8,14 @@ its plain version on the CPU), for a whole prefill and for each decode step
 alike.  The reference's ``chunk`` only bounded its scan's memory; the
 function does not depend on it, so it is gone.
 
+Training (`ssm_forward_train`) cannot use the kernel, which is forward
+only: it runs the reference's recurrence in plain torch with autograd,
+128 steps a chunk, each chunk under ``torch.utils.checkpoint`` (the
+reference's ``@jax.checkpoint chunk_body``), so that backward keeps one
+chunk's ``[B, chunk, d_inner, d_state]`` states at a time.  It is a loop
+of one op a step in forward (``addcmul``) and a few in backward, and costs
+the card far more host time than work (ROADMAP Queue 3).
+
 The state is ``SSMState(h [B, d_inner, d_state] fp32, conv [B, d_conv - 1,
 d_inner])``.  ``delta``, ``B``, ``C`` and the conv output enter the scan in
 fp32; ``y`` returns to the compute dtype only before the ``silu(z)`` gate.
@@ -20,6 +28,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssm_scan.ops import selective_scan
@@ -103,27 +112,87 @@ def _dbc(ssm: SSMConfig, dt_rank: int, params: dict, xc: torch.Tensor):
     return delta, b, c
 
 
-def ssm_forward(ssm: SSMConfig, params: dict, x: torch.Tensor,
-                state: SSMState) -> Tuple[torch.Tensor, SSMState]:
-    """Selective scan over x [B, T, d_model] from ``state``.  Returns (y
-    [B, T, d_model], the final state)."""
+def _scan_inputs(ssm: SSMConfig, params: dict, x: torch.Tensor,
+                 state: SSMState):
+    """The scan's inputs from x [B, T, d_model]: a [d_inner, d_state],
+    delta, B, C and the conv output (fp32), the gate z and the new conv
+    window."""
     d_model = x.shape[-1]
     dt_rank = ssm.dt_rank or -(-d_model // 16)
     a = -torch.exp(params["a_log"])                  # [d_inner, d_state] f32
-
     xz = x @ params["w_in"].to(x.dtype)
     xi, z = xz.chunk(2, dim=-1)
     xc, conv_tail = causal_conv(xi, params["conv_w"], params["conv_b"],
                                 state.conv)
     xc = F.silu(xc)
     delta, bmat, cmat = _dbc(ssm, dt_rank, params, xc)
-    xf = xc.float().contiguous()
-    y, h = selective_scan(delta, bmat, cmat, xf, a.contiguous(),
-                          state.h.contiguous())
+    return a, delta, bmat, cmat, xc.float().contiguous(), z, conv_tail
+
+
+def _ssm_out(params: dict, x: torch.Tensor, y: torch.Tensor,
+             xf: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     y = y + params["d_skip"] * xf
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["w_out"].to(x.dtype)
-    return out, SSMState(h=h, conv=conv_tail)
+    return y @ params["w_out"].to(x.dtype)
+
+
+def ssm_forward(ssm: SSMConfig, params: dict, x: torch.Tensor,
+                state: SSMState) -> Tuple[torch.Tensor, SSMState]:
+    """Selective scan over x [B, T, d_model] from ``state``.  Returns (y
+    [B, T, d_model], the final state)."""
+    a, delta, bmat, cmat, xf, z, conv_tail = _scan_inputs(ssm, params, x,
+                                                          state)
+    y, h = selective_scan(delta, bmat, cmat, xf, a.contiguous(),
+                          state.h.contiguous())
+    return _ssm_out(params, x, y, xf, z), SSMState(h=h, conv=conv_tail)
+
+
+def _scan_chunk(h: torch.Tensor, a: torch.Tensor, delta: torch.Tensor,
+                bmat: torch.Tensor, cmat: torch.Tensor, xf: torch.Tensor):
+    """The reference's ``step`` over one chunk: h [B, di, ds] and delta,
+    xf [B, L, di], B, C [B, L, ds] -> (h after the chunk, y [B, L, di]).
+    The decays and inputs of the chunk are formed at once; the loop is
+    ``h = decay * h + delta x B`` a step."""
+    decay = torch.exp(delta[..., None] * a)          # [B, L, di, ds]
+    drive = (delta * xf)[..., None] * bmat[:, :, None, :]
+    hs = []
+    for dec, inp in zip(decay.unbind(1), drive.unbind(1)):
+        h = torch.addcmul(inp, dec, h)
+        hs.append(h)
+    y = (torch.stack(hs, dim=1) * cmat[:, :, None, :]).sum(-1)
+    return h, y
+
+
+def chunked_scan(h: torch.Tensor, a: torch.Tensor, delta: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, xf: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_scan_chunk` over [B, T, ...] inputs, ``chunk`` steps at a time,
+    each under ``torch.utils.checkpoint``: (h after T steps, y [B, T,
+    di])."""
+    ys = []
+    for lo in range(0, delta.shape[1], chunk):
+        sl = slice(lo, lo + chunk)
+        h, y = checkpoint(_scan_chunk, h, a, delta[:, sl], bmat[:, sl],
+                          cmat[:, sl], xf[:, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+def ssm_forward_train(ssm: SSMConfig, params: dict, x: torch.Tensor, *,
+                      chunk: int = 128) -> Tuple[torch.Tensor, SSMState]:
+    """`ssm_forward`'s train form from the zero state, with autograd and
+    no kernel: the reference's nested scan (``src/repro/models/ssm.py:
+    122-142``), ``chunk`` steps a chunk, each under ``torch.utils.
+    checkpoint``; the ragged tail runs as a shorter chunk (the reference
+    pads it with delta = 0 steps, which leave the state as it was).  x
+    [B, T, d_model] -> (y [B, T, d_model], the final state)."""
+    b, _, d_model = x.shape
+    state = SSMState.init(b, d_model, ssm, device=x.device)
+    a, delta, bmat, cmat, xf, z, conv_tail = _scan_inputs(ssm, params, x,
+                                                          state)
+    h, y = chunked_scan(state.h, a, delta, bmat, cmat, xf, chunk)
+    return _ssm_out(params, x, y, xf, z), SSMState(h=h, conv=conv_tail)
 
 
 def ssm_decode_step(ssm: SSMConfig, params: dict, x: torch.Tensor,

@@ -10,11 +10,12 @@ Modes
 -----
 ``train``   — full sequence, no cache, returns hidden states: attention
               through `models.attention.chunked_attention` (plain torch
-              with autograd, the reference's rounding), and each layer
-              under ``torch.utils.checkpoint``, so that backward recomputes
-              it from its input (the reference's layer remat).  The dense
-              family only: the MoE and hybrid train modes raise (ROADMAP
-              slice 8c).
+              with autograd, the reference's rounding), the SSM through
+              `models.ssm.ssm_forward_train` from the zero state, the MoE
+              through `models.moe.moe_ffn_train` (no kernel: none has a
+              backward), and each layer under ``torch.utils.checkpoint``,
+              so that backward recomputes it from its input (the
+              reference's layer remat).
 ``prefill`` — full sequence; attention through the flash kernel; writes the
               layer's cache in place; returns hidden states.
 ``decode``  — T new tokens (usually 1) against the cache.
@@ -22,12 +23,13 @@ Modes
 A hybrid layer runs attention and the selective SSM (`models.ssm`) in
 parallel on the same normed input and mixes them as ``0.5 * (rms(attn) +
 rms(ssm))``; its SSM state lives in the layer's ``ssm_h`` / ``ssm_conv``
-cache, read and written in place.  An MoE layer's channel mix is
-`models.moe.moe_ffn` (the grouped-matmul kernel), and its aux loss is
-summed over the stack.  The reference's ``constrain_heads``, its
-sharded-decode branch and its expert-parallel MoE dispatch are the
-identity on one device; they wait for slice 11.  MLA, VLM and audio blocks
-raise (slice 10).
+cache, read and written in place (train mode starts each layer from the
+zero state and writes nothing).  An MoE layer's channel mix is
+`models.moe.moe_ffn` (the grouped-matmul kernel; in train mode
+`moe_ffn_train`), and its aux loss is summed over the stack.  The
+reference's ``constrain_heads``, its sharded-decode branch and its
+expert-parallel MoE dispatch are the identity on one device; they wait
+for slice 11.  MLA, VLM and audio blocks raise (slice 10).
 """
 from __future__ import annotations
 
@@ -63,16 +65,15 @@ def _ported_block(cfg: ModelConfig) -> None:
             "xlstm-350m; MLA, VLM and audio are ROADMAP slice 10")
 
 
-TRAIN_FAMILIES = ("dense",)
+TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless the port trains ``cfg``'s family."""
     if cfg.family not in TRAIN_FAMILIES or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: train mode is ported for the dense family "
-            "(internlm2-1.8b, glm4-9b, mistral-nemo-12b); the MoE, hybrid "
-            "and xLSTM train modes are ROADMAP slice 8c")
+            f"{cfg.name}: train mode is ported for the dense, MoE, hybrid "
+            "and xLSTM families; MLA, VLM and audio are ROADMAP slice 10")
 
 
 # ---------------------------------------------------------------------------
@@ -183,17 +184,21 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if cfg.family == "hybrid" and cfg.ssm is not None:
         # Hymba: attention and mamba heads in parallel on the same normed
         # input, each output normed, then averaged
-        st = ssm_mod.SSMState(h=layer_cache["ssm_h"],
-                              conv=layer_cache["ssm_conv"])
-        ssm_out, st_new = ssm_mod.ssm_forward(cfg.ssm, p["ssm"], h, st)
-        layer_cache["ssm_h"].copy_(st_new.h)
-        layer_cache["ssm_conv"].copy_(st_new.conv)
+        if mode == "train":
+            ssm_out, _ = ssm_mod.ssm_forward_train(cfg.ssm, p["ssm"], h)
+        else:
+            st = ssm_mod.SSMState(h=layer_cache["ssm_h"],
+                                  conv=layer_cache["ssm_conv"])
+            ssm_out, st_new = ssm_mod.ssm_forward(cfg.ssm, p["ssm"], h, st)
+            layer_cache["ssm_h"].copy_(st_new.h)
+            layer_cache["ssm_conv"].copy_(st_new.conv)
         x = x + 0.5 * (rms_norm(attn_out, p["norm_attn_out"], cfg.norm_eps)
                        + rms_norm(ssm_out, p["norm_ssm_out"], cfg.norm_eps))
     else:
         x = x + attn_out
     if cfg.moe is not None:
-        ffn_out, aux = moe_mod.moe_ffn(
+        moe_ffn = moe_mod.moe_ffn_train if mode == "train" else moe_mod.moe_ffn
+        ffn_out, aux = moe_ffn(
             cfg.moe, p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
         x = x + ffn_out
     elif cfg.d_ff > 0:

@@ -12,6 +12,11 @@ of ``src/repro/models/xlstm.py``.
   keeps it until after the per-head norm.
 * **sLSTM** reads h_{t-1} in its gates, so it has no parallel form and no
   TPU kernel: a plain loop over tokens (the reference's nested scan).
+* **Training** reaches no kernel (the mLSTM kernel has no backward):
+  `mlstm_forward_train` runs the plain ``mlstm_chunk`` and
+  `slstm_forward_train` the same sLSTM loop, with autograd, each chunk
+  under ``torch.utils.checkpoint``, and ``xlstm_stack_apply(mode=
+  "train")`` checkpoints each pair, as the reference's ``remat`` does.
 
 States are NamedTuples of the reference's names and fields; the stacked
 ``XLSTMStackState`` of a model cache holds ``[P, ...]`` tensors that
@@ -25,10 +30,11 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import XLSTMConfig
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
-from repro_torch.kernels.mlstm_scan.ref import NEG_BIG
+from repro_torch.kernels.mlstm_scan.ref import NEG_BIG, mlstm_chunk, pad_chunks
 from repro_torch.models.layers import (
     causal_conv,
     dense_init,
@@ -109,18 +115,18 @@ def _head_norm(h: torch.Tensor, n_heads: int) -> torch.Tensor:
         b, t, d)
 
 
-def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
-                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256
-                  ) -> Tuple[torch.Tensor, MLSTMState]:
-    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state)."""
+def _mlstm_inputs(xl: XLSTMConfig, n_heads: int, params: dict,
+                  x: torch.Tensor, conv: torch.Tensor):
+    """The mLSTM's scan inputs from x [B, T, d_model]: q, k, v [B, H, T,
+    dh] in x's dtype (k scaled by 1/sqrt(dh)), lf, li [B, H, T] fp32, the
+    gate z and the new conv window."""
     b_sz, t, d_model = x.shape
     di = int(xl.proj_factor_mlstm * d_model)
     dh = di // n_heads
     xin = rms_norm(x, params["norm"])
     up = xin @ params["w_up"].to(x.dtype)
     xi, z = up.chunk(2, dim=-1)
-    xc, conv_tail = causal_conv(xi, params["conv_w"], params["conv_b"],
-                                state.conv)
+    xc, conv_tail = causal_conv(xi, params["conv_w"], params["conv_b"], conv)
     xc = F.silu(xc)
 
     def heads(a):                    # [B, T, di] -> [B, H, T, dh]
@@ -132,6 +138,28 @@ def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
     xcf = xc.float()
     li = (xcf @ params["w_i"] + params["b_i"]).transpose(1, 2)
     lf = F.logsigmoid((xcf @ params["w_f"] + params["b_f"]).transpose(1, 2))
+    return q, k, v, lf, li, z, conv_tail
+
+
+def _mlstm_out(n_heads: int, params: dict, x: torch.Tensor, h: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """h [B, H, T, dh] fp32 -> the block's output [B, T, d_model]: per-head
+    norm, the gate and the down projection."""
+    b_sz, _, t, dh = h.shape
+    h = _head_norm(h.transpose(1, 2).reshape(b_sz, t, n_heads * dh), n_heads)
+    h = h * params["gn"]
+    h = h.to(x.dtype) * F.silu(z)
+    return h @ params["w_down"].to(x.dtype)
+
+
+def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
+                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256
+                  ) -> Tuple[torch.Tensor, MLSTMState]:
+    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state)."""
+    b_sz, t, _ = x.shape
+    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
+                                                  state.conv)
+    dh = q.shape[-1]
 
     def flat(a):                     # [B, H, ...] -> [B * H, ...] fp32
         return a.float().reshape(b_sz * n_heads, *a.shape[2:]).contiguous()
@@ -140,14 +168,36 @@ def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
         flat(q), flat(k), flat(v), flat(lf), flat(li),
         (flat(state.c), flat(state.n), flat(state.m)), chunk=chunk)
     h = h.reshape(b_sz, n_heads, t, dh)
-    c_f = c_f.reshape(b_sz, n_heads, dh, dh)
-    n_f = n_f.reshape(b_sz, n_heads, dh)
-    m_f = m_f.reshape(b_sz, n_heads)
-    h = _head_norm(h.transpose(1, 2).reshape(b_sz, t, di), n_heads)
-    h = h * params["gn"]
-    h = h.to(x.dtype) * F.silu(z)
-    out = h @ params["w_down"].to(x.dtype)
-    return out, MLSTMState(c=c_f, n=n_f, m=m_f, conv=conv_tail)
+    return _mlstm_out(n_heads, params, x, h, z), MLSTMState(
+        c=c_f.reshape(b_sz, n_heads, dh, dh), n=n_f.reshape(b_sz, n_heads, dh),
+        m=m_f.reshape(b_sz, n_heads), conv=conv_tail)
+
+
+def mlstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
+                        x: torch.Tensor, state: MLSTMState, *,
+                        chunk: int = 256) -> Tuple[torch.Tensor, MLSTMState]:
+    """`mlstm_forward`'s train form, with autograd and no kernel: the
+    reference's chunkwise form (``src/repro/models/xlstm.py:156-191``), the
+    plain ``mlstm_chunk`` ``chunk`` steps at a time, each chunk under
+    ``torch.utils.checkpoint``, the ragged tail padded so that it writes
+    nothing (li = -1e30)."""
+    t = x.shape[1]
+    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
+                                                  state.conv)
+    chunk = min(chunk, t)
+    q, k, v, lf, li = pad_chunks(q, k, v, lf, li, chunk)
+    carry = (state.c, state.n, state.m)
+    hs = []
+    for lo in range(0, q.shape[-2], chunk):
+        sl = slice(lo, lo + chunk)
+        h, carry = checkpoint(
+            mlstm_chunk, q[..., sl, :], k[..., sl, :], v[..., sl, :],
+            lf[..., sl], li[..., sl], carry, use_reentrant=False,
+            preserve_rng_state=False)
+        hs.append(h)
+    h = torch.cat(hs, dim=-2)[..., :t, :]
+    return _mlstm_out(n_heads, params, x, h, z), MLSTMState(
+        *carry, conv=conv_tail)
 
 
 # ---------------------------------------------------------------------------
@@ -205,47 +255,93 @@ class SLSTMState(NamedTuple):
         )
 
 
+def _slstm_inputs(params: dict, x: torch.Tensor, conv: torch.Tensor):
+    """The gates' input contributions [B, T, 4d] fp32 (i, f from the conv
+    path, z, o raw) and the new conv window."""
+    d_model = x.shape[-1]
+    xin = rms_norm(x, params["norm"])
+    xc, conv_tail = causal_conv(xin, params["conv_w"], params["conv_b"], conv)
+    xc = F.silu(xc)
+    w_gates = params["w_gates"].to(x.dtype)
+    wx = xc @ w_gates[:, :2 * d_model]
+    wzo = xin @ w_gates[:, 2 * d_model:]
+    return torch.cat([wx, wzo], dim=-1).float(), conv_tail
+
+
+def _slstm_steps(n_heads: int, r: torch.Tensor, bias: torch.Tensor,
+                 gates_x: torch.Tensor, h, c, n, m):
+    """The recurrence over gates_x [B, L, 4d] from (h, c, n, m) [B, d]:
+    (hs [B, L, d], h, c, n, m).  The per-head recurrent weights r [H, dh,
+    4dh] act as one block-diagonal [d, 4d] product, which lands in the
+    gates' [i | f | z | o] layout over units directly, so that a step is
+    one ``addmm`` and the gates' elementwise ops, each launched once."""
+    r_full = torch.block_diag(*r.unbind(0))
+    hs = []
+    for gx in (gates_x + bias).unbind(1):
+        pre = torch.addmm(gx, h, r_full)
+        pi, pf, pz, po = pre.chunk(4, dim=-1)
+        lfm = F.logsigmoid(pf) + m
+        m_new = torch.maximum(lfm, pi)
+        i_g = torch.exp(pi - m_new)
+        f_g = torch.exp(lfm - m_new)
+        c = torch.addcmul(f_g * c, i_g, torch.tanh(pz))
+        n = torch.addcmul(i_g, f_g, n)
+        h = torch.sigmoid(po) * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), h, c, n, m
+
+
+def _slstm_out(n_heads: int, params: dict, x: torch.Tensor,
+               hs: torch.Tensor) -> torch.Tensor:
+    """hs [B, T, d] -> the block's output: per-head norm, then the gated
+    up/down projection."""
+    out_h = _head_norm(hs, n_heads)
+    out_h = (out_h * params["gn"]).to(x.dtype)
+    u, g = (out_h @ params["w_up"].to(x.dtype)).chunk(2, dim=-1)
+    return (u * F.gelu(g, approximate="tanh")) @ params["w_down"].to(x.dtype)
+
+
 def slstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
                   x: torch.Tensor,
                   state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
     """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state); one
     recurrence step per token."""
-    b_sz, t, d_model = x.shape
-    dh = d_model // n_heads
-    xin = rms_norm(x, params["norm"])
-    xc, conv_tail = causal_conv(xin, params["conv_w"], params["conv_b"],
-                                state.conv)
-    xc = F.silu(xc)
-    # input contributions to the 4 gates: i, f from the conv path; z, o raw
-    w_gates = params["w_gates"].to(x.dtype)
-    wx = xc @ w_gates[:, :2 * d_model]
-    wzo = xin @ w_gates[:, 2 * d_model:]
-    gates_x = torch.cat([wx, wzo], dim=-1).float()           # [B, T, 4d]
-    r = params["r_gates"].float()                             # [H, dh, 4dh]
-    bias = params["b_gates"]
-    h, c, n, m = state.h, state.c, state.n, state.m
+    gates_x, conv_tail = _slstm_inputs(params, x, state.conv)
+    hs, h, c, n, m = _slstm_steps(n_heads, params["r_gates"].float(),
+                                  params["b_gates"], gates_x, state.h,
+                                  state.c, state.n, state.m)
+    return _slstm_out(n_heads, params, x, hs), SLSTMState(
+        h=h, c=c, n=n, m=m, conv=conv_tail)
+
+
+def slstm_chunked(n_heads: int, r: torch.Tensor, bias: torch.Tensor,
+                  gates_x: torch.Tensor, h, c, n, m, chunk: int):
+    """`_slstm_steps` ``chunk`` steps at a time, each under
+    ``torch.utils.checkpoint``: (hs [B, T, d], h, c, n, m)."""
     hs = []
-    for step in range(t):
-        hr = h.reshape(b_sz, n_heads, dh).transpose(0, 1)     # [H, B, dh]
-        rec = torch.bmm(hr, r).transpose(0, 1).reshape(b_sz, 4 * d_model)
-        # gx and rec are both laid out [i | f | z | o] over units
-        pre = gates_x[:, step] + rec + bias
-        pi, pf, pz, po = pre.chunk(4, dim=-1)
-        lf = F.logsigmoid(pf)
-        m_new = torch.maximum(lf + m, pi)
-        i_g = torch.exp(pi - m_new)
-        f_g = torch.exp(lf + m - m_new)
-        c = f_g * c + i_g * torch.tanh(pz)
-        n = f_g * n + i_g
-        h = torch.sigmoid(po) * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(h)
-    out_h = _head_norm(torch.stack(hs, dim=1), n_heads)
-    out_h = (out_h * params["gn"]).to(x.dtype)
-    # gated up/down projection
-    u, g = (out_h @ params["w_up"].to(x.dtype)).chunk(2, dim=-1)
-    out = (u * F.gelu(g, approximate="tanh")) @ params["w_down"].to(x.dtype)
-    return out, SLSTMState(h=h, c=c, n=n, m=m, conv=conv_tail)
+    for lo in range(0, gates_x.shape[1], chunk):
+        out, h, c, n, m = checkpoint(
+            _slstm_steps, n_heads, r, bias, gates_x[:, lo:lo + chunk], h, c,
+            n, m, use_reentrant=False, preserve_rng_state=False)
+        hs.append(out)
+    return (torch.cat(hs, dim=1), h, c, n, m)
+
+
+def slstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
+                        x: torch.Tensor, state: SLSTMState, *,
+                        chunk: int = 64) -> Tuple[torch.Tensor, SLSTMState]:
+    """`slstm_forward`'s train form: the same recurrence with autograd,
+    ``chunk`` steps at a time, each chunk under ``torch.utils.checkpoint``
+    (the reference's ``slstm_chunk=64``).  The ragged tail runs as a
+    shorter chunk: the reference pads it and its ``valid`` mask keeps the
+    state over the padded steps, which is the same."""
+    gates_x, conv_tail = _slstm_inputs(params, x, state.conv)
+    hs, h, c, n, m = slstm_chunked(n_heads, params["r_gates"].float(),
+                                   params["b_gates"], gates_x, state.h,
+                                   state.c, state.n, state.m, chunk)
+    return _slstm_out(n_heads, params, x, hs), SLSTMState(
+        h=h, c=c, n=n, m=m, conv=conv_tail)
 
 
 # ---------------------------------------------------------------------------
@@ -283,23 +379,40 @@ def _write(stacked: NamedTuple, i: int, new: NamedTuple) -> None:
         dst[i].copy_(src)
 
 
+def _pair(xl, n_heads, p_m, p_s, x, st_m, st_s, chunk):
+    """One (mLSTM, sLSTM) residual pair in train form."""
+    out_m, _ = mlstm_forward_train(xl, n_heads, p_m, x, st_m, chunk=chunk)
+    x = x + out_m
+    out_s, _ = slstm_forward_train(xl, n_heads, p_s, x, st_s)
+    return x + out_s
+
+
 def xlstm_stack_apply(xl: XLSTMConfig, n_heads: int, params: dict,
                       x: torch.Tensor, state: XLSTMStackState, *,
-                      chunk: int = 256
+                      mode: str = "serve", chunk: int = 256
                       ) -> Tuple[torch.Tensor, XLSTMStackState]:
-    """The pairs in order, each an mLSTM then an sLSTM residual block;
-    ``state``'s tensors are written in place."""
+    """The pairs in order, each an mLSTM then an sLSTM residual block.
+
+    ``mode="serve"`` (prefill and decode) writes ``state``'s tensors in
+    place.  ``mode="train"`` runs each block's train form with autograd
+    from ``state``'s values (a fresh `XLSTMStackState` in `Model.loss`),
+    each pair under ``torch.utils.checkpoint`` (the reference's
+    ``remat``), writes nothing and returns ``(h, None)``."""
     n_pairs = params["m_blocks"]["norm"].shape[0]
     for i in range(n_pairs):
         p_m = {k: v[i] for k, v in params["m_blocks"].items()}
         p_s = {k: v[i] for k, v in params["s_blocks"].items()}
-        out_m, st_m = mlstm_forward(
-            xl, n_heads, p_m, x, MLSTMState(*(a[i] for a in state.m)),
-            chunk=chunk)
+        st_m = MLSTMState(*(a[i] for a in state.m))
+        st_s = SLSTMState(*(a[i] for a in state.s))
+        if mode == "train":
+            x = checkpoint(_pair, xl, n_heads, p_m, p_s, x, st_m, st_s,
+                           chunk, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
+        out_m, st_m = mlstm_forward(xl, n_heads, p_m, x, st_m, chunk=chunk)
         x = x + out_m
         _write(state.m, i, st_m)
-        out_s, st_s = slstm_forward(
-            xl, n_heads, p_s, x, SLSTMState(*(a[i] for a in state.s)))
+        out_s, st_s = slstm_forward(xl, n_heads, p_s, x, st_s)
         x = x + out_s
         _write(state.s, i, st_s)
-    return x, state
+    return x, (None if mode == "train" else state)

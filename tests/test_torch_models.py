@@ -251,27 +251,26 @@ def test_other_families_and_train_mode_raise():
     with pytest.raises(NotImplementedError, match="slice 10"):
         Model(tconfigs.get_smoke_config("llama-3.2-vision-11b"),
               device="cpu")
-    # dense train mode runs; the MoE, hybrid and xLSTM train modes raise,
-    # naming their ROADMAP item
-    cfg = tconfigs.get_smoke_config("internlm2-1.8b")
-    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 3, cfg.d_model)
+    # train mode runs for the dense, MoE and hybrid stacks and the xLSTM
+    # loss; MLA, VLM and audio raise, naming their ROADMAP item
     pos = torch.arange(3)[None]
-    h, _, _ = ttfm.stack_apply(cfg, model.params()["blocks"], x, pos,
-                               mode="train")
-    assert h.shape == x.shape
     batch = {"tokens": torch.zeros(1, 3, dtype=torch.int32),
              "labels": torch.zeros(1, 3, dtype=torch.int32)}
-    for arch in ("deepseek-moe-16b", "hymba-1.5b", "xlstm-350m"):
-        other = Model(tconfigs.get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 8c"):
-            other.loss(batch)
+    for arch in ("internlm2-1.8b", "deepseek-moe-16b", "hymba-1.5b",
+                 "xlstm-350m"):
+        cfg = tconfigs.get_smoke_config(arch)
+        model = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        loss, _ = model.loss(batch)
+        assert torch.isfinite(loss)
         if arch != "xlstm-350m":
-            c = other.cfg
-            with pytest.raises(NotImplementedError, match="slice 8c"):
-                ttfm.stack_apply(c, other.params()["blocks"],
-                                 torch.zeros(1, 3, c.d_model), pos,
-                                 mode="train")
+            x = torch.zeros(1, 3, cfg.d_model)
+            h, _, _ = ttfm.stack_apply(cfg, model.params()["blocks"], x, pos,
+                                       mode="train")
+            assert h.shape == x.shape
+    for arch in ("minicpm3-4b", "llama-3.2-vision-11b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            ttfm.check_trainable(tconfigs.get_smoke_config(arch))
 
 
 def test_load_reference_params_checks_paths_shapes_dtypes():
