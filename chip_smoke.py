@@ -60,8 +60,9 @@ against the plain version and timed beside it in one run.
   then the other families' training: one step card against CPU for
   deepseek-moe-16b, hymba-1.5b and xlstm-350m at published widths, depth
   2 (fp32); `repro_torch.launch.train` on deepseek-moe-16b cut to depth 2
-  (batch 4 x 2,048), on the full 32-layer hymba-1.5b and the full
-  24-layer xlstm-350m (shorter rows: their per-token loops), each with a
+  (batch 4 x 2,048), on the full 32-layer hymba-1.5b and on xlstm-350m
+  cut to 8 of its 24 layers (the sLSTM's per-token loop), rows of 512
+  tokens, each with a
   bit-equal rerun from its snapshot, 0 kernel launches, its host syncs,
   its profile and, for the recurrent two, the per-token loop's share of a
   step; and the executor preempting the deepseek job, bit-equal to the
@@ -87,7 +88,7 @@ against the plain version and timed beside it in one run.
   prompt 2,048, 32 tokens, with the share of xlstm's prefill spent in the
   sLSTM, the host syncs of an xlstm prefill onto a non-empty cache, and
   one prefill and one decode step of each under torch.profiler;
-* the MoE family, last, with every earlier model freed: the `moe_gmm`
+* the MoE family, with every earlier model freed: the `moe_gmm`
   grouped-matmul kernel against its plain version on the reference's
   kernel-test shapes, at deepseek-moe-16b's prefill and decode capacity
   shapes (with per-expert counts and fp32 weights under bf16 x, as the
@@ -98,7 +99,24 @@ against the plain version and timed beside it in one run.
   full 28-layer deepseek-moe-16b (16.9 B fp32 master weights), batch 4,
   prompt 2,048, 32 tokens (28 flash and 84 `moe_gmm` launches per
   prefill, 84 `moe_gmm` per decode step), and one prefill and one decode
-  step under torch.profiler.
+  step under torch.profiler;
+* slice 10's families, last, each model freed before the next:
+  minicpm3-4b (MLA: Dk 96, Dv 64, the wrapper padding V to 96),
+  llama-3.2-vision-11b (32 self layers and 8 gated cross-attention blocks
+  over 6,404 patches of a seeded frontend) and whisper-base (a non-causal
+  encoder over 1,500 frames, a decoder with cross-attention): at full
+  widths and a cut depth on the card against the CPU (fp32, the SIMT
+  kernel), then `repro_torch.launch.serve` at published widths and depth,
+  batch 4, prompt 2,048 (whisper 416), 32 tokens, every prefill attention
+  through the tensor-core flash kernel (62, 40 and 18 launches per
+  prefill), its host syncs and its profile.  Earlier, after the other
+  families' training, one fp32 train step of each at a cut depth on the
+  card against the CPU, and `repro_torch.launch.train` on minicpm3-4b
+  (depth 2), the VLM (one group, a 32 GiB fast tier for its 25.8 GB
+  state) and the full whisper-base, 2 steps, the second rerun bit for bit
+  from a fast-tier snapshot; `[attn-compare]` holds the four new flash
+  shapes and `[attn-time]` times MLA's and the VLM cross shape, with the
+  cost of V's padding.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -215,6 +233,7 @@ from repro_torch.obs.events import (  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
     bind_state,
@@ -276,9 +295,9 @@ SWEEP_JOBS, SWEEP_CPUS, SWEEP_HORIZON = 32, 32, 100
 #: batch is held against is the phase's cost)
 SWEEP_TICKS = 50
 #: [stream-fleet]: the fleet's arrivals (8 a tick) through a stream of
-#: 100-tick segments, 6 of them; the first run's capacity holds every
-#: arrival
-STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 600, 100, 1 << 15
+#: 100-tick segments, 4 of them (6 until slice 10's phases needed the
+#: time); the first run's capacity holds every arrival
+STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 400, 100, 1 << 15
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
@@ -316,24 +335,26 @@ EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 # the other families' training (`launch.train.run` with the config passed
 # in): deepseek-moe-16b at its published widths cut to MOE_TRAIN_LAYERS
 # (its TrainState, 19.1 GB, fits the 24 GiB fast tier; depth 3 would be
-# 26.2 GB), batch TRAIN_BATCH x TRAIN_SEQ; hymba-1.5b and xlstm-350m at
-# their published widths and depths, TRAIN_BATCH rows of HYBRID_TRAIN_SEQ
-# and XLSTM_TRAIN_SEQ tokens (hymba adds its 128 meta tokens): the SSM's
-# and the sLSTM's per-token loops make a longer row cost the script more
-# than its limit allows (PERF.md section 4); their one step reruns from a
-# snapshot of the initial state.
+# 26.2 GB), batch TRAIN_BATCH x TRAIN_SEQ; hymba-1.5b at its published
+# widths and depth and xlstm-350m at its published widths cut to
+# XLSTM_TRAIN_LAYERS (4 mLSTM/sLSTM pairs of 12: the sLSTM's per-token
+# loop makes its full depth cost the script more than its limit allows
+# since slice 10's phases), TRAIN_BATCH rows of HYBRID_TRAIN_SEQ and
+# XLSTM_TRAIN_SEQ tokens (hymba adds its 128 meta tokens); their one step
+# reruns from a snapshot of the initial state.
 # [executor-moe] is [executor]'s scenario with B the deepseek launcher run
 # (its losses are [train-moe]'s) and A a smoke internlm2 job.
 # [train-families-vs-cpu] is [train-vs-cpu] for each family at its depth,
 # TRAIN_CPU_LAYERS (xlstm one pair), in fp32
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 8
 HYBRID_TRAIN_SEQ, XLSTM_TRAIN_SEQ, RECURRENT_TRAIN_STEPS = 512, 512, 1
+XLSTM_TRAIN_LAYERS = 8
 # [launcher]'s backend check: the launcher's fleet cut to 256 CPUs and 300
 # ticks, where pass depth 64 covers every queue, so the tensor pass sees
 # what the host reference sees; [sched-status] the launcher's defaults
 LAUNCHER_BACKENDS_ARGV = ["--fast-tier-cap-mib", "4096", "--chips", "256",
                           "--horizon", "300"]
-LAUNCHER_TICKS = 400
+LAUNCHER_TICKS = 300
 SCHED_STATUS_REQUESTS = 4
 
 # serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
@@ -350,6 +371,16 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 16, 8, 128)   # B, S, Hq, Hkv, d
 #: kernel vs plain: the reference's own bar (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: kernel vs plain, scaled to the output: the RMS of the difference over
+#: the RMS of the plain version's output.  Where Skv is large an output is
+#: a mean over many keys and is small (RMS ~0.02 at 6,404 keys), so
+#: ATTN_TOL alone would pass a kernel that dropped the keys past the last
+#: full 64-key tile.  That fault reads 2.5e-2 and more at the non-causal
+#: shapes (`[attn-compare]` reads it on the plain version with the tail
+#: cut and fails unless it is above twice the bar); sound kernels read at
+#: most 2.8e-4 in bf16 and 2.1e-6 in fp32 at these shapes.  The bars sit
+#: between: bf16 one unit (2^-9) of the output's rounding, fp32 2e-5
+ATTN_REL_RMS = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -9}
 # [serve-vs-cpu]: the full widths at depth 2, fp32 compute and cache
 CPU_LAYERS, CPU_BATCH, CPU_PROMPT, CPU_STEPS = 2, 2, 256, 8
 #: both sides compute in fp32, but the card sums the 2,048- and 8,192-long
@@ -422,6 +453,55 @@ GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 #: of the k-th (routing is discrete; the two sides' fp32 router products
 #: differ in the last bits)
 ROUTE_TIE_REL = 1e-5
+
+#: [train-families-vs-cpu]'s depths: deepseek's CPU step at depth 2 took
+#: 40 s of the script on an H100 machine's host (PERF.md section 4), so
+#: one layer since slice 10's phases
+FAMILIES_CPU_LAYERS = {MOE_ARCH: 1, HYBRID_ARCH: TRAIN_CPU_LAYERS,
+                       XLSTM_ARCH: TRAIN_CPU_LAYERS}
+
+# slice 10's rest: minicpm3-4b (MLA), llama-3.2-vision-11b (VLM) and
+# whisper-base (audio)
+MLA_ARCH, VLM_ARCH, AUDIO_ARCH = ("minicpm3-4b", "llama-3.2-vision-11b",
+                                  "whisper-base")
+_MLA, _VLM, _AUDIO = (get_config(a) for a in (MLA_ARCH, VLM_ARCH, AUDIO_ARCH))
+#: whisper serves a 416-token prompt and 32 generated tokens: 448 in all,
+#: its text context (arXiv:2212.04356), against 1,500 audio frames
+AUDIO_PROMPT = 448 - SERVE_GEN
+#: one prefill attention of each new shape (B, Sq, Skv, Hq, Hkv, Dk, Dv,
+#: causal): MLA's decompressed heads (Dk = 64 + 32, Dv = 64), the VLM's
+#: cross-attention over its 6,404 patches (GQA 32/8), whisper's encoder
+#: and its decoder's cross-attention over the 1,500 frames
+MLA_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, _MLA.n_heads,
+            _MLA.n_heads, _MLA.mla.qk_nope_head_dim
+            + _MLA.mla.qk_rope_head_dim, _MLA.mla.v_head_dim, True)
+VLM_CROSS_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
+                  _VLM.n_heads, _VLM.n_kv_heads, _VLM.resolved_head_dim,
+                  _VLM.resolved_head_dim, False)
+AUDIO_ENC_ATTN = (SERVE_BATCH, _AUDIO.audio.n_audio_ctx,
+                  _AUDIO.audio.n_audio_ctx, _AUDIO.n_heads,
+                  _AUDIO.n_kv_heads, _AUDIO.resolved_head_dim,
+                  _AUDIO.resolved_head_dim, False)
+AUDIO_CROSS_ATTN = (SERVE_BATCH, AUDIO_PROMPT, _AUDIO.audio.n_audio_ctx,
+                    _AUDIO.n_heads, _AUDIO.n_kv_heads,
+                    _AUDIO.resolved_head_dim, _AUDIO.resolved_head_dim,
+                    False)
+#: depths of the [*-vs-cpu] and [train-new-families-vs-cpu] cuts: the VLM
+#: one group (4 self layers, 1 cross block), whisper 2 encoder and 2
+#: decoder layers, minicpm3 CPU_LAYERS
+NEW_CPU_LAYERS = {MLA_ARCH: CPU_LAYERS,
+                  VLM_ARCH: _VLM.vision.cross_attn_every,
+                  AUDIO_ARCH: CPU_LAYERS}
+#: [train-mla], [train-vlm], [train-audio]: minicpm3 cut to depth 2, the
+#: VLM to one group (its TrainState, 2.15e9 x 12 B = 25.8 GB, above the
+#: 24 GiB tier: NEW_FAST_TIER_GIB), whisper at full depth; rows of
+#: TRAIN_SEQ tokens, whisper's of its 448-token context; 2 steps, the
+#: second rerun from a snapshot taken after the first
+NEW_TRAIN_LAYERS = {MLA_ARCH: 2, VLM_ARCH: _VLM.vision.cross_attn_every,
+                    AUDIO_ARCH: _AUDIO.n_layers}
+NEW_TRAIN_SEQ = {MLA_ARCH: TRAIN_SEQ, VLM_ARCH: TRAIN_SEQ,
+                 AUDIO_ARCH: AUDIO_PROMPT + SERVE_GEN}
+NEW_TRAIN_STEPS, NEW_FAST_TIER_GIB = 2, 32
 
 
 T0 = time.perf_counter()
@@ -1989,19 +2069,22 @@ def step_bars(card, cpu, dtype, lr):
 
 def phase_train_vs_cpu(phase="train-vs-cpu", arch=TRAIN_ARCH,
                        layers=TRAIN_CPU_LAYERS,
-                       dtypes=("float32", "bfloat16")):
+                       dtypes=("float32", "bfloat16"), frontend=None):
     """One train step of ``arch`` at its published widths, depth
-    ``layers``, on the card and on the CPU from one seeded init, in each
-    compute dtype of ``dtypes``, fp32 master weights: loss, grad norm and
-    the parameters after the step to the CPU tests' bars, 0 kernel
-    launches on the card."""
+    ``layers`` (`cut_config`), batch TRAIN_CPU_BATCH x TRAIN_CPU_SEQ, on
+    the card and on the CPU from one seeded init (a VLM's gates by
+    `seed_gates`), in each compute dtype of
+    ``dtypes``, fp32 master weights, the VLM and the audio model on the
+    first TRAIN_CPU_BATCH rows of ``frontend``: loss, grad norm and the
+    parameters after the step to the CPU tests' bars, 0 kernel launches
+    on the card."""
     for dtype in dtypes:
         t0 = time.perf_counter()
-        cfg = get_config(arch).replace(n_layers=layers, compute_dtype=dtype)
+        cfg = cut_config(arch, layers, compute_dtype=dtype)
         # drawn on the card (a CPU generator takes ~20 s for deepseek's
-        # 1.6 B weights), copied to the CPU
-        card = Model(cfg, device=DEV).init(
-            torch.Generator(device=DEV).manual_seed(SEED))
+        # 1.6 B weights), copied to the CPU; a VLM's gates seeded
+        card = seed_gates(Model(cfg, device=DEV).init(
+            torch.Generator(device=DEV).manual_seed(SEED)))
         cpu = Model(cfg, device="cpu")
         cpu.load_state_dict(card.state_dict())
         tcfg = TrainConfig(lr=TRAIN_CPU_LR, warmup_steps=0, total_steps=100)
@@ -2013,8 +2096,11 @@ def phase_train_vs_cpu(phase="train-vs-cpu", arch=TRAIN_ARCH,
         for name, model in (("cpu", cpu), ("card", card)):
             ts = time.perf_counter()
             state = init_train_state(model.params(), SEED)
-            state, met = make_train_step(model, tcfg)(
-                state, shard_batch(batch, model.device))
+            sharded = shard_batch(batch, model.device)
+            if frontend is not None:
+                sharded["frontend"] = frontend[:TRAIN_CPU_BATCH].to(
+                    model.device)
+            state, met = make_train_step(model, tcfg)(state, sharded)
             metrics[name] = {k: float(v) for k, v in met.items()}
             secs[name] = time.perf_counter() - ts
             states[name] = state
@@ -2064,10 +2150,13 @@ def state_fingerprint(state):
 
 
 def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
-                activities=None):
+                activities=None, frontend=None,
+                fast_tier_gib=TRAIN_FAST_TIER_GIB):
     """`repro_torch.launch.train.run` on ``cfg`` (``arch``'s config, as the
     caller cut it; fp32 master weights from a seeded generator, bf16
-    compute), batch TRAIN_BATCH x ``seq``: ``snapshot`` steps, then one
+    compute; the VLM and the audio model on ``frontend``), batch
+    TRAIN_BATCH x ``seq``, a fast tier of ``fast_tier_gib``: ``snapshot``
+    steps, then one
     fast-tier snapshot through the run's manager, then the launcher's step
     (`step_once`) up to ``steps``; then the steps after the snapshot rerun
     from it (losses and every leaf's fingerprint bit-equal), the last of
@@ -2085,7 +2174,7 @@ def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
     with scratch_dir() as root:
         argv = ["--arch", arch, "--steps", str(snapshot), "--seq", str(seq),
                 "--batch", str(TRAIN_BATCH), "--ckpt-every", "0",
-                "--fast-tier-gib", str(TRAIN_FAST_TIER_GIB),
+                "--fast-tier-gib", str(fast_tier_gib),
                 "--ckpt-dir", root, "--seed", str(SEED), "--device", DEV.type]
         # this training path: every kernel count starts at 0 here
         zero_kernel_counts()
@@ -2093,7 +2182,7 @@ def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
         # state), its manager's fast-tier save, then the loop's body
         # (`step_once`) for the rest, each step timed as the loop times it
         rec = train_launcher.run(train_launcher.parser().parse_args(argv),
-                                 cfg=cfg)
+                                 cfg=cfg, frontend=frontend)
         rec.mgr.save(snapshot, rec.state)
         for _ in range(steps - snapshot):
             ts = time.perf_counter()
@@ -2160,6 +2249,8 @@ def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
         params=sum(p.numel() for p in rec.model.parameters()),
         weights=f"{cfg.param_dtype}-seeded-random", compute=cfg.compute_dtype,
         batch=TRAIN_BATCH, seq=seq, meta_tokens=cfg.n_meta_tokens,
+        frontend=tuple(frontend.shape) if frontend is not None else "none",
+        fast_tier_gib=fast_tier_gib,
         attn_chunk=rec.model.q_chunk, steps=steps,
         median_step_ms=f"{median_ms:.1f}",
         median_of_steps=f"{steps - len(timed) + 1}-{steps}",
@@ -2271,8 +2362,9 @@ def phase_loop_share(phase, rec, seq):
 def phase_train_families():
     """[train-moe], [train-hybrid], [train-xlstm]: `train_phase` on
     deepseek-moe-16b cut to MOE_TRAIN_LAYERS (batch TRAIN_BATCH x
-    TRAIN_SEQ) and on hymba-1.5b and xlstm-350m at full depth (rows of
-    HYBRID_TRAIN_SEQ and XLSTM_TRAIN_SEQ tokens), each with 0 kernel
+    TRAIN_SEQ), on hymba-1.5b at full depth and on xlstm-350m cut to
+    XLSTM_TRAIN_LAYERS (rows of HYBRID_TRAIN_SEQ and XLSTM_TRAIN_SEQ
+    tokens), each with 0 kernel
     launches and a bit-equal rerun; the recurrent two also with their
     loops' share.
     Returns deepseek's cut config, its losses and its run's peak."""
@@ -2283,10 +2375,11 @@ def phase_train_families():
     moe_losses = rec.losses
     del rec
     cuda_only = [torch.profiler.ProfilerActivity.CUDA]
-    for phase, arch, seq in (
-            ("train-hybrid", HYBRID_ARCH, HYBRID_TRAIN_SEQ),
-            ("train-xlstm", XLSTM_ARCH, XLSTM_TRAIN_SEQ)):
-        cfg = get_config(arch)
+    for phase, arch, cfg, seq in (
+            ("train-hybrid", HYBRID_ARCH, get_config(HYBRID_ARCH),
+             HYBRID_TRAIN_SEQ),
+            ("train-xlstm", XLSTM_ARCH,
+             cut_config(XLSTM_ARCH, XLSTM_TRAIN_LAYERS), XLSTM_TRAIN_SEQ)):
         rec, _, _ = train_phase(
             phase, arch, cfg, seq=seq,
             steps=RECURRENT_TRAIN_STEPS, snapshot=0,
@@ -2298,6 +2391,26 @@ def phase_train_families():
     collect_garbage()
     torch.cuda.empty_cache()
     return moe_cfg, moe_losses, moe_peak
+
+
+def phase_train_new_families(frontends):
+    """[train-mla], [train-vlm], [train-audio]: `train_phase` on
+    minicpm3-4b and llama-3.2-vision-11b cut to NEW_TRAIN_LAYERS and
+    whisper-base at full depth, rows of NEW_TRAIN_SEQ tokens, the VLM and
+    whisper on their seeded frontends, NEW_TRAIN_STEPS steps, the last
+    rerun bit for bit from the fast-tier snapshot before it (the VLM's
+    tier NEW_FAST_TIER_GIB), 0 kernel launches."""
+    for phase, arch in (("train-mla", MLA_ARCH), ("train-vlm", VLM_ARCH),
+                        ("train-audio", AUDIO_ARCH)):
+        rec, _, _ = train_phase(
+            phase, arch, cut_config(arch, NEW_TRAIN_LAYERS[arch]),
+            seq=NEW_TRAIN_SEQ[arch], steps=NEW_TRAIN_STEPS,
+            snapshot=NEW_TRAIN_STEPS - 1, frontend=frontends.get(arch),
+            fast_tier_gib=(NEW_FAST_TIER_GIB if arch == VLM_ARCH
+                           else TRAIN_FAST_TIER_GIB))
+        del rec
+        collect_garbage()
+        torch.cuda.empty_cache()
 
 
 def top_kernels(prof, busy_us, n=8):
@@ -2582,27 +2695,63 @@ def phase_cr_path():
 # ---------------------------------------------------------------------------
 
 
-def attn_inputs(gen, b, sq, skv, h, kvh, d, dtype):
+def attn_inputs(gen, b, sq, skv, h, kvh, d, dtype, dv=None):
     q = torch.randn((b, sq, h, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((b, skv, kvh, d), generator=gen, device=DEV).to(dtype)
-    v = torch.randn((b, skv, kvh, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, skv, kvh, dv or d), generator=gen,
+                    device=DEV).to(dtype)
     return q, k, v
+
+
+def rel_rms(got, want):
+    """RMS of ``got - want`` over the RMS of ``want`` (fp32)."""
+    want = want.float()
+    return float((got.float() - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt())
+
+
+def tail_keys(skv):
+    """Keys past the last full 64-key tile, both kernels' key tile."""
+    return skv % 64
 
 
 def compare_attn(q, k, v, route, **kw):
     """One kernel (``route``, as `flash_ops.kernel_route` names them)
     against the plain version on the same card tensors; raises above the
-    dtype's tolerance, returns the largest absolute difference."""
+    dtype's absolute tolerance (ATTN_TOL) or its bar scaled to the output
+    (ATTN_REL_RMS), returns the largest absolute difference and the
+    scaled error."""
     got = flash_ops.launch(q, k, v, route, **kw)
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, **kw)
     err = float((got.float() - want.float()).abs().max())
-    if not (err <= ATTN_TOL[q.dtype]):
+    rel = rel_rms(got, want)
+    if not (err <= ATTN_TOL[q.dtype] and rel <= ATTN_REL_RMS[q.dtype]):
         raise AssertionError(f"flash_attention's {route} kernel differs from "
-                             f"its plain version by {err} > "
-                             f"{ATTN_TOL[q.dtype]} (q {tuple(q.shape)}, k "
-                             f"{tuple(k.shape)}, {q.dtype}, {kw})")
-    return err
+                             f"its plain version by {err} (bar "
+                             f"{ATTN_TOL[q.dtype]}), {rel} of the output's "
+                             f"RMS (bar {ATTN_REL_RMS[q.dtype]}) (q "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                             f"{q.dtype}, {kw})")
+    return err, rel
+
+
+def tail_only(q, k, v):
+    """(q, k, v) with V zero on every key but those past the last full
+    64-key tile: a kernel that drops or masks that tail returns zeros, a
+    scaled error of 1."""
+    v = v.clone()
+    v[:, :v.shape[1] - tail_keys(v.shape[1])] = 0
+    return q, k, v
+
+
+def dropped_tail_reading(q, k, v, **kw):
+    """The scaled error that a kernel dropping the keys past the last full
+    64-key tile would read: the plain version on the keys before the tail
+    against the plain version on all of them."""
+    cut = k.shape[1] - tail_keys(k.shape[1])
+    return rel_rms(flash_attention_ref(q, k[:, :cut], v[:, :cut], **kw),
+                   flash_attention_ref(q, k, v, **kw))
 
 
 def attn_routes(q):
@@ -2615,23 +2764,30 @@ def attn_routes(q):
 def phase_attn_compare():
     """Both kernels against the plain version: the reference's test shapes
     and the ragged ones in fp32 (SIMT) and bf16 (both), internlm2-1.8b's
-    and deepseek-moe-16b's serving shapes in bf16, and hymba-1.5b's
-    (window and meta tokens) in both dtypes.  Returns the largest error of
-    each kernel."""
+    and deepseek-moe-16b's serving shapes in bf16, and in both dtypes
+    hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64),
+    the VLM's cross-attention and whisper's encoder and cross-attention
+    (non-causal; each again with V zero but on the keys past the last
+    64-key tile), every case under ATTN_TOL and ATTN_REL_RMS.  Returns the
+    largest absolute error of each kernel."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     saved = kernel_counts()
     errs = {(dt, r): 0.0 for dt in (torch.float32, torch.bfloat16)
             for r in ("simt", "wgmma")}
+    rels = dict(errs)
     cases = 0
     t0 = time.perf_counter()
 
-    def run(qkv, **kw):
+    def run(qkv, rel_into=None, **kw):
         nonlocal cases
         got = {}
         for route in attn_routes(qkv[0]):
-            got[route] = compare_attn(*qkv, route, **kw)
+            got[route], rel = compare_attn(*qkv, route, **kw)
             key = (qkv[0].dtype, route)
             errs[key] = max(errs[key], got[route])
+            rels[key] = max(rels[key], rel)
+            if rel_into is not None:
+                rel_into[route] = rel
             cases += 1
         return got
 
@@ -2651,15 +2807,58 @@ def phase_attn_compare():
         tag = "hymba_" + ("fp32" if dtype == torch.float32 else "bf16")
         serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
                            causal=True, window=window, n_meta=meta)
+    # slice 10's shapes, in both dtypes: MLA's Dk 96 / Dv 64 (V padded to
+    # 96 in the wrapper), the non-causal Sq != Skv of the VLM's and
+    # whisper's cross-attention, whisper's non-causal encoder.  Their Skv
+    # leaves a tail past the last 64-key tile: each non-causal shape also
+    # runs with V zero but on that tail, and the plain version with the
+    # tail cut must read above the scaled bar
+    scaled, faults = {}, {}
+    for name, (b, sq, skv, h, kvh, d, dv, causal) in (
+            ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("whisper_enc", AUDIO_ENC_ATTN),
+            ("whisper_cross", AUDIO_CROSS_ATTN)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}_" + ("fp32" if dtype == torch.float32 else "bf16")
+            qkv = attn_inputs(gen, b, sq, skv, h, kvh, d, dtype, dv)
+            scaled[tag] = {}
+            serving[tag] = run(qkv, scaled[tag], causal=causal)
+            if not causal and tail_keys(skv):
+                fault = dropped_tail_reading(*qkv, causal=causal)
+                if not fault > 2 * ATTN_REL_RMS[dtype]:
+                    raise AssertionError(
+                        f"a dropped {tail_keys(skv)}-key tail reads {fault} "
+                        f"at {tag}, within twice the scaled bar "
+                        f"{ATTN_REL_RMS[dtype]}")
+                faults[tag] = fault
+                scaled[tag + "_tail"] = {}
+                serving[tag + "_tail"] = run(tail_only(*qkv),
+                                             scaled[tag + "_tail"],
+                                             causal=causal)
+            del qkv
+            collect_garbage()
     set_kernel_counts(saved)
     log("attn-compare", cases=cases,
         simt_err_fp32=f"{errs[torch.float32, 'simt']:.3e}",
         simt_err_bf16=f"{errs[torch.bfloat16, 'simt']:.3e}",
         wgmma_err_bf16=f"{errs[torch.bfloat16, 'wgmma']:.3e}",
+        simt_rel_rms_fp32=f"{rels[torch.float32, 'simt']:.3e}",
+        simt_rel_rms_bf16=f"{rels[torch.bfloat16, 'simt']:.3e}",
+        wgmma_rel_rms_bf16=f"{rels[torch.bfloat16, 'wgmma']:.3e}",
         **{f"{name}_{route}_err": f"{err:.3e}"
            for name, got in serving.items() for route, err in got.items()},
+        **{f"{name}_{route}_rel_rms": f"{rel:.3e}"
+           for name, got in scaled.items() for route, rel in got.items()},
+        **{f"{name}_dropped_tail_rel_rms": f"{rel:.3e}"
+           for name, rel in faults.items()},
         hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
+        **{f"{n}_shape": "x".join(map(str, shape[:-1])) for n, shape in (
+            ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("whisper_enc", AUDIO_ENC_ATTN),
+            ("whisper_cross", AUDIO_CROSS_ATTN))},
         tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
+        rel_rms_bar_fp32=ATTN_REL_RMS[torch.float32],
+        rel_rms_bar_bf16=ATTN_REL_RMS[torch.bfloat16],
         seconds=f"{time.perf_counter() - t0:.1f}")
     return {"simt": max(errs[dt, "simt"] for dt in (torch.float32,
                                                      torch.bfloat16)),
@@ -2678,14 +2877,16 @@ def in_turns(fns, iters, warmup):
     return {name: sum(v) / len(v) for name, v in runs.items()}, runs
 
 
-def attn_bound(b, s, h, kvh, d, dtype_bytes):
-    """FLOP (QK^T and PV over the visible pairs only, 4d each) and bytes
-    (q, k, v read once, out written once) of one causal launch, and the
-    least time for them on the card."""
-    pairs = int(visible(s, s, causal=True, window=0, n_meta=0,
+def attn_bound(b, s, h, kvh, d, dtype_bytes, *, skv=None, dv=None,
+               causal=True):
+    """FLOP (QK^T, 2d, and PV, 2dv, over the visible pairs only) and bytes
+    (q, k, v read once, out written once) of one launch (Sq = s, Skv =
+    ``skv``, by default s), and the least time for them on the card."""
+    skv, dv = skv or s, dv or d
+    pairs = int(visible(s, skv, causal=causal, window=0, n_meta=0,
                         device=DEV).sum())
-    flop = pairs * b * h * 4 * d
-    nbytes = dtype_bytes * d * s * b * (2 * h + 2 * kvh)
+    flop = pairs * b * h * 2 * (d + dv)
+    nbytes = dtype_bytes * b * (s * h * (d + dv) + skv * kvh * (d + dv))
     ops_ms, byte_ms = 1e3 * flop / BF16_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
     return dict(pairs_per_head=pairs, flop=flop, bytes=nbytes,
                 bound_ms=max(ops_ms, byte_ms),
@@ -2693,41 +2894,72 @@ def attn_bound(b, s, h, kvh, d, dtype_bytes):
 
 
 def phase_attn_time():
-    """Both kernels at the serving shape (one layer of internlm2-1.8b's
-    prefill, bf16), its plain version, and the library's fused attention
-    (SDPA on the same tensors viewed [B, H, S, D]; never called by the
-    port), in turns."""
+    """Both kernels in bf16, as the serve paths call them, at three
+    shapes: one layer of internlm2-1.8b's prefill (ATTN_SHAPE), MLA's
+    prefill attention (causal, Dk 96, Dv 64) and the VLM's cross-attention
+    (non-causal, 2,048 x 6,404, GQA 32/8); beside them the plain version
+    and the library's fused attention (SDPA on the same tensors viewed [B,
+    H, S, D]; never called by the port), in turns, and the bound; for MLA
+    also the cost of V's padding, the tensor-core launch on a V of Dv = Dk
+    = 96 beside the same launch on the real Dv = 64 (padded to 96 in the
+    wrapper, the output cut back).  Returns the internlm2 shape's timings
+    of each kernel, for the kernels' record."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
-    b, s, h, kvh, d = ATTN_SHAPE
-    q, k, v = attn_inputs(gen, b, s, s, h, kvh, d, torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     saved = kernel_counts()
-    fns = {
-        "wgmma": lambda: flash_ops.launch(q, k, v, "wgmma", causal=True),
-        "simt": lambda: flash_ops.launch(q, k, v, "simt", causal=True),
-        "plain": lambda: flash_attention_ref(q, k, v, causal=True),
-        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)}
-    ms, runs = in_turns(fns, dict(wgmma=20, simt=5, plain=3, library=20),
-                        warmup=2)
-    set_kernel_counts(saved)
-    bound = attn_bound(b, s, h, kvh, d, 2)
+    b, s, h, kvh, d = ATTN_SHAPE
+    shapes = (("internlm2", (b, s, s, h, kvh, d, d, True)),
+              ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN))
     out = {}
-    for route in ("wgmma", "simt"):
-        log("attn-time", kernel=route, B=b, S=s, Hq=h, Hkv=kvh, d=d,
-            dtype="bfloat16", causal=True, ms=f"{ms[route]:.4f}",
-            passes=[f"{t:.4f}" for t in runs[route]],
-            plain_ms=f"{ms['plain']:.4f}",
-            library_ms=f"{ms['library']:.4f}", flop=bound["flop"],
-            bytes=bound["bytes"], pairs_per_head=bound["pairs_per_head"],
-            bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
-            share_of_bound=f"{bound['bound_ms'] / ms[route]:.5f}",
-            tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
-            x_library=f"{ms[route] / ms['library']:.2f}")
-        out[route] = dict(ms=ms[route], plain_ms=ms["plain"],
-                          library_ms=ms["library"],
-                          bound_ms=bound["bound_ms"],
-                          bound_by=bound["bound_by"])
+    for name, (b, sq, skv, h, kvh, d, dv, causal) in shapes:
+        q, k, v = attn_inputs(gen, b, sq, skv, h, kvh, d, torch.bfloat16, dv)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fns = {
+            "wgmma": lambda: flash_ops.launch(q, k, v, "wgmma",
+                                              causal=causal),
+            "simt": lambda: flash_ops.launch(q, k, v, "simt", causal=causal),
+            "plain": lambda: flash_attention_ref(q, k, v, causal=causal),
+            "library": lambda: torch.nn.functional.
+            scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=kvh != h)}
+        iters = dict(wgmma=20, simt=5, plain=3, library=20)
+        extra = {}
+        if dv < d:
+            v_dk = torch.randn((b, skv, kvh, d), generator=gen,
+                               device=DEV).to(torch.bfloat16)
+            fns["wgmma_dv_eq_dk"] = lambda: flash_ops.launch(
+                q, k, v_dk, "wgmma", causal=causal)
+            iters["wgmma_dv_eq_dk"] = 20
+        ms, runs = in_turns(fns, iters, warmup=2)
+        if dv < d:
+            extra = dict(wgmma_dv_eq_dk_ms=f"{ms['wgmma_dv_eq_dk']:.4f}",
+                         padding_cost_ms=(
+                             f"{ms['wgmma'] - ms['wgmma_dv_eq_dk']:.4f}"),
+                         padded_over_unpadded=(
+                             f"{ms['wgmma'] / ms['wgmma_dv_eq_dk']:.4f}"))
+        bound = attn_bound(b, sq, h, kvh, d, 2, skv=skv, dv=dv,
+                           causal=causal)
+        for route in ("wgmma", "simt"):
+            log("attn-time", shape=name, kernel=route, B=b, Sq=sq, Skv=skv,
+                Hq=h, Hkv=kvh, Dk=d, Dv=dv, dtype="bfloat16", causal=causal,
+                ms=f"{ms[route]:.4f}",
+                passes=[f"{t:.4f}" for t in runs[route]],
+                plain_ms=f"{ms['plain']:.4f}",
+                library_ms=f"{ms['library']:.4f}", flop=bound["flop"],
+                bytes=bound["bytes"], pairs_per_head=bound["pairs_per_head"],
+                bound_ms=f"{bound['bound_ms']:.5f}",
+                bound_by=bound["bound_by"],
+                share_of_bound=f"{bound['bound_ms'] / ms[route]:.5f}",
+                tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
+                x_library=f"{ms[route] / ms['library']:.2f}",
+                **(extra if route == "wgmma" else {}))
+            if name == "internlm2":
+                out[route] = dict(ms=ms[route], plain_ms=ms["plain"],
+                                  library_ms=ms["library"],
+                                  bound_ms=bound["bound_ms"],
+                                  bound_by=bound["bound_by"])
+        del q, k, v, qt, kt, vt, fns
+        collect_garbage()
+    set_kernel_counts(saved)
     return out
 
 
@@ -3041,33 +3273,75 @@ def cache_bytes(cache):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
-    """The same seeded weights at the full widths and depth CPU_LAYERS (one
-    mLSTM/sLSTM pair for xLSTM), fp32 compute and cache: prefill and
-    CPU_STEPS decode steps on the card (the kernels) against the CPU (the
-    plain versions), teacher-forced on the CPU's greedy ids; every logit,
-    cache leaf, position and length must agree, and the card's launches
-    per prefill and per step must be the given ones."""
+def cut_config(arch, layers, **kw):
+    """``arch``'s published config at depth ``layers`` (whisper: that many
+    encoder and decoder layers; the VLM: a multiple of its group)."""
+    cfg = get_config(arch)
+    if cfg.family == "audio":
+        kw["audio"] = dataclasses.replace(cfg.audio, n_encoder_layers=layers)
+    return cfg.replace(n_layers=layers, **kw)
+
+
+def seeded_frontend(cfg, batch, seed):
+    """Seeded N(0, 1) fp32 frames on the card for the VLM ([B, n_patches,
+    vision_dim]) and the audio model ([B, n_audio_ctx, d_model]); None for
+    the other families."""
+    stub = model_mod.frontend_stub(cfg, batch, DEV)
+    if stub is None:
+        return None
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(stub.shape, generator=gen, device=DEV)
+
+
+@torch.no_grad()
+def seed_gates(model):
+    """Draw a VLM's cross-attention gates from a seeded N(0, 0.8^2) on
+    their device: they start at zero, and a zero gate hides the block's
+    output from every check downstream (a no-op for the other
+    families)."""
+    if model.cfg.family != "vlm":
+        return model
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 8)
+    for gate in (model.cross.gate_attn, model.cross.gate_ffn):
+        gate.copy_(0.8 * torch.randn(gate.shape, generator=gen,
+                                     device=model.device))
+    return model
+
+
+def phase_vs_cpu(arch, phase, prefill_counts, decode_counts, *,
+                 layers=CPU_LAYERS, frontend=None):
+    """The same seeded weights (drawn on the card, copied to the CPU) at the
+    full widths and depth ``layers`` (`cut_config`; one mLSTM/sLSTM pair
+    for xLSTM), fp32 compute and cache: prefill and CPU_STEPS decode steps
+    on the card (the kernels) against the CPU (the plain versions),
+    teacher-forced on the CPU's greedy ids, the VLM (its gates seeded,
+    `seed_gates`) and the audio model on the first CPU_BATCH rows of
+    ``frontend``; every logit, cache leaf, position and length must
+    agree, and the card's launches per prefill and per step must be the
+    given ones."""
     t0 = time.perf_counter()
-    cfg = get_config(arch).replace(n_layers=CPU_LAYERS,
-                                   compute_dtype="float32")
-    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
-    card = Model(cfg, device=DEV)
-    card.load_state_dict(cpu.state_dict())
+    cfg = cut_config(arch, layers, compute_dtype="float32")
+    card = seed_gates(Model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(SEED)))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (CPU_BATCH, CPU_PROMPT)).astype(np.int32))
     max_seq = CPU_PROMPT + CPU_STEPS
+    g_batch = {"tokens": tokens.to(DEV)}
+    c_batch = {"tokens": tokens}
+    if frontend is not None:
+        g_batch["frontend"] = frontend[:CPU_BATCH]
+        c_batch["frontend"] = frontend[:CPU_BATCH].cpu()
     # an MoE layer's routes, each side's, per layer and step
     calls, keep = route_log()
     with recording(moe_mod, "route_topk", keep):
         c_cache, c_logits = cpu.prefill(
-            {"tokens": tokens},
-            cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
+            c_batch, cpu.init_cache(CPU_BATCH, max_seq, torch.float32))
         saved = kernel_counts()
         zero_kernel_counts()
         g_cache, g_logits = card.prefill(
-            {"tokens": tokens.to(DEV)},
-            card.init_cache(CPU_BATCH, max_seq, torch.float32))
+            g_batch, card.init_cache(CPU_BATCH, max_seq, torch.float32))
         torch.cuda.synchronize()
         launches = {"prefill": kernel_counts()}
         errs = [float((g_logits.cpu() - c_logits).abs().max())]
@@ -3090,7 +3364,7 @@ def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
                                    for k, v in decode_counts.items()})):
         got = {k: v for k, v in launches[step].items() if v}
         if got != {k: v for k, v in want.items() if v}:
-            raise AssertionError(f"{arch} depth {CPU_LAYERS}: the card's "
+            raise AssertionError(f"{arch} depth {layers}: the card's "
                                  f"{step} launched {got}, not {want}")
     state_err = max(float((g.cpu() - c).abs().max()) for (_, g), (_, c) in
                     zip(cache_leaves(g_cache), cache_leaves(c_cache)))
@@ -3103,8 +3377,10 @@ def phase_vs_cpu(arch, phase, prefill_counts, decode_counts):
             and not torch.equal(g_cache["pos"].cpu(), c_cache["pos"])):
         raise AssertionError(f"{arch}: the card's cache length or positions "
                              "differ from the CPU's")
-    log(phase, config=arch, layers=CPU_LAYERS, compute="float32",
+    log(phase, config=arch, layers=layers, compute="float32",
         batch=CPU_BATCH, prompt=CPU_PROMPT, decode_steps=CPU_STEPS,
+        frontend=(tuple(frontend[:CPU_BATCH].shape) if frontend is not None
+                  else "none"),
         prefill_err=f"{errs[0]:.3e}", decode_max_err=f"{max(errs[1:]):.3e}",
         cache_err=f"{state_err:.3e}", max_abs_logit=f"{scale:.4f}",
         tol=SERVE_CPU_TOL, **routes,
@@ -3140,31 +3416,36 @@ def slstm_share(model, tokens):
     return spent[0], res.prefill_s
 
 
-def phase_serve(arch, phase, per_prefill, per_decode):
+def phase_serve(arch, phase, per_prefill, per_decode, *,
+                prompt=SERVE_PROMPT, frontend=None):
     """An arch's main serving path: `repro_torch.launch.serve`'s own
     functions at its full published widths and depth (master weights in
-    the config's param dtype, fp32, from a seeded generator; bf16 compute
-    and cache), batch SERVE_BATCH, prompt SERVE_PROMPT, SERVE_GEN tokens:
-    one warm-up request, then the measured one, whose launches must be
-    per_prefill plus SERVE_GEN - 1 times per_decode, and no other
-    kernel's.  Peaks are taken after `collect_garbage`, from the memory
-    allocated before the request.  For an MoE arch the line adds the host
-    reads of the dispatch, the capacities C it chose, and the card's
-    memory left above the peak."""
+    the config's param dtype, fp32, from a seeded generator, a VLM's gates
+    by `seed_gates`; bf16 compute and cache), batch SERVE_BATCH,
+    ``prompt`` tokens (SERVE_PROMPT by
+    default), SERVE_GEN tokens, the VLM and the audio model on
+    ``frontend``: one warm-up request, then the measured one, whose
+    launches must be per_prefill plus SERVE_GEN - 1 times per_decode, and
+    no other kernel's.  Peaks are taken after `collect_garbage`, from the
+    memory allocated before the request.  For an MoE arch the line adds
+    the host reads of the dispatch, the capacities C it chose, and the
+    card's memory left above the peak."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    model = serve.build(cfg, SEED, DEV)
+    model = seed_gates(serve.build(cfg, SEED, DEV))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
+    tokens = serve.prompts(cfg, SERVE_BATCH, prompt, SEED + 1, DEV)
     extra = {}
+    if frontend is not None:
+        extra["frontend"] = tuple(frontend.shape)
     if cfg.family == "ssm":      # the warm-up, its sLSTM blocks timed
         spent, wall = slstm_share(model, tokens)
         extra = dict(warmup_slstm_s=f"{spent:.3f}",
                      warmup_prefill_s=f"{wall:.3f}",
                      slstm_share_of_prefill=f"{spent / wall:.4f}")
     else:
-        serve.generate(model, tokens, 2)                  # warm-up
+        serve.generate(model, tokens, 2, frontend=frontend)   # warm-up
     collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     baseline = torch.cuda.memory_allocated()
@@ -3173,7 +3454,7 @@ def phase_serve(arch, phase, per_prefill, per_decode):
     # this serving path: every kernel count starts at 0 here
     zero_kernel_counts()
     with recording(moe_mod, "capacity", lambda a, c: capacities.append(c)):
-        res = serve.generate(model, tokens, SERVE_GEN)
+        res = serve.generate(model, tokens, SERVE_GEN, frontend=frontend)
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     if cfg.moe is not None:      # C per MoE layer: prefill's, then decode's
@@ -3184,7 +3465,7 @@ def phase_serve(arch, phase, per_prefill, per_decode):
                      prefill_capacity_max=max(capacities[:n]),
                      decode_capacity=sorted(set(capacities[n:])),
                      card_total_bytes=total, headroom_bytes=total - peak)
-    serve.report(res, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    serve.report(res, SERVE_BATCH, prompt, SERVE_GEN)
     steps = SERVE_GEN - 1
     want = {k: per_prefill.get(k, 0) + steps * per_decode.get(k, 0)
             for k in launches}
@@ -3197,14 +3478,14 @@ def phase_serve(arch, phase, per_prefill, per_decode):
     if res.tokens.shape != (SERVE_BATCH, SERVE_GEN):
         raise AssertionError(f"generated ids {tuple(res.tokens.shape)}")
     cache_size = cache_bytes(model.init_cache(SERVE_BATCH,
-                                              SERVE_PROMPT + SERVE_GEN))
+                                              prompt + SERVE_GEN))
     log(phase, config=arch, layers=cfg.n_layers,
         params=sum(p.numel() for p in model.parameters()),
         weights=f"{cfg.param_dtype}-seeded-random",
         compute=cfg.compute_dtype,
-        batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+        batch=SERVE_BATCH, prompt=prompt, gen=SERVE_GEN,
         prefill_ms=f"{res.prefill_s * 1e3:.3f}",
-        prefill_tok_per_s=f"{SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.1f}",
+        prefill_tok_per_s=f"{SERVE_BATCH * prompt / res.prefill_s:.1f}",
         decode_ms_per_token=f"{res.decode_s * 1e3 / steps:.3f}",
         decode_tok_per_s=f"{SERVE_BATCH * steps / res.decode_s:.1f}",
         launches_prefill=per_prefill, launches_per_decode_step=per_decode,
@@ -3222,7 +3503,7 @@ def phase_serve(arch, phase, per_prefill, per_decode):
 
 
 def phase_profile(phase, arch, model, tokens, names, per_prefill,
-                  per_decode):
+                  per_decode, frontend=None):
     """One prefill and one decode step under torch.profiler: device busy
     time against host wall time, the share of the device time in this
     arch's kernels (by name), the launches, device events and peak memory
@@ -3231,7 +3512,11 @@ def phase_profile(phase, arch, model, tokens, names, per_prefill,
     beside them slows the traced prefill by a sixth."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    prompt = tokens.shape[1]
+    cache = model.init_cache(SERVE_BATCH, prompt + SERVE_GEN)
+    batch = {"tokens": tokens}
+    if frontend is not None:
+        batch["frontend"] = frontend
     saved = kernel_counts()
     rows = {}
     for step in ("prefill", "decode"):
@@ -3241,7 +3526,7 @@ def phase_profile(phase, arch, model, tokens, names, per_prefill,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if step == "prefill":
-                cache, logits = model.prefill({"tokens": tokens}, cache)
+                cache, logits = model.prefill(batch, cache)
             else:
                 cache, logits = model.decode_step(cache, serve.greedy(logits))
             torch.cuda.synchronize()
@@ -3256,7 +3541,7 @@ def phase_profile(phase, arch, model, tokens, names, per_prefill,
     set_kernel_counts(saved)
     for step, (wall, dev, ours, events, peak, counts) in rows.items():
         log(f"{phase}-profile", config=arch, step=step,
-            batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+            batch=SERVE_BATCH, prompt=prompt,
             host_wall_ms=f"{wall * 1e3:.3f}",
             device_busy_ms=f"{dev / 1e3:.3f}",
             device_busy_share=(f"{dev / 1e6 / wall:.4f}" if dev
@@ -3543,17 +3828,21 @@ def compare_routes(calls, k):
 
 
 
-def phase_prefill_syncs(model, tokens, arch=SERVE_ARCH, cache=None):
-    """One prefill of ``arch`` (into a fresh cache, or onto ``cache``)
-    under ``torch.cuda.set_sync_debug_mode("warn")``, under which each
+def phase_prefill_syncs(model, tokens, arch=SERVE_ARCH, cache=None,
+                        frontend=None):
+    """One prefill of ``arch`` (into a fresh cache, or onto ``cache``; the
+    VLM and the audio model on ``frontend``) under
+    ``torch.cuda.set_sync_debug_mode("warn")``, under which each
     synchronising op warns: every such warning, by the innermost line of
     the port's source on the Python stack when it was raised, and its
     text."""
     if cache is None:
-        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+        cache = model.init_cache(SERVE_BATCH, tokens.shape[1] + SERVE_GEN)
+    batch = {"tokens": tokens}
+    if frontend is not None:
+        batch["frontend"] = frontend
     saved = kernel_counts()
-    _, where, texts = sync_sites(
-        lambda: model.prefill({"tokens": tokens}, cache))
+    _, where, texts = sync_sites(lambda: model.prefill(batch, cache))
     set_kernel_counts(saved)
     log("serve-syncs", config=arch, step="prefill",
         cache="carried" if int(cache["length"]) else "fresh",
@@ -3591,6 +3880,52 @@ def phase_xlstm_syncs(model, tokens):
     if bad:
         raise AssertionError(f"xlstm-350m's prefill onto a carried cache "
                              f"syncs on the mLSTM path: {sorted(set(bad))}")
+
+
+def flash_per_prefill(cfg):
+    """Flash launches of one prefill: one per attention layer; whisper's
+    encoder layers once, its decoder layers twice (self and cross)."""
+    if cfg.family == "audio":
+        return cfg.audio.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def phase_new_families_serve(frontends):
+    """Slice 10's serving: for minicpm3-4b, llama-3.2-vision-11b and
+    whisper-base, `phase_vs_cpu` at NEW_CPU_LAYERS (the SIMT kernel, fp32),
+    then `phase_serve` at the published widths and depth (whisper's prompt
+    AUDIO_PROMPT), the host syncs of one prefill and `phase_profile`, the
+    VLM and whisper on their seeded frontends; each model freed before the
+    next.  Every prefill attention goes through the flash kernel (VLM and
+    whisper decode their cross-attention in plain torch, as every decode
+    step does).  Returns the SIMT launches of the `-vs-cpu` runs and the
+    tensor-core launches of the measured requests."""
+    launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    for arch, tag in ((MLA_ARCH, "mla"), (VLM_ARCH, "vlm"),
+                      (AUDIO_ARCH, "audio")):
+        fe = frontends.get(arch)
+        layers = NEW_CPU_LAYERS[arch]
+        got = phase_vs_cpu(
+            arch, f"{tag}-vs-cpu",
+            {"flash_attention": flash_per_prefill(cut_config(arch, layers))},
+            {}, layers=layers, frontend=fe)
+        launches["flash_attention"] += got["flash_attention"]
+        per_prefill = {"flash_attention_wgmma":
+                       flash_per_prefill(get_config(arch))}
+        prompt = AUDIO_PROMPT if arch == AUDIO_ARCH else SERVE_PROMPT
+        model, tokens, got = phase_serve(arch, f"serve-{tag}", per_prefill,
+                                         {}, prompt=prompt, frontend=fe)
+        launches["flash_attention_wgmma"] += got["flash_attention_wgmma"]
+        where = phase_prefill_syncs(model, tokens, arch, frontend=fe)
+        if where:
+            log(f"serve-{tag}-syncs", expected=0, found=len(where),
+                note="a prefill of this arch reads the card")
+        phase_profile(f"serve-{tag}", arch, model, tokens, ("flash_fwd",),
+                      per_prefill, {}, frontend=fe)
+        del model, tokens
+        collect_garbage()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, err, t, extra=()):
@@ -3636,10 +3971,20 @@ def main():
     phase_cr_fast_tier()
     cr_launches = phase_cr_path()
     for arch in (MOE_ARCH, HYBRID_ARCH, XLSTM_ARCH):
-        phase_train_vs_cpu("train-families-vs-cpu", arch, TRAIN_CPU_LAYERS,
-                           ("float32",))
+        phase_train_vs_cpu("train-families-vs-cpu", arch,
+                           FAMILIES_CPU_LAYERS[arch], ("float32",))
     moe_cfg, moe_losses, moe_peak = phase_train_families()
     phase_executor_moe(moe_cfg, moe_losses, moe_peak)
+    # slice 10's rest: one seeded frontend per family, shared by its
+    # training, -vs-cpu, serve and profile phases
+    frontends = {arch: seeded_frontend(get_config(arch), SERVE_BATCH,
+                                       SEED + 7)
+                 for arch in (VLM_ARCH, AUDIO_ARCH)}
+    for arch in (MLA_ARCH, VLM_ARCH, AUDIO_ARCH):
+        phase_train_vs_cpu("train-new-families-vs-cpu", arch,
+                           NEW_CPU_LAYERS[arch], ("float32",),
+                           frontend=frontends.get(arch))
+    phase_train_new_families(frontends)
     attn_err = phase_attn_compare()
     attn = phase_attn_time()
     n_dense = get_config(SERVE_ARCH).n_layers
@@ -3699,6 +4044,7 @@ def main():
     del model
     collect_garbage()
     torch.cuda.empty_cache()
+    new_flash = phase_new_families_serve(frontends)
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     gmm_src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
     record = {"kernels": [kernel_entry(
@@ -3718,14 +4064,17 @@ def main():
             cr_launches[name], max(codec_err, codec[name]["max_abs_err"]),
             codec[name])
         for name, line in (("quantize", 22), ("dequantize", 30))] + [
-        # the SIMT kernels' launches: the fp32 serve paths ([*-vs-cpu])
+        # the SIMT kernels' launches: the fp32 serve paths ([serve-vs-cpu],
+        # [mla-vs-cpu], [vlm-vs-cpu], [audio-vs-cpu])
         kernel_entry("flash_attention_fwd", flash_src,
                      "src/repro/kernels/flash_attention/kernel.py:34",
-                     dense_cpu["flash_attention"], attn_err["simt"],
+                     dense_cpu["flash_attention"]
+                     + new_flash["flash_attention"], attn_err["simt"],
                      attn["simt"]),
         kernel_entry("flash_attention_fwd_wgmma", flash_src,
                      "src/repro/kernels/flash_attention/kernel.py:34",
-                     dense["flash_attention_wgmma"], attn_err["wgmma"],
+                     dense["flash_attention_wgmma"]
+                     + new_flash["flash_attention_wgmma"], attn_err["wgmma"],
                      attn["wgmma"]),
         kernel_entry("ssm_scan",
                      "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",

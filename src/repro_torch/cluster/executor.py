@@ -45,7 +45,7 @@ from repro_torch.core.omfs import scheduler_pass
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.core.types import ClusterState, Job, JobState, SchedulerConfig, User
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, resolve_frontend
 from repro_torch.obs.bus import EventBus
 from repro_torch.train.state import (
     TrainState,
@@ -61,12 +61,18 @@ class TrainJob:
 
     ``model`` gives the architecture; the job keeps its parameters on
     ``device`` only while it holds a state (the model is released at
-    construction)."""
+    construction).  The VLM and the audio model feed every step
+    ``frontend`` (``data_cfg.global_batch`` rows on ``device``), by
+    default the reference launchers' stub of zeros, made for each step so
+    that a released job holds no tensor."""
 
     def __init__(self, model: Model, tcfg: TrainConfig, data_cfg: DataConfig,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", frontend=None):
         self.model = model.release()
         self.device = resolve_device(device)
+        # a given frontend is checked here; the stub is made for each step
+        self.frontend = (None if frontend is None else resolve_frontend(
+            model.cfg, frontend, 0, self.device))
         self.tcfg = tcfg
         self.data = SyntheticLM(data_cfg)
         self.seed = seed
@@ -83,6 +89,10 @@ class TrainJob:
     def run_step(self) -> float:
         cursor = int(self.state.data_cursor)        # a host tensor
         batch = shard_batch(self.data.batch_at(cursor), self.device)
+        frontend = resolve_frontend(self.model.cfg, self.frontend,
+                                    self.data.cfg.global_batch, self.device)
+        if frontend is not None:
+            batch["frontend"] = frontend
         self.state, metrics = self._step_fn(self.state, batch)
         loss = float(metrics["loss"])               # the step's host sync
         self.losses.append(loss)
@@ -302,10 +312,12 @@ class ClusterExecutor:
 
 
 def small_train_job(tmpdir: Path, *, arch_cfg, vocab=None, seq=64, batch=8,
-                    lr=1e-3, seed=0, device="cuda") -> TrainJob:
+                    lr=1e-3, seed=0, device="cuda",
+                    frontend=None) -> TrainJob:
     """Convenience: a small real TrainJob on the smoke config of an arch,
-    on ``device``."""
+    on ``device`` (``frontend``: `TrainJob`'s)."""
     model = Model(arch_cfg, device="meta", q_chunk=32, kv_chunk=32)
     tcfg = TrainConfig(lr=lr, warmup_steps=10, total_steps=1000)
     dcfg = DataConfig(vocab=arch_cfg.vocab, seq_len=seq, global_batch=batch, seed=seed)
-    return TrainJob(model, tcfg, dcfg, seed=seed, device=device)
+    return TrainJob(model, tcfg, dcfg, seed=seed, device=device,
+                    frontend=frontend)

@@ -7,7 +7,11 @@ objects are read attribute by attribute, and a reference tree of arrays
 (a ``TrainState``) crosses leaf by leaf through ``__array__``.  A
 reference model's params tree crosses into a port `models.model.Model`
 by `load_reference_params`, and a reference ``TrainState`` into a port
-`train.state.TrainState` over that model by `load_reference_train_state`.
+`train.state.TrainState` over that model by `load_reference_train_state`:
+both walk the trees path by path, so they take every family's tree (MLA's
+attention keys, the VLM's ``cross`` and ``vision_proj``, the audio
+model's ``enc`` / ``dec`` with their LayerNorms' ``scale`` and ``bias``)
+and check every path, shape and dtype.
 """
 from __future__ import annotations
 

@@ -23,6 +23,12 @@ reference's ``ops.py:35 flash_attention``.  The model's prefill attention
   fp32 on the CUDA cores).  Both take contiguous tensors with
   ``D <= 128``.
 
+* V may be narrower than Q and K (MLA: Dk = 96, Dv = 64).  The kernels
+  take one head dim, so the wrapper pads V with zero columns to Dk and
+  returns the first Dv columns of the output: the exact function, since a
+  zero column of V adds exactly zero to every output column, at the cost
+  of the padded copy and of Dk - Dv columns of P.V (`PERF.md` has it).
+
 ``LAUNCHES`` counts launches of the SIMT kernel and ``WGMMA_LAUNCHES``
 those of the tensor-core kernel on the card; the CPU path moves neither.
 """
@@ -84,10 +90,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_shapes(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q [B, Sq, H, D] and k, v [B, Skv, KVH, D], "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3] or v.shape[3] > k.shape[3]):
+        raise ValueError(f"expected q [B, Sq, H, D], k [B, Skv, KVH, D] and "
+                         f"v [B, Skv, KVH, Dv <= D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
@@ -131,10 +138,13 @@ def launch(q, k, v, route: str, *, causal: bool = True, window: int = 0,
            n_meta: int = 0) -> torch.Tensor:
     """Run the named kernel (``"simt"`` or ``"wgmma"``) on CUDA tensors
     that `flash_attention` has checked; raise if that kernel does not take
-    them."""
+    them.  A V narrower than K is padded with zero columns to K's head dim
+    and the output cut back to V's."""
     global LAUNCHES, WGMMA_LAUNCHES
     b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if dv < d:
+        v = torch.nn.functional.pad(v, (0, d - dv))
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if q.dtype not in _DTYPES:
@@ -168,14 +178,15 @@ def launch(q, k, v, route: str, *, causal: bool = True, window: int = 0,
               v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, sq, skv, h,
               kvh, d, scale, int(causal), int(window), int(n_meta))
         LAUNCHES += 1
-    return out
+    return out if dv == d else out[..., :dv]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     n_meta: int = 0) -> torch.Tensor:
-    """q [B, Sq, H, D], k and v [B, Skv, KVH, D] -> [B, Sq, H, D] in q's
-    dtype; positions are the row and column indices (top-left aligned)."""
+    """q [B, Sq, H, D], k [B, Skv, KVH, D], v [B, Skv, KVH, Dv <= D] ->
+    [B, Sq, H, Dv] in q's dtype; positions are the row and column indices
+    (top-left aligned)."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,

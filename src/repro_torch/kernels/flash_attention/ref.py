@@ -5,7 +5,9 @@ Full fp32 scores of the inputs converted to fp32, times ``sm_scale``; the
 visibility rule of the TPU kernel (row and column index as positions:
 causal, sliding window, always-visible meta tokens); masked scores
 ``-1e30``; an fp32 softmax; fp32 P·V; the result cast to q's dtype.  GQA
-repeats each KV head over its ``group`` query heads.
+repeats each KV head over its ``group`` query heads.  V may be narrower
+than Q and K (Dv <= D): P·V gives Dv columns, which are the first Dv
+columns of the kernels' launch on V padded with zero columns to D.
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   group: int, causal: bool = True, window: int = 0,
                   n_meta: int = 0,
                   sm_scale: Optional[float] = None) -> torch.Tensor:
-    """q [BH, Sq, d], k and v [BKV, Skv, d] (BH = BKV * group) ->
-    [BH, Sq, d] in q's dtype."""
+    """q [BH, Sq, d], k [BKV, Skv, d], v [BKV, Skv, dv] (BH = BKV * group)
+    -> [BH, Sq, dv] in q's dtype."""
     _, sq, d = q.shape
     skv = k.shape[1]
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
@@ -55,13 +57,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         n_meta: int = 0) -> torch.Tensor:
-    """The model layout: q [B, Sq, H, D], k and v [B, Skv, KVH, D] ->
-    [B, Sq, H, D], scaled by the true head dim ``D ** -0.5``."""
+    """The model layout: q [B, Sq, H, D], k [B, Skv, KVH, D], v [B, Skv,
+    KVH, Dv] -> [B, Sq, H, Dv], scaled by the true head dim ``D ** -0.5``."""
     b, sq, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[3]
     qt = q.transpose(1, 2).reshape(b * h, sq, d)
     kt = k.transpose(1, 2).reshape(b * kvh, k.shape[1], d)
-    vt = v.transpose(1, 2).reshape(b * kvh, v.shape[1], d)
+    vt = v.transpose(1, 2).reshape(b * kvh, v.shape[1], dv)
     out = attention_ref(qt, kt, vt, group=h // kvh, causal=causal,
                         window=window, n_meta=n_meta)
-    return out.reshape(b, h, sq, d).transpose(1, 2)
+    return out.reshape(b, h, sq, dv).transpose(1, 2)

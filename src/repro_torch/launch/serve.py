@@ -17,16 +17,18 @@ is built before the first request, so a scrape reads memory.  ``--arch``
 is required without it.
 
 Runs on the card unless ``--device cpu`` is given, and raises without
-CUDA.  Seven archs are ported: the dense GQA family (internlm2-1.8b,
-glm4-9b, mistral-nemo-12b), the MoE family (deepseek-moe-16b, whose 67.5
-GB of fp32 master weights fit one 80 GB card, and dbrx-132b, which at its
-full size needs the expert-parallel sharding of ROADMAP slice 11 and
-serves here at its smoke size), the hybrid hymba-1.5b and xlstm-350m; the
-other archs (MLA, VLM, audio) raise ``NotImplementedError`` naming ROADMAP
-slice 10.  No trained weights are in the repository, so the generated ids
-are meaningless; the path and its sizes are the real ones.  Prints the
-reference's lines: the run, prefill ms and tok/s, decode ms and tok/s, and
-the first generated row.
+CUDA.  Every arch of ``configs/`` serves: the dense GQA family
+(internlm2-1.8b, glm4-9b, mistral-nemo-12b), minicpm3-4b (MLA), the MoE
+family (deepseek-moe-16b, whose 67.5 GB of fp32 master weights fit one 80
+GB card, and dbrx-132b, which at its full size needs the expert-parallel
+sharding of ROADMAP slice 11 and serves here at its smoke size), the
+hybrid hymba-1.5b, xlstm-350m, llama-3.2-vision-11b and whisper-base.  The
+VLM's and the audio model's frontends are stubs, as in the reference: zero
+patch or frame embeddings (`models.model.frontend_stub`), unless a caller
+of `generate` passes its own.  No trained weights are in the repository,
+so the generated ids are meaningless; the path and its sizes are the real
+ones.  Prints the reference's lines: the run, prefill ms and tok/s, decode
+ms and tok/s, and the first generated row.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.omfs_torch import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, resolve_frontend
 
 
 @dataclass
@@ -86,14 +88,21 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def generate(model: Model, tokens: torch.Tensor, gen: int,
-             cache_dtype=torch.bfloat16) -> ServeResult:
-    """Prefill ``tokens`` [B, S], then ``gen - 1`` greedy decode steps."""
+             cache_dtype=torch.bfloat16, frontend=None) -> ServeResult:
+    """Prefill ``tokens`` [B, S], then ``gen - 1`` greedy decode steps.
+    The VLM and the audio model read ``frontend`` (patch or frame
+    embeddings on the tokens' device), by default `frontend_stub`'s
+    zeros; the other families take none."""
     b, t = tokens.shape
     dev = tokens.device
+    batch = {"tokens": tokens}
+    frontend = resolve_frontend(model.cfg, frontend, b, dev)
+    if frontend is not None:
+        batch["frontend"] = frontend
     cache = model.init_cache(b, t + gen, dtype=cache_dtype)
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = model.prefill({"tokens": tokens}, cache)
+    cache, logits = model.prefill(batch, cache)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits

@@ -13,12 +13,15 @@ memory the checkpoint manager's fast tier may hold, default 4 as
 attention chunks are the model's default, 1,024 (the reference's launcher
 takes 64: the chunk changes only the order of the softmax sums, and a
 chunk of 64 at 2,048 tokens is a thousand small launches per layer on the
-card).  The dense (internlm2-1.8b, glm4-9b, mistral-nemo-12b), MoE
-(deepseek-moe-16b, dbrx-132b), hybrid (hymba-1.5b) and xLSTM (xlstm-350m)
-families train, and no kernel of the port runs in a step; MLA, VLM and
-audio raise ``NotImplementedError`` naming ROADMAP slice 10.  The
-reference imports ``optim/compression`` without calling it; the port
-leaves it out (ROADMAP slice 11).
+card).  Every arch of ``configs/`` trains: the dense (internlm2-1.8b,
+glm4-9b, mistral-nemo-12b), MLA (minicpm3-4b), MoE (deepseek-moe-16b,
+dbrx-132b), hybrid (hymba-1.5b), xLSTM (xlstm-350m), VLM
+(llama-3.2-vision-11b) and audio (whisper-base) families, and no kernel
+of the port runs in a step.  The VLM's and the audio model's frontends
+are stubs, as in the reference: every step feeds zero patch or frame
+embeddings (`models.model.frontend_stub`), unless a caller of `run`
+passes its own ``frontend``.  The reference imports ``optim/compression``
+without calling it; the port leaves it out (ROADMAP slice 11).
 
 `run` is the loop, with its periodic fast-tier checkpoints; it returns a
 `TrainRun` record (per-step losses, grad norms and wall seconds, the
@@ -50,7 +53,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, resolve_frontend
 from repro_torch.models.transformer import check_trainable
 from repro_torch.train.state import (
     TrainState,
@@ -79,6 +82,8 @@ class TrainRun:
     device: torch.device
     start_step: int
     resumed_from: Optional[str] = None
+    #: the VLM's or the audio model's frontend, fed to every step
+    frontend: Optional[torch.Tensor] = None
     losses: List[float] = field(default_factory=list)
     grad_norms: List[float] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
@@ -104,10 +109,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
-        ) -> TrainRun:
+def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
+        frontend: Optional[torch.Tensor] = None) -> TrainRun:
     """The training loop of ``args``; ``cfg`` replaces the arch's config
-    (its published or ``--smoke`` one) where given."""
+    (its published or ``--smoke`` one) where given, and ``frontend`` (on
+    the run's device, ``args.batch`` rows) the VLM's or the audio model's
+    stub frontend."""
     if cfg is None:
         cfg = (get_smoke_config(args.arch) if args.smoke
                else get_config(args.arch))
@@ -134,9 +141,11 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         state = init_train_state(model.params(), args.seed)
         print("cold start")
     step_fn = make_train_step(model, tcfg)
+    frontend = resolve_frontend(cfg, frontend, args.batch, dev)
     rec = TrainRun(cfg=cfg, model=model, state=state, mgr=mgr,
                    step_fn=step_fn, data=data, device=dev,
-                   start_step=int(state.step), resumed_from=resumed_from)
+                   start_step=int(state.step), resumed_from=resumed_from,
+                   frontend=frontend)
 
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -163,6 +172,8 @@ def step_once(rec: TrainRun) -> List[float]:
     grad_norm, lr]`` read back to the host in one sync."""
     batch = shard_batch(rec.data.batch_at(int(rec.state.data_cursor)),
                         rec.device)
+    if rec.frontend is not None:
+        batch["frontend"] = rec.frontend
     rec.state, metrics = rec.step_fn(rec.state, batch)
     return torch.stack([metrics["step"], metrics["loss"],
                         metrics["grad_norm"], metrics["lr"]]).tolist()

@@ -22,6 +22,11 @@ The port of ``src/repro/models/attention.py``.
   builds its own there) carry a mark and pass without a look at their
   values; any other positions are compared with arange, which on the card
   costs a device read (a host sync).
+* ``noncausal_attention`` is the reference prefill's cross-attention and
+  Whisper encoder call, ``chunked_attention(q, k, v, zeros, zeros,
+  causal=False, ...)`` with Sq != Skv allowed: every key visible to every
+  query, a function of no position, so it takes none and calls the flash
+  kernel with ``causal=False, window=0, n_meta=0``.
 * ``decode_attention`` is plain torch, as in the reference (no kernel):
   fp32 scores, then P cast to the cache's dtype before P·V
   (``attention.py:184``).
@@ -172,8 +177,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       n_meta: int = 0) -> torch.Tensor:
-    """q [B, S, H, D], k and v [B, S, KVH, D], positions [B, S] that must
-    be ``arange(S)`` in every row -> [B, S, H, D] in q's dtype."""
+    """q [B, S, H, D], k [B, S, KVH, D], v [B, S, KVH, Dv <= D],
+    positions [B, S] that must be ``arange(S)`` in every row -> [B, S, H,
+    Dv] in q's dtype."""
     if q_pos.shape != kv_pos.shape or not _is_arange(q_pos) or (
             kv_pos is not q_pos and not _is_arange(kv_pos)):
         raise ValueError("prefill_attention takes positions arange(S) only "
@@ -181,6 +187,20 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "other positions need chunked_attention")
     return flash_attention(q, k, v, causal=causal, window=window,
                            n_meta=n_meta)
+
+
+def zero_positions(batch: int, length: int, device) -> torch.Tensor:
+    """int32 positions [batch, length] of 0: with zeros on both sides
+    every key is visible to every query, as the reference's cross-attention
+    passes them."""
+    return torch.zeros((batch, length), dtype=torch.int32, device=device)
+
+
+def noncausal_attention(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """q [B, Sq, H, D], k [B, Skv, KVH, D], v [B, Skv, KVH, Dv <= D] ->
+    [B, Sq, H, Dv] in q's dtype, every key visible to every query."""
+    return flash_attention(q, k, v, causal=False, window=0, n_meta=0)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Shared model primitives: initialisers, norms, rotary embeddings, MLPs.
+"""Shared model primitives: initialisers, norms, rotary and sinusoidal
+position embeddings, MLPs.
 
-The port of ``src/repro/models/layers.py`` for the serving path.
+The port of ``src/repro/models/layers.py``.
 Layers are functions ``(params, x, ...) -> y`` over nested dicts of
 tensors, as in the reference.  Parameter *structure* helpers return spec
 dicts ``{name: (shape, init, dtype) | subdict}`` that `models.model.Model`
@@ -65,6 +66,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (normed * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with a bias (Whisper), computed in fp32, output in
+    x.dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -94,6 +106,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_positions: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positional embedding [n, dim], fp32:
+    sines then cosines of ``pos * exp(-i log(10^4) / (dim/2 - 1))``."""
+    half = dim // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    pos = (torch.arange(n_positions, dtype=torch.float32,
+                        device=device)[:, None] * inv[None, :])
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +153,14 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(gate) * up) @ params["w_down"].to(x.dtype)
 
 
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Plain tanh-GELU MLP (Whisper): params {w_in [d,f], b_in, w_out
+    [f,d], b_out}, weights and biases cast to x's dtype at each use."""
+    h = x @ params["w_in"].to(x.dtype)
+    h = F.gelu(h + params["b_in"].to(x.dtype), approximate="tanh")
+    return h @ params["w_out"].to(x.dtype) + params["b_out"].to(x.dtype)
+
+
 def swiglu_params(d_model: int, d_ff: int, dtype) -> dict:
     """Shape/init spec for a SwiGLU MLP."""
     return {
@@ -135,6 +168,24 @@ def swiglu_params(d_model: int, d_ff: int, dtype) -> dict:
         "w_up": ((d_model, d_ff), dense_init, dtype),
         "w_down": ((d_ff, d_model), dense_init, dtype),
     }
+
+
+def gelu_mlp_params(d_model: int, d_ff: int, dtype) -> dict:
+    """Shape/init spec for a GELU MLP with biases."""
+    return {
+        "w_in": ((d_model, d_ff), dense_init, dtype),
+        "b_in": ((d_ff,), zeros_init, dtype),
+        "w_out": ((d_ff, d_model), dense_init, dtype),
+        "b_out": ((d_model,), zeros_init, dtype),
+    }
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a nested dict of stacked ``[L, ...]`` tensors (a
+    stack's weights or cache): views, so that a write into one writes the
+    stack."""
+    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
 
 
 def stack_specs(spec: dict, n: int) -> dict:

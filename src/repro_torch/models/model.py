@@ -1,35 +1,45 @@
-"""The model facade of the serving path: the dense GQA family
-(internlm2-1.8b, glm4-9b, mistral-nemo-12b), the MoE family
-(deepseek-moe-16b, dbrx-132b), the hybrid family (hymba-1.5b) and the
-xLSTM family (xlstm-350m); the port of ``src/repro/models/model.py``'s
-serving path, and the dense family's training loss.
+"""The model facade over the ten archs of ``configs/``: the dense GQA
+family (internlm2-1.8b, glm4-9b, mistral-nemo-12b), MLA (minicpm3-4b), the
+MoE family (deepseek-moe-16b, dbrx-132b), the hybrid family (hymba-1.5b),
+the xLSTM family (xlstm-350m), the VLM (llama-3.2-vision-11b) and the
+audio encoder-decoder (whisper-base); the port of
+``src/repro/models/model.py``.
 
 `Model` is an ``nn.Module`` whose parameters keep the reference's tree and
 shapes (``embed``, ``norm_f``, ``unembed``, ``meta``, then ``blocks/...``
 stacked on ``[L, ...]``, or ``m_blocks`` / ``s_blocks`` stacked on the
-xLSTM's ``[P, ...]`` pairs) in the config's ``param_dtype``, so one
-``state_dict`` serves the reference's params, the checkpoint service and
-the training slice.  Methods:
+xLSTM's ``[P, ...]`` pairs; the VLM's ``blocks`` of its self layers,
+``cross`` of its cross-attention blocks and ``vision_proj``; the audio
+model's ``enc`` and ``dec``, each ``blocks`` and ``ln_f``) in the config's
+``param_dtype``, so one ``state_dict`` serves the reference's params, the
+checkpoint service and the training slice.  Methods:
 
 * ``init(generator)`` — fill the parameters from a ``torch.Generator``.
 * ``loss(batch, params=None)`` — the causal-LM loss, with autograd, for
-  the dense, MoE, hybrid (its meta tokens prepended) and xLSTM families
-  (chunked CE: the ``[B, T, V]`` logits are never materialised);
-  ``params`` defaults to the model's own.  No kernel of the port runs in
-  it: each family's mixers take their train forms.
+  every family (hybrid: its meta tokens prepended; VLM and audio: the
+  batch's ``frontend``), with chunked CE (the ``[B, T, V]`` logits are
+  never materialised); ``params`` defaults to the model's own.  No kernel
+  of the port runs in it: each family's mixers take their train forms.
 * ``release()`` / ``materialise(device)`` / ``adopt(params)`` — drop every
   parameter's storage (meta tensors), allocate it again, or take a tree
   of tensors (a restored checkpoint) as the parameters without a copy:
   the hooks a preemptible training job needs.
 * ``prefill(batch, cache)`` — populate the cache, return last logits.
+  The VLM's and the audio model's batch carries ``frontend``: vision
+  patch embeddings [B, n_patches, vision_dim] (projected by
+  ``vision_proj``) or audio frame embeddings [B, n_audio_ctx, d_model]
+  (the encoder's input); decode reads what the prefill cached.
 * ``decode_step(cache, tokens)`` — one serve step.
 * ``init_cache(batch, max_seq, dtype)`` — the reference's cache layout:
-  ``length`` [] int32; for the attention families (dense, MoE, hybrid)
-  ``pos`` [B, S] int32 and ``layers.k``, ``layers.v`` [L, B, S, KVH, D],
-  plus for the hybrid family
+  ``length`` [] int32; for the attention families ``pos`` [B, S] int32 and
+  ``layers.k``, ``layers.v`` [L, B, S, KVH, D] (MLA instead
+  ``layers.ckv`` [L, B, S, r_kv] and ``layers.kr`` [L, B, S, d_rope]; the
+  VLM over its self layers only), plus for the hybrid family
   ``layers.ssm_h`` [L, B, d_inner, d_state] fp32 and ``layers.ssm_conv``
-  [L, B, d_conv - 1, d_inner]; for the xLSTM family ``layers`` is an
-  `models.xlstm.XLSTMStackState` and there is no ``pos``.
+  [L, B, d_conv - 1, d_inner], for the VLM ``layers.xk``, ``layers.xv``
+  [n_groups, B, n_patches, KVH, D] and for the audio model ``layers.xk``,
+  ``layers.xv`` [L, B, n_audio_ctx, KVH, D]; for the xLSTM family
+  ``layers`` is an `models.xlstm.XLSTMStackState` and there is no ``pos``.
 
 Weights are cast to the compute dtype at each use, as the reference does
 (a bf16 serving copy is later performance work).  ``prefill`` and
@@ -38,12 +48,11 @@ dict over them with the new ``length``.  Every xLSTM prefill and decode
 step runs the mLSTM kernel from the cache's carried state
 (`models.xlstm`), reading nothing back to the host.  An MoE layer
 whose tokens exceed the grouped-matmul kernel's row tile reads its largest
-expert count once on the host (`models.moe`).  MLA, VLM and audio raise
-``NotImplementedError`` (ROADMAP slice 10).
+expert count once on the host (`models.moe`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -53,6 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import flat_paths
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whisper_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import arange_positions, cache_pos_write
 from repro_torch.models.layers import (
@@ -137,8 +147,8 @@ def _as_dict(node: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A dense, MoE, hybrid or xLSTM decoder on ``device`` (``"cuda"``
-    unless the caller asks for ``"cpu"``; ``"meta"`` for shapes only)."""
+    """One arch of ``configs/`` on ``device`` (``"cuda"`` unless the caller
+    asks for ``"cpu"``; ``"meta"`` for shapes only)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", *,
                  q_chunk: int = 1024, kv_chunk: int = 1024):
@@ -165,15 +175,35 @@ class Model(nn.Module):
         if cfg.n_meta_tokens:
             spec["meta"] = ((cfg.n_meta_tokens, cfg.d_model), embed_init,
                             dtype)
-        if cfg.family == "ssm":
+        if cfg.family in ("dense", "moe", "hybrid"):
+            spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
+                                         cfg.n_layers)
+        elif cfg.family == "vlm":
+            per = cfg.vision.cross_attn_every
+            n_groups = cfg.n_layers // per
+            spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
+                                         n_groups * (per - 1))
+            spec["cross"] = stack_specs(
+                tfm.cross_block_params_spec(cfg, dtype), n_groups)
+            spec["vision_proj"] = ((cfg.vision.vision_dim, cfg.d_model),
+                                   dense_init, dtype)
+        elif cfg.family == "ssm":
             n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
             spec["m_blocks"] = stack_specs(xlstm_mod.mlstm_params_spec(
                 cfg.d_model, cfg.n_heads, cfg.xlstm, dtype), n_pairs)
             spec["s_blocks"] = stack_specs(xlstm_mod.slstm_params_spec(
                 cfg.d_model, cfg.n_heads, cfg.xlstm, dtype), n_pairs)
+        elif cfg.family == "audio":
+            spec["enc"] = {
+                "blocks": stack_specs(whisper_mod.enc_block_spec(cfg, dtype),
+                                      cfg.audio.n_encoder_layers),
+                "ln_f": whisper_mod._ln_spec(cfg.d_model)}
+            spec["dec"] = {
+                "blocks": stack_specs(whisper_mod.dec_block_spec(cfg, dtype),
+                                      cfg.n_layers),
+                "ln_f": whisper_mod._ln_spec(cfg.d_model)}
         else:
-            spec["blocks"] = stack_specs(tfm.block_params_spec(cfg, dtype),
-                                         cfg.n_layers)
+            raise ValueError(cfg.family)
         return spec
 
     @torch.no_grad()
@@ -242,26 +272,62 @@ class Model(nn.Module):
 
     # -- trunk --------------------------------------------------------------
 
-    def _trunk(self, params, x, positions, *, mode, cache):
+    def _trunk(self, params, x, positions, *, mode, cache, batch=None):
+        """Run the layer stack: (h after the final norm, the cache's
+        layers, written in place (None in train mode), the aux loss)."""
         cfg = self.cfg
-        if cfg.family == "ssm":
+        chunks = dict(q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kw = {}
+        if cache is not None:
+            kw = dict(cache=cache["layers"], kv_pos=cache.get("pos"),
+                      cursor=cache["length"])
+        if cfg.family in ("dense", "moe", "hybrid"):
+            h, layers, aux = tfm.stack_apply(
+                cfg, params["blocks"], x, positions, mode=mode, **kw,
+                **chunks)
+        elif cfg.family == "vlm":
+            vision = None
+            if mode != "decode":
+                vision = batch["frontend"].to(x.dtype) @ params[
+                    "vision_proj"].to(x.dtype)
+            h, layers, aux = tfm.vlm_stack_apply(
+                cfg, {"blocks": params["blocks"], "cross": params["cross"]},
+                x, positions, mode=mode, vision_states=vision, **kw,
+                **chunks)
+        elif cfg.family == "ssm":
+            if cache is None:
+                n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
+                state = xlstm_mod.XLSTMStackState.init(
+                    n_pairs, x.shape[0], cfg.d_model, cfg.n_heads, cfg.xlstm,
+                    x.dtype, x.device)
+            else:
+                state = cache["layers"]
             h, layers = xlstm_mod.xlstm_stack_apply(
-                cfg.xlstm, cfg.n_heads, params, x, cache["layers"])
+                cfg.xlstm, cfg.n_heads, params, x, state,
+                mode="train" if mode == "train" else "serve")
+        elif cfg.family == "audio":
+            enc_out = None
+            if mode != "decode":
+                enc_out = whisper_mod.encoder_forward(
+                    cfg, params["enc"], batch["frontend"].to(x.dtype),
+                    mode=mode)
+            # the decoder ends in its own LayerNorm
+            h, layers = whisper_mod.decoder_forward(
+                cfg, params["dec"], x, positions, enc_out, mode=mode, **kw)
+            return h, layers, aux
         else:
-            kv_pos = cache["pos"] if "pos" in cache else None
-            h, layers, _ = tfm.stack_apply(
-                cfg, params["blocks"], x, positions, mode=mode,
-                cache=cache["layers"], kv_pos=kv_pos, cursor=cache["length"])
-        return rms_norm(h, params["norm_f"], cfg.norm_eps), layers
+            raise ValueError(cfg.family)
+        return rms_norm(h, params["norm_f"], cfg.norm_eps), layers, aux
 
     # -- training -----------------------------------------------------------
 
     def loss(self, batch: Batch, params=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The causal-LM loss over a [B, T] batch of ``tokens`` and
-        ``labels``: (``ce + aux / n_layers``, {ce_loss, aux_loss, tokens}),
-        fp32, with autograd through ``params`` (default: the model's
-        own)."""
+        ``labels`` (and the VLM's or the audio model's ``frontend``):
+        (``ce + aux / n_layers``, {ce_loss, aux_loss, tokens}), fp32, with
+        autograd through ``params`` (default: the model's own)."""
         cfg = self.cfg
         tfm.check_trainable(cfg)
         params = self.params() if params is None else params
@@ -272,21 +338,11 @@ class Model(nn.Module):
         if nm:
             meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "ssm":
-            n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
-            fresh = xlstm_mod.XLSTMStackState.init(
-                n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, x.dtype,
-                x.device)
-            h, _ = xlstm_mod.xlstm_stack_apply(cfg.xlstm, cfg.n_heads,
-                                               params, x, fresh, mode="train")
-        else:
-            positions = self._positions(b, 0, t + nm)
-            h, _, aux = tfm.stack_apply(
-                cfg, params["blocks"], x, positions, mode="train",
-                q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
-        h = rms_norm(h, params["norm_f"], cfg.norm_eps)[:, nm:]
-        loss_sum, count = chunked_ce_loss(h, self._unembed_matrix(params),
+        positions = self._positions(b, 0, t + nm)
+        h, _, aux = self._trunk(params, x, positions, mode="train",
+                                cache=None, batch=batch)
+        loss_sum, count = chunked_ce_loss(h[:, nm:],
+                                          self._unembed_matrix(params),
                                           labels)
         loss = loss_sum / torch.clamp(count, min=1.0)
         total = loss + aux / max(cfg.n_layers, 1)
@@ -296,8 +352,9 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: Batch, cache: Cache) -> Tuple[Cache, torch.Tensor]:
-        """Populate the cache from a [B, S] prompt; returns (cache,
-        last-token fp32 logits [B, 1, V])."""
+        """Populate the cache from a [B, S] prompt (``batch["tokens"]``,
+        and the VLM's or the audio model's ``batch["frontend"]``); returns
+        (cache, last-token fp32 logits [B, 1, V])."""
         cfg = self.cfg
         params = self.params()
         tokens = batch["tokens"]
@@ -309,8 +366,8 @@ class Model(nn.Module):
             x = torch.cat([meta, x], dim=1)
         # arange(S) by construction: the flash guard reads nothing back
         positions = arange_positions(b, t + nm, self.device)
-        h, layers = self._trunk(params, x, positions, mode="prefill",
-                                cache=cache)
+        h, layers, _ = self._trunk(params, x, positions, mode="prefill",
+                                   cache=cache, batch=batch)
         new_cache = dict(cache, layers=layers)
         if "pos" in cache:
             new_cache["pos"] = cache_pos_write(cache["pos"], positions,
@@ -335,8 +392,8 @@ class Model(nn.Module):
             new_cache["pos"] = cache_pos_write(
                 cache["pos"], positions, cache["length"],
                 n_pinned=cfg.n_meta_tokens)
-        h, layers = self._trunk(params, x, positions, mode="decode",
-                                cache=new_cache)
+        h, layers, _ = self._trunk(params, x, positions, mode="decode",
+                                   cache=new_cache)
         new_cache["layers"] = layers
         new_cache["length"] = cache["length"] + t
         logits = _logits_last(h, self._unembed_matrix(params))
@@ -364,9 +421,28 @@ class Model(nn.Module):
             cache["layers"] = xlstm_mod.XLSTMStackState.init(
                 n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, dtype, dev)
             return cache
-        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, hd)
-        layers = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        n_self = cfg.n_layers
+        if cfg.family == "vlm":
+            per = cfg.vision.cross_attn_every
+            n_self = cfg.n_layers // per * (per - 1)
+        if cfg.mla is not None:
+            layers = {"ckv": zeros(n_self, b, s, cfg.mla.kv_lora_rank),
+                      "kr": zeros(n_self, b, s, cfg.mla.qk_rope_head_dim)}
+        else:
+            layers = {"k": zeros(n_self, b, s, cfg.n_kv_heads, hd),
+                      "v": zeros(n_self, b, s, cfg.n_kv_heads, hd)}
+        if cfg.family == "vlm":
+            n_groups = cfg.n_layers // cfg.vision.cross_attn_every
+            for name in ("xk", "xv"):
+                layers[name] = zeros(n_groups, b, cfg.vision.n_patches,
+                                     cfg.n_kv_heads, hd)
+        if cfg.family == "audio":
+            for name in ("xk", "xv"):
+                layers[name] = zeros(cfg.n_layers, b, cfg.audio.n_audio_ctx,
+                                     cfg.n_kv_heads, hd)
         if cfg.family == "hybrid":
             di = cfg.ssm.expand * cfg.d_model
             layers["ssm_h"] = torch.zeros(
@@ -378,6 +454,32 @@ class Model(nn.Module):
         cache["layers"] = layers
         cache["pos"] = torch.full((b, s), -1, dtype=torch.int32, device=dev)
         return cache
+
+
+def frontend_stub(cfg: ModelConfig, batch_size: int, device):
+    """The stub frontend the reference's launchers feed the VLM and the
+    audio model, zero bf16 embeddings: [B, n_patches, vision_dim] patches
+    or [B, n_audio_ctx, d_model] frames; None for the other families."""
+    if cfg.family == "vlm":
+        shape = (batch_size, cfg.vision.n_patches, cfg.vision.vision_dim)
+    elif cfg.family == "audio":
+        shape = (batch_size, cfg.audio.n_audio_ctx, cfg.d_model)
+    else:
+        return None
+    return torch.zeros(shape, dtype=torch.bfloat16,
+                       device=resolve_device(device))
+
+
+def resolve_frontend(cfg: ModelConfig, frontend: Optional[torch.Tensor],
+                     batch_size: int, device) -> Optional[torch.Tensor]:
+    """The frontend a batch of ``batch_size`` rows carries: ``frontend``
+    where given (only the VLM and the audio model take one: the other
+    families raise ValueError), else `frontend_stub`'s."""
+    if frontend is None:
+        return frontend_stub(cfg, batch_size, device)
+    if cfg.family not in ("vlm", "audio"):
+        raise ValueError(f"{cfg.name} takes no frontend")
+    return frontend
 
 
 def count_params(cfg: ModelConfig) -> dict:

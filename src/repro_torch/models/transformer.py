@@ -1,10 +1,10 @@
-"""Decoder stack of the dense GQA, MoE and hybrid (Hymba) families.
+"""Decoder stacks of the dense GQA, MLA, MoE, hybrid (Hymba) and VLM
+(Llama-3.2-Vision) families.
 
-The port of the dense, MoE and hybrid branches of
-``src/repro/models/transformer.py``.  Stacked ``[L, ...]`` layer weights,
-as in the reference; the stack is a Python loop over the layers (the
-reference's ``lax.scan``), each layer reading its slice of the weights and
-of the cache.
+The port of ``src/repro/models/transformer.py``.  Stacked ``[L, ...]``
+layer weights, as in the reference; the stack is a Python loop over the
+layers (the reference's ``lax.scan``), each layer reading its slice of the
+weights and of the cache.
 
 Modes
 -----
@@ -26,10 +26,16 @@ rms(ssm))``; its SSM state lives in the layer's ``ssm_h`` / ``ssm_conv``
 cache, read and written in place (train mode starts each layer from the
 zero state and writes nothing).  An MoE layer's channel mix is
 `models.moe.moe_ffn` (the grouped-matmul kernel; in train mode
-`moe_ffn_train`), and its aux loss is summed over the stack.  The
-reference's ``constrain_heads``, its sharded-decode branch and its
-expert-parallel MoE dispatch are the identity on one device; they wait
-for slice 11.  MLA, VLM and audio blocks raise (slice 10).
+`moe_ffn_train`), and its aux loss is summed over the stack.  An MLA layer
+(`models.mla`) caches its latent ``ckv`` and rotary key ``kr`` and decodes
+in the absorbed form.  The VLM stack (`vlm_stack_apply`) runs groups of
+``cross_attn_every - 1`` self layers, each followed by one gated
+cross-attention block over the projected vision states, whose K and V it
+caches per group (``xk``, ``xv``) at prefill and reads at decode; the
+cross-attention is non-causal (the flash kernel at prefill, plain torch at
+decode and in train mode).  The reference's ``constrain_heads``, its
+sharded-decode branch and its expert-parallel MoE dispatch are the
+identity on one device; they wait for slice 11.
 """
 from __future__ import annotations
 
@@ -39,41 +45,40 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     cache_write,
+    cache_write_single,
     chunked_attention,
     decode_attention,
+    noncausal_attention,
     prefill_attention,
+    zero_positions,
 )
 from repro_torch.models.layers import (
     apply_rope,
     dense_init,
+    layer_slice,
     ones_init,
     rms_norm,
     swiglu,
     swiglu_params,
+    zeros_init,
 )
 
-
-def _ported_block(cfg: ModelConfig) -> None:
-    if cfg.mla is not None or cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the ported archs are internlm2-1.8b, glm4-9b, "
-            "mistral-nemo-12b, deepseek-moe-16b, dbrx-132b, hymba-1.5b and "
-            "xlstm-350m; MLA, VLM and audio are ROADMAP slice 10")
-
-
-TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+#: every family of ``configs/``: dense (GQA or MLA), MoE, hybrid, xLSTM,
+#: VLM and audio
+TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless the port trains ``cfg``'s family."""
-    if cfg.family not in TRAIN_FAMILIES or cfg.mla is not None:
+    if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: train mode is ported for the dense, MoE, hybrid "
-            "and xLSTM families; MLA, VLM and audio are ROADMAP slice 10")
+            f"{cfg.name}: family {cfg.family!r} has no train mode; the port "
+            f"trains {', '.join(TRAIN_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -143,17 +148,47 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return out, new_cache
 
 
+def _mla_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                   positions: torch.Tensor, *, mode: str,
+                   layer_cache: Optional[dict], kv_pos, cursor, q_chunk: int,
+                   kv_chunk: int) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The MLA sub-layer: (out [B, T, d], the layer's cache {ckv, kr},
+    written in place; None in train mode)."""
+    mla = cfg.mla
+    if mode == "decode":
+        ckv_new, kr_new = mla_mod.mla_latents(mla, p, h, positions,
+                                              cfg.rope_theta)
+        ckv = cache_write_single(layer_cache["ckv"], ckv_new, cursor)
+        kr = cache_write_single(layer_cache["kr"], kr_new, cursor)
+        out = mla_mod.mla_attention_decode(mla, cfg.n_heads, p, h, positions,
+                                           ckv, kr, kv_pos, cfg.rope_theta)
+        return out, {"ckv": ckv, "kr": kr}
+    if mode not in ("train", "prefill"):
+        raise ValueError(mode)
+    out, (ckv_new, kr_new) = mla_mod.mla_attention_full(
+        mla, cfg.n_heads, p, h, positions, cfg.rope_theta, mode=mode,
+        q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if mode == "train":
+        return out, None
+    return out, {"ckv": cache_write_single(layer_cache["ckv"], ckv_new,
+                                           cursor),
+                 "kr": cache_write_single(layer_cache["kr"], kr_new, cursor)}
+
+
 # ---------------------------------------------------------------------------
 # Layer blocks
 # ---------------------------------------------------------------------------
 
 
 def block_params_spec(cfg: ModelConfig, dtype) -> dict:
-    """Parameter spec for one dense, MoE or hybrid decoder layer."""
-    _ported_block(cfg)
+    """Parameter spec for one decoder layer of the cfg's family."""
     spec: dict = {"norm_attn": ((cfg.d_model,), ones_init, torch.float32),
-                  "norm_ffn": ((cfg.d_model,), ones_init, torch.float32),
-                  "attn": gqa_params_spec(cfg, dtype)}
+                  "norm_ffn": ((cfg.d_model,), ones_init, torch.float32)}
+    if cfg.mla is not None:
+        spec["attn"] = mla_mod.mla_params_spec(cfg.d_model, cfg.n_heads,
+                                               cfg.mla, dtype)
+    else:
+        spec["attn"] = gqa_params_spec(cfg, dtype)
     if cfg.moe is not None:
         spec["ffn"] = moe_mod.moe_params_spec(cfg.d_model, cfg.moe, dtype)
     elif cfg.d_ff > 0:
@@ -171,16 +206,19 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   kv_pos: Optional[torch.Tensor] = None, cursor=None,
                   q_chunk: int = 1024, kv_chunk: int = 1024
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
-    """One dense, MoE or hybrid decoder layer.  Returns (x, layer_cache,
-    aux_loss): the MoE layer's load-balance loss, else 0."""
-    _ported_block(cfg)
-    if mode == "train":
-        check_trainable(cfg)
+    """One decoder layer (GQA or MLA attention; dense, MoE or hybrid
+    channel mix).  Returns (x, layer_cache, aux_loss): the MoE layer's
+    load-balance loss, else 0."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    attn_out, new_cache = gqa_attention(
-        cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
-        kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if cfg.mla is not None:
+        attn_out, new_cache = _mla_attention(
+            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
+            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    else:
+        attn_out, new_cache = gqa_attention(
+            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
+            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
     if cfg.family == "hybrid" and cfg.ssm is not None:
         # Hymba: attention and mamba heads in parallel on the same normed
         # input, each output normed, then averaged
@@ -207,13 +245,67 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The stack: a loop over stacked [L, ...] layer params and cache slices
+# Cross-attention block (VLM)
 # ---------------------------------------------------------------------------
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def cross_block_params_spec(cfg: ModelConfig, dtype) -> dict:
+    """Parameter spec of one gated cross-attention block; its gates start
+    at zero, so that at init the block adds nothing."""
+    hd = cfg.resolved_head_dim
+    return {
+        "norm_attn": ((cfg.d_model,), ones_init, torch.float32),
+        "norm_ffn": ((cfg.d_model,), ones_init, torch.float32),
+        "w_q": ((cfg.d_model, cfg.n_heads * hd), dense_init, dtype),
+        "w_k": ((cfg.d_model, cfg.n_kv_heads * hd), dense_init, dtype),
+        "w_v": ((cfg.d_model, cfg.n_kv_heads * hd), dense_init, dtype),
+        "w_o": ((cfg.n_heads * hd, cfg.d_model), dense_init, dtype),
+        "gate_attn": ((1,), zeros_init, torch.float32),
+        "gate_ffn": ((1,), zeros_init, torch.float32),
+        "ffn": swiglu_params(cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def cross_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str,
+                memory: Optional[torch.Tensor] = None,
+                mem_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                q_chunk: int = 1024
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Gated cross-attention block (Llama-3.2-Vision): x [B, T, d] attends
+    to every vision state, ``memory`` [B, P, d] (train, prefill) or the
+    cached K and V ``mem_kv`` (decode).  Returns (x, (k, v))."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    q = (h @ p["w_q"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
+    if mem_kv is None:
+        pm = memory.shape[1]
+        k = (memory @ p["w_k"].to(x.dtype)).reshape(b, pm, cfg.n_kv_heads, hd)
+        v = (memory @ p["w_v"].to(x.dtype)).reshape(b, pm, cfg.n_kv_heads, hd)
+    else:
+        k, v = mem_kv
+    # zero positions on both sides: every key visible
+    zq = zero_positions(b, t, x.device)
+    zk = zero_positions(b, k.shape[1], x.device)
+    if mode == "train":
+        out = chunked_attention(q, k, v, zq, zk, causal=False,
+                                q_chunk=q_chunk, kv_chunk=4096)
+    elif mode == "prefill":
+        out = noncausal_attention(q, k, v)
+    elif mode == "decode":
+        out = decode_attention(q, k, v, zq, zk)
+    else:
+        raise ValueError(mode)
+    out = out.reshape(b, t, cfg.n_heads * hd) @ p["w_o"].to(x.dtype)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+    h2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    x = x + torch.tanh(p["gate_ffn"]).to(x.dtype) * swiglu(p["ffn"], h2)
+    return x, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# The stack: a loop over stacked [L, ...] layer params and cache slices
+# ---------------------------------------------------------------------------
 
 
 def _train_block(cfg, p, x, positions, q_chunk, kv_chunk):
@@ -237,15 +329,69 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
         check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        p_i = _layer(blocks_params, i)
+        p_i = layer_slice(blocks_params, i)
         if mode == "train":
             x, aux_i = checkpoint(_train_block, cfg, p_i, x, positions,
                                   q_chunk, kv_chunk, use_reentrant=False,
                                   preserve_rng_state=False)
         else:
-            cache_i = _layer(cache, i) if cache is not None else None
+            cache_i = layer_slice(cache, i) if cache is not None else None
             x, _, aux_i = decoder_block(
                 cfg, p_i, x, positions, mode=mode, layer_cache=cache_i,
                 kv_pos=kv_pos, cursor=cursor)
         aux = aux + aux_i
+    return x, cache, aux
+
+
+def _train_cross(cfg, p, x, memory, q_chunk):
+    return cross_block(cfg, p, x, mode="train", memory=memory,
+                       q_chunk=q_chunk)[0]
+
+
+def vlm_stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    positions: torch.Tensor, *, mode: str,
+                    vision_states: Optional[torch.Tensor] = None,
+                    cache: Optional[dict] = None,
+                    kv_pos: Optional[torch.Tensor] = None, cursor=None,
+                    q_chunk: int = 1024, kv_chunk: int = 1024
+                    ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """The interleaved stack: groups of ``cross_attn_every - 1`` self
+    layers (``params["blocks"]``, stacked ``[n_self, ...]``), each group
+    followed by one gated cross-attention block (``params["cross"]``,
+    ``[n_groups, ...]``).  ``vision_states`` [B, P, d] feed the cross
+    blocks in train and prefill; prefill writes each group's K and V into
+    the cache's ``xk`` / ``xv`` [n_groups, B, P, KVH, D] in place, decode
+    reads them.  Returns (h, cache, aux_loss_sum); in train mode every
+    self layer and cross block runs under ``torch.utils.checkpoint``."""
+    per = cfg.vision.cross_attn_every - 1
+    n_groups = cfg.n_layers // cfg.vision.cross_attn_every
+    train = mode == "train"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    self_cache = None if train else {"k": cache["k"], "v": cache["v"]}
+    for g in range(n_groups):
+        for i in range(g * per, (g + 1) * per):
+            p_i = layer_slice(params["blocks"], i)
+            if train:
+                x, aux_i = checkpoint(_train_block, cfg, p_i, x, positions,
+                                      q_chunk, kv_chunk, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, _, aux_i = decoder_block(
+                    cfg, p_i, x, positions, mode=mode,
+                    layer_cache=layer_slice(self_cache, i), kv_pos=kv_pos,
+                    cursor=cursor)
+            aux = aux + aux_i
+        p_c = layer_slice(params["cross"], g)
+        if train:
+            x = checkpoint(_train_cross, cfg, p_c, x, vision_states, q_chunk,
+                           use_reentrant=False, preserve_rng_state=False)
+        elif mode == "prefill":
+            x, (k, v) = cross_block(cfg, p_c, x, mode=mode,
+                                    memory=vision_states, q_chunk=q_chunk)
+            cache["xk"][g].copy_(k)
+            cache["xv"][g].copy_(v)
+        else:
+            x, _ = cross_block(cfg, p_c, x, mode=mode,
+                               mem_kv=(cache["xk"][g], cache["xv"][g]),
+                               q_chunk=q_chunk)
     return x, cache, aux

@@ -78,7 +78,11 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     def value_and_grad(params, batch):
         paths, leaves = zip(*leaf_paths(params))
         loss, metrics = model.loss(batch, params=params)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (the audio model's norm_f: its
+        # decoder ends in its own LayerNorm) gets a zero gradient, as under
+        # jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(paths, grads)))
 

@@ -3,6 +3,7 @@ the ring KV cache, decode attention, the parameter tree at full widths,
 and prefill + decode of three smoke configs with the reference's weights
 carried across."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -245,32 +246,37 @@ def test_state_dict_at_full_widths_is_the_train_state_params_tree():
     assert sum(p.numel() for p in model.parameters()) == 1_889_110_016
 
 
-def test_other_families_and_train_mode_raise():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        Model(tconfigs.get_smoke_config("minicpm3-4b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        Model(tconfigs.get_smoke_config("llama-3.2-vision-11b"),
-              device="cpu")
-    # train mode runs for the dense, MoE and hybrid stacks and the xLSTM
-    # loss; MLA, VLM and audio raise, naming their ROADMAP item
+def test_every_family_builds_and_trains():
+    """Every arch of ``configs/`` builds, and train mode runs for each
+    family: the dense, MLA, MoE and hybrid stacks and the loss of every
+    family (VLM and audio with a frontend); ``check_trainable`` accepts
+    them all."""
     pos = torch.arange(3)[None]
     batch = {"tokens": torch.zeros(1, 3, dtype=torch.int32),
              "labels": torch.zeros(1, 3, dtype=torch.int32)}
-    for arch in ("internlm2-1.8b", "deepseek-moe-16b", "hymba-1.5b",
-                 "xlstm-350m"):
+    for arch in ("internlm2-1.8b", "minicpm3-4b", "deepseek-moe-16b",
+                 "hymba-1.5b", "xlstm-350m", "llama-3.2-vision-11b",
+                 "whisper-base"):
         cfg = tconfigs.get_smoke_config(arch)
+        ttfm.check_trainable(cfg)
         model = Model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0))
-        loss, _ = model.loss(batch)
+        b = dict(batch)
+        if cfg.family == "vlm":
+            b["frontend"] = torch.ones(1, cfg.vision.n_patches,
+                                       cfg.vision.vision_dim)
+        if cfg.family == "audio":
+            b["frontend"] = torch.ones(1, cfg.audio.n_audio_ctx, cfg.d_model)
+        loss, _ = model.loss(b)
         assert torch.isfinite(loss)
-        if arch != "xlstm-350m":
+        if cfg.family in ("dense", "moe", "hybrid"):
             x = torch.zeros(1, 3, cfg.d_model)
             h, _, _ = ttfm.stack_apply(cfg, model.params()["blocks"], x, pos,
                                        mode="train")
             assert h.shape == x.shape
-    for arch in ("minicpm3-4b", "llama-3.2-vision-11b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            ttfm.check_trainable(tconfigs.get_smoke_config(arch))
+    with pytest.raises(NotImplementedError, match="no train mode"):
+        ttfm.check_trainable(types.SimpleNamespace(name="x",
+                                                   family="diffusion"))
 
 
 def test_load_reference_params_checks_paths_shapes_dtypes():

@@ -344,15 +344,16 @@ def test_port_init_state_and_shapes():
     assert torch.equal(logits, want)
     _, step_logits = make_decode_step(model)(cache, tokens[:, :1])
     assert step_logits.shape == (2, 1, cfg.vocab)
-    # the hybrid family trains too (tests/test_torch_train_families.py);
-    # MLA does not, naming its ROADMAP item
-    hybrid = Model(get_smoke_config("hymba-1.5b"), device="cpu").init(
-        torch.Generator().manual_seed(0))
-    loss, _ = hybrid.loss({"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                           "labels": torch.zeros(1, 4, dtype=torch.int32)})
-    assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        check_trainable(get_smoke_config("minicpm3-4b"))
+    # the hybrid and MLA families train too
+    # (tests/test_torch_train_families.py, test_torch_mla_vlm_audio.py)
+    for arch in ("hymba-1.5b", "minicpm3-4b"):
+        check_trainable(get_smoke_config(arch))
+        other = Model(get_smoke_config(arch), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        loss, _ = other.loss({
+            "tokens": torch.zeros(1, 4, dtype=torch.int32),
+            "labels": torch.zeros(1, 4, dtype=torch.int32)})
+        assert torch.isfinite(loss)
 
 
 def test_deterministic_step_on_cuda_needs_cublas_workspace_config(

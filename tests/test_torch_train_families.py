@@ -22,6 +22,8 @@ reference's bf16 result is, plus 1e-2 of the largest magnitude
 (`_bf16_bar`); losses within 1e-3 relative of the reference's bf16 loss;
 a bf16 step's parameters by `_assert_bf16_step_bars`.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -529,12 +531,20 @@ def test_train_step_launches_no_kernel(arch, monkeypatch):
 
 
 def test_check_trainable_accepts_four_families_and_names_slice_10():
+    """Since slice 10 landed, ``check_trainable`` accepts every arch (the
+    four families of this file, and MLA, VLM and audio) and refuses only
+    a family that no config has."""
     for arch in ("internlm2-1.8b", "glm4-9b", "deepseek-moe-16b",
-                 "dbrx-132b", "hymba-1.5b", "xlstm-350m"):
+                 "dbrx-132b", "hymba-1.5b", "xlstm-350m", "minicpm3-4b",
+                 "llama-3.2-vision-11b", "whisper-base"):
         ttfm.check_trainable(get_smoke_config(arch))
-    for arch in ("minicpm3-4b", "llama-3.2-vision-11b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            ttfm.check_trainable(get_smoke_config(arch))
+    assert set(ttfm.TRAIN_FAMILIES) == {
+        get_smoke_config(a).family for a in (
+            "internlm2-1.8b", "deepseek-moe-16b", "hymba-1.5b",
+            "xlstm-350m", "llama-3.2-vision-11b", "whisper-base")}
+    with pytest.raises(NotImplementedError, match="no train mode"):
+        ttfm.check_trainable(types.SimpleNamespace(name="x",
+                                                   family="diffusion"))
 
 
 # ---------------------------------------------------------------------------
