@@ -20,6 +20,10 @@ against the plain version and timed beside it in one run.
   or two device events and make no host sync; each policy's host syncs
   under torch.cuda's sync debug mode must be the ones its `PassStats`
   counts; `simulate_matrix` over the seven must equal the per-policy runs;
+  the port's analyzer (``python -m repro_torch.analysis --device cuda``)
+  must pass every rule, and its three dispatch rules on CUDA tables must
+  see each plan launch `sched_select` once per eviction branch and every
+  host sync counted;
   then lifecycle-event capture: all seven policies on the launcher's
   fleet (cut to 120 ticks) on the card against the Python backend's
   EventBus, an undersized ring's drops, and omfs with capture on the
@@ -134,6 +138,7 @@ Exits non-zero without a result where no CUDA device is visible.
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import statistics
@@ -954,6 +959,61 @@ def phase_policy_syncs(runs):
             syncs=len(where), counted=stats.host_syncs,
             at={w: where.count(w) for w in sorted(set(where))} or "none",
             messages=sorted(texts) or "none")
+    set_kernel_counts(saved)
+
+
+def phase_audit():
+    """``python -m repro_torch.analysis --device cuda`` (every rule, the
+    dispatch audit of the passes and of each family's smoke serving on the
+    card) must exit 0; then the three dispatch rules again on CUDA tables
+    under ``kernel_backend="cuda"``: every plan a `sched_select` launch,
+    the plans equal to `PassStats.evict_branches`, and the host syncs that
+    the sync debug mode sees equal to the reads that `PassStats` counts."""
+    from repro_torch import analysis
+    from repro_torch.analysis import dispatch_audit
+
+    saved = kernel_counts()
+    root = Path(__file__).resolve().parent
+    start = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = analysis.main(["--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"repro_torch.analysis exited {rc}:\n"
+                             f"{out.getvalue()[-4000:]}")
+    cli_s = time.perf_counter() - start
+    fx = dispatch_audit.fixture(DEV)
+    zero_kernel_counts()
+    (runs, idle), where, texts = sync_sites(lambda: (
+        [dispatch_audit.run_pass(p, "cuda", fx) for p in POLICIES],
+        [dispatch_audit.run_pass(p, "cuda", fx, idle=True)
+         for p in dispatch_audit.CONFINED_POLICIES]))
+    report = dispatch_audit.AuditReport(str(DEV), runs, idle, [])
+    bad = (dispatch_audit.float_cast_violations(report, root)
+           + dispatch_audit.confinement_violations(report, root)
+           + dispatch_audit.host_read_violations(report, root))
+    if bad:
+        raise AssertionError("\n".join(map(str, bad)))
+    counted = sum(r.stats.host_syncs + r.stats.place_reads
+                  for r in runs + idle)
+    branches = sum(r.stats.evict_branches for r in runs)
+    if len(where) != counted:
+        raise AssertionError(f"{len(where)} host syncs on the card, "
+                             f"PassStats counts {counted}: "
+                             f"{sorted(set(where))}")
+    if not (sched_ops.PLANS == branches == sum(r.plans for r in runs) > 0
+            and sched_ops.LAUNCHES > 0):
+        raise AssertionError(f"{sched_ops.PLANS} plans in "
+                             f"{sched_ops.LAUNCHES} sched_select launches "
+                             f"for {branches} eviction branches")
+    log("audit", rules=len(analysis.RULES), violations=0,
+        cli_s=f"{cli_s:.1f}", passes=len(runs), ticks=dispatch_audit.HORIZON,
+        evict_branches=branches, plans=sched_ops.PLANS,
+        launches=sched_ops.LAUNCHES,
+        reads=sum(r.reads for r in runs + idle),
+        host_syncs=counted, syncs=len(where),
+        messages=sorted(texts) or "none",
+        seconds=f"{time.perf_counter() - start:.1f}")
     set_kernel_counts(saved)
 
 
@@ -3950,6 +4010,7 @@ def main():
     plain_device_us = phase_fleet_profile()
     phase_policy_syncs(runs)
     phase_policy_matrix(runs)
+    phase_audit()
     events_workload, card_logs = phase_events()
     phase_events_fleet(runs["omfs", "cuda"], plain_device_us)
     batch_launches, captured = phase_batch_fleet(runs)

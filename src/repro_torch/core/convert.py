@@ -46,7 +46,7 @@ def table_from_numpy(cols: Dict[str, np.ndarray], device="cuda") -> JobTable:
 
 def table_to_numpy(tbl: JobTable) -> Dict[str, np.ndarray]:
     """The table's columns as host int32 numpy arrays."""
-    return {f: getattr(tbl, f).cpu().numpy() for f in JobTable._fields}
+    return {f: getattr(tbl, f).cpu().numpy() for f in JobTable._fields}  # analysis: ignore[host-read] -- host epilogue, once a run
 
 
 _JOB_FIELDS = ("user", "cpus", "work", "priority", "submit_time",

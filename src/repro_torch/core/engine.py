@@ -658,7 +658,8 @@ def simulate_batch(
                 policy=name, config=config,
                 table=JobTable(*(c[g, :sizes[k]] for c in tbl)),
                 busy=busy[g],
-                stats=PassStats(stats.host_syncs, stats.cell_branches[g]),
+                stats=PassStats(stats.host_syncs, stats.cell_branches[g],
+                                place_reads=stats.place_reads),
                 seconds={"build": build_s, "ticks": ticks_s})
             if record_events:
                 res.event_counts = counts[g]
@@ -678,7 +679,7 @@ def _table_to_host(tbl: JobTable) -> Dict[str, np.ndarray]:
     """The whole table in ONE read: its columns packed into one int32
     block on the device, then split on the host."""
     n = tbl.cpus.shape[0]
-    block = torch.cat([c.reshape(n, -1) for c in tbl], 1).cpu().numpy()
+    block = torch.cat([c.reshape(n, -1) for c in tbl], 1).cpu().numpy()  # analysis: ignore[host-read] -- counted in PassStats.table_reads
     out, at = {}, 0
     for f, c in zip(JobTable._fields, tbl):
         w = 1 if c.dim() == 1 else c.shape[1]

@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.core.crcost import MAX_STATE_MIB
 from repro_torch.core.types import JobClass, SchedulerConfig
+from repro_torch.kernels.sched_select import ref as sched_ref
 from repro_torch.kernels.sched_select.ref import (
     first_argmin,
     greedy_place,
@@ -138,12 +139,16 @@ class PassStats:
     eviction-branch entries (one victim plan per cell that takes one).
     ``cell_branches``, when a list, gets each cell's branches too
     (``engine.simulate_batch``); ``table_reads`` counts the stream
-    engine's table reads at its segment boundaries."""
+    engine's table reads at its segment boundaries, and ``place_reads``
+    the reads of ``kernel_backend="torch"``'s bounded tier placement
+    (`kernels.sched_select.ref.greedy_place`, on the host: one or two
+    per cell a plan places; the kernel places on the card)."""
 
     host_syncs: int = 0
     evict_branches: int = 0
     cell_branches: Optional[List[int]] = None
     table_reads: int = 0
+    place_reads: int = 0
 
 
 def table_from_jobs(jobs, users, cpu_total: int,
@@ -264,8 +269,7 @@ def insert_rows(tbl: JobTable, slots, rows: JobTable, valid) -> JobTable:
     if isinstance(slots, torch.Tensor) and slots.device.type != "cpu":
         raise TypeError("slots are checked on the host: pass them from the "
                         "CPU")
-    host = np.asarray(slots.numpy() if isinstance(slots, torch.Tensor)
-                      else slots)
+    host = np.asarray(slots)
     n = tbl.cpus.shape[0]
     if host.shape != (n,) or not np.array_equal(np.sort(host), np.arange(n)):
         raise ValueError(f"slots must be a permutation of arange({n})")
@@ -608,11 +612,17 @@ def batched_pass(pass_fn):
             stats: Optional[PassStats] = None,
             knobs: Optional[Knobs] = None) -> JobTable:
         stats = stats if stats is not None else PassStats()
+        # under "cuda" the placement's only caller is the kernel's plain
+        # version on CPU tensors, which stands in for the kernel
+        reads = sched_ref.HOST_READS
         if tbl.cpus.dim() == 1:
             pass_fn(cfg, ent.unsqueeze(0), t,
                     JobTable(*(c.unsqueeze(0) for c in tbl)), stats, knobs)
-            return tbl
-        return pass_fn(cfg, ent, t, tbl, stats, knobs)
+        else:
+            tbl = pass_fn(cfg, ent, t, tbl, stats, knobs)
+        if cfg.kernel_backend == "torch":
+            stats.place_reads += sched_ref.HOST_READS - reads
+        return tbl
 
     return run
 
@@ -729,12 +739,15 @@ def make_omfs_pass(pass_depth: Optional[int] = None, incremental: bool = True,
         depth = pass_depth_of(tbl.cpus.shape[1], pass_depth, knobs)
         snap = queue_snapshot(tbl, n_users, depth, knobs, order, eligible)
 
-        # one victim_order per tick (see _hoistable) on the torch path; the
-        # fused kernel sorts internally, so a hoisted sort would be waste
+        # one victim_order per tick (see _hoistable) on the torch path, made
+        # at the tick's first eviction branch; the fused kernel sorts
+        # internally, so a hoisted sort would be waste
         hoist = cfg.kernel_backend == "torch" and _hoistable(cfg, knobs)
-        vorder0 = victim_order(tbl, cheap_victims) if hoist else None
+        vorder0 = None
 
         if not incremental:
+            if hoist:
+                vorder0 = victim_order(tbl, cheap_victims)
             for i in range(depth):
                 tbl = _try_admit(cfg, ent, t, tbl, snap.rows[i],
                                  snap.elig[i], cheap_victims, knobs, vorder0)
@@ -756,7 +769,8 @@ def make_omfs_pass(pass_depth: Optional[int] = None, incremental: bool = True,
             fast = ok & admit_26
             evict = ok & ~admit_26 & (usage[users] <= room[i])
             # the one host synchronisation of this queue position
-            fast_h, evict_h = torch.stack([fast, evict]).tolist()
+            fast_h, evict_h = torch.stack(  # analysis: ignore[host-read] -- counted in PassStats.host_syncs
+                [fast, evict]).tolist()
             stats.host_syncs += 1
             if any(fast_h):
                 # idle-admit: no victim machinery, O(B) updates
@@ -769,10 +783,10 @@ def make_omfs_pass(pass_depth: Optional[int] = None, incremental: bool = True,
             cells = [b for b, e in enumerate(evict_h) if e]
             if cells:
                 _note_branches(stats, cells)
-                busy = _evict_branch(
+                busy, vorder0 = _evict_branch(
                     cfg, ent, t, tbl, rows, users, jc, job_non_p[i], evict,
                     cells, busy, usage, nonp_usage, cheap_victims, knobs,
-                    vorder0)
+                    vorder0, hoist)
         return tbl
 
     return pass_fn
@@ -780,12 +794,16 @@ def make_omfs_pass(pass_depth: Optional[int] = None, incremental: bool = True,
 
 def _evict_branch(cfg, ent, t, tbl, rows, users, jc, job_non_p, branch,
                   cells, busy, usage, nonp_usage, cheap_victims, knobs,
-                  vorder0):
+                  vorder0, hoist):
     """The eviction branch of one queue position (lines 31-38) for the
     cells in ``branch`` (``cells`` on the host), decided on the device:
     plan their victims in one batched plan, evict them iff a cell's plan
     is enough, admit its job on the same condition, and update the carried
-    aggregates (in place; returns ``busy``)."""
+    aggregates (in place).  With ``hoist`` the tick's first branch makes
+    the victim order that its later branches reuse.  Returns ``(busy,
+    vorder0)``."""
+    if hoist and vorder0 is None:
+        vorder0 = victim_order(tbl, cheap_victims)
     evictable = evictable_mask(cfg, tbl, t, knobs)
     if cfg.avoid_self_eviction:            # beyond-paper flag
         evictable = evictable & (tbl.user != _flat(tbl.user)[rows]
@@ -808,7 +826,7 @@ def _evict_branch(cfg, ent, t, tbl, rows, users, jc, job_non_p, branch,
     grant = torch.where(go, jc, 0)
     usage.index_add_(0, users, grant)
     nonp_usage.index_add_(0, users, torch.where(job_non_p, grant, 0))
-    return busy + grant
+    return busy + grant, vorder0
 
 
 def update_state_mib(tbl: JobTable, idx: int, state_mib: int,
@@ -835,7 +853,7 @@ def update_state_mib(tbl: JobTable, idx: int, state_mib: int,
 
 def signature_from_table(tbl: JobTable):
     """Same shape as the reference's ``signature_from_table``."""
-    cols = {f: getattr(tbl, f).cpu().tolist()
+    cols = {f: getattr(tbl, f).cpu().tolist()  # analysis: ignore[host-read] -- host epilogue, once a run
             for f in ("state", "first_start", "finish", "progress",
                       "n_preempt", "n_ckpt")}
     return tuple(
@@ -848,5 +866,5 @@ def tables_equal(a: JobTable, b: JobTable) -> bool:
     """Fast whole-table schedule equality (the fields of the signature)."""
     fields = ("state", "first_start", "finish", "progress", "n_preempt",
               "n_ckpt")
-    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())  # analysis: ignore[host-read] -- host comparison, once a call
                for f in fields)

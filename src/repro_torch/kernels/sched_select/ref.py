@@ -24,6 +24,9 @@ import torch
 
 MASK = 2**31 - 1      # int32 max: the infeasible-tier sentinel
 
+#: reads of the device that `greedy_place` made since the count was reset
+HOST_READS = 0
+
 
 def lexsort(keys):
     """Stable lexicographic order along the last axis with the LAST key
@@ -55,16 +58,29 @@ def greedy_place(want_sorted, mib_sorted, lat_sorted, occ, cap):
     Only ``want`` rows move occupancy and keep their tier (the others get
     tier 0), so the loop walks just those rows: the reference's
     ``lax.scan`` over every row gives the same tiers.  Returns the
-    ``[J]`` int32 sorted-position tiers on ``want_sorted``'s device."""
+    ``[J]`` int32 sorted-position tiers on ``want_sorted``'s device.
+
+    Reads the device once for the victims' rows (``nonzero``) and, if
+    there is one, once more for ``occ`` and their sizes and costs, packed;
+    ``HOST_READS`` counts both."""
+    global HOST_READS
     pos = torch.nonzero(want_sorted).flatten()
+    HOST_READS += 1
     tier_sorted = torch.zeros(want_sorted.shape, dtype=torch.int32,
                               device=want_sorted.device)
     if pos.numel() == 0:
         return tier_sorted
-    occ = [int(v) for v in occ.tolist()]
+    n_tiers = lat_sorted.shape[-1]
+    packed = torch.cat([occ.reshape(-1).to(torch.int64),
+                        mib_sorted[pos].to(torch.int64),
+                        lat_sorted[pos].reshape(-1).to(torch.int64)])
+    vals = packed.tolist()
+    HOST_READS += 1
+    occ = vals[:n_tiers]
     cap = [int(v) for v in cap]
-    mibs = mib_sorted[pos].tolist()
-    rows = lat_sorted[pos].tolist()
+    mibs = vals[n_tiers:n_tiers + pos.numel()]
+    flat = vals[n_tiers + pos.numel():]
+    rows = [flat[k * n_tiers:(k + 1) * n_tiers] for k in range(len(mibs))]
     chosen = []
     for mib, costs in zip(mibs, rows):
         best_c, best_t = MASK, 0

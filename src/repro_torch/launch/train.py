@@ -54,7 +54,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.omfs_torch import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
 from repro_torch.models.model import Model, resolve_frontend
-from repro_torch.models.transformer import check_trainable
 from repro_torch.train.state import (
     TrainState,
     bind_state,
@@ -118,7 +117,6 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
     if cfg is None:
         cfg = (get_smoke_config(args.arch) if args.smoke
                else get_config(args.arch))
-    check_trainable(cfg)
     dev = resolve_device(args.device)
     tcfg = TrainConfig(lr=args.lr, warmup_steps=10, total_steps=10_000,
                        grad_accum=args.grad_accum)

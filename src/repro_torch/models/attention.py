@@ -167,10 +167,16 @@ def arange_positions(batch: int, length: int, device) -> torch.Tensor:
 
 
 def _is_arange(pos: torch.Tensor) -> bool:
+    """Whether every row of ``pos`` is ``arange(S)``.  Positions that
+    `arange_positions` built pass without a look at their values; only
+    others are compared, one host read.  No serving path reaches the
+    read: `Model.prefill` builds its positions so and passes them on
+    unchanged (``dispatch-host-reads`` holds every family's prefill to
+    the MoE's counted reads)."""
     if getattr(pos, _ARANGE_MARK, False):
         return True                  # built so: no look at the values
     ar = torch.arange(pos.shape[-1], dtype=pos.dtype, device=pos.device)
-    return bool(torch.equal(pos, ar.expand_as(pos)))
+    return bool(torch.equal(pos, ar.expand_as(pos)))  # analysis: ignore[host-read] -- unmarked positions only: no serving path
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

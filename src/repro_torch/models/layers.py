@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 import torch
 import torch.nn.functional as F
 
@@ -87,10 +89,9 @@ def rope_frequencies(head_dim: int, theta: float,
     """Inverse frequencies for RoPE, shape [head_dim // 2], float32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    # theta as a scalar operand: a tensor made from it on the card would
-    # be a host-to-device copy, a host sync per call
-    return 1.0 / torch.pow(float(torch.tensor(theta, dtype=torch.float32)),
-                           exps)
+    # theta rounded to float32, as a scalar operand: a tensor made from it
+    # on the card would be a host-to-device copy, a host sync per call
+    return 1.0 / torch.pow(float(np.float32(theta)), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -329,7 +329,6 @@ class Model(nn.Module):
         (``ce + aux / n_layers``, {ce_loss, aux_loss, tokens}), fp32, with
         autograd through ``params`` (default: the model's own)."""
         cfg = self.cfg
-        tfm.check_trainable(cfg)
         params = self.params() if params is None else params
         tokens, labels = batch["tokens"], batch["labels"]
         b, t = tokens.shape

@@ -68,19 +68,6 @@ from repro_torch.models.layers import (
     zeros_init,
 )
 
-#: every family of ``configs/``: dense (GQA or MLA), MoE, hybrid, xLSTM,
-#: VLM and audio
-TRAIN_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the port trains ``cfg``'s family."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} has no train mode; the port "
-            f"trains {', '.join(TRAIN_FAMILIES)}")
-
-
 # ---------------------------------------------------------------------------
 # GQA attention sub-layer
 # ---------------------------------------------------------------------------
@@ -325,8 +312,6 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
     ``ssm_h``, ``ssm_conv``) is written in place, one layer's view at a
     time.  In train mode each layer runs under ``torch.utils.checkpoint``:
     what it keeps for backward is its input."""
-    if mode == "train":
-        check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p_i = layer_slice(blocks_params, i)

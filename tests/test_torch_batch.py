@@ -22,7 +22,6 @@ pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.core import crcost as jcr  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
@@ -31,6 +30,9 @@ from repro.core import types as jtypes  # noqa: E402
 from repro.core import workload as jwl  # noqa: E402
 from repro.kernels.sched_select.ops import (  # noqa: E402
     plan_evictions_fused as jax_fused,
+)
+from repro_torch.analysis.dispatch_audit import (  # noqa: E402
+    HostReads as _HostReads,
 )
 from repro_torch.core import convert, omfs_torch  # noqa: E402
 from repro_torch.core import crcost as tcr  # noqa: E402
@@ -446,28 +448,10 @@ def test_batched_plain_plan_leaves_unplanned_cells_empty():
 # ---------------------------------------------------------------------------
 
 
-class _HostReads(TorchDispatchMode):
-    """Counts the ops that read a tensor back to the host, and ``tolist``
-    calls (which read a CPU tensor without a dispatched op)."""
-
-    READS = {"aten::_local_scalar_dense", "aten::nonzero",
-             "aten::masked_select"}
-
-    def __init__(self):
-        super().__init__()
-        self.count = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func._schema.name in self.READS:
-            self.count += 1
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("policy,b", [("omfs", 1), ("omfs", 4),
                                       ("omfs_cheap_victim", 6),
                                       ("backfill_cr", 5), ("fcfs", 3)])
-def test_batch_tick_reads_the_device_once_per_position(policy, b,
-                                                       monkeypatch):
+def test_batch_tick_reads_the_device_once_per_position(policy, b):
     """A batch of one policy over ``b`` seeds' tables (untiered, so the
     plan's plain version reads nothing): the OMFS pair reads once per
     queue position up to the deepest cell (8 here, cells capped at 3-8),
@@ -487,15 +471,9 @@ def test_batch_tick_reads_the_device_once_per_position(policy, b,
     knobs = omfs_torch.make_knobs([3] * b, depths, device="cpu")
     pass_fn = tengine.POLICIES[policy].torch_factory(max(depths))
     stats = omfs_torch.PassStats(cell_branches=[0] * b)
-    tolist = torch.Tensor.tolist
-    with _HostReads() as reads:
-        def counted(t):
-            reads.count += 1
-            return tolist(t)
-        monkeypatch.setattr(torch.Tensor, "tolist", counted)
+    with _HostReads() as reads:     # counts Tensor.tolist calls too
         tengine.run_table(cfg, ent, tbl, HORIZON, pass_fn, stats=stats,
                           knobs=knobs)
-        monkeypatch.undo()
     assert reads.count == stats.host_syncs
     assert stats.host_syncs == {"omfs": 8 * HORIZON,
                                 "omfs_cheap_victim": 8 * HORIZON,

@@ -52,7 +52,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "kernels.flash_attention.ref", "kernels.moe_gmm.ops",
                 "kernels.moe_gmm.ref", "launch.serve", "launch.train",
                 "data.pipeline", "optim.adamw", "train.state", "train.steps",
-                "cluster.executor"):
+                "cluster.executor", "analysis.base",
+                "analysis.dispatch_audit"):
         assert f"repro_torch.{mod}" in names, mod
 
 

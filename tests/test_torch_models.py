@@ -2,8 +2,8 @@
 the ring KV cache, decode attention, the parameter tree at full widths,
 and prefill + decode of three smoke configs with the reference's weights
 carried across."""
+import copy
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -249,8 +249,8 @@ def test_state_dict_at_full_widths_is_the_train_state_params_tree():
 def test_every_family_builds_and_trains():
     """Every arch of ``configs/`` builds, and train mode runs for each
     family: the dense, MLA, MoE and hybrid stacks and the loss of every
-    family (VLM and audio with a frontend); ``check_trainable`` accepts
-    them all."""
+    family (VLM and audio with a frontend); `Model` refuses a family that
+    no config has."""
     pos = torch.arange(3)[None]
     batch = {"tokens": torch.zeros(1, 3, dtype=torch.int32),
              "labels": torch.zeros(1, 3, dtype=torch.int32)}
@@ -258,7 +258,6 @@ def test_every_family_builds_and_trains():
                  "hymba-1.5b", "xlstm-350m", "llama-3.2-vision-11b",
                  "whisper-base"):
         cfg = tconfigs.get_smoke_config(arch)
-        ttfm.check_trainable(cfg)
         model = Model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0))
         b = dict(batch)
@@ -274,9 +273,10 @@ def test_every_family_builds_and_trains():
             h, _, _ = ttfm.stack_apply(cfg, model.params()["blocks"], x, pos,
                                        mode="train")
             assert h.shape == x.shape
-    with pytest.raises(NotImplementedError, match="no train mode"):
-        ttfm.check_trainable(types.SimpleNamespace(name="x",
-                                                   family="diffusion"))
+    unknown = copy.copy(tconfigs.get_smoke_config("internlm2-1.8b"))
+    object.__setattr__(unknown, "family", "diffusion")
+    with pytest.raises(ValueError, match="diffusion"):
+        Model(unknown, device="cpu")
 
 
 def test_load_reference_params_checks_paths_shapes_dtypes():

@@ -16,7 +16,6 @@ pytest.importorskip("torch")
 
 import jax  # noqa: E402,F401  (the suite imports both frameworks)
 import torch  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.core import crcost as jcr  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
@@ -25,6 +24,9 @@ from repro.core import omfs_jax, policies_jax  # noqa: E402
 from repro.core import placement as jplacement  # noqa: E402
 from repro.core import types as jtypes  # noqa: E402
 from repro.core import workload as jwl  # noqa: E402
+from repro_torch.analysis.dispatch_audit import (  # noqa: E402
+    HostReads as _HostReads,
+)
 from repro_torch.core import convert, omfs_torch, policies_torch  # noqa: E402
 from repro_torch.core import crcost as tcr  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
@@ -291,25 +293,8 @@ def test_backfill_marks_and_reuses_backfilled_jobs():
     assert (got["torch"].table.backfilled.numpy()[evicted] > 0).all()
 
 
-class _HostReads(TorchDispatchMode):
-    """Counts the ops that read a tensor back to the host, and ``tolist``
-    calls (which read a CPU tensor without a dispatched op)."""
-
-    READS = {"aten::_local_scalar_dense", "aten::nonzero",
-             "aten::masked_select"}
-
-    def __init__(self):
-        super().__init__()
-        self.count = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func._schema.name in self.READS:
-            self.count += 1
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("policy", POLICY_NAMES)
-def test_passes_read_the_device_only_where_counted(policy, monkeypatch):
+def test_passes_read_the_device_only_where_counted(policy):
     """No uncounted host read: the four baselines read nothing back,
     backfill_cr once per tick, the OMFS pair once per queue position, and
     ``PassStats.host_syncs`` counts each read (untiered, so the plan's
@@ -319,14 +304,8 @@ def test_passes_read_the_device_only_where_counted(policy, monkeypatch):
     tbl, ent = omfs_torch.table_from_jobs(tj, tu, 32, cfg, device="cpu")
     pass_fn = tengine.POLICIES[policy].torch_factory(8)
     stats = omfs_torch.PassStats()
-    tolist = torch.Tensor.tolist
-    with _HostReads() as reads:
-        def counted(t):
-            reads.count += 1
-            return tolist(t)
-        monkeypatch.setattr(torch.Tensor, "tolist", counted)
+    with _HostReads() as reads:     # counts Tensor.tolist calls too
         tengine.run_table(cfg, ent, tbl, 80, pass_fn, stats=stats)
-        monkeypatch.undo()
     assert reads.count == stats.host_syncs
     assert stats.host_syncs == {"backfill_cr": 80, "omfs": 8 * 80,
                                 "omfs_cheap_victim": 8 * 80}.get(policy, 0)

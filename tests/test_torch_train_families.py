@@ -6,7 +6,8 @@ deepseek-moe-16b, dbrx-132b, hymba-1.5b and xlstm-350m at their smoke
 sizes from JAX's init (`convert.load_reference_params` /
 `load_reference_train_state`): ``Model.loss`` and its gradients, one train
 step, and (but dbrx) two steps with ``grad_accum=2``; no kernel of the
-port in a train step; ``check_trainable``; the executor's transparency
+port in a train step; every arch's loss, and `Model`'s refusal of a
+family no config has; the executor's transparency
 and event-log cases on an xLSTM job against the JAX executor; the
 launcher on hymba.
 
@@ -22,7 +23,7 @@ reference's bf16 result is, plus 1e-2 of the largest magnitude
 (`_bf16_bar`); losses within 1e-3 relative of the reference's bf16 loss;
 a bf16 step's parameters by `_assert_bf16_step_bars`.
 """
-import types
+import copy
 
 import numpy as np
 import pytest
@@ -59,7 +60,8 @@ from repro_torch.cluster.executor import (  # noqa: E402
     ManagedJob,
     small_train_job,
 )
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
+from repro_torch.configs.base import FAMILIES as MODEL_FAMILIES  # noqa: E402
 from repro_torch.core import types as ttypes  # noqa: E402
 from repro_torch.core.convert import (  # noqa: E402
     flat_paths,
@@ -71,9 +73,8 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
-from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models import xlstm as txlstm  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import Model, resolve_frontend  # noqa: E402
 from repro_torch.train.steps import TrainConfig, make_train_step  # noqa: E402
 
 FAMILIES = ["deepseek-moe-16b", "dbrx-132b", "hymba-1.5b", "xlstm-350m"]
@@ -531,20 +532,37 @@ def test_train_step_launches_no_kernel(arch, monkeypatch):
 
 
 def test_check_trainable_accepts_four_families_and_names_slice_10():
-    """Since slice 10 landed, ``check_trainable`` accepts every arch (the
-    four families of this file, and MLA, VLM and audio) and refuses only
-    a family that no config has."""
-    for arch in ("internlm2-1.8b", "glm4-9b", "deepseek-moe-16b",
-                 "dbrx-132b", "hymba-1.5b", "xlstm-350m", "minicpm3-4b",
-                 "llama-3.2-vision-11b", "whisper-base"):
-        ttfm.check_trainable(get_smoke_config(arch))
-    assert set(ttfm.TRAIN_FAMILIES) == {
-        get_smoke_config(a).family for a in (
-            "internlm2-1.8b", "deepseek-moe-16b", "hymba-1.5b",
-            "xlstm-350m", "llama-3.2-vision-11b", "whisper-base")}
-    with pytest.raises(NotImplementedError, match="no train mode"):
-        ttfm.check_trainable(types.SimpleNamespace(name="x",
-                                                   family="diffusion"))
+    """Every arch of ``configs/`` trains (the four families of this file,
+    and MLA, VLM and audio): its smoke model's loss is finite and its
+    backward pass runs, so the port keeps no list of trainable families.
+    A family that no config has is refused by `Model` itself."""
+    families = set()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        families.add(cfg.family)
+        model = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
+                 "labels": torch.zeros(1, 4, dtype=torch.int32)}
+        frontend = resolve_frontend(cfg, None, 1, "cpu")
+        if frontend is not None:
+            batch["frontend"] = frontend
+        loss, _ = model.loss(batch)
+        loss.backward()
+        assert torch.isfinite(loss), arch
+        assert model.embed.grad is not None, arch
+    assert families == set(MODEL_FAMILIES)
+    with pytest.raises(ValueError, match="diffusion"):
+        Model(_with_family(get_smoke_config("internlm2-1.8b"), "diffusion"),
+              device="cpu")
+
+
+def _with_family(cfg, family):
+    """A copy of ``cfg`` claiming ``family`` (which the config itself
+    would refuse to build)."""
+    cfg = copy.copy(cfg)
+    object.__setattr__(cfg, "family", family)
+    return cfg
 
 
 # ---------------------------------------------------------------------------
