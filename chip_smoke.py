@@ -271,14 +271,15 @@ POLICIES = ("omfs", "omfs_cheap_victim", "static_partition", "capping",
             "fcfs", "backfill", "backfill_cr")
 PLANNERS = ("omfs", "omfs_cheap_victim", "backfill_cr")
 #: [events]: the launcher's fleet (6 tenants, 1,024 CPUs, arrival rate
-#: 0.08, seed 0; a 4 GiB fast tier) cut from 800 ticks to 120, where no
-#: queue is longer than the pass depth (the longest is 29, fcfs's), so the
-#: bounded tensor pass and the Python backend's full sweep must agree (the
-#: phase raises otherwise); 32 positions a tick, not the launcher's 64,
-#: since every position costs the tensor passes their ops whether a job
-#: is there or not; 120 still evicts, restores and spills under both
-#: planners and overflows a ring of 16 (at 100 ticks nothing overflows)
-EVENTS_HORIZON = 120
+#: 0.08, seed 0; a 4 GiB fast tier) cut from 800 ticks to 80 (120 until
+#: the multi-device phases needed the time), where no queue is longer
+#: than the pass depth, so the bounded tensor pass and the Python
+#: backend's full sweep must agree (the phase raises otherwise); 32
+#: positions a tick, not the launcher's 64, since every position costs
+#: the tensor passes their ops whether a job is there or not; at 80 ticks
+#: omfs still evicts, saves, restores and spills, backfill_cr evicts and
+#: saves, and a ring of 16 overflows (43 drops; at 100 ticks none)
+EVENTS_HORIZON = 80
 EVENTS_DEPTH = 32
 EVENTS_SMALL_RING = 16
 #: [batch-kernel]: the batched launch's batches, (B, cells' J, T), each
@@ -359,7 +360,10 @@ XLSTM_TRAIN_LAYERS = 8
 # what the host reference sees; [sched-status] the launcher's defaults
 LAUNCHER_BACKENDS_ARGV = ["--fast-tier-cap-mib", "4096", "--chips", "256",
                           "--horizon", "300"]
-LAUNCHER_TICKS = 300
+#: [launcher]: the launcher's default fleet, its first LAUNCHER_TICKS
+#: ticks (17 preemptions; 300 until the multi-device phases needed the
+#: time)
+LAUNCHER_TICKS = 150
 SCHED_STATUS_REQUESTS = 4
 
 # serving: tests/test_kernels.py's FLASH_CASES (B, S, H, KVH, D, causal,
@@ -3988,6 +3992,662 @@ def phase_new_families_serve(frontends):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-device execution (ROADMAP slice 11, part 1): one card, one NCCL
+# rank for the expert-parallel layer, then two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+EP_FACTOR = 1.25              # moe_ffn_ep's default capacity factor
+#: a factor at which deepseek's layer drops pairs (C_e 768, the mean load:
+#: about half the experts overflow), so that the drop rule is held
+EP_DROP_FACTOR = 1.0
+SHARD_RANKS = 2
+SHARD_ARCH = "internlm2-1.8b"
+SHARD_DECODE_STEPS = 8
+#: the sharded serve's logits against the one-process bf16 run: the RMS of
+#: the difference over the logits' RMS.  The two runs round the same bf16
+#: products in other orders (the row-parallel sums add two halves in
+#: fp32); a rank that attends over the wrong heads or slots, or drops a
+#: half, is off by the logits' own size
+SHARD_LOGITS_REL_RMS = 2.0 ** -5
+#: the rank processes' budget, their start and the kernels' load included
+SHARD_TIMEOUT_S = 600
+#: internlm2-1.8b's decode: batch 4, a 2,080-slot cache, 16/8 heads, d 128
+KV_DECODE_SHAPE = (4, 2080, 16, 8, 128)
+
+
+def ep_layer(gen):
+    """deepseek-moe-16b's MoE layer at its published widths (d 2,048, 64
+    routed experts top-6 of d_expert 1,408, 2 shared of 2,816 together),
+    fp32 weights drawn in the spec's sorted order from ``gen`` on the
+    card, and seeded bf16 x [4, 2,048, 2,048] as after the norm."""
+    spec = moe_mod.moe_params_spec(_MOE.d_model, _MOE.moe, torch.float32)
+
+    def build(node):
+        out = {}
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                out[k] = build(node[k])
+            else:
+                shape, init, dt = node[k]
+                out[k] = init(torch.empty(shape, dtype=dt, device=DEV), gen)
+        return out
+
+    params = build(spec)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, _MOE.d_model), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    return params, x
+
+
+def plain_kept(experts, n_experts, cap):
+    """The (token, slot) pairs that an expert keeps, on the host: each
+    expert's first ``cap`` pairs in flat order."""
+    flat = experts.reshape(-1).cpu().numpy()
+    seen = np.zeros(n_experts, np.int64)
+    keep = np.zeros(flat.shape, bool)
+    for i, e in enumerate(flat):
+        keep[i] = seen[e] < cap
+        seen[e] += 1
+    return keep.reshape(experts.shape)
+
+
+def phase_ep_compare(work):
+    """`moe_ffn_ep` on a (1, 1) mesh of a one-rank NCCL group, called
+    directly on deepseek-moe-16b's layer: drop-free (C_e = T_local) it
+    equals `moe_ffn` on the card; at the default factor 1.25 and at 1.0,
+    where pairs are dropped (it fails if none is), its kept pairs are the
+    plain path's, exactly, and its output is within the bar of the same
+    dispatch through the plain expert FFN; one call launches three
+    tensor-core `moe_gmm` kernels and makes no host sync; timed in turns
+    against `moe_ffn`.  The kernel at the dispatch's shapes (C_e 768, 960
+    and 8,192; at 768 the overflowing experts' counts are capped at C_e)
+    against its plain version, timed beside `torch.bmm` on the same
+    buffers with its bound.  Saves the layer's outputs for [ep-ranks]."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import moe_ep
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(work / "ep_store"), 1), rank=0, world_size=1)
+    nccl = collective_probe(0, 1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    moe = _MOE.moe
+    e, k, d = moe.n_routed, moe.top_k, _MOE.d_model
+    params, x = ep_layer(torch.Generator(device=DEV).manual_seed(SEED + 30))
+    t = SERVE_BATCH * SERVE_PROMPT
+    free = e / k                       # C_e = T_local: no pair dropped
+    cap = moe_ep.ep_capacity(t, k, e, EP_FACTOR)
+    bar = GMM_TOL[torch.bfloat16]
+    bufs = {}
+    keep_bufs = lambda a, out: bufs.setdefault(a[0].shape[1], a)  # noqa: E731
+    y_plain, _ = moe_mod.moe_ffn(moe, params, x)
+    with recording(gmm_ops, "expert_swiglu", keep_bufs):
+        y_free, _ = moe_ep.moe_ffn_ep(moe, params, x, mesh,
+                                      capacity_factor=free)
+        torch.cuda.synchronize()
+        err_free = float((y_free.float() - y_plain.float()).abs().max())
+        if not err_free <= rel_bar(bar, y_plain.float()):
+            raise AssertionError(f"drop-free EP differs from moe_ffn by "
+                                 f"{err_free}")
+        # the main path: every count at 0 just before, read just after
+        zero_kernel_counts()
+        (y, _), sites, texts = sync_sites(lambda: moe_ep.moe_ffn_ep(
+            moe, params, x, mesh, capacity_factor=EP_FACTOR))
+        launches = kernel_counts()
+    if {n: c for n, c in launches.items() if c} != {"moe_gmm_wgmma": 3}:
+        raise AssertionError(f"one EP call launched {launches}")
+    if sites:
+        raise AssertionError(f"the EP dispatch synchronised at {sites}")
+    logits = x.reshape(-1, d).float() @ params["router"].float()
+    _, experts, _ = moe_mod.route_topk(logits, k)
+    outs, kept, errs = {EP_FACTOR: y}, {}, {}
+    for factor in (EP_FACTOR, EP_DROP_FACTOR):
+        c_e = moe_ep.ep_capacity(t, k, e, factor)
+        _, keep, _ = moe_ep.local_slots(experts, 0, e, e, c_e)
+        want_keep = plain_kept(experts, e, c_e)
+        if not np.array_equal(keep.cpu().numpy(), want_keep):
+            raise AssertionError(f"the EP dispatch at {factor} kept other "
+                                 f"pairs than the plain path")
+        kept[factor] = int(want_keep.sum())
+        if factor not in outs:
+            with recording(gmm_ops, "expert_swiglu", keep_bufs):
+                outs[factor], _ = moe_ep.moe_ffn_ep(
+                    moe, params, x, mesh, capacity_factor=factor)
+        with recording(gmm_ops, "expert_swiglu", lambda a, o: None):
+            gmm_ops.expert_swiglu = expert_swiglu_ref
+            y_ref, _ = moe_ep.moe_ffn_ep(moe, params, x, mesh,
+                                         capacity_factor=factor)
+        errs[factor] = float((outs[factor].float()
+                              - y_ref.float()).abs().max())
+        if not errs[factor] <= rel_bar(bar, y_ref.float()):
+            raise AssertionError(f"EP at {factor} differs from its plain "
+                                 f"version by {errs[factor]}")
+    if not kept[EP_DROP_FACTOR] < t * k:
+        raise AssertionError(f"EP at {EP_DROP_FACTOR} dropped no pair: the "
+                             f"drop rule went unchecked")
+    err = max(errs.values())
+    ms, _ = in_turns({
+        "ep": lambda: moe_ep.moe_ffn_ep(moe, params, x, mesh,
+                                        capacity_factor=EP_FACTOR),
+        "moe_ffn": lambda: moe_mod.moe_ffn(moe, params, x)},
+        dict(ep=5, moe_ffn=5), warmup=1)
+    # the kernel at the dispatch's own buffers
+    saved = kernel_counts()
+    rows, kerr = {}, 0.0
+    for c_e in sorted(bufs):
+        buf, wg, wu, wd, cnt = bufs[c_e]
+        kerr = max(kerr, compare_gmm("wgmma", "swiglu", expert_swiglu_ref,
+                                     (buf, wg, wu, wd, cnt), bar,
+                                     serving=True)[0])
+        mst, _ = in_turns({
+            "wgmma": lambda: gmm_ops.launch(buf, wg, cnt, "wgmma"),
+            "plain": lambda: grouped_matmul_ref(buf, wg, cnt),
+            "library": lambda: torch.bmm(buf, wg)},
+            dict(wgmma=10, plain=5, library=10), warmup=2)
+        bound = gmm_bound(buf, wg, cnt)
+        rows[c_e] = dict(ms=mst["wgmma"], plain_ms=mst["plain"],
+                         library_ms=mst["library"], **bound)
+        log("ep-kernel", E_local=buf.shape[0], C_e=c_e, d=d,
+            f=wg.shape[2], x=str(buf.dtype), weights=str(wg.dtype),
+            ms=f"{mst['wgmma']:.4f}", plain_ms=f"{mst['plain']:.4f}",
+            library_ms=f"{mst['library']:.4f}", rows=bound["rows"],
+            active_experts=bound["active_experts"], flop=bound["flop"],
+            bytes=bound["bytes"], bound_ms=f"{bound['bound_ms']:.5f}",
+            bound_by=bound["bound_by"],
+            share_of_bound=f"{bound['bound_ms'] / mst['wgmma']:.5f}",
+            x_library=f"{mst['wgmma'] / mst['library']:.2f}")
+    set_kernel_counts(saved)
+    torch.save({"y": {f: v.cpu() for f, v in outs.items()},
+                "y_free": y_free.cpu()}, work / "ep.pt")
+    log("ep-compare", config=MOE_ARCH, E=e, top_k=k, d=d,
+        d_expert=moe.d_expert, shared=f"{moe.n_shared}x{moe.d_shared}",
+        tokens=t, factor=EP_FACTOR, C_e=cap, C_e_free=t, pairs=t * k,
+        kept_pairs=kept[EP_FACTOR],
+        drop_factor=EP_DROP_FACTOR,
+        C_e_drop=moe_ep.ep_capacity(t, k, e, EP_DROP_FACTOR),
+        kept_pairs_drop=kept[EP_DROP_FACTOR],
+        dropped_pairs_drop=t * k - kept[EP_DROP_FACTOR],
+        kept_equal_plain=True, err_free_vs_moe_ffn=f"{err_free:.3e}",
+        err_vs_plain=f"{errs[EP_FACTOR]:.3e}",
+        err_vs_plain_drop=f"{errs[EP_DROP_FACTOR]:.3e}",
+        bar=f"{bar} x max(1, max|y|)",
+        launches=launches["moe_gmm_wgmma"], host_syncs=len(sites),
+        ms_ep=f"{ms['ep']:.3f}", ms_moe_ffn=f"{ms['moe_ffn']:.3f}",
+        kernel_err=f"{kerr:.3e}", nccl_on_cuda=nccl)
+    if any(v != "ok" for k, v in nccl.items()
+           if k.startswith(("all_reduce", "all_gather"))):
+        raise AssertionError(f"NCCL refused a collective the port uses: "
+                             f"{nccl}")
+    del params, x, bufs
+    dist.destroy_process_group()
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["moe_gmm_wgmma"], err=max(kerr, err),
+                timing=rows[cap])
+
+
+def shard_reference(work):
+    """The one-process bf16 run that [shard-serve] is held to: the full
+    internlm2-1.8b from `serve.build`'s seeded weights, a 4 x 2,048 prompt,
+    then SHARD_DECODE_STEPS greedy steps; saves the prompt, the fed ids and
+    every step's logits."""
+    cfg = get_config(SHARD_ARCH)
+    model = serve.build(cfg, SEED, DEV)
+    tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SHARD_DECODE_STEPS)
+    cache, logits = model.prefill({"tokens": tokens}, cache)
+    out, fed = [logits.cpu()], []
+    for _ in range(SHARD_DECODE_STEPS):
+        nxt = serve.greedy(logits)
+        fed.append(nxt.cpu())
+        cache, logits = model.decode_step(cache, nxt)
+        out.append(logits.cpu())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.save({"tokens": tokens.cpu(), "fed": fed, "logits": out,
+                "weight_bytes": weights}, work / "shard_ref.pt")
+    del model, cache
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return weights
+
+
+def collective_probe(rank, world):
+    """Which collectives the default group (gloo or NCCL) takes on CUDA
+    tensors."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(rank + 1), device=DEV)
+    tries = {
+        "all_reduce_sum": lambda: dist.all_reduce(t.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(
+            t.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=DEV), t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // world, device=DEV), t),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as exc:  # noqa: BLE001 -- recorded, not hidden
+            out[name] = f"{type(exc).__name__}: {str(exc)[:60]}"
+    return out
+
+
+def _ranks_ep(mesh, work, res):
+    """[ep-compare]'s layer over the two ranks, 32 experts each, against
+    [ep-compare]'s output at the same factor: the default one and the one
+    that drops pairs."""
+    from repro_torch.distributed import moe_ep
+
+    moe = _MOE.moe
+    params, x = ep_layer(torch.Generator(device=DEV).manual_seed(SEED + 30))
+    saved = torch.load(work / "ep.pt")["y"]
+    res["ep_experts_local"] = moe.n_routed // SHARD_RANKS
+    res["ep_err"], res["ep_bar"] = {}, {}
+    for factor in (EP_FACTOR, EP_DROP_FACTOR):
+        want = saved[factor].to(DEV)
+        zero_kernel_counts()
+        y, _ = moe_ep.moe_ffn_ep(moe, params, x, mesh,
+                                 capacity_factor=factor)
+        torch.cuda.synchronize()
+        res["ep_launches"] = kernel_counts()["moe_gmm_wgmma"]
+        res["ep_err"][str(factor)] = float((y.float()
+                                            - want.float()).abs().max())
+        res["ep_bar"][str(factor)] = rel_bar(GMM_TOL[torch.bfloat16],
+                                             want.float())
+
+
+def _ranks_kv_decode(mesh, res):
+    """`sharded_kv_decode_attention` at KV_DECODE_SHAPE, each rank half
+    the slots, against `decode_attention` over the whole cache, fp32 and
+    bf16."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models.attention import decode_attention
+
+    b, s, h, kvh, d = KV_DECODE_SHAPE
+    r, s_loc = col.tp_rank(mesh), s // SHARD_RANKS
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+        kc, vc = (torch.randn((b, s, kvh, d), generator=gen, device=DEV
+                              ).to(dtype) for _ in range(2))
+        q = torch.randn((b, 1, h, d), generator=gen, device=DEV).to(dtype)
+        kn, vn = (torch.randn((b, 1, kvh, d), generator=gen, device=DEV
+                              ).to(dtype) for _ in range(2))
+        filled = SERVE_PROMPT
+        pos = torch.arange(s, device=DEV, dtype=torch.int32)
+        kv_pos = torch.where(pos < filled, pos, -1)[None].expand(b, s)
+        q_pos = torch.full((b, 1), filled, dtype=torch.int32, device=DEV)
+        cursor = torch.tensor(filled, dtype=torch.int32, device=DEV)
+        # the plain path: write slot `filled`, attend over every slot
+        kw, vw, pw = kc.clone(), vc.clone(), kv_pos.clone()
+        kw[:, filled], vw[:, filled], pw[:, filled] = kn[:, 0], vn[:, 0], filled
+        want = decode_attention(q, kw, vw, q_pos, pw).float()
+        mine = slice(r * s_loc, (r + 1) * s_loc)
+        col.reset_counts()
+        out, k_loc, _, p_loc = col.sharded_kv_decode_attention(
+            q, kc[:, mine].clone(), vc[:, mine].clone(), kn, vn, q_pos,
+            kv_pos[:, mine].clone(), cursor, mesh)
+        torch.cuda.synchronize()
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        res[f"kv_decode_err_{tag}"] = float((out.float() - want).abs().max())
+        res[f"kv_decode_bar_{tag}"] = ATTN_TOL[dtype]
+        res[f"kv_decode_writes_ok_{tag}"] = bool(
+            torch.equal(k_loc, kw[:, mine]) and torch.equal(p_loc,
+                                                            pw[:, mine]))
+        res["kv_decode_collectives"] = dict(col.COLLECTIVES)
+
+
+def _ranks_reshard(m12, res):
+    """A state saved on the (1, 2) mesh, restored on (2, 1) and on no
+    mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.reshard import restore_resharded, save_global
+    from repro_torch.distributed import sharding as shd
+
+    m21 = init_device_mesh("cuda", (2, 1), mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    w = torch.randn((4096, 1024), generator=gen, device=DEV)
+    b = torch.randn((1024,), generator=gen, device=DEV).to(torch.bfloat16)
+    specs = {"w": (("data",), ("model",)), "b": (("model",),)}
+
+    def sh(mesh):
+        return {k: shd.Sharding(mesh, v, shd.to_placements(v, mesh))
+                for k, v in specs.items()}
+
+    state = {"w": shd.place(w, sh(m12)["w"], device=DEV),
+             "b": shd.place(b, sh(m12)["b"], device=DEV)}
+    leaves = save_global(state)
+    template = {"w": torch.empty(w.shape, device="meta"),
+                "b": torch.empty(b.shape, dtype=b.dtype, device="meta")}
+    on21 = restore_resharded(leaves, template, sh(m21), device=DEV)
+    whole = restore_resharded(leaves, template, None, device=DEV)
+    box = shd.local_box(w.shape, specs["w"], shd.axis_sizes(m21),
+                        shd.mesh_coord(m21))
+    res["reshard_bit_equal"] = bool(
+        torch.equal(on21["w"].to_local(), w[box])
+        and torch.equal(whole["w"], w) and torch.equal(whole["b"], b)
+        and np.array_equal(save_global(on21)["['w']"], w.cpu().numpy()))
+    res["reshard_local_share"] = on21["w"].to_local().numel() / w.numel()
+
+
+def _ranks_train(mesh, res):
+    """One sharded train step of the smoke MoE (EP drop-free) against the
+    one-process step, at the train bars."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import moe_ep
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.checkpoint.reshard import save_global
+    from repro_torch.train import steps
+
+    # fp32 compute: the two steps then differ only by the order of fp32
+    # sums, and the train bars are the fp32 ones
+    cfg = get_smoke_config(MOE_ARCH).replace(compute_dtype="float32")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 33)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    one = Model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(SEED + 34))
+    src = {k: v.detach().clone() for k, v in one.named_parameters()}
+    params = dict(one.named_parameters())
+    loss, _ = one.loss(batch)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    s1, m1 = make_train_step(one, tcfg)(init_train_state(one.params()),
+                                        batch)
+    two = Model(cfg, device="meta")
+    shd.shard_model(two, mesh, source=src, device=DEV)
+    state = steps.TrainState(params=two.params(),
+                             opt=steps.shard_opt(two.params()),
+                             rng=s1.rng, data_cursor=s1.data_cursor)
+    # drop-free: C_e = T_local
+    was = moe_ep.EP_CAPACITY_FACTOR
+    moe_ep.EP_CAPACITY_FACTOR = cfg.moe.n_routed / cfg.moe.top_k
+    try:
+        with col.use_mesh(mesh):
+            s2, m2 = make_train_step(two, tcfg)(state, batch)
+    finally:
+        moe_ep.EP_CAPACITY_FACTOR = was
+    after = save_global(s2.params)
+    lt, gt = STEP_TOL[cfg.compute_dtype]
+    tight_bad = loose = 0.0
+    for k, p in dict(one.named_parameters()).items():
+        key = "".join(f"[{n!r}]" for n in k.split("."))
+        err = (torch.from_numpy(after[key]).to(DEV) - p.detach()).abs()
+        g = grads[k].abs()
+        tight = g >= GRAD_TOL[cfg.compute_dtype] * g.max()
+        if bool(tight.any()):
+            tight_bad = max(tight_bad, float(err[tight].max()))
+        loose = max(loose, float(err.max()))
+    res.update(
+        train_loss=float(m2["loss"]), train_loss_one=float(m1["loss"]),
+        train_gnorm=float(m2["grad_norm"]),
+        train_gnorm_one=float(m1["grad_norm"]),
+        train_ok=bool(abs(float(m2["loss"]) - float(m1["loss"]))
+                      <= lt * abs(float(m1["loss"]))
+                      and abs(float(m2["grad_norm"]) - float(m1["grad_norm"]))
+                      <= gt * abs(float(m1["grad_norm"]))
+                      and tight_bad <= 1e-6 + 1e-3 * tcfg.lr
+                      and loose <= 1e-6 + 2 * tcfg.lr),
+        train_param_err_tight=tight_bad, train_param_err=loose)
+
+
+def _ranks_serve(mesh, work, res):
+    """internlm2-1.8b at full width, placed by `param_shardings`,
+    ``decode_kv_shard`` on: the prompt, then SHARD_DECODE_STEPS steps on
+    the one-process run's ids, against its logits."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention as attention_mod
+
+    ref = torch.load(work / "shard_ref.pt")
+    cfg = get_config(SHARD_ARCH).replace(decode_kv_shard=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="meta")
+    shd.shard_model(model, mesh, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    res["serve_weight_bytes_local"] = sum(
+        p.to_local().numel() * p.element_size() for p in model.parameters())
+    tokens = ref["tokens"].to(DEV)
+    heads = []
+    with col.use_mesh(mesh), recording(
+            attention_mod, "flash_attention",
+            lambda a, o: heads.append(a[0].shape[2])):
+        cache = model.init_cache(SERVE_BATCH,
+                                 SERVE_PROMPT + SHARD_DECODE_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        col.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill({"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = kernel_counts()
+        prefill_coll = dict(col.COLLECTIVES)
+        out = [logits]
+        col.reset_counts()
+        t0 = time.perf_counter()
+        for nxt in ref["fed"][:-1]:
+            cache, logits = model.decode_step(cache, nxt.to(DEV))
+            out.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_coll = dict(col.COLLECTIVES)
+        # a broken run for the bar: the last step with every all-reduce
+        # left to the rank's own half (each attends over its slots only,
+        # each row-parallel sum keeps its half), from a copy of the cache
+        last = ref["fed"][-1].to(DEV)
+        broken = fault_step(model, cache, last)
+        t0 = time.perf_counter()
+        cache, logits = model.decode_step(cache, last)
+        out.append(logits)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+    rms = [rel_rms(got.cpu(), want) for got, want in zip(out, ref["logits"])]
+    res.update(
+        serve_layout=cache["layout"],
+        serve_cache_k_local=list(cache["layers"]["k"].shape),
+        serve_init_peak=init_peak,
+        serve_peak=torch.cuda.max_memory_allocated(),
+        serve_weight_bytes_one=ref["weight_bytes"],
+        serve_prefill_ms=prefill_s * 1e3,
+        serve_decode_ms_per_step=decode_s * 1e3 / SHARD_DECODE_STEPS,
+        serve_flash_launches_prefill=prefill_launches[
+            "flash_attention_wgmma"],
+        serve_other_launches={k: v for k, v in prefill_launches.items()
+                              if v and k != "flash_attention_wgmma"},
+        serve_flash_heads=sorted(set(heads)),
+        serve_collectives_prefill=prefill_coll,
+        serve_collectives_per_decode_step={
+            k: v / (SHARD_DECODE_STEPS - 1) for k, v in decode_coll.items()},
+        serve_logits_rel_rms=max(rms),
+        serve_broken_rel_rms=rel_rms(broken.cpu(), ref["logits"][-1]),
+        serve_logits_max_abs=max(float((g.float().cpu() - w.float())
+                                       .abs().max())
+                                 for g, w in zip(out, ref["logits"])),
+        serve_logits_finite=all(bool(torch.isfinite(g).all()) for g in out))
+
+
+def fault_step(model, cache, tokens):
+    """One decode step from a copy of ``cache`` with every all-reduce of
+    the collectives module left to the rank's own part: a broken sharded
+    run, to set [shard-serve]'s bar against."""
+    from repro_torch.distributed import collectives as col
+
+    copy = serialize.map_with_path(
+        lambda _k, t: t.clone() if isinstance(t, torch.Tensor) else t, cache)
+    honest = col.all_reduce
+    col.all_reduce = lambda x, grp, op="sum": x.detach().clone()
+    try:
+        _, logits = model.decode_step(copy, tokens)
+    finally:
+        col.all_reduce = honest
+    return logits
+
+
+def shard_rank(rank, store, work):
+    """One of the SHARD_RANKS processes that share the card: a gloo group
+    through a FileStore, a (1, 2) mesh; writes its results to
+    ``work/rank{rank}.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS)
+    res = {"rank": rank, "gloo_on_cuda": collective_probe(rank,
+                                                          SHARD_RANKS)}
+    mesh = init_device_mesh("cuda", (1, SHARD_RANKS),
+                            mesh_dim_names=("data", "model"))
+    phases = {}
+    for name, fn in (("ep", lambda: _ranks_ep(mesh, work, res)),
+                     ("kv_decode", lambda: _ranks_kv_decode(mesh, res)),
+                     ("reshard", lambda: _ranks_reshard(mesh, res)),
+                     ("train", lambda: _ranks_train(mesh, res)),
+                     ("serve", lambda: _ranks_serve(mesh, work, res))):
+        t0 = time.perf_counter()
+        fn()
+        collect_garbage()
+        torch.cuda.empty_cache()
+        phases[name] = round(time.perf_counter() - t0, 2)
+    res["seconds"] = phases
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_shard_ranks(work, ep):
+    """[ep-ranks] and [shard-serve]: SHARD_RANKS processes share the card
+    over gloo on a (1, 2) mesh (`shard_rank`); each check must hold on
+    every rank."""
+    import torch.multiprocessing as mp
+
+    one_weights = shard_reference(work)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(shard_rank, args=(str(work / "gloo_store"),
+                                               work),
+                             nprocs=SHARD_RANKS, join=False,
+                             start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the rank processes ran past "
+                                 f"{SHARD_TIMEOUT_S} s")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    n_layers = get_config(SHARD_ARCH).n_layers
+    for r in ranks:
+        checks = {
+            "ep": (sorted(r["ep_err"]) == sorted(
+                       str(f) for f in (EP_FACTOR, EP_DROP_FACTOR))
+                   and all(r["ep_err"][f] <= r["ep_bar"][f]
+                           for f in r["ep_err"])
+                   and r["ep_launches"] == 3),
+            "kv_decode": all(r[f"kv_decode_err_{t}"] <= r[f"kv_decode_bar_{t}"]
+                             and r[f"kv_decode_writes_ok_{t}"]
+                             for t in ("fp32", "bf16")),
+            "reshard": r["reshard_bit_equal"]
+            and r["reshard_local_share"] == 0.5,
+            "train": r["train_ok"],
+            "serve": (r["serve_layout"] == "seq"
+                      and r["serve_flash_launches_prefill"] == n_layers
+                      and not r["serve_other_launches"]
+                      and r["serve_flash_heads"] == [
+                          get_config(SHARD_ARCH).n_heads // SHARD_RANKS]
+                      and r["serve_collectives_per_decode_step"].get(
+                          "decode_combine") == 3 * n_layers
+                      and r["serve_logits_finite"]
+                      and r["serve_logits_rel_rms"] <= SHARD_LOGITS_REL_RMS
+                      and r["serve_broken_rel_rms"]
+                      > 2 * SHARD_LOGITS_REL_RMS),
+        }
+        log("ep-ranks", rank=r["rank"], mesh=f"(1, {SHARD_RANKS})",
+            experts_local=r["ep_experts_local"],
+            **{f"err_vs_ep_compare_at_{f}": f"{v:.3e}"
+               for f, v in r["ep_err"].items()},
+            **{f"bar_at_{f}": f"{v:.3e}" for f, v in r["ep_bar"].items()},
+            launches=r["ep_launches"],
+            kv_decode_shape=KV_DECODE_SHAPE,
+            kv_decode_err_fp32=f"{r['kv_decode_err_fp32']:.3e}",
+            kv_decode_err_bf16=f"{r['kv_decode_err_bf16']:.3e}",
+            kv_decode_collectives=r["kv_decode_collectives"],
+            reshard_bit_equal=r["reshard_bit_equal"],
+            reshard_local_share=r["reshard_local_share"],
+            train_loss=r["train_loss"], train_loss_one=r["train_loss_one"],
+            train_gnorm=r["train_gnorm"],
+            train_gnorm_one=r["train_gnorm_one"],
+            train_param_err_tight=f"{r['train_param_err_tight']:.3e}",
+            train_param_err=f"{r['train_param_err']:.3e}",
+            gloo_on_cuda=r["gloo_on_cuda"], seconds=r["seconds"])
+        log("shard-serve", rank=r["rank"], config=SHARD_ARCH,
+            layers=n_layers, decode_kv_shard=True, layout=r["serve_layout"],
+            cache_k_local=r["serve_cache_k_local"], batch=SERVE_BATCH,
+            prompt=SERVE_PROMPT, decode_steps=SHARD_DECODE_STEPS,
+            weight_bytes_local=r["serve_weight_bytes_local"],
+            weight_bytes_one=one_weights,
+            init_peak=r["serve_init_peak"], serve_peak=r["serve_peak"],
+            prefill_ms=f"{r['serve_prefill_ms']:.1f}",
+            decode_ms_per_step=f"{r['serve_decode_ms_per_step']:.1f}",
+            flash_launches_prefill=r["serve_flash_launches_prefill"],
+            flash_heads=r["serve_flash_heads"],
+            collectives_prefill=r["serve_collectives_prefill"],
+            collectives_per_decode_step=r[
+                "serve_collectives_per_decode_step"],
+            logits_rel_rms=f"{r['serve_logits_rel_rms']:.3e}",
+            logits_bar=SHARD_LOGITS_REL_RMS,
+            broken_rel_rms=f"{r['serve_broken_rel_rms']:.3e}",
+            logits_max_abs=f"{r['serve_logits_max_abs']:.3e}",
+            backend="gloo")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"rank {r['rank']} failed {bad}")
+    return sum(r["ep_launches"] for r in ranks), sum(
+        r["serve_flash_launches_prefill"] for r in ranks)
+
+
+def phase_batch_devices():
+    """`simulate_batch` over devices on a one-card machine: devices=None
+    equals devices=1, bit for bit; devices=2 raises ValueError."""
+    horizon = 30
+    spec = WorkloadSpec(n_users=3, horizon=horizon, cpu_total=32, seed=SEED,
+                        arrival_rate=0.15, mean_work=20,
+                        class_mix=(0.15, 0.35, 0.5))
+    users = make_users(spec)
+    jobs = make_jobs(spec, users)[:30]
+    cells = [engine.BatchCell(users=users, jobs=jobs, policy=p)
+             for p in POLICIES]
+    cfg = SchedulerConfig(cpu_total=32, quantum=3)
+    one = engine.simulate_batch(cells, cfg, horizon, devices=1, device=DEV)
+    auto = engine.simulate_batch(cells, cfg, horizon, device=DEV)
+    for a, b in zip(auto, one):
+        if not (all(torch.equal(x, y) for x, y in zip(a.table, b.table))
+                and np.array_equal(a.busy, b.busy)):
+            raise AssertionError(f"devices=None differs for {a.policy}")
+    try:
+        engine.simulate_batch(cells, cfg, horizon, devices=2, device=DEV)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("devices=2 ran on a one-card machine")
+    log("batch-devices", cells=len(cells),
+        device_count=torch.cuda.device_count(), none_equals_one=True,
+        devices_2=f"ValueError: {refused[:60]}")
+
+
 def kernel_entry(name, source, replaces, launches, err, t, extra=()):
     """One kernel's entry in the JSON record: ``t`` holds its ms, plain_ms,
     bound_ms, bound_by and library_ms (None where no library call computes
@@ -4000,9 +4660,25 @@ def kernel_entry(name, source, replaces, launches, err, t, extra=()):
             "library_ms": t.get("library_ms"), **{k: t[k] for k in extra}}
 
 
+def multi_device_phases():
+    """[ep-compare], [ep-ranks], [shard-serve] and [batch-devices];
+    returns [ep-compare]'s record of the expert-parallel dispatch."""
+    with scratch_dir() as tmp:
+        work = Path(tmp)
+        ep = phase_ep_compare(work)
+        phase_shard_ranks(work, ep)
+    phase_batch_devices()
+    return ep
+
+
 def main():
     smi = phase_env()
     phase_build()
+    if sys.argv[1:] == ["--multi-device-only"]:
+        # a partial run for work on these phases: no result line
+        multi_device_phases()
+        print(smi)
+        return
     err = phase_kernel_compare()
     batch_err = phase_batch_kernel_compare()
     runs, launches = phase_fleet()
@@ -4106,6 +4782,7 @@ def main():
     collect_garbage()
     torch.cuda.empty_cache()
     new_flash = phase_new_families_serve(frontends)
+    ep = multi_device_phases()
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     gmm_src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
     record = {"kernels": [kernel_entry(
@@ -4156,7 +4833,11 @@ def main():
         kernel_entry("moe_gmm_wgmma", gmm_src,
                      "src/repro/kernels/moe_gmm/kernel.py:25",
                      moe["moe_gmm_wgmma"], gmm_err["wgmma"],
-                     gmm["prefill"]["wgmma"])]}
+                     gmm["prefill"]["wgmma"]),
+        # the expert-parallel dispatch: E_local 64, C_e 960 buffers
+        kernel_entry("moe_gmm_wgmma_ep", gmm_src,
+                     "src/repro/kernels/moe_gmm/kernel.py:25",
+                     ep["launches"], ep["err"], ep["timing"])]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

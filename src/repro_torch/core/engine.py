@@ -40,7 +40,8 @@ import torch
 from repro_torch.core import omfs_torch, policies_torch
 from repro_torch.core.baselines import ALL_BASELINES
 from repro_torch.core.omfs import Decision, cheap_victim_pass, scheduler_pass
-from repro_torch.core.omfs_torch import I32, JobTable, Knobs, PassStats
+from repro_torch.core.omfs_torch import (I32, JobTable, Knobs, PassStats,
+                                         resolve_device)
 from repro_torch.core.types import (
     ClusterState,
     Job,
@@ -575,7 +576,17 @@ def simulate_batch(
     and to the reference's ``simulate_batch``; each result's ``stats``
     holds its group's host syncs and its own eviction branches.
 
-    ``devices`` takes only 1 (one card; slice 11 brings more).  Empty
+    ``devices=None`` or 1 runs the batch on ``device``.  ``devices=n``
+    splits it over ``min(n, len(cells))`` devices of ``device``'s type
+    (the reference's batch axis over its mesh): the cells are padded to a
+    multiple of that with replicas of the last cell (dropped from the
+    results) and cut into contiguous groups, group i on ``cuda:(j + i)``
+    from the given ``cuda:j`` (``cuda`` is ``cuda:0``); on the CPU the
+    groups run one after another on the one CPU device (the stand-in for
+    XLA's host device count).  Cards past ``torch.cuda.device_count()``
+    raise ValueError.  Every group pads to the whole batch's largest table
+    and depth, so a cell's result is the same for every n, bit for bit;
+    its ``stats`` hold its group's host syncs.  Empty
     corners match the sequential paths: ``cells == []`` returns ``[]``,
     a batch whose tables are all empty takes ``simulate``'s early return,
     and a mixed batch keeps its empty cells as all-pad tables.  Runs on
@@ -588,18 +599,30 @@ def simulate_batch(
     if unknown:
         raise ValueError(
             f"unknown policies {unknown}; known: {sorted(POLICIES)}")
-    if devices is not None and int(devices) != 1:
+    dev = resolve_device(device)
+    n_dev = 1 if devices is None else int(devices)
+    first = dev.index or 0
+    if n_dev < 1 or (n_dev > 1 and dev.type == "cuda"
+                     and first + n_dev > torch.cuda.device_count()):
         raise ValueError(
-            f"devices={devices}: the port runs a batch on one card; "
-            "batches across cards come with slice 11")
-    # each distinct workload is built once and shared by its cells
+            f"devices={devices} from {dev}: this machine has "
+            f"{torch.cuda.device_count() if dev.type == 'cuda' else 1} "
+            f"{dev.type} device(s) to split a batch over")
+    n_dev = min(n_dev, len(cells))
+    n_cells = len(cells)
+    cells = cells + [cells[-1]] * ((-n_cells) % n_dev)
+    per = len(cells) // n_dev
+    devs = [torch.device("cuda", first + i) if n_dev > 1
+            and dev.type == "cuda" else dev for i in range(n_dev)]
+    # each distinct workload is built once per device and shared by its
+    # cells
     built, memo = [], {}
     t0 = time.perf_counter()
-    for c in cells:
-        key = (id(c.users), id(c.jobs))
+    for k, c in enumerate(cells):
+        key = (id(c.users), id(c.jobs), k // per)
         if key not in memo:
             memo[key] = omfs_torch.table_from_jobs(
-                c.jobs, c.users, config.cpu_total, config, device)
+                c.jobs, c.users, config.cpu_total, config, devs[k // per])
         built.append(memo[key])
     build_s = time.perf_counter() - t0
     sizes = [t.cpus.shape[0] for t, _ in built]
@@ -615,7 +638,7 @@ def simulate_batch(
                 r.events = []
                 r.event_counts = np.zeros((horizon, N_EVENT_TYPES), np.int64)
                 r.events_dropped = np.zeros(horizon, np.int64)
-        return out
+        return out[:n_cells]
 
     rows = max(sizes)
     ring_size = None
@@ -629,8 +652,10 @@ def simulate_batch(
     depths = [c.pass_depth for c in cells]
     bound = None if any(d is None for d in depths) else max(depths)
     out: List[Optional[EngineResult]] = [None] * len(cells)
-    for name in names:
-        group = [k for k, c in enumerate(cells) if c.policy == name]
+    for name, lo in ((n, i * per) for i in range(n_dev) for n in names):
+        group = [k for k in range(lo, lo + per) if cells[k].policy == name]
+        if not group:
+            continue
         tbl, ent = omfs_torch.stack_tables(
             [omfs_torch.pad_table(built[k][0], rows) for k in group],
             [built[k][1] for k in group])
@@ -667,7 +692,7 @@ def simulate_batch(
                 res.events = torch_capture.decode_events(
                     counts[g], ring[g], dropped[g])
             out[k] = res
-    return out
+    return out[:n_cells]
 
 
 # ---------------------------------------------------------------------------

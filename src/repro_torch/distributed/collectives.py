@@ -1,0 +1,406 @@
+"""Explicit collectives and the ambient mesh (the twin of
+``src/repro/distributed/collectives.py``).
+
+The reference's ``shard_map`` bodies become code on each rank's local
+tensors, and their collectives ``torch.distributed`` calls on the mesh's
+process groups: ``all_reduce`` (SUM, MAX) and ``all_gather``, nothing
+else, so that gloo (CPU tests, ranks sharing one card) and NCCL take the
+same code.
+
+* `use_mesh` / `current_mesh` / `usable_mesh`: the ambient mesh (the twin
+  of ``jax.set_mesh``); the model's hooks are live only under a mesh whose
+  model axis has at least 2 ranks.
+* `embed_lookup`: the local ``[V, d/TP]`` rows for this rank's tokens.
+* `sharded_kv_decode_attention`: flash-decoding over a KV cache split on
+  its sequence axis, combined with one MAX and two SUM all-reduces.
+* `constrain_heads`: heads over TP, else head_dim (a DTensor placement).
+* The tensor-parallel conventions of the model's sharded forward (the
+  residual stream is replicated over the model axis, values and
+  gradients alike): `copy_to_tp` (identity, its gradient summed over the
+  model axis) before a column-parallel region, `reduce_from_tp` (a SUM
+  all-reduce, identity gradient) after a row-parallel one, `gather`
+  (all-gather, its gradient this rank's slice) where a sharded tensor is
+  made whole, and `dp_mean` (the mean over the data axes, its gradient
+  divided by their size).  ``torch.distributed.nn.functional.all_reduce``
+  differentiates to a SUM of the gradients, which is right only where the
+  loss is a sum over ranks; the forms here give the gradient of one loss
+  that every rank of a model group computes alike.
+
+`COLLECTIVES` counts the calls by kind since the last `reset_counts`.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from collections import Counter
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
+
+#: collective calls over more than one rank by kind ("all_reduce_sum",
+#: "all_reduce_max", "all_gather") and by site ("decode_combine": the
+#: sharded decode's three)
+COLLECTIVES: Counter = Counter()
+
+_MESH = None
+
+
+def reset_counts() -> None:
+    COLLECTIVES.clear()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh for the block (the twin of
+    ``jax.set_mesh``)."""
+    global _MESH
+    was, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = was
+
+
+def current_mesh():
+    return _MESH
+
+
+def usable_mesh(min_model: int = 2):
+    """The ambient mesh if its model axis has at least ``min_model``
+    ranks, else None."""
+    mesh = _MESH
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    if shd.axis_sizes(mesh)["model"] < min_model:
+        return None
+    return mesh
+
+
+def dp_tp_axes(mesh) -> Tuple[Tuple[str, ...], str]:
+    return shd.mesh_axes(mesh)
+
+
+def dp_size(mesh) -> int:
+    sizes = shd.axis_sizes(mesh)
+    return int(math.prod(sizes[a] for a in shd.mesh_axes(sizes)[0]))
+
+
+def tp_size(mesh) -> int:
+    return shd.axis_sizes(mesh)["model"]
+
+
+def tp_rank(mesh) -> int:
+    return shd.mesh_coord(mesh)["model"]
+
+
+def dp_rank(mesh) -> int:
+    """This rank's index over the data axes, pod-major."""
+    sizes, coord = shd.axis_sizes(mesh), shd.mesh_coord(mesh)
+    idx = 0
+    for a in shd.mesh_axes(sizes)[0]:
+        idx = idx * sizes[a] + coord[a]
+    return idx
+
+
+def group(mesh, axes):
+    """The process group of this rank over the mesh axes ``axes`` (one
+    name or several, flattened major to minor; made once per mesh)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    made = mesh.__dict__.setdefault("_flat_groups", {})
+    if axes not in made:
+        made[axes] = mesh[axes]._flatten().get_group()
+    return made[axes]
+
+
+def dp_group(mesh):
+    return group(mesh, shd.mesh_axes(mesh)[0])
+
+
+def tp_group(mesh):
+    return group(mesh, "model")
+
+
+# ---------------------------------------------------------------------------
+# Raw collectives on local tensors
+# ---------------------------------------------------------------------------
+
+
+def all_reduce(x: torch.Tensor, grp, op: str = "sum") -> torch.Tensor:
+    """A new tensor: the SUM or MAX of ``x`` over ``grp``."""
+    out = x.detach().clone().contiguous()
+    if dist.get_world_size(grp) > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=grp)
+        COLLECTIVES[f"all_reduce_{op}"] += 1
+    return out
+
+
+def all_gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order."""
+    n = dist.get_world_size(grp)
+    if n == 1:
+        return x.detach()
+    COLLECTIVES["all_gather"] += 1
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.detach().contiguous(), group=grp)
+    return torch.cat(parts, dim=dim)
+
+
+def _slice(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(grp)
+    r = dist.get_rank(grp)
+    step = x.shape[dim] // n
+    return x.narrow(dim, r * step, step)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable forms (the tensor-parallel conventions above)
+# ---------------------------------------------------------------------------
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.grp), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        return all_reduce(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return all_gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.grp, ctx.dim).contiguous(), None, None
+
+
+class _DPMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.n = dist.get_world_size(grp)
+        return all_reduce(x, grp) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _CopyToTP.apply(x, tp_group(mesh))
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _ReduceFromTP.apply(x, tp_group(mesh))
+
+
+def gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    return _Gather.apply(x, grp, dim)
+
+
+def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _DPMean.apply(x, dp_group(mesh))
+
+
+# ---------------------------------------------------------------------------
+# Views of a parameter: what a consumer computes with
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(w) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(w, DTensor)
+
+
+def _gather_axes(w, mesh_dims, dtype=None) -> torch.Tensor:
+    """``w``'s local part (a DTensor's), cast to ``dtype`` if given, made
+    whole over the mesh dims ``mesh_dims`` that shard it, innermost first,
+    so that a dim split pod-major is rebuilt in order; differentiable."""
+    loc = w.to_local()
+    if dtype is not None:
+        loc = loc.to(dtype)
+    names = w.device_mesh.mesh_dim_names
+    for i in sorted(mesh_dims, reverse=True):
+        pl = w.placements[i]
+        if pl.is_shard():
+            loc = gather(loc, w.device_mesh.get_group(names[i]), pl.dim)
+    return loc
+
+
+def full(w) -> torch.Tensor:
+    """The whole tensor: a DTensor gathered over every mesh dim that
+    shards it (an explicit all-gather), a plain tensor as it is."""
+    if not _is_dtensor(w):
+        return w
+    return _gather_axes(w, range(w.device_mesh.ndim))
+
+
+def tp_local(w, dim: int, mesh, dtype=None) -> torch.Tensor:
+    """This rank's model-axis block of ``w`` along ``dim``, in ``dtype``
+    if given: a DTensor is cast, then gathered over the data axes that
+    shard it (FSDP), and keeps its model shard, which must lie on
+    ``dim``; a plain tensor is the global one, sliced."""
+    grp = tp_group(mesh)
+    if not _is_dtensor(w):
+        part = _slice(w, grp, dim % w.dim())
+        return part if dtype is None else part.to(dtype)
+    names = w.device_mesh.mesh_dim_names
+    t = names.index("model")
+    pl = w.placements[t]
+    if not (pl.is_shard() and pl.dim == dim % w.dim()):
+        raise ValueError(f"expected a model-axis shard on dim {dim}, the "
+                         f"tensor holds {w.placements}")
+    return _gather_axes(w, [i for i in range(len(names)) if i != t], dtype)
+
+
+def dp_replicated(w):
+    """A DTensor re-placed Replicate on the data axes (its model placement
+    kept), without autograd: the compute view a sharded train step
+    differentiates against."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    dp = shd.mesh_axes(mesh)[0]
+    dims = [i for i, a in enumerate(names) if a in dp]
+    with torch.no_grad():
+        loc = _gather_axes(w, dims)
+    placements = tuple(Replicate() if i in dims else p
+                       for i, p in enumerate(w.placements))
+    return DTensor.from_local(loc.contiguous(), mesh, placements,
+                              run_check=False, shape=w.shape,
+                              stride=w.stride())
+
+
+# ---------------------------------------------------------------------------
+# The reference's explicit regions
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(table, tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """table [V, d] (d over TP: a DTensor, or the global tensor), tokens
+    this rank's [B/DP, S] -> this rank's embeddings [B/DP, S, d/TP]; no
+    collective."""
+    return tp_local(table, -1, mesh)[tokens]
+
+
+def sharded_kv_decode_attention(
+    q: torch.Tensor,          # [B, Tq, H, D] this rank's batch rows
+    k_cache: torch.Tensor,    # [B, S/TP, KVH, D] this rank's slots
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,      # [B, Tq, KVH, D]
+    v_new: torch.Tensor,
+    q_pos: torch.Tensor,      # [B, Tq]
+    kv_pos: torch.Tensor,     # [B, S/TP]
+    cursor: torch.Tensor,     # [] int32 global write position
+    mesh,
+):
+    """Flash-decoding over the model axis: the cache is split on its
+    sequence axis, each rank holding slots ``[r * S_loc, (r + 1) *
+    S_loc)``.  Each rank writes the new K/V (and positions) only where the
+    slot falls in its range, dropping it otherwise; attends over its slice;
+    and the partial softmax statistics are combined with a MAX and two SUM
+    all-reduces of [B, KVH, G, Tq]-sized tensors instead of moving the
+    cache.  Writes the caches in place and returns (out [B, Tq, H, D] in
+    q's dtype, k_cache, v_cache, kv_pos).  Full attention only: no window,
+    no ring."""
+    grp = tp_group(mesh)
+    b, tq, h, d = q.shape
+    s_loc, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    # 1. localized cache write (a slot on another rank is dropped)
+    first = cursor.to(torch.int64) - tp_rank(mesh) * s_loc
+    for j in range(tq):
+        slot = first + j
+        mine = (slot >= 0) & (slot < s_loc)
+        idx = slot.clamp(0, s_loc - 1).reshape(1)
+        for cache, new in ((k_cache, k_new), (v_cache, v_new),
+                           (kv_pos, q_pos)):
+            old = cache.index_select(1, idx)
+            src = torch.where(mine, new[:, j:j + 1].to(cache.dtype), old)
+            cache.index_copy_(1, idx, src)
+    # 2. local partial attention
+    qr = q.reshape(b, tq, kvh, g, d)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qr.float(),
+                      k_cache.float()) * scale
+    vis = (kv_pos >= 0)[:, None] & (kv_pos[:, None, :] <= q_pos[..., None])
+    sc = torch.where(vis[:, None, None], sc, torch.full_like(sc, -1e30))
+    m_loc = sc.amax(dim=-1)                               # [B, KVH, G, Tq]
+    p = torch.exp(sc - m_loc[..., None])
+    l_loc = p.sum(dim=-1)
+    acc_loc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype), v_cache)
+    # 3. combine the partial softmax statistics across the model axis
+    m = all_reduce(m_loc, grp, "max")
+    corr = torch.exp(m_loc - m)
+    l_sum = all_reduce(l_loc * corr, grp)
+    acc = all_reduce(acc_loc.float() * corr[..., None], grp)
+    COLLECTIVES["decode_combine"] += 3
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d)
+    return out.to(q.dtype), k_cache, v_cache, kv_pos
+
+
+def swiglu_tp(params: dict, x: torch.Tensor, mesh) -> torch.Tensor:
+    """The SwiGLU MLP over the model axis: column-parallel gate and up,
+    row-parallel down, the partial outputs summed in fp32 (one SUM
+    all-reduce) and cast to x's dtype.  Where the hidden width does not
+    divide by the model axis, the weights are gathered whole and every
+    rank computes the whole MLP."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    f, n = params["w_gate"].shape[-1], tp_size(mesh)
+    if f % n or f < n:
+        w = {k: full(v).to(dt) for k, v in params.items()}
+        return (F.silu(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
+    xin = copy_to_tp(x, mesh)
+    gate = xin @ tp_local(params["w_gate"], -1, mesh).to(dt)
+    up = xin @ tp_local(params["w_up"], -1, mesh).to(dt)
+    h = (F.silu(gate) * up) @ tp_local(params["w_down"], -2, mesh).to(dt)
+    return reduce_from_tp(h.float(), mesh).to(dt)
+
+
+def heads_spec(shape, mesh, heads_axis: int = 2) -> shd.Spec:
+    """The reference's pin for [B, T, H, D] attention tensors: batch over
+    DP, heads over TP if divisible, else head_dim over TP."""
+    dp, tp = dp_tp_axes(mesh)
+    spec: list = [None] * len(shape)
+    if shape[0] % dp_size(mesh) == 0:
+        spec[0] = dp
+    if shape[heads_axis] % tp_size(mesh) == 0:
+        spec[heads_axis] = (tp,)
+    elif shape[-1] % tp_size(mesh) == 0:
+        spec[-1] = (tp,)
+    return tuple(spec)
+
+
+def constrain_heads(x, heads_axis: int = 2):
+    """Place a [B, T, H, D] DTensor with heads over TP, else head_dim (the
+    reference's sharding constraint); a plain tensor, or no usable mesh,
+    is returned as it is.  It changes no value."""
+    mesh = usable_mesh()
+    if mesh is None or not _is_dtensor(x) or x.dim() < 3:
+        return x
+    spec = heads_spec(x.shape, mesh, heads_axis)
+    return x.redistribute(mesh, shd.to_placements(spec, mesh))

@@ -20,8 +20,9 @@ Runs on the card unless ``--device cpu`` is given, and raises without
 CUDA.  Every arch of ``configs/`` serves: the dense GQA family
 (internlm2-1.8b, glm4-9b, mistral-nemo-12b), minicpm3-4b (MLA), the MoE
 family (deepseek-moe-16b, whose 67.5 GB of fp32 master weights fit one 80
-GB card, and dbrx-132b, which at its full size needs the expert-parallel
-sharding of ROADMAP slice 11 and serves here at its smoke size), the
+GB card, and dbrx-132b, whose 528 GB of fp32 weights no one card holds:
+this one-device launcher serves it at its smoke size, and its experts
+shard over ranks only under a mesh, through `distributed.moe_ep`), the
 hybrid hymba-1.5b, xlstm-350m, llama-3.2-vision-11b and whisper-base.  The
 VLM's and the audio model's frontends are stubs, as in the reference: zero
 patch or frame embeddings (`models.model.frontend_stub`), unless a caller

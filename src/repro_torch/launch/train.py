@@ -20,8 +20,9 @@ dbrx-132b), hybrid (hymba-1.5b), xLSTM (xlstm-350m), VLM
 of the port runs in a step.  The VLM's and the audio model's frontends
 are stubs, as in the reference: every step feeds zero patch or frame
 embeddings (`models.model.frontend_stub`), unless a caller of `run`
-passes its own ``frontend``.  The reference imports ``optim/compression``
-without calling it; the port leaves it out (ROADMAP slice 11).
+passes its own ``frontend``.  Gradient compression
+(`optim.compression`) is not called, as in the reference, so there is no
+flag for it.
 
 `run` is the loop, with its periodic fast-tier checkpoints; it returns a
 `TrainRun` record (per-step losses, grad norms and wall seconds, the

@@ -49,6 +49,24 @@ step runs the mLSTM kernel from the cache's carried state
 (`models.xlstm`), reading nothing back to the host.  An MoE layer
 whose tokens exceed the grouped-matmul kernel's row tile reads its largest
 expert count once on the host (`models.moe`).
+
+Under an ambient mesh (`distributed.collectives.use_mesh`; the parameters
+DTensors placed by `distributed.sharding.shard_model`, or global tensors)
+every entry point takes the global batch and each rank computes its rows
+over the data axes (all of them where the batch does not divide): the
+dense and MoE families run their stacks tensor-parallel
+(`models.transformer`), the embedding goes through
+`collectives.embed_lookup`, the logits are computed over the rank's vocab
+columns and gathered, and prefill and decode return the global logits;
+the other families gather every parameter whole (an explicit all-gather)
+and run their one-device code on their rows.  `init_cache` then builds
+the rank's own part of the cache, with its ``layout``
+(`transformer.kv_layout`).  `loss` returns the rank's share of the
+global loss, whose gradients summed over the data axes are the global
+loss's, and the global values in its metrics (``loss`` among them).
+
+``param_shapes``, ``cache_shapes`` and ``input_specs`` give the shapes as
+``device="meta"`` tensors, so that a full-size config allocates nothing.
 """
 from __future__ import annotations
 
@@ -58,9 +76,11 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.convert import flat_paths
 from repro_torch.core.omfs_torch import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import map_with_names
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -219,6 +239,11 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def param_shapes(self) -> dict:
+        """The parameter tree as ``device="meta"`` tensors (the twin of
+        ``eval_shape`` over the init): no allocation."""
+        return Model(self.cfg, device="meta").params()
+
     def params(self) -> dict:
         """The parameters as the reference's nested dict of tensors."""
         return _as_dict(self)
@@ -254,16 +279,76 @@ class Model(nn.Module):
             module._parameters[name] = nn.Parameter(t.detach())
         return self
 
+    # -- sharded execution --------------------------------------------------
+
+    #: the leaves that the tensor-parallel stack takes sharded; it takes
+    #: every other leaf (the norms above all) whole
+    _TP_LEAVES = frozenset({"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up",
+                            "w_down", "router", "embed", "unembed"})
+
+    def _spmd_params(self, params, mesh):
+        """The tree a sharded forward computes with: the leaves that the
+        tensor-parallel stack shards stay DTensors, every other DTensor is
+        gathered whole (an explicit all-gather; a replicated one is its
+        local tensor); a family without a tensor-parallel stack gathers
+        every leaf."""
+        tp = tfm.spmd_mesh(self.cfg) is not None
+
+        def view(names, w):
+            if col._is_dtensor(w) and not (tp and names[-1]
+                                           in self._TP_LEAVES):
+                return col.full(w)
+            return w
+
+        return map_with_names(view, params)
+
+    @staticmethod
+    def _dp_rows(x, mesh):
+        """(this rank's rows of a global [B, ...] input over the data
+        axes, whether it was split): every row where B does not divide."""
+        n = col.dp_size(mesh)
+        if x is None or n == 1 or x.shape[0] % n:
+            return x, False
+        b = x.shape[0] // n
+        r = col.dp_rank(mesh)
+        return x[r * b:(r + 1) * b], True
+
+    def _global_rows(self, y, mesh, split: bool):
+        if mesh is None or not split:
+            return y
+        return col.all_gather(y, col.dp_group(mesh), 0)
+
     # -- embedding helpers --------------------------------------------------
 
     def _embed(self, params, tokens):
-        x = params["embed"][tokens]
+        table = params["embed"]
+        mesh = col.current_mesh()
+        if mesh is None:
+            x = table[tokens]
+        elif (col.usable_mesh() is not None
+              and table.shape[-1] % col.tp_size(mesh) == 0):
+            x = col.gather(col.embed_lookup(table, tokens, mesh),
+                           col.tp_group(mesh), -1)
+        else:
+            x = col.full(table)[tokens]
         return x.to(getattr(torch, self.cfg.compute_dtype))
 
+    def _logits(self, params, h_last):
+        """`_logits_last` over the whole vocab; under a usable mesh each
+        rank takes its vocab columns and the logits are gathered."""
+        mesh = col.usable_mesh()
+        if (mesh is not None and not self.cfg.tie_embeddings
+                and self.cfg.vocab % col.tp_size(mesh) == 0):
+            w = col.tp_local(params["unembed"], -1, mesh)
+            return col.all_gather(_logits_last(h_last, w),
+                                  col.tp_group(mesh), -1)
+        return _logits_last(h_last, self._unembed_matrix(params))
+
     def _unembed_matrix(self, params):
+        """The [d, V] unembedding, whole (a DTensor gathered)."""
         if self.cfg.tie_embeddings:
-            return params["embed"].T
-        return params["unembed"]
+            return col.full(params["embed"]).T
+        return col.full(params["unembed"])
 
     def _positions(self, batch_size: int, start, length: int):
         pos = start + torch.arange(length, dtype=torch.int32,
@@ -283,9 +368,10 @@ class Model(nn.Module):
             kw = dict(cache=cache["layers"], kv_pos=cache.get("pos"),
                       cursor=cache["length"])
         if cfg.family in ("dense", "moe", "hybrid"):
+            layout = cache.get("layout") if cache is not None else None
             h, layers, aux = tfm.stack_apply(
                 cfg, params["blocks"], x, positions, mode=mode, **kw,
-                **chunks)
+                **chunks, kv_layout=layout)
         elif cfg.family == "vlm":
             vision = None
             if mode != "decode":
@@ -331,6 +417,15 @@ class Model(nn.Module):
         cfg = self.cfg
         params = self.params() if params is None else params
         tokens, labels = batch["tokens"], batch["labels"]
+        mesh = col.current_mesh()
+        if mesh is not None:
+            params = self._spmd_params(params, mesh)
+            tokens, split = self._dp_rows(tokens, mesh)
+            labels, _ = self._dp_rows(labels, mesh)
+            if "frontend" in batch:
+                batch = dict(batch,
+                             frontend=self._dp_rows(batch["frontend"],
+                                                    mesh)[0])
         b, t = tokens.shape
         x = self._embed(params, tokens)
         nm = cfg.n_meta_tokens
@@ -343,9 +438,32 @@ class Model(nn.Module):
         loss_sum, count = chunked_ce_loss(h[:, nm:],
                                           self._unembed_matrix(params),
                                           labels)
+        if mesh is not None:
+            return self._sharded_loss(loss_sum, count, aux, mesh, split)
         loss = loss_sum / torch.clamp(count, min=1.0)
         total = loss + aux / max(cfg.n_layers, 1)
         return total, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
+
+    def _sharded_loss(self, loss_sum, count, aux, mesh, split: bool):
+        """From this rank's CE sum and token count: its share of the
+        global loss (the shares' gradients summed over the data axes are
+        the global loss's) and the global metrics.  A rank's rows are a
+        split of the batch, or all of it on every data rank."""
+        cfg = self.cfg
+        grp = col.dp_group(mesh)
+        if split:
+            count = col.all_reduce(count, grp)
+            share = loss_sum / torch.clamp(count, min=1.0)
+        else:
+            share = (loss_sum / torch.clamp(count, min=1.0)
+                     / col.dp_size(mesh))
+        if tfm.spmd_mesh(cfg) is None:
+            aux = col.dp_mean(aux, mesh)
+        ce = col.all_reduce(share.detach(), grp)
+        layers = max(cfg.n_layers, 1)
+        return share + aux / layers, {
+            "ce_loss": ce, "aux_loss": aux.detach(), "tokens": count,
+            "loss": ce + aux.detach() / layers}
 
     # -- serving ------------------------------------------------------------
 
@@ -357,6 +475,15 @@ class Model(nn.Module):
         cfg = self.cfg
         params = self.params()
         tokens = batch["tokens"]
+        mesh = col.current_mesh()
+        split = False
+        if mesh is not None:
+            params = self._spmd_params(params, mesh)
+            tokens, split = self._dp_rows(tokens, mesh)
+            if "frontend" in batch:
+                batch = dict(batch,
+                             frontend=self._dp_rows(batch["frontend"],
+                                                    mesh)[0])
         b, t = tokens.shape
         x = self._embed(params, tokens)
         nm = cfg.n_meta_tokens
@@ -364,39 +491,47 @@ class Model(nn.Module):
             meta = params["meta"].to(x.dtype)[None].expand(b, nm, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
         # arange(S) by construction: the flash guard reads nothing back
-        positions = arange_positions(b, t + nm, self.device)
+        positions = arange_positions(b, t + nm, tokens.device)
         h, layers, _ = self._trunk(params, x, positions, mode="prefill",
                                    cache=cache, batch=batch)
         new_cache = dict(cache, layers=layers)
         if "pos" in cache:
-            new_cache["pos"] = cache_pos_write(cache["pos"], positions,
-                                               cache["length"], n_pinned=nm)
+            new_cache["pos"] = self._pos_write(cache, positions, mesh)
         new_cache["length"] = cache["length"] + (t + nm)
-        logits = _logits_last(h[:, -1:], self._unembed_matrix(params))
-        return new_cache, logits
+        logits = self._logits(params, h[:, -1:])
+        return new_cache, self._global_rows(logits, mesh, split)
+
+    def _pos_write(self, cache, positions, mesh):
+        if cache.get("layout") == "seq":
+            return tfm.seq_write(cache["pos"], positions, cache["length"],
+                                 mesh)
+        return cache_pos_write(cache["pos"], positions, cache["length"],
+                               n_pinned=self.cfg.n_meta_tokens)
 
     @torch.no_grad()
     def decode_step(self, cache: Cache,
                     tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
         """One decode step: tokens [B, T_small] -> (cache, fp32 logits
         [B, T_small, V])."""
-        cfg = self.cfg
         params = self.params()
+        mesh = col.current_mesh()
+        split = False
+        if mesh is not None:
+            params = self._spmd_params(params, mesh)
+            tokens, split = self._dp_rows(tokens, mesh)
         b, t = tokens.shape
         x = self._embed(params, tokens)
         positions = self._positions(b, cache["length"], t)
         new_cache = dict(cache)
         if "pos" in cache:
             # positions first, so that attention sees the new token's slot
-            new_cache["pos"] = cache_pos_write(
-                cache["pos"], positions, cache["length"],
-                n_pinned=cfg.n_meta_tokens)
+            new_cache["pos"] = self._pos_write(cache, positions, mesh)
         h, layers, _ = self._trunk(params, x, positions, mode="decode",
                                    cache=new_cache)
         new_cache["layers"] = layers
         new_cache["length"] = cache["length"] + t
-        logits = _logits_last(h, self._unembed_matrix(params))
-        return new_cache, logits
+        logits = self._logits(params, h)
+        return new_cache, self._global_rows(logits, mesh, split)
 
     # -- caches -------------------------------------------------------------
 
@@ -408,11 +543,58 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, max_seq: int,
                    dtype=torch.bfloat16) -> Cache:
+        """The cache of a global batch; under an ambient mesh this
+        rank's part of it."""
+        return self._init_cache(batch_size, max_seq, dtype, self.device,
+                                col.current_mesh())
+
+    def cache_shapes(self, batch_size: int, max_seq: int,
+                     dtype=torch.bfloat16) -> Cache:
+        """The global cache's tree as ``device="meta"`` tensors."""
+        return self._init_cache(batch_size, max_seq, dtype, "meta", None)
+
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+        """``device="meta"`` stand-ins for every model input of a
+        `ShapeSpec`."""
+        cfg = self.cfg
+        b = shape.global_batch
+
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        specs: Dict[str, torch.Tensor] = {}
+        if shape.kind == "train":
+            specs["tokens"] = spec(b, shape.seq_len)
+            specs["labels"] = spec(b, shape.seq_len)
+        elif shape.kind == "prefill":
+            specs["tokens"] = spec(b, shape.seq_len)
+        elif shape.kind == "decode":
+            specs["tokens"] = spec(b, 1)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            specs["frontend"] = spec(b, cfg.vision.n_patches,
+                                     cfg.vision.vision_dim,
+                                     dtype=torch.bfloat16)
+        if cfg.family == "audio" and shape.kind != "decode":
+            specs["frontend"] = spec(b, cfg.audio.n_audio_ctx, cfg.d_model,
+                                     dtype=torch.bfloat16)
+        return specs
+
+    def _init_cache(self, batch_size: int, max_seq: int, dtype, dev,
+                    mesh) -> Cache:
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         s = self.cache_slots(max_seq + cfg.n_meta_tokens)
-        dev = self.device
         b = batch_size
+        s_kv, kvh, layout = s, cfg.n_kv_heads, None
+        if mesh is not None:
+            n = col.dp_size(mesh)
+            b = b // n if b % n == 0 else b
+            if tfm.spmd_mesh(cfg) is not None:
+                layout = tfm.kv_layout(cfg, mesh, s)
+                if layout == "seq":
+                    s_kv = s // col.tp_size(mesh)
+                elif layout == "heads":
+                    kvh = kvh // col.tp_size(mesh)
         cache: Cache = {"length": torch.zeros((), dtype=torch.int32,
                                               device=dev)}
         if cfg.family == "ssm":
@@ -431,8 +613,8 @@ class Model(nn.Module):
             layers = {"ckv": zeros(n_self, b, s, cfg.mla.kv_lora_rank),
                       "kr": zeros(n_self, b, s, cfg.mla.qk_rope_head_dim)}
         else:
-            layers = {"k": zeros(n_self, b, s, cfg.n_kv_heads, hd),
-                      "v": zeros(n_self, b, s, cfg.n_kv_heads, hd)}
+            layers = {"k": zeros(n_self, b, s_kv, kvh, hd),
+                      "v": zeros(n_self, b, s_kv, kvh, hd)}
         if cfg.family == "vlm":
             n_groups = cfg.n_layers // cfg.vision.cross_attn_every
             for name in ("xk", "xv"):
@@ -451,7 +633,10 @@ class Model(nn.Module):
                 (cfg.n_layers, b, cfg.ssm.d_conv - 1, di), dtype=dtype,
                 device=dev)
         cache["layers"] = layers
-        cache["pos"] = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+        cache["pos"] = torch.full((b, s_kv), -1, dtype=torch.int32,
+                                  device=dev)
+        if layout is not None:
+            cache["layout"] = layout
         return cache
 
 

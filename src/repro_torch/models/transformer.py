@@ -33,9 +33,22 @@ in the absorbed form.  The VLM stack (`vlm_stack_apply`) runs groups of
 cross-attention block over the projected vision states, whose K and V it
 caches per group (``xk``, ``xv``) at prefill and reads at decode; the
 cross-attention is non-causal (the flash kernel at prefill, plain torch at
-decode and in train mode).  The reference's ``constrain_heads``, its
-sharded-decode branch and its expert-parallel MoE dispatch are the
-identity on one device; they wait for slice 11.
+decode and in train mode).
+
+Under an ambient mesh (`distributed.collectives.use_mesh`) the dense and
+MoE GQA stacks run tensor-parallel on each rank's local tensors
+(`_gqa_attention_tp`, `collectives.swiglu_tp`): the residual stream is
+replicated over the model axis, q, k and v are column-parallel with the
+heads over the model axis (the layout the reference's ``constrain_heads``
+pins) where both head counts divide, the output projection row-parallel
+with one SUM all-reduce; where the heads do not divide, the attention
+weights are gathered whole and every rank of a model group attends over
+all heads.  The KV cache's layout (`kv_layout`) is its sequence axis over
+the model axis with ``decode_kv_shard`` (decode then goes through
+`collectives.sharded_kv_decode_attention`), else the local heads, else
+whole.  The MoE FFN goes through `distributed.moe_ep.moe_ffn_ep` where
+the model axis divides ``n_routed``.  Without a mesh every path is the
+one-device one.
 """
 from __future__ import annotations
 
@@ -45,6 +58,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import moe_ep
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -85,13 +100,14 @@ def gqa_params_spec(cfg: ModelConfig, dtype) -> dict:
 
 def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
                     positions: torch.Tensor):
-    """x [B, T, d] -> q [B, T, H, hd], k and v [B, T, KVH, hd], rotary on
-    q and k; weights cast to x's dtype at each use."""
+    """x [B, T, d] -> q [B, T, H, hd], k and v [B, T, KVH, hd] (the heads
+    the weights hold: all of them, or a rank's), rotary on q and k;
+    weights cast to x's dtype at each use."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["w_q"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
-    k = (x @ p["w_k"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
-    v = (x @ p["w_v"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    q = (x @ p["w_q"].to(x.dtype)).reshape(b, t, -1, hd)
+    k = (x @ p["w_k"].to(x.dtype)).reshape(b, t, -1, hd)
+    v = (x @ p["w_v"].to(x.dtype)).reshape(b, t, -1, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -102,12 +118,25 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   layer_cache: Optional[dict] = None,
                   kv_pos: Optional[torch.Tensor] = None,
                   cursor=None, q_chunk: int = 1024,
-                  kv_chunk: int = 1024) -> Tuple[torch.Tensor, Optional[dict]]:
+                  kv_chunk: int = 1024, mesh=None,
+                  kv_layout: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention sub-layer (pre-norm residual applied by the caller).
     Returns (out [B, T, d], the layer's cache {k, v}, written in place;
-    None in train mode)."""
+    None in train mode).  The weights may hold a rank's heads only
+    (`_gqa_attention_tp`): ``out`` is then the rank's partial sum of the
+    output projection.  With ``kv_layout="seq"`` the cache is the rank's
+    slots of every head under ``mesh``: prefill writes the slots that fall
+    in it (`seq_write`), decode goes through
+    `collectives.sharded_kv_decode_attention`."""
     b, t, _ = x.shape
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
+    seq = kv_layout == "seq"
+    local_heads = q.shape[2] != cfg.n_heads
+
+    def whole(z):          # every head, for the sequence-split cache
+        return col.all_gather(z, col.tp_group(mesh), 2) if local_heads else z
+
     new_cache = None
     if mode == "train":
         out = chunked_attention(q, k, v, positions, positions, causal=True,
@@ -118,21 +147,115 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out = prefill_attention(q, k, v, positions, positions, causal=True,
                                 window=cfg.sliding_window,
                                 n_meta=cfg.n_meta_tokens)
-        ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
-                             n_pinned=cfg.n_meta_tokens)
+        if seq:
+            ck = seq_write(layer_cache["k"], whole(k), cursor, mesh)
+            cv = seq_write(layer_cache["v"], whole(v), cursor, mesh)
+        else:
+            ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v,
+                                 cursor, n_pinned=cfg.n_meta_tokens)
         new_cache = {"k": ck, "v": cv}
     elif mode == "decode":
-        ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v, cursor,
-                             n_pinned=cfg.n_meta_tokens)
-        out = decode_attention(q, ck, cv, positions, kv_pos,
-                               window=cfg.sliding_window,
-                               n_meta=cfg.n_meta_tokens)
+        if seq:
+            out, ck, cv, _ = col.sharded_kv_decode_attention(
+                whole(q), layer_cache["k"], layer_cache["v"], whole(k),
+                whole(v), positions, kv_pos, cursor, mesh)
+            if local_heads:
+                h_loc = q.shape[2]
+                out = out.narrow(2, col.tp_rank(mesh) * h_loc, h_loc)
+        else:
+            ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k, v,
+                                 cursor, n_pinned=cfg.n_meta_tokens)
+            out = decode_attention(q, ck, cv, positions, kv_pos,
+                                   window=cfg.sliding_window,
+                                   n_meta=cfg.n_meta_tokens)
         new_cache = {"k": ck, "v": cv}
     else:
         raise ValueError(mode)
-    hd = cfg.resolved_head_dim
-    out = out.reshape(b, t, cfg.n_heads * hd) @ p["w_o"].to(x.dtype)
+    out = out.reshape(b, t, -1) @ p["w_o"].to(x.dtype)
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# The sharded forward (under an ambient mesh)
+# ---------------------------------------------------------------------------
+
+def spmd_mesh(cfg: ModelConfig):
+    """The ambient mesh when the cfg's stack runs tensor-parallel under it
+    (the dense and MoE GQA families), else None."""
+    mesh = col.current_mesh()
+    if mesh is None or cfg.family not in ("dense", "moe") or cfg.mla:
+        return None
+    return mesh
+
+
+def heads_aligned(cfg: ModelConfig, mesh) -> bool:
+    n = col.tp_size(mesh)
+    return cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0
+
+
+def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
+    """How a rank holds the K/V cache under ``mesh``: "seq" (its slots
+    ``[r * S / TP, (r + 1) * S / TP)``, every head: ``decode_kv_shard``
+    without a window, so without a ring and its pinned slots), "heads"
+    (its heads) or "full"."""
+    if (col.usable_mesh() is not None and cfg.decode_kv_shard
+            and not cfg.sliding_window and slots % col.tp_size(mesh) == 0):
+        return "seq"
+    return "heads" if heads_aligned(cfg, mesh) else "full"
+
+
+def seq_write(cache: torch.Tensor, new: torch.Tensor, cursor,
+              mesh) -> torch.Tensor:
+    """Write [B, T, ...] entries at global slots ``cursor + j`` into this
+    rank's [B, S / TP, ...] slice of a sequence-split cache, in place; the
+    slots of other ranks are dropped.  No host read."""
+    s_loc, t = cache.shape[1], new.shape[1]
+    g = col.tp_rank(mesh) * s_loc + torch.arange(s_loc, device=cache.device)
+    j = g - torch.as_tensor(cursor, device=cache.device).to(torch.int64)
+    mine = ((j >= 0) & (j < t)).view(1, s_loc, *([1] * (cache.dim() - 2)))
+    src = new.index_select(1, j.clamp(0, t - 1)).to(cache.dtype)
+    return cache.copy_(torch.where(mine, src, cache))
+
+
+def _gqa_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor, *, mesh, **kw
+                      ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """`gqa_attention` over the model axis: a rank's heads where both head
+    counts divide (q, k, v column-parallel, the output projection
+    row-parallel, its partial sums reduced in fp32), else every head on
+    every rank from gathered weights.  The flash kernel gets plain local
+    tensors."""
+    if not heads_aligned(cfg, mesh):
+        w = {n: col.full(w) for n, w in p.items()}
+        return gqa_attention(cfg, w, x, positions, mesh=mesh, **kw)
+    w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
+    w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
+    out, cache = gqa_attention(cfg, w, col.copy_to_tp(x, mesh), positions,
+                               mesh=mesh, **kw)
+    return col.reduce_from_tp(out.float(), mesh).to(x.dtype), cache
+
+
+def _ffn_tp(cfg: ModelConfig, p: dict, h: torch.Tensor, mode: str,
+            mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The channel mix over the model axis: the MoE through `moe_ffn_ep`
+    at `moe_ep.EP_CAPACITY_FACTOR` where the model axis divides the
+    experts (else the one-device MoE on gathered weights, its aux averaged
+    over the data axes), the dense SwiGLU through
+    `collectives.swiglu_tp`."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.moe is None:
+        return col.swiglu_tp(p["ffn"], h, mesh), aux
+    if (col.usable_mesh() is not None
+            and cfg.moe.n_routed % col.tp_size(mesh) == 0):
+        return moe_ep.moe_ffn_ep(cfg.moe, p["ffn"], h, mesh,
+                                 capacity_factor=moe_ep.EP_CAPACITY_FACTOR,
+                                 mode="train" if mode == "train" else "serve")
+    whole = {k: ({n: col.full(w) for n, w in v.items()}
+                 if isinstance(v, dict) else col.full(v))
+             for k, v in p["ffn"].items()}
+    moe_ffn = moe_mod.moe_ffn_train if mode == "train" else moe_mod.moe_ffn
+    y, aux = moe_ffn(cfg.moe, whole, h)
+    return y, col.dp_mean(aux, mesh)
 
 
 def _mla_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -191,13 +314,25 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, mode: str,
                   layer_cache: Optional[dict] = None,
                   kv_pos: Optional[torch.Tensor] = None, cursor=None,
-                  q_chunk: int = 1024, kv_chunk: int = 1024
+                  q_chunk: int = 1024, kv_chunk: int = 1024,
+                  kv_layout: Optional[str] = None
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One decoder layer (GQA or MLA attention; dense, MoE or hybrid
     channel mix).  Returns (x, layer_cache, aux_loss): the MoE layer's
-    load-balance loss, else 0."""
+    load-balance loss, else 0.  Under an ambient mesh the GQA families run
+    tensor-parallel (``kv_layout`` is the cache's `kv_layout`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    mesh = spmd_mesh(cfg)
+    if mesh is not None:
+        attn_out, new_cache = _gqa_attention_tp(
+            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
+            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            kv_layout=kv_layout, mesh=mesh)
+        x = x + attn_out
+        ffn_out, aux = _ffn_tp(cfg, p, rms_norm(x, p["norm_ffn"],
+                                                cfg.norm_eps), mode, mesh)
+        return x + ffn_out, new_cache, aux
     if cfg.mla is not None:
         attn_out, new_cache = _mla_attention(
             cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
@@ -305,7 +440,8 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
                 cache: Optional[dict] = None,
                 kv_pos: Optional[torch.Tensor] = None, cursor=None,
-                q_chunk: int = 1024, kv_chunk: int = 1024
+                q_chunk: int = 1024, kv_chunk: int = 1024,
+                kv_layout: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Homogeneous decoder stack.  Returns (h, cache, aux_loss_sum); the
     stacked cache (``k``, ``v`` [L, B, S, KVH, D], and for the hybrid family
@@ -323,7 +459,7 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
             cache_i = layer_slice(cache, i) if cache is not None else None
             x, _, aux_i = decoder_block(
                 cfg, p_i, x, positions, mode=mode, layer_cache=cache_i,
-                kv_pos=kv_pos, cursor=cursor)
+                kv_pos=kv_pos, cursor=cursor, kv_layout=kv_layout)
         aux = aux + aux_i
     return x, cache, aux
 

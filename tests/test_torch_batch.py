@@ -221,7 +221,7 @@ def test_knob_grid_host_syncs_follow_the_deepest_cell():
     assert syncs == {"omfs": HORIZON * 30, "omfs_cheap_victim": HORIZON * 30}
 
 
-def test_batch_rejects_unknown_policy_and_more_devices():
+def test_batch_rejects_unknown_policy_and_more_devices(monkeypatch):
     users, jobs = _workload(seed=0)
     tu, tj = convert.jobs_from_reference(users, jobs)
     cfg = ttypes.SchedulerConfig(cpu_total=32)
@@ -229,10 +229,17 @@ def test_batch_rejects_unknown_policy_and_more_devices():
         tengine.simulate_batch(
             [tengine.BatchCell(users=tu, jobs=tj, policy="nope")], cfg,
             HORIZON, device="cpu")
-    with pytest.raises(ValueError, match="slice 11"):
+    with pytest.raises(ValueError, match="devices=0"):
         tengine.simulate_batch(
             [tengine.BatchCell(users=tu, jobs=tj)], cfg, HORIZON,
-            devices=2, device="cpu")
+            devices=0, device="cpu")
+    # more cards than the machine has: refused before any CUDA work
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="devices=2"):
+        tengine.simulate_batch(
+            [tengine.BatchCell(users=tu, jobs=tj)], cfg, HORIZON,
+            devices=2, device="cuda")
 
 
 def test_empty_batch_returns_empty_list():

@@ -324,14 +324,15 @@ def test_manager_restore_from_disk_after_mem_loss(tmp_path):
 
 def test_restore_copies_and_refuses_shardings(tmp_path):
     """A restored tensor never aliases the snapshot it came from (torch
-    tensors are mutable), and sharded restore waits for the multi-device
-    port."""
+    tensors are mutable); a ``shardings`` tree that does not place every
+    leaf of the template is refused, never filled in with whole copies
+    (sharded restore itself is held in tests/test_torch_distributed.py)."""
     state = _state(4)
     leaves = save_global(state)
     restored = restore_resharded(leaves, _template(state), device="cpu")
     restored["opt"]["m"].add_(1.0)
     assert (leaves["['opt']['m']"] == state["opt"]["m"].numpy()).all()
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(ValueError, match="no placement for"):
         restore_resharded(leaves, _template(state), shardings={},
                           device="cpu")
 

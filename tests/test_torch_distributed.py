@@ -1,0 +1,208 @@
+"""The port's multi-device execution (`repro_torch.distributed`, the
+sharded model, restore and train step) against the reference's 8-device
+runs, on the CPU.
+
+Two module-scoped runs feed every test: the reference in a subprocess
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` (as
+``tests/test_multidevice.py`` runs it) on a (2, 4) mesh, which writes its
+outputs and the parameters and inputs behind them to an npz; then the
+port on eight gloo ranks of the same (2, 4) mesh (`torch_dist_ranks.py`:
+a ``FileStore`` in ``tmp_path``, no ports, one torch thread a rank).  The
+configs and inputs are ``tests/test_multidevice.py``'s."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+REFERENCE = """
+import sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs.base import ModelConfig, MoEConfig
+from repro.distributed import sharding as shd
+from repro.distributed.moe_ep import moe_ffn_ep
+from repro.models.layers import build_params
+from repro.models.model import build_model
+from repro.models.moe import moe_ffn, moe_params_spec
+from repro.train.state import init_train_state
+from repro.train.steps import TrainConfig, make_train_step
+
+out = {}
+def save(prefix, tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    for p, leaf in flat:
+        out[prefix + ".".join(shd._path_names(p))] = np.asarray(leaf)
+
+mesh = jax.make_mesh((2, 4), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+# moe_ffn_ep at three capacity factors (test_multidevice.py:55-75)
+moe = MoEConfig(n_routed=8, top_k=2, d_expert=16)
+params = build_params(moe_params_spec(24, moe, jnp.float32),
+                      jax.random.PRNGKey(0))
+x = jax.random.normal(jax.random.PRNGKey(1), (4, 16, 24)) * 0.5
+save("ep.p.", params)
+out["ep.x"] = np.asarray(x)
+out["ep.plain"] = np.asarray(jax.jit(lambda p, x: moe_ffn(moe, p, x))(
+    params, x)[0])
+with mesh:
+    for cf in (0.5, 1.0, 8.0):
+        out[f"ep.{cf}"] = np.asarray(jax.jit(lambda p, x: moe_ffn_ep(
+            moe, p, x, mesh, capacity_factor=cf))(params, x)[0])
+
+# the sharded train step (test_multidevice.py:105-133), seeded tokens
+cfg = ModelConfig(name="m", family="moe", n_layers=2, d_model=32,
+                  n_heads=4, n_kv_heads=2, d_ff=48, vocab=128,
+                  moe=MoEConfig(n_routed=8, top_k=2, d_expert=48))
+model = build_model(cfg, q_chunk=16, kv_chunk=16)
+step = make_train_step(model, TrainConfig(grad_accum=2, lr=1e-3,
+                                          warmup_steps=0))
+rng = np.random.default_rng(0)
+batch = {"tokens": jnp.asarray(rng.integers(0, 128, (8, 32)), jnp.int32),
+         "labels": jnp.asarray(rng.integers(0, 128, (8, 32)), jnp.int32)}
+out["train.tokens"] = np.asarray(batch["tokens"])
+out["train.labels"] = np.asarray(batch["labels"])
+with jax.set_mesh(mesh):
+    state = init_train_state(model.init(jax.random.PRNGKey(0)))
+    save("train.p.", state.params)
+    p_sh = shd.param_shardings(cfg, state.params, mesh)
+    state = state._replace(params=jax.device_put(state.params, p_sh))
+    state, metrics = jax.jit(step)(state, batch)
+    out["train.loss"] = np.asarray(metrics["loss"])
+
+# sequence-sharded KV decode (test_multidevice.py:136-166)
+base = ModelConfig(name="m", family="dense", n_layers=2, d_model=32,
+                   n_heads=4, n_kv_heads=2, d_ff=64, vocab=128,
+                   compute_dtype="float32", decode_kv_shard=True)
+key = jax.random.PRNGKey(0)
+tok = jax.random.randint(key, (4, 16), 0, 128)
+nxt = jax.random.randint(jax.random.fold_in(key, 1), (4, 1), 0, 128)
+model = build_model(base, q_chunk=8, kv_chunk=8)
+params = model.init(key)
+save("dec.p.", params)
+out["dec.tokens"] = np.asarray(tok)
+out["dec.next"] = np.asarray(nxt)
+with jax.set_mesh(mesh):
+    cache = model.init_cache(4, 20, dtype=jnp.float32)
+    cache, _ = jax.jit(model.prefill)(params, {"tokens": tok}, cache)
+    cache, _ = jax.jit(model.decode_step)(params, cache, nxt)
+    cache, logits = jax.jit(model.decode_step)(params, cache, nxt)
+out["dec.sharded"] = np.asarray(logits)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the reference's outputs, the port's) as loaded npz files."""
+    tmp = tmp_path_factory.mktemp("dist")
+    ref_path, out_path = tmp / "ref.npz", tmp / "port.npz"
+    # one thread per process on both sides, so that the two runs take
+    # eight cores at most while other test files share the machine
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_multi_thread_eigen=false "
+                         "intra_op_parallelism_threads=1",
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(REFERENCE), str(ref_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tests" / "torch_dist_ranks.py"),
+         str(ref_path), str(out_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return np.load(ref_path), np.load(out_path)
+
+
+@pytest.mark.parametrize("cf", [0.5, 1.0, 8.0])
+def test_moe_ep_equals_reference_ep(runs, cf):
+    ref, port = runs
+    err = np.abs(port[f"ep.{cf}"] - ref[f"ep.{cf}"]).max()
+    assert err < 1e-5, (cf, err)
+
+
+def test_moe_ep_capacity_drops_degrade_monotonically(runs):
+    _, port = runs
+    errs = [np.abs(port[f"ep.{cf}"] - port["ep.plain"]).mean()
+            for cf in (0.5, 1.0, 8.0)]
+    assert errs[0] >= errs[1] >= errs[2], errs
+    assert np.abs(port["ep.8.0"] - port["ep.plain"]).max() < 1e-5
+
+
+def test_moe_ep_train_gradients_equal_moe_ffn_train(runs):
+    _, port = runs
+    # GRAD_TOL["float32"] of tests/test_torch_train.py, relative to max
+    assert float(port["ep.grad_err"][0]) <= 1e-3
+    assert float(port["ep.y_train_err"]) < 1e-5
+
+
+def test_elastic_reshard_across_meshes(runs):
+    _, port = runs
+    assert bool(port["reshard.ok"])
+    assert int(port["reshard.local_numel"]) == 16 * 8 // 8
+
+
+def test_pod_mesh_groups_and_gradient_boxes(runs):
+    _, port = runs
+    assert bool(port["pod.ok"])
+
+
+def test_embed_lookup_equals_plain_gather(runs):
+    _, port = runs
+    assert bool(port["embed.equal"])
+
+
+def test_constrain_heads_places_heads_else_head_dim(runs):
+    _, port = runs
+    assert bool(port["heads.ok"])
+
+
+def test_sharded_kv_decode_equals_baseline_and_reference(runs):
+    ref, port = runs
+    assert str(port["dec.layout"]) == "seq"
+    # a (2, 4) mesh: batch 2 a rank, 20 / 4 = 5 slots, both kv heads
+    assert tuple(port["dec.k_local"]) == (2, 2, 5, 2, 8)
+    # one MAX and two SUM all-reduces a layer per decode step
+    assert int(port["dec.combine"]) == 3 * 2
+    assert np.abs(port["dec.sharded"] - port["dec.baseline"]).max() < 1e-4
+    assert np.abs(port["dec.sharded"] - ref["dec.sharded"]).max() < 1e-4
+
+
+def test_sharded_train_step_equals_reference_and_one_process(runs):
+    ref, port = runs
+    # the reference's cell: capacity 1.25, aux averaged over the data
+    # axes, bf16 compute: tests/test_torch_train.py's bf16 loss bar
+    np.testing.assert_allclose(float(port["train.loss_ref_cell"]),
+                               float(ref["train.loss"]), rtol=1e-3)
+    # drop-free and aux-free against the port's one-process step on the
+    # same bf16 operations: loss and norm within the fp32 bars, the
+    # parameters within the bf16 ones
+    np.testing.assert_allclose(float(port["train.loss_sharded"]),
+                               float(port["train.loss_one"]), rtol=1e-5)
+    np.testing.assert_allclose(float(port["train.gnorm_sharded"]),
+                               float(port["train.gnorm_one"]), rtol=1e-4)
+    lr = 1e-3
+    keys = [k[len("train.after_one."):] for k in port.files
+            if k.startswith("train.after_one.")]
+    assert len(keys) > 10
+    for k in keys:
+        got = port[f"train.after_sharded.{k}"]
+        want = port[f"train.after_one.{k}"]
+        g = np.abs(port[f"train.grad_one.{k}"])
+        err = np.abs(got - want)
+        tight = g >= 3e-2 * g.max()      # GRAD_TOL["bfloat16"]
+        assert err[tight].max(initial=0) <= 1e-6 + 1e-3 * lr, k
+        assert err.max() <= 1e-6 + 2 * lr, k
+    # every sharded leaf held at most half of its values on a rank
+    assert float(port["train.largest_local_share"]) <= 0.5

@@ -53,7 +53,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "kernels.moe_gmm.ref", "launch.serve", "launch.train",
                 "data.pipeline", "optim.adamw", "train.state", "train.steps",
                 "cluster.executor", "analysis.base",
-                "analysis.dispatch_audit"):
+                "analysis.dispatch_audit", "distributed.sharding",
+                "distributed.collectives", "distributed.moe_ep",
+                "launch.mesh", "optim.compression"):
         assert f"repro_torch.{mod}" in names, mod
 
 

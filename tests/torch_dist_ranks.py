@@ -1,0 +1,336 @@
+"""The port's side of ``tests/test_torch_distributed.py``: eight gloo
+ranks on a (2, 4) mesh of CPU processes, one torch thread each, meeting
+through a ``FileStore`` (no ports).  Every check runs on every rank;
+rank 0 writes the results.
+
+  python tests/torch_dist_ranks.py REF.npz OUT.npz
+
+REF.npz holds the reference's 8-device outputs and the parameters and
+inputs they were computed from (see the test module).
+"""
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 8
+
+
+def _tree(ref, prefix):
+    """{dotted path: tensor} of the reference leaves saved under
+    ``prefix``."""
+    n = len(prefix)
+    return {k[n:]: torch.from_numpy(ref[k].copy()) for k in ref.files
+            if k.startswith(prefix)}
+
+
+def _nest(flat):
+    out = {}
+    for k, v in flat.items():
+        node = out
+        parts = k.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _every_rank(ok: bool) -> np.ndarray:
+    """Whether ``ok`` holds on every rank (rank 0 writes the results)."""
+    from repro_torch.distributed import collectives as col
+
+    bad = col.all_reduce(torch.tensor([0.0 if ok else 1.0]),
+                         dist.group.WORLD, "max")
+    return np.asarray(float(bad[0]) == 0.0)
+
+
+def _ep(ref, mesh, out):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.moe_ep import moe_ffn_ep
+    from repro_torch.models import moe as moe_mod
+
+    r, n = col.dp_rank(mesh), col.dp_size(mesh)
+    moe = MoEConfig(n_routed=8, top_k=2, d_expert=16)
+    params = _nest(_tree(ref, "ep.p."))
+    x = torch.from_numpy(ref["ep.x"])
+    rows = slice(r * x.shape[0] // n, (r + 1) * x.shape[0] // n)
+    out["ep.plain"] = moe_mod.moe_ffn(moe, params, x)[0].numpy()
+    for cf in (0.5, 1.0, 8.0):
+        y, _ = moe_ffn_ep(moe, params, x[rows], mesh, capacity_factor=cf)
+        out[f"ep.{cf}"] = col.all_gather(y, col.dp_group(mesh), 0).numpy()
+
+    # gradients of the train mode, drop-free, against moe_ffn_train
+    moe = MoEConfig(n_routed=8, top_k=2, d_expert=16, n_shared=1,
+                    d_shared=32)
+    gen = torch.Generator().manual_seed(3)
+    spec = moe_mod.moe_params_spec(24, moe, torch.float32)
+    flat = {}
+    for k in sorted(spec):
+        if isinstance(spec[k], dict):
+            for kk in sorted(spec[k]):
+                shape, init, dt = spec[k][kk]
+                flat[f"{k}.{kk}"] = init(torch.empty(shape, dtype=dt), gen)
+        else:
+            shape, init, dt = spec[k]
+            flat[k] = init(torch.empty(shape, dtype=dt), gen)
+    x = torch.randn(4, 6, 24, generator=gen) * 0.5
+    cot = torch.randn(4, 6, 24, generator=gen)
+    leaves = {k: v.clone().requires_grad_() for k, v in flat.items()}
+    xg = x.clone().requires_grad_()
+    y1, _ = moe_mod.moe_ffn_train(moe, _nest(leaves), xg)
+    g1 = torch.autograd.grad((y1 * cot).sum(), [*leaves.values(), xg])
+    leaves2 = {k: v.clone().requires_grad_() for k, v in flat.items()}
+    xl = x[rows].clone().requires_grad_()
+    y2, _ = moe_ffn_ep(moe, _nest(leaves2), xl, mesh, capacity_factor=8.0,
+                       mode="train")
+    g2 = torch.autograd.grad((y2 * cot[rows]).sum(), [*leaves2.values(), xl])
+    errs = []
+    for k, a, b in zip(flat, g1, g2):
+        b = col.all_reduce(b, col.dp_group(mesh))
+        if k != "router":
+            # a rank's experts and its columns of the shared MLP: the
+            # model ranks' gradients are disjoint parts of the global one
+            b = col.all_reduce(b, col.tp_group(mesh))
+        errs.append(float((a - b).abs().max() / max(a.abs().max(), 1.0)))
+    errs.append(float((g1[-1][rows] - g2[-1]).abs().max()
+                      / max(g1[-1].abs().max(), 1.0)))
+    worst = torch.tensor([max(errs)])
+    out["ep.grad_err"] = col.all_reduce(worst, dist.group.WORLD,
+                                        "max").numpy()
+    out["ep.y_train_err"] = col.all_reduce(
+        (y1[rows] - y2).abs().max().detach().reshape(1), dist.group.WORLD,
+        "max").numpy()[0]
+
+
+def _reshard(out):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.reshard import restore_resharded, save_global
+    from repro_torch.distributed import sharding as shd
+
+    m1 = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    m2 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 8, generator=gen)
+    b = torch.arange(8.0)
+    specs = {"w": (("data",), ("model",)), "b": (("model",),)}
+
+    def sh(mesh):
+        return {k: shd.Sharding(mesh, s, shd.to_placements(s, mesh))
+                for k, s in specs.items()}
+
+    state = {k: shd.place(v, sh(m1)[k], device="cpu")
+             for k, v in (("w", w), ("b", b))}
+    leaves = save_global(state)
+    template = {"w": torch.empty(16, 8, device="meta"),
+                "b": torch.empty(8, device="meta")}
+    restored = restore_resharded(leaves, template, sh(m2), device="cpu")
+    box = shd.local_box((16, 8), specs["w"], shd.axis_sizes(m2),
+                        shd.mesh_coord(m2))
+    loc = restored["w"].to_local()
+    ok = (torch.equal(loc, w[box]) and loc.numel() == w.numel() // 8
+          and np.array_equal(save_global(restored)["['w']"], w.numpy()))
+    single = restore_resharded(leaves, template, None, device="cpu")
+    ok = ok and torch.equal(single["w"], w) and torch.equal(single["b"], b)
+    ok = ok and tuple(restored["w"].device_mesh.mesh.shape) == (2, 4)
+    out["reshard.ok"] = _every_rank(ok)
+    out["reshard.local_numel"] = np.asarray(loc.numel())
+
+
+def _embed(mesh, out):
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn(128, 32, generator=gen)
+    tokens = torch.randint(0, 128, (4, 6), generator=gen)
+    spec = shd.leaf_spec(("embed",), table.shape, mesh)
+    placed = shd.place(table, shd.Sharding(mesh, spec,
+                                           shd.to_placements(spec, mesh)),
+                       device="cpu")
+    r, n = col.dp_rank(mesh), col.dp_size(mesh)
+    t = col.tp_rank(mesh)
+    rows = slice(r * 2, (r + 1) * 2)
+    got = col.embed_lookup(placed, tokens[rows], mesh)
+    want = table[tokens][rows][..., t * 8:(t + 1) * 8]
+    out["embed.equal"] = _every_rank(torch.equal(got, want))
+
+    # constrain_heads: heads over the model axis where they divide, else
+    # head_dim; the values unchanged
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    places = []
+    with col.use_mesh(mesh):
+        for h in (4, 2):
+            x = torch.randn(4, 3, h, 8, generator=gen)
+            rep = DTensor.from_local(x, mesh, (Replicate(), Replicate()))
+            c = col.constrain_heads(rep)
+            places.append(c.placements == (Shard(0), Shard(2 if h == 4
+                                                          else 3))
+                          and torch.equal(c.full_tensor(), x))
+        places.append(col.constrain_heads(x) is x)
+    out["heads.ok"] = _every_rank(all(places))
+
+
+def _decode(ref, mesh, out):
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+
+    base = ModelConfig(name="m", family="dense", n_layers=2, d_model=32,
+                       n_heads=4, n_kv_heads=2, d_ff=64, vocab=128,
+                       compute_dtype="float32")
+    src = _tree(ref, "dec.p.")
+    tok = torch.from_numpy(ref["dec.tokens"]).int()
+    nxt = torch.from_numpy(ref["dec.next"]).int()
+    for name, flag in (("baseline", False), ("sharded", True)):
+        m = Model(base.replace(decode_kv_shard=flag), device="cpu",
+                  q_chunk=8, kv_chunk=8)
+        m.adopt(_nest(src))
+        if flag:
+            shd.shard_model(m, mesh, source=src, device="cpu")
+            col.reset_counts()
+        with col.use_mesh(mesh if flag else None):
+            cache = m.init_cache(4, 20, dtype=torch.float32)
+            cache, _ = m.prefill({"tokens": tok}, cache)
+            cache, _ = m.decode_step(cache, nxt)
+            if flag:
+                col.reset_counts()
+            cache, logits = m.decode_step(cache, nxt)
+        out[f"dec.{name}"] = logits.numpy()
+        if flag:
+            out["dec.layout"] = np.asarray(cache["layout"])
+            out["dec.combine"] = np.asarray(col.COLLECTIVES["decode_combine"])
+            out["dec.k_local"] = np.asarray(cache["layers"]["k"].shape)
+
+
+def _train(ref, mesh, out):
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import moe_ep
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps
+    from repro_torch.train.state import TrainState, init_train_state
+
+    src = _tree(ref, "train.p.")
+    batch = {"tokens": torch.from_numpy(ref["train.tokens"]).int(),
+             "labels": torch.from_numpy(ref["train.labels"]).int()}
+    tcfg = steps.TrainConfig(grad_accum=2, lr=1e-3, warmup_steps=0)
+
+    def cfg(aux):
+        return ModelConfig(name="m", family="moe", n_layers=2, d_model=32,
+                           n_heads=4, n_kv_heads=2, d_ff=48, vocab=128,
+                           moe=MoEConfig(n_routed=8, top_k=2, d_expert=48,
+                                         router_aux_coef=aux))
+
+    def sharded(c, factor):
+        m = Model(c, device="meta", q_chunk=16, kv_chunk=16)
+        shd.shard_model(m, mesh, source=src, device="cpu")
+        state = TrainState(params=m.params(), opt=steps.shard_opt(m.params()),
+                           rng=torch.zeros(2, dtype=torch.uint32),
+                           data_cursor=torch.zeros((), dtype=torch.int32))
+        was, moe_ep.EP_CAPACITY_FACTOR = moe_ep.EP_CAPACITY_FACTOR, factor
+        try:
+            with col.use_mesh(mesh):
+                state, metrics = steps.make_train_step(m, tcfg)(state, batch)
+        finally:
+            moe_ep.EP_CAPACITY_FACTOR = was
+        from repro_torch.checkpoint.reshard import save_global
+        return save_global(state.params), metrics, m
+
+    # the reference's cell: the default factor and aux coefficient
+    _, mt, _ = sharded(cfg(0.01), 1.25)
+    out["train.loss_ref_cell"] = np.asarray(float(mt["loss"]))
+    # drop-free and aux-free against the one-process step
+    p2, mt2, m2 = sharded(cfg(0.0), 8.0)
+    m1 = Model(cfg(0.0), device="cpu", q_chunk=16, kv_chunk=16)
+    m1.adopt(_nest({k: v.clone() for k, v in src.items()}))
+    grads = {}
+    for i in range(2):
+        mb = {k: v[i * 4:(i + 1) * 4] for k, v in batch.items()}
+        params = dict(m1.named_parameters())
+        loss, _ = m1.loss(mb)
+        g = torch.autograd.grad(loss, list(params.values()))
+        for k, gi in zip(params, g):
+            grads[k] = grads.get(k, 0) + gi / 2
+    s1 = init_train_state(m1.params())
+    s1, mt1 = steps.make_train_step(m1, tcfg)(s1, batch)
+    out["train.loss_sharded"] = np.asarray(float(mt2["loss"]))
+    out["train.loss_one"] = np.asarray(float(mt1["loss"]))
+    out["train.gnorm_sharded"] = np.asarray(float(mt2["grad_norm"]))
+    out["train.gnorm_one"] = np.asarray(float(mt1["grad_norm"]))
+    for k, v in dict(m1.named_parameters()).items():
+        out[f"train.after_sharded.{k}"] = p2["".join(
+            f"[{p!r}]" for p in k.split("."))]
+        out[f"train.after_one.{k}"] = v.detach().numpy()
+        out[f"train.grad_one.{k}"] = grads[k].numpy()
+    local = max(p.to_local().numel() / p.numel() for p in m2.parameters()
+                if any(pl.is_shard() for pl in p.placements))
+    out["train.largest_local_share"] = np.asarray(local)
+
+
+def _pod_mesh(out):
+    """On a (2, 2, 2) (pod, data, model) mesh: the data-axis group spans
+    pod and data, and the train step's gradient cut takes each rank's
+    pod-major box of a dim split over (pod, data)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.steps import _sharded_grads
+
+    mesh = init_device_mesh("cpu", (2, 2, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    spec = (("pod", "data"), ("model",))
+    g = torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8)
+    storage = shd.place(g, shd.Sharding(mesh, spec,
+                                        shd.to_placements(spec, mesh)),
+                        device="cpu")
+    view = col.dp_replicated(storage)            # the model shard, whole over dp
+    got = _sharded_grads({"w": view.to_local()}, {"w": storage}, mesh)["w"]
+    ok = (col.dp_size(mesh) == 4 and torch.equal(view.to_local(), g[
+        :, col.tp_rank(mesh) * 4:(col.tp_rank(mesh) + 1) * 4])
+          and torch.equal(got, 4 * storage.to_local()))
+    # every rank's box, not only rank 0's (whose offsets are 0 either way)
+    out["pod.ok"] = _every_rank(ok)
+
+
+def _rank(rank, path, ref_path, out_path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(path, WORLD),
+                            rank=rank, world_size=WORLD)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    ref = np.load(ref_path)
+    out = {}
+    t0 = time.perf_counter()
+    _ep(ref, mesh, out)
+    _embed(mesh, out)
+    _reshard(out)
+    _pod_mesh(out)
+    _decode(ref, mesh, out)
+    _train(ref, mesh, out)
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+    if rank == 0:
+        np.savez(out_path, **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main():
+    ref_path, out_path = sys.argv[1], sys.argv[2]
+    store = os.path.join(tempfile.mkdtemp(dir=os.path.dirname(out_path)),
+                         "store")
+    mp.spawn(_rank, args=(store, ref_path, out_path), nprocs=WORLD)
+
+
+if __name__ == "__main__":
+    main()
