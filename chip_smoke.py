@@ -121,6 +121,19 @@ against the plain version and timed beside it in one run.
   from a fast-tier snapshot; `[attn-compare]` holds the four new flash
   shapes and `[attn-time]` times MLA's and the VLM cross shape, with the
   cost of V's padding.
+* the dry run (`repro_torch.launch.dryrun`): `[dryrun]` runs it for
+  internlm2-1.8b train_4k and deepseek-moe-16b decode_32k on the (16, 16)
+  mesh, two processes on the host started beside `[train]` (whose step
+  the card bounds) and waited for after it; each record must be ok with
+  finite, positive terms (estimates from the datasheet constants).
+  `[dryrun-vs-card]`, after `[serve]`, costs `[serve]`'s prefill and
+  `[train]`'s step on one rank on meta tensors and holds them against
+  the card: `[serve]`'s model runs the same prefill under the same
+  `roofline.counting.costing` (matmul and kernel FLOPs equal to the meta
+  count), and the prefill's and `[train]`'s peaks must lie within 10% of
+  the dry run's estimates. The kernels' bounds (`[attn-time]`,
+  `[ssm-time]`, `[mlstm-time]`, `[moe-time]`) come from each kernel
+  package's `cost`, the dry run's source too.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -192,7 +205,11 @@ from repro_torch.core.workload import (  # noqa: E402
     make_jobs,
     make_users,
 )
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ShapeSpec,
+    get_config,
+    get_smoke_config,
+)
 from repro_torch.data.pipeline import (  # noqa: E402
     DataConfig,
     SyntheticLM,
@@ -207,13 +224,19 @@ from repro_torch.kernels.ckpt_codec.ref import (  # noqa: E402
     quantize_ref,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.cost import (  # noqa: E402
+    cost as attn_bound,
+)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref,
-    visible,
 )
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm_scan.cost import (  # noqa: E402
+    cost as mlstm_bound,
+)
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.cost import cost as gmm_bound  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
     expert_swiglu_ref,
     grouped_matmul_ref,
@@ -225,9 +248,12 @@ from repro_torch.kernels.sched_select.ref import (  # noqa: E402
     plan_evictions_ref,
 )
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan.cost import cost as ssm_bound  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
 from repro_torch.kernels.timing import queued_ms  # noqa: E402
 from repro_torch.launch import cluster_sim, cr_cost, serve  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as mesh_consts  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.obs import validate_trace  # noqa: E402
 from repro_torch.obs.profile import ProfileTimers  # noqa: E402
@@ -240,24 +266,30 @@ from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+from repro_torch.roofline import counting  # noqa: E402
 from repro_torch.train.state import (  # noqa: E402
     bind_state,
     init_train_state,
     train_state_shapes,
 )
-from repro_torch.train.steps import TrainConfig, make_train_step  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    TrainConfig,
+    make_prefill_step,
+    make_train_step,
+)
 
 DEV = torch.device("cuda", 0)
 SEED = 0
 # every comparison on the card is in full fp32: no TF32 products
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s, the non-tensor-core
-#: scalar rate used for the comparison count of a sort, and the bf16
-#: tensor-core rate that bounds attention
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+#: H100 SXM data-sheet peaks (dense, `launch/mesh.py`): HBM bytes/s, the
+#: non-tensor-core scalar rate used for the comparison count of a sort,
+#: and the bf16 tensor-core rate
+HBM_BYTES_PER_S = mesh_consts.HBM_BW
+SCALAR_OPS_PER_S = mesh_consts.PEAK_FLOPS_FP32
+BF16_OPS_PER_S = mesh_consts.PEAK_FLOPS_BF16
 
 # the fleet: bench_sched_scale.py's scale generator and T=4 lattice
 FLEET_JOBS = 100_000
@@ -309,6 +341,9 @@ STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 400, 100, 1 << 15
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
 CODEC_SIZES = (1, 127, 128, 129, 33_000, 2048 * 128, 10**8 + 3)
 FAST_TIER_DEPTH = 1
+#: [cr-path]'s calibrated fleet: the launcher's, its first CR_FLEET_TICKS
+#: ticks on both backends (800 before the dry run's phases)
+CR_FLEET_TICKS = 400
 CR_JOB = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
               vocab=8192)
 TICK_SECONDS = 0.1
@@ -342,10 +377,11 @@ EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 # in): deepseek-moe-16b at its published widths cut to MOE_TRAIN_LAYERS
 # (its TrainState, 19.1 GB, fits the 24 GiB fast tier; depth 3 would be
 # 26.2 GB), batch TRAIN_BATCH x TRAIN_SEQ; hymba-1.5b at its published
-# widths and depth and xlstm-350m at its published widths cut to
-# XLSTM_TRAIN_LAYERS (4 mLSTM/sLSTM pairs of 12: the sLSTM's per-token
-# loop makes its full depth cost the script more than its limit allows
-# since slice 10's phases), TRAIN_BATCH rows of HYBRID_TRAIN_SEQ and
+# widths cut to HYBRID_TRAIN_LAYERS (16 of 32) and xlstm-350m at its
+# published widths cut to XLSTM_TRAIN_LAYERS (2 mLSTM/sLSTM pairs of 12):
+# their per-token loops make their depth cost the script more than its
+# limit allows (slice 10's phases cut xlstm to 8 layers, the dry run's
+# phases hymba to 16 and xlstm to 4), TRAIN_BATCH rows of HYBRID_TRAIN_SEQ and
 # XLSTM_TRAIN_SEQ tokens (hymba adds its 128 meta tokens); their one step
 # reruns from a snapshot of the initial state.
 # [executor-moe] is [executor]'s scenario with B the deepseek launcher run
@@ -354,7 +390,7 @@ EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 # TRAIN_CPU_LAYERS (xlstm one pair), in fp32
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 8
 HYBRID_TRAIN_SEQ, XLSTM_TRAIN_SEQ, RECURRENT_TRAIN_STEPS = 512, 512, 1
-XLSTM_TRAIN_LAYERS = 8
+HYBRID_TRAIN_LAYERS, XLSTM_TRAIN_LAYERS = 16, 4
 # [launcher]'s backend check: the launcher's fleet cut to 256 CPUs and 300
 # ticks, where pass depth 64 covers every queue, so the tensor pass sees
 # what the host reference sees; [sched-status] the launcher's defaults
@@ -427,9 +463,6 @@ MLSTM_RAGGED_S = 2000
 #: prefill from the zero state on random inputs: C, n and m as a prefill
 #: leaves them
 MLSTM_STATE_STEPS = 256
-#: the H100's dense TF32 tensor-core rate: with 3xTF32, three times the
-#: function's FLOP over it is the mLSTM design's floor
-TF32_OPS_PER_S = 495e12
 #: kernel vs plain at the reference's test shapes: its own bars
 #: (tests/test_kernels.py).  At the serving shapes, the same bars times
 #: the largest magnitude of the compared output where it is above 1: the
@@ -2341,12 +2374,11 @@ def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
 def phase_train():
     """[train]: internlm2-1.8b at its full widths and depth, TRAIN_STEPS
     steps of TRAIN_BATCH x TRAIN_SEQ, the last two rerun from the
-    TRAIN_SNAPSHOT snapshot (`train_phase`).  Returns the launcher's record
-    and the run's peak device memory."""
-    rec, peak, _ = train_phase("train", TRAIN_ARCH, get_config(TRAIN_ARCH),
-                               seq=TRAIN_SEQ, steps=TRAIN_STEPS,
-                               snapshot=TRAIN_SNAPSHOT)
-    return rec, peak
+    TRAIN_SNAPSHOT snapshot (`train_phase`).  Returns the launcher's record,
+    the run's peak device memory and the median step in ms."""
+    return train_phase("train", TRAIN_ARCH, get_config(TRAIN_ARCH),
+                       seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                       snapshot=TRAIN_SNAPSHOT)
 
 
 def loop_ms(loop, inputs, runs=3):
@@ -2426,8 +2458,8 @@ def phase_loop_share(phase, rec, seq):
 def phase_train_families():
     """[train-moe], [train-hybrid], [train-xlstm]: `train_phase` on
     deepseek-moe-16b cut to MOE_TRAIN_LAYERS (batch TRAIN_BATCH x
-    TRAIN_SEQ), on hymba-1.5b at full depth and on xlstm-350m cut to
-    XLSTM_TRAIN_LAYERS (rows of HYBRID_TRAIN_SEQ and XLSTM_TRAIN_SEQ
+    TRAIN_SEQ), on hymba-1.5b cut to HYBRID_TRAIN_LAYERS and on xlstm-350m
+    cut to XLSTM_TRAIN_LAYERS (rows of HYBRID_TRAIN_SEQ and XLSTM_TRAIN_SEQ
     tokens), each with 0 kernel
     launches and a bit-equal rerun; the recurrent two also with their
     loops' share.
@@ -2440,8 +2472,8 @@ def phase_train_families():
     del rec
     cuda_only = [torch.profiler.ProfilerActivity.CUDA]
     for phase, arch, cfg, seq in (
-            ("train-hybrid", HYBRID_ARCH, get_config(HYBRID_ARCH),
-             HYBRID_TRAIN_SEQ),
+            ("train-hybrid", HYBRID_ARCH,
+             cut_config(HYBRID_ARCH, HYBRID_TRAIN_LAYERS), HYBRID_TRAIN_SEQ),
             ("train-xlstm", XLSTM_ARCH,
              cut_config(XLSTM_ARCH, XLSTM_TRAIN_LAYERS), XLSTM_TRAIN_SEQ)):
         rec, _, _ = train_phase(
@@ -2721,8 +2753,8 @@ def phase_cr_path():
     tiers = rows["tiered_cost_model"]
     for backend in ("cuda", "torch"):
         users, jobs, cfg = launcher_fleet(tiers, backend)
-        runs[backend] = engine.simulate(users, jobs, cfg, 800, "omfs",
-                                        pass_depth=64, device=DEV)
+        runs[backend] = engine.simulate(users, jobs, cfg, CR_FLEET_TICKS,
+                                        "omfs", pass_depth=64, device=DEV)
     launches = dict(codec_ops.LAUNCHES, sched_select=sched_ops.LAUNCHES)
     if not rows["restore_bit_equal"]:
         raise AssertionError("the service's restore differs from the second "
@@ -2746,7 +2778,8 @@ def phase_cr_path():
     summary = runs["cuda"].summary()
     log("cr-path-fleet", tiers=[(m.save_mib_per_tick, m.restore_mib_per_tick)
                                 for m in tiers.tiers],
-        capacity_mib=list(tiers.capacity_mib), jobs=len(jobs), ticks=800,
+        capacity_mib=list(tiers.capacity_mib), jobs=len(jobs),
+        ticks=CR_FLEET_TICKS,
         preemptions=summary["preemptions"], spills=summary["spills"],
         checkpoints=summary["checkpoints"],
         utilization=f"{summary['utilization']:.4f}",
@@ -2941,22 +2974,6 @@ def in_turns(fns, iters, warmup):
     return {name: sum(v) / len(v) for name, v in runs.items()}, runs
 
 
-def attn_bound(b, s, h, kvh, d, dtype_bytes, *, skv=None, dv=None,
-               causal=True):
-    """FLOP (QK^T, 2d, and PV, 2dv, over the visible pairs only) and bytes
-    (q, k, v read once, out written once) of one launch (Sq = s, Skv =
-    ``skv``, by default s), and the least time for them on the card."""
-    skv, dv = skv or s, dv or d
-    pairs = int(visible(s, skv, causal=causal, window=0, n_meta=0,
-                        device=DEV).sum())
-    flop = pairs * b * h * 2 * (d + dv)
-    nbytes = dtype_bytes * b * (s * h * (d + dv) + skv * kvh * (d + dv))
-    ops_ms, byte_ms = 1e3 * flop / BF16_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
-    return dict(pairs_per_head=pairs, flop=flop, bytes=nbytes,
-                bound_ms=max(ops_ms, byte_ms),
-                bound_by="operations" if ops_ms >= byte_ms else "bytes")
-
-
 def phase_attn_time():
     """Both kernels in bf16, as the serve paths call them, at three
     shapes: one layer of internlm2-1.8b's prefill (ATTN_SHAPE), MLA's
@@ -3127,27 +3144,6 @@ def phase_ssm_compare():
     return max(test_err, *serving.values())
 
 
-#: H100 SXM: the SFUs give 16 exps per clock per SM (CUDA C++ Programming
-#: Guide, throughput of exp2f on compute capability 9.0), 132 SMs at the
-#: 1,980 MHz boost clock
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
-
-
-def ssm_bound(b, s, di, ds):
-    """Bytes (every input read once, y and h written once), fp32 operations
-    and exps of one scan, and the least time for them: the larger of the
-    byte time, the fp32 operation time and the exp time."""
-    steps = b * s * di * ds
-    nbytes = 4 * (3 * b * s * di + 2 * b * s * ds + di * ds + 2 * b * di * ds)
-    flop = 6 * steps + b * s * di       # dl*a, decay*h, dx*B, add, y fma
-    times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": max(flop / SCALAR_OPS_PER_S,
-                               steps / SFU_OPS_PER_S)}
-    by = max(times, key=times.get)
-    return dict(bytes=nbytes, flop=flop, exps=steps,
-                bound_ms=1e3 * times[by], bound_by=by)
-
-
 def phase_ssm_time():
     """The kernel and its plain version at Hymba's prefill shape and at one
     decode step (S = 1), beside the bound.  ``ms`` is the card's time of
@@ -3250,33 +3246,6 @@ def phase_mlstm_compare():
     return max(test["h"], test["state"],
                *(v for e in serving.values()
                  for n, v in e.items() if n != "max_h"))
-
-
-def mlstm_bound(bh, s, dh, chunk, carried=False):
-    """FLOP the function needs (Q K^T and W V over the causal pairs of each
-    chunk, Q C0^T from the second chunk on, or from the first when a state
-    is carried in, the carry V^T K and k^T wc), bytes (q, k, v, lf, li and
-    a carried state read once; h, C, n, m written once), the least time
-    (fp32 operations at the CUDA cores' rate against bytes), and the
-    design's floor: 3xTF32 makes three tensor-core products of each, at
-    the TF32 rate."""
-    flop = 0
-    for i, c0 in enumerate(range(0, s, chunk)):
-        n = min(chunk, s - c0)
-        pairs = n * (n + 1) // 2
-        flop += 2 * 2 * pairs * dh + 2 * n * dh * dh + 2 * n * dh
-        if i or carried:
-            flop += 2 * n * dh * dh
-    flop *= bh
-    state_bytes = 4 * bh * (dh * dh + dh + 1)
-    nbytes = (4 * (4 * bh * s * dh + 2 * bh * s) + state_bytes
-              + (state_bytes if carried else 0))
-    times = {"operations": flop / SCALAR_OPS_PER_S,
-             "bytes": nbytes / HBM_BYTES_PER_S}
-    by = max(times, key=times.get)
-    return dict(flop=flop, bytes=nbytes, bound_ms=1e3 * times[by],
-                bound_by=by,
-                floor_ms=1e3 * max(3 * flop / TF32_OPS_PER_S, times["bytes"]))
 
 
 def phase_mlstm_time():
@@ -3789,25 +3758,6 @@ def phase_moe_compare():
             "wgmma": errs[torch.bfloat16, "wgmma"]}
 
 
-def gmm_bound(x, w, counts):
-    """Bytes the product must move (the x rows below each count, the
-    weights of each expert with a row, counts, and the whole output written
-    once), its operations over those rows at the bf16 tensor-core rate
-    (the weights are rounded to bf16), and the least time for them."""
-    e, c, d = x.shape
-    f = w.shape[2]
-    rows = int(counts.sum())
-    active = int((counts > 0).sum())
-    nbytes = (rows * d * x.element_size() + active * d * f * w.element_size()
-              + 4 * e + e * c * f * x.element_size())
-    flop = 2 * rows * d * f
-    times = {"operations": flop / BF16_OPS_PER_S,
-             "bytes": nbytes / HBM_BYTES_PER_S}
-    by = max(times, key=times.get)
-    return dict(rows=rows, active_experts=active, flop=flop, bytes=nbytes,
-                bound_ms=1e3 * times[by], bound_by=by)
-
-
 def phase_moe_time():
     """One gate product of deepseek-moe-16b's experts, bf16 x, at the
     prefill and decode capacity shapes of a uniform router, in turns: the
@@ -4115,7 +4065,9 @@ def phase_ep_compare(work):
                 outs[factor], _ = moe_ep.moe_ffn_ep(
                     moe, params, x, mesh, capacity_factor=factor)
         with recording(gmm_ops, "expert_swiglu", lambda a, o: None):
-            gmm_ops.expert_swiglu = expert_swiglu_ref
+            # the plain version takes no ``pairs``: the cost record's
+            gmm_ops.expert_swiglu = (
+                lambda *a, pairs=None: expert_swiglu_ref(*a))
             y_ref, _ = moe_ep.moe_ffn_ep(moe, params, x, mesh,
                                          capacity_factor=factor)
         errs[factor] = float((outs[factor].float()
@@ -4648,6 +4600,172 @@ def phase_batch_devices():
         devices_2=f"ValueError: {refused[:60]}")
 
 
+# ---------------------------------------------------------------------------
+# the dry run: costing at production scale without allocating
+# ---------------------------------------------------------------------------
+
+#: the dry run's cells on the (16, 16) mesh: a dense train step and an MoE
+#: decode step, each in its own process, the two at once
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"),
+                ("deepseek-moe-16b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
+#: how far a peak on the card may lie from the dry run's estimate
+PEAK_TOL = 0.10
+
+
+def start_dryrun(tmp):
+    """[dryrun]'s processes, started: ``python -m repro_torch.launch.dryrun``
+    for each of DRYRUN_CELLS, its record into ``tmp``.  They use the host
+    only, so the script runs them beside [train], whose step is bound by
+    the card (busy 0.97): the phase then costs the limit nothing."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    return time.perf_counter(), [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", tmp], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch, shape in DRYRUN_CELLS]
+
+
+def phase_dryrun(started, tmp):
+    """[dryrun]: waits for `start_dryrun`'s processes: the dry run of
+    DRYRUN_CELLS on the (16, 16) production mesh (a fake world of 256
+    ranks, meta tensors: nothing reaches the card).  Per cell the three
+    roofline terms, the peak per device, the bottleneck, MF% and the
+    seconds; raises unless every record is ok and every term finite and
+    positive.  The terms are estimates from the H100's datasheet
+    constants (`launch/mesh.py`), not measurements."""
+    t0, procs = started
+    waited = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    done = time.perf_counter()
+    for (arch, shape), p, (out, err) in zip(DRYRUN_CELLS, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: exit "
+                                 f"{p.returncode}\n{out}\n{err[-3000:]}")
+        rec = json.loads((Path(tmp) / f"{arch}__{shape}__16x16.json")
+                         .read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: {rec}")
+        rf = rec["roofline"]
+        terms = {k: rf[k] for k in ("compute_s", "memory_s", "collective_s")}
+        if not all(np.isfinite(v) and v > 0 for v in terms.values()):
+            raise AssertionError(f"dryrun {arch} {shape}: terms {terms}")
+        log("dryrun", config=arch, shape=shape, mesh=rec["mesh"],
+            n_devices=rec["n_devices"], grad_accum=rec["grad_accum"],
+            **{k: f"{v * 1e3:.4f}ms" for k, v in terms.items()},
+            bottleneck=rf["bottleneck"],
+            peak_per_device_bytes=rec["memory"]["peak_estimate_bytes"],
+            model_flops_ratio=f"{rf['model_flops_ratio']:.4f}",
+            coll_breakdown={k: int(v) for k, v in
+                            rec["coll_breakdown"].items()},
+            production_s=rec["compile_s"],
+            costing_s=rec["costing_compile_s"], assumed=rec["reason"],
+            terms="estimates from the H100 datasheet constants")
+    log("dryrun", cells=len(DRYRUN_CELLS), all_ok=True,
+        seconds=f"{done - t0:.1f}", beside="[train]",
+        waited_after_train_s=f"{done - waited:.1f}")
+
+
+def phase_dryrun_vs_card(model, tokens, train_peak, train_ms):
+    """[dryrun-vs-card]: two internlm2-1.8b steps costed on one rank on
+    meta tensors by `launch.dryrun` — [serve]'s prefill (SERVE_BATCH x
+    SERVE_PROMPT onto a cache of SERVE_PROMPT slots) and [train]'s step
+    (TRAIN_BATCH x TRAIN_SEQ, the launcher's chunks, no accumulation) —
+    held against the card: ``model`` (the [serve] phase's) runs the same
+    prefill under the same `counting.costing`, whose matmul and kernel
+    FLOPs must equal the meta count and whose peak (the memory it
+    allocated above what was allocated before it, plus its arguments)
+    must lie within PEAK_TOL of the dry run's estimate (arguments plus
+    temp); [train]'s peak ``train_peak`` within PEAK_TOL of the train
+    step's.  The compute and memory terms are printed beside the measured
+    prefill (timed here, uncounted) and ``train_ms`` ([train]'s median
+    step) as the share of it each reaches."""
+    t0 = time.perf_counter()
+    saved = kernel_counts()
+    chunks = {"q_chunk": model.q_chunk, "kv_chunk": model.kv_chunk}
+    shapes = {"prefill": ShapeSpec("serve_prefill", seq_len=SERVE_PROMPT,
+                                   global_batch=SERVE_BATCH, kind="prefill"),
+              "train": ShapeSpec("train_step", seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, kind="train")}
+    meta, meta_s = {}, {}
+    for kind, arch in (("prefill", SERVE_ARCH), ("train", TRAIN_ARCH)):
+        ts = time.perf_counter()
+        meta[kind] = dryrun.count_cell(dryrun.build_cell(
+            arch, shapes[kind], None, dict(chunks, grad_accum=1)))
+        meta_s[kind] = time.perf_counter() - ts
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT)
+    args = (sum(p.numel() * p.element_size() for p in model.parameters())
+            + cache_bytes(cache) + tokens.numel() * tokens.element_size())
+    step(batch, cache)                                   # warm-up
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    step(batch, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - ts) * 1e3
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with counting.costing() as card:
+        out = step(batch, cache)
+        torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    del out, cache
+    collect_garbage()
+    set_kernel_counts(saved)
+    pre = meta["prefill"]
+    if (card.matmul_flops, card.kernel_flops) != (pre.matmul_flops,
+                                                  pre.kernel_flops):
+        raise AssertionError(
+            f"dryrun-vs-card: the card counted {card.matmul_flops} matmul "
+            f"and {card.kernel_flops} kernel FLOPs, meta {pre.matmul_flops} "
+            f"and {pre.kernel_flops}")
+    if args != pre.argument_bytes:
+        raise AssertionError(f"dryrun-vs-card: the prefill's arguments are "
+                             f"{args} bytes on the card, {pre.argument_bytes} "
+                             "on meta")
+    rows = {}
+    for kind, measured, ms in (("prefill", args + rise, prefill_ms),
+                               ("train", train_peak, train_ms)):
+        mem = roofline.memory_stats(meta[kind])
+        est = mem["argument_bytes"] + mem["temp_bytes"]
+        rf = roofline.analyze(meta[kind], n_devices=1)
+        rows[kind] = dict(
+            measured_peak_bytes=measured, estimate_bytes=est,
+            peak_over_estimate=f"{measured / est:.4f}",
+            compute_ms=f"{rf.compute_s * 1e3:.3f}",
+            memory_ms=f"{rf.memory_s * 1e3:.3f}", measured_ms=f"{ms:.3f}",
+            compute_share=f"{rf.compute_s * 1e3 / ms:.4f}",
+            memory_share=f"{rf.memory_s * 1e3 / ms:.4f}",
+            matmul_flops=int(meta[kind].matmul_flops),
+            kernel_flops=int(meta[kind].kernel_flops),
+            op_bytes=int(meta[kind].op_bytes),
+            meta_count_s=f"{meta_s[kind]:.1f}")
+        if abs(measured / est - 1) > PEAK_TOL:
+            raise AssertionError(f"dryrun-vs-card: {kind} peak {measured} "
+                                 f"against the estimate {est}")
+    log("dryrun-vs-card", config=SERVE_ARCH, step="prefill",
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+        card_matmul_flops=int(card.matmul_flops),
+        card_kernel_flops=int(card.kernel_flops),
+        card_op_bytes=int(card.op_bytes), flops_equal=True,
+        card_rise_bytes=rise, meta_temp_bytes=int(
+            roofline.memory_stats(pre)["temp_bytes"]),
+        argument_bytes=args, kernels=card.kernels, **rows["prefill"])
+    log("dryrun-vs-card", config=TRAIN_ARCH, step="train",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, train_peak_from="[train]",
+        **rows["train"], peak_tol=PEAK_TOL,
+        terms="estimates from the H100 datasheet constants",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def kernel_entry(name, source, replaces, launches, err, t, extra=()):
     """One kernel's entry in the JSON record: ``t`` holds its ms, plain_ms,
     bound_ms, bound_by and library_ms (None where no library call computes
@@ -4700,7 +4818,16 @@ def main():
     phase_sched_status()
     codec_err = phase_codec_compare()
     phase_train_vs_cpu()
-    rec, train_peak = phase_train()
+    with scratch_dir() as dryrun_dir:
+        started = start_dryrun(dryrun_dir)
+        try:
+            rec, train_peak, train_ms = phase_train()
+        except BaseException:
+            for p in started[1]:
+                p.kill()
+                p.wait()
+            raise
+        phase_dryrun(started, dryrun_dir)
     codec = phase_codec_state(rec.state, rec.cfg)
     train_losses = rec.losses
     del rec
@@ -4733,6 +4860,7 @@ def main():
     phase_prefill_syncs(model, tokens)
     phase_profile("serve", SERVE_ARCH, model, tokens, ("flash_fwd",),
                   dense_prefill, {})
+    phase_dryrun_vs_card(model, tokens, train_peak, train_ms)
     del model
     collect_garbage()
     torch.cuda.empty_cache()

@@ -26,7 +26,10 @@ same code.
   loss is a sum over ranks; the forms here give the gradient of one loss
   that every rank of a model group computes alike.
 
-`COLLECTIVES` counts the calls by kind since the last `reset_counts`.
+`COLLECTIVES` counts the calls by kind since the last `reset_counts`, and
+`COLLECTIVE_BYTES` the bytes of their results by the reference's HLO
+names (``"all-reduce"``, ``"all-gather"``), which
+`roofline.counting.costing` reads.
 """
 from __future__ import annotations
 
@@ -44,12 +47,15 @@ from repro_torch.distributed import sharding as shd
 #: "all_reduce_max", "all_gather") and by site ("decode_combine": the
 #: sharded decode's three)
 COLLECTIVES: Counter = Counter()
+#: result bytes of those calls by kind ("all-reduce", "all-gather")
+COLLECTIVE_BYTES: Counter = Counter()
 
 _MESH = None
 
 
 def reset_counts() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
 
 
 @contextlib.contextmanager
@@ -137,6 +143,7 @@ def all_reduce(x: torch.Tensor, grp, op: str = "sum") -> torch.Tensor:
         dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
                         else dist.ReduceOp.MAX, group=grp)
         COLLECTIVES[f"all_reduce_{op}"] += 1
+        COLLECTIVE_BYTES["all-reduce"] += out.numel() * out.element_size()
     return out
 
 
@@ -146,6 +153,7 @@ def all_gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
     if n == 1:
         return x.detach()
     COLLECTIVES["all_gather"] += 1
+    COLLECTIVE_BYTES["all-gather"] += n * x.numel() * x.element_size()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.detach().contiguous(), group=grp)
     return torch.cat(parts, dim=dim)

@@ -101,7 +101,11 @@ def moe_ffn_ep(moe: MoEConfig, params: dict, x: torch.Tensor, mesh, *,
         (flat,), xin.index_select(0, token), accumulate=True)
     buf = buf[:rows].view(e_local, cap, d)
     if mode == "serve":
-        out = gmm_ops.expert_swiglu(buf, wg, wu, wd, counts)
+        # the cost record's rows (the counts are not read): a uniform
+        # router's pairs to this rank's experts, up to the capacity
+        out = gmm_ops.expert_swiglu(
+            buf, wg, wu, wd, counts,
+            pairs=min(rows, math.ceil(t_local * k * e_local / e)))
     elif mode == "train":
         gate = torch.bmm(buf, wg)
         up = torch.bmm(buf, wu)

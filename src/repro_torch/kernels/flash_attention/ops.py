@@ -10,6 +10,10 @@ reference's ``ops.py:35 flash_attention``.  The model's prefill attention
   head dim (``ops.py:52``).  No head-dim padding: the 128-lane padding was
   the TPU's.
 * CPU tensors run the plain version (``ref.py``).
+* Under an active `roofline.counting.costing` every call records its
+  `cost.cost` (the kernel's FLOPs and bytes), and meta tensors are
+  taken: the call returns a meta output and launches nothing.  Outside
+  it a meta tensor raises.
 * CUDA tensors run one of two hand-written kernels in
   ``csrc/flash_attention.cu`` (built for ``sm_90a`` at first use by
   ``kernels._build``) on the current stream, or raise: there is no
@@ -41,7 +45,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.cost import cost
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.roofline import counting
 
 #: launches of the SIMT kernel on the card since the count was last reset
 LAUNCHES = 0
@@ -107,7 +113,7 @@ def _check_shapes(q, k, v):
                         f"{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v lie on different devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not counting.dry(q.device):
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
                          f"{q.device}")
 
@@ -159,6 +165,8 @@ def launch(q, k, v, route: str, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention needs at least one query and one "
                          "key")
     out = torch.empty_like(q)
+    if counting.dry(q.device):
+        return out if dv == d else out[..., :dv]
     scale = float(d ** -0.5)
     if route == "wgmma":
         if q.dtype != torch.bfloat16:
@@ -188,8 +196,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Sq, H, Dv] in q's dtype; positions are the row and column indices
     (top-left aligned)."""
     _check_shapes(q, k, v)
+    if counting.active() is not None:
+        b, sq, h, d = q.shape
+        counting.record_kernel("flash_attention", cost(
+            b, sq, h, k.shape[2], d, q.element_size(), skv=k.shape[1],
+            dv=v.shape[3], causal=causal, window=window, n_meta=n_meta))
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   n_meta=n_meta)
+        with counting.uncounted():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, n_meta=n_meta)
     return launch(q, k, v, kernel_route(q), causal=causal, window=window,
                   n_meta=n_meta)

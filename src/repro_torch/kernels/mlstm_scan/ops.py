@@ -10,6 +10,9 @@ for every T: a prefill from a fresh cache, a prefill onto a carried
 state, and every decode step (T = 1, chunk 1).
 
 * CPU tensors run the plain version (``ref.py``).
+* Under an active `roofline.counting.costing` every call records its
+  `cost.cost`, and meta tensors are taken: the call returns meta outputs
+  and launches nothing.  Outside it a meta tensor raises.
 * CUDA tensors run the hand-written kernel (``csrc/mlstm_scan.cu``, built
   for ``sm_90a`` at first use by ``kernels._build``) on the current stream,
   or raise: there is no fallback to the plain version.
@@ -30,7 +33,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.mlstm_scan.cost import cost
 from repro_torch.kernels.mlstm_scan.ref import State, mlstm_scan_ref
+from repro_torch.roofline import counting
 
 #: calls that launched on the card (three grids each) since the count was
 #: last reset
@@ -107,14 +112,14 @@ def _check(q, k, v, lf, li, state):
             raise ValueError("the inputs lie on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not counting.dry(q.device):
         raise ValueError(f"mlstm_scan runs on cpu or cuda tensors, got "
                          f"{q.device}")
 
 
 def _launch(q, k, v, lf, li, chunk, state=None):
     global LAUNCHES
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not counting.dry(q.device):
         raise ValueError("the mlstm_scan kernel takes CUDA tensors")
     bh, s, dh = q.shape
     if chunk > MAX_CHUNK or dh > MAX_HEAD_DIM:
@@ -134,6 +139,8 @@ def _launch(q, k, v, lf, li, chunk, state=None):
     cs = torch.empty((bh, nch - 1, dh, dh), **f32) if nch > 1 else None
     ns = torch.empty((bh, nch - 1, dh), **f32) if nch > 1 else None
     c0, n0, m0 = state if state is not None else (None, None, None)
+    if counting.dry(q.device):
+        return h, (c, n, m)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -164,6 +171,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m [BH, 1])), all float32."""
     _check(q, k, v, lf, li, state)
     chunk = min(chunk, q.shape[1])
+    if counting.active() is not None:
+        counting.record_kernel("mlstm_scan", cost(
+            *q.shape[:2], q.shape[2], chunk, carried=state is not None))
     if q.device.type == "cpu":
-        return mlstm_scan_ref(q, k, v, lf, li, state, chunk=chunk)
+        with counting.uncounted():
+            return mlstm_scan_ref(q, k, v, lf, li, state, chunk=chunk)
     return _launch(q, k, v, lf, li, chunk, state)

@@ -13,6 +13,13 @@ MoE layer: three launches, on every prefill and decode step.
   ``w.astype(x.dtype)``).  With int32 ``counts`` [E], each in ``[0, C]``,
   the rows at or past ``counts[e]`` are zero and are not computed.
 * CPU tensors run the plain version (``ref.py``).
+* Under an active `roofline.counting.costing` every call records its
+  `cost.cost` without reading the counts: its rows are the ``pairs`` the
+  caller gives (`models.moe.moe_ffn`: tokens x top_k, every pair kept;
+  `distributed.moe_ep`: a uniform router's pairs to the rank's experts),
+  or every capacity row where it gives none; meta tensors are taken, and
+  the call returns a meta output and launches nothing.  Outside it a
+  meta tensor raises.
 * CUDA tensors run one of two hand-written kernels in ``csrc/moe_gmm.cu``
   (built for ``sm_90a`` at first use by ``kernels._build``) on the current
   stream, or raise: there is no fallback from one kernel to the other or
@@ -40,7 +47,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.moe_gmm.cost import cost
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref, swiglu_gate
+from repro_torch.roofline import counting
 
 #: launches of the SIMT kernel on the card since the count was last reset
 LAUNCHES = 0
@@ -116,7 +125,7 @@ def _check(x, w, counts):
             raise ValueError("the inputs lie on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not counting.dry(x.device):
         raise ValueError(f"grouped_matmul runs on cpu or cuda tensors, got "
                          f"{x.device}")
     if counts is not None and x.device.type == "cpu" and bool(
@@ -138,7 +147,7 @@ def kernel_route(x: torch.Tensor, w: torch.Tensor) -> str:
 def _call(x: torch.Tensor, fn: str, *args):
     """Launch ``fn`` of the library on x's device and current stream;
     raise on the error code it returns."""
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not counting.dry(x.device):
         raise ValueError("the moe_gmm kernels take CUDA tensors")
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -159,6 +168,8 @@ def launch(x, w, counts, route: str) -> torch.Tensor:
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if counting.dry(x.device):
+        return out
     cnt = None if counts is None else counts.data_ptr()
     if route == "wgmma":
         if x.dtype != torch.bfloat16:
@@ -180,22 +191,32 @@ def launch(x, w, counts, route: str) -> torch.Tensor:
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   counts: Optional[torch.Tensor] = None, *,
+                   pairs: Optional[int] = None) -> torch.Tensor:
     """x [E, C, d], w [E, d, f] (x's dtype or float32), optional int32
-    counts [E] -> [E, C, f] in x's dtype."""
+    counts [E] -> [E, C, f] in x's dtype.  ``pairs``, the routed pairs
+    that the counts hold, is read only by the cost record."""
     _check(x, w, counts)
+    if counting.active() is not None:
+        e, c = x.shape[:2]
+        counting.record_kernel("moe_gmm", cost(
+            x, w, pairs=e * c if pairs is None else pairs))
+        counting.note("moe_gmm_rows", "every capacity row" if pairs is None
+                      else "the caller's routed pairs")
     if x.device.type == "cpu":
-        return grouped_matmul_ref(x, w, counts)
+        with counting.uncounted():
+            return grouped_matmul_ref(x, w, counts)
     return launch(x, w, counts, kernel_route(x, w))
 
 
 def expert_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor,
-                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  counts: Optional[torch.Tensor] = None, *,
+                  pairs: Optional[int] = None) -> torch.Tensor:
     """``down(silu(gate) * up)`` per expert over capacity buffers: x
     [E, C, d], w_gate and w_up [E, d, f], w_down [E, f, d] -> [E, C, d] in
     x's dtype; three grouped matmuls, ``silu(gate) * up`` in x's dtype
     between them (the reference's ``ops.py:17-28``)."""
-    h = swiglu_gate(grouped_matmul(x, w_gate, counts),
-                    grouped_matmul(x, w_up, counts))
-    return grouped_matmul(h, w_down, counts)
+    h = swiglu_gate(grouped_matmul(x, w_gate, counts, pairs=pairs),
+                    grouped_matmul(x, w_up, counts, pairs=pairs))
+    return grouped_matmul(h, w_down, counts, pairs=pairs)

@@ -8,6 +8,9 @@ the whole prefill and on every decode step (S = 1), from the layer's
 cached state.
 
 * CPU tensors run the plain version (``ref.py``).
+* Under an active `roofline.counting.costing` every call records its
+  `cost.cost`, and meta tensors are taken: the call returns meta outputs
+  and launches nothing.  Outside it a meta tensor raises.
 * CUDA tensors run the hand-written kernel (``csrc/ssm_scan.cu``, built for
   ``sm_90a`` at first use by ``kernels._build``) on the current stream, or
   raise: there is no fallback to the plain version.
@@ -28,7 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ssm_scan.cost import cost
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.roofline import counting
 
 #: kernel launches on the card since the count was last reset
 LAUNCHES = 0
@@ -93,14 +98,15 @@ def _check(delta, b, c, x, a, h0):
             raise ValueError("the inputs lie on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if delta.device.type not in ("cpu", "cuda"):
+    if (delta.device.type not in ("cpu", "cuda")
+            and not counting.dry(delta.device)):
         raise ValueError(f"selective_scan runs on cpu or cuda tensors, got "
                          f"{delta.device}")
 
 
 def _launch(delta, b, c, x, a, h0):
     global LAUNCHES
-    if delta.device.type != "cuda":
+    if delta.device.type != "cuda" and not counting.dry(delta.device):
         raise ValueError("the ssm_scan kernel takes CUDA tensors")
     bsz, s, di = delta.shape
     ds = a.shape[-1]
@@ -109,6 +115,8 @@ def _launch(delta, b, c, x, a, h0):
                          f"got {ds}")
     y = torch.empty_like(delta)
     h = torch.empty_like(h0)
+    if counting.dry(delta.device):
+        return y, h
     lib = _lib()
     with torch.cuda.device(delta.device):
         rc = lib.ssm_scan_launch(
@@ -128,6 +136,9 @@ def selective_scan(delta: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """delta, x [B, S, di]; b, c [B, S, ds]; a [di, ds] (A = -exp(a_log));
     h0 [B, di, ds] -> (y [B, S, di], h [B, di, ds]), all float32."""
     _check(delta, b, c, x, a, h0)
+    if counting.active() is not None:
+        counting.record_kernel("ssm_scan", cost(*delta.shape, a.shape[-1]))
     if delta.device.type == "cpu":
-        return ssm_scan_ref(delta, b, c, x, a, h0)
+        with counting.uncounted():
+            return ssm_scan_ref(delta, b, c, x, a, h0)
     return _launch(delta, b, c, x, a, h0)

@@ -45,3 +45,10 @@ PEAK_FLOPS_BF16 = 989e12          # FLOP/s
 HBM_BW = 3.35e12                  # bytes/s
 NVLINK_BW_PER_LINK = 25e9         # bytes/s per link and direction
 NVLINK_LINKS = 18
+# The same datasheet's other rates, for the kernels' bounds: fp32 outside
+# the tensor cores, dense TF32 on them, and the SFUs' exps (16 per clock
+# per SM, CUDA C++ Programming Guide, compute capability 9.0; 132 SMs at
+# the 1,980 MHz boost clock).
+PEAK_FLOPS_FP32 = 67e12           # FLOP/s
+PEAK_FLOPS_TF32 = 495e12          # FLOP/s
+SFU_OPS_PER_S = 16 * 132 * 1.98e9

@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.roofline import counting
 
 NEG_INF = -1e30
 
@@ -285,7 +286,14 @@ def _scatter(cache: torch.Tensor, new: torch.Tensor, cursor,
     size, n_new = cache.shape[1], new.shape[1]
     slots = ring_slots(cursor, n_new, size, n_pinned).to(cache.device)
     new = new.to(cache.dtype)
-    if n_new > max(size - n_pinned, 1):
+    ring = max(size - n_pinned, 1)
+    if n_new > ring and counting.dry(cache.device):
+        # costing on meta, where the mask cannot be read: the entries a
+        # write from an empty cache keeps (the pinned ones, the last ring)
+        kept = ring + min(n_pinned, n_new - ring)
+        counting.note("ring_write", "from an empty cache")
+        slots, new = slots[:kept], new[:, :kept]
+    elif n_new > ring:
         keep = slots < size          # a host sync, only when the ring wraps
         slots, new = slots[keep], new[:, keep]
     return cache.index_copy_(1, slots.long(), new)

@@ -681,3 +681,12 @@ def count_params(cfg: ModelConfig) -> dict:
     return {"total": total, "active": active,
             "active_flops": active - cfg.vocab * cfg.d_model,
             "embedding": embed}
+
+
+def model_flops_per_step(cfg: ModelConfig, shape: ShapeSpec,
+                         backward: bool) -> float:
+    """MODEL_FLOPS = 6*N*D (training) or 2*N*D (inference) with N = active
+    matmul params, D = tokens processed in the step."""
+    n = count_params(cfg)["active_flops"]
+    d = shape.tokens_per_step
+    return (6.0 if backward else 2.0) * n * d

@@ -25,7 +25,11 @@ C is T when T is at most the kernel's row tile (a token picks an expert at
 most once, so no count exceeds T: every decode step at small batch);
 otherwise it is the largest count rounded up to the row tile, which takes
 **one host read per MoE layer** (``HOST_READS`` counts them).  That read
-is what stands in the way of capturing a prefill in a CUDA graph.
+is what stands in the way of capturing a prefill in a CUDA graph.  A step
+costed on meta tensors (`roofline.counting.costing`) cannot read the
+counts: there C is a uniform router's at the reference EP's factor 1.25,
+``ceil(1.25 T k / E)`` rounded up to the row tile, and the count's record
+notes it.
 
 Training (`moe_ffn_train`) never reaches the kernel, which has no
 backward: the same routing and dispatch feed a capacity buffer whose three
@@ -38,7 +42,8 @@ the combine gathers through the pair order instead of scattering.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,10 +51,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models.layers import dense_init, swiglu, swiglu_params
+from repro_torch.roofline import counting
 
 #: host reads of the largest expert count (one per MoE layer whose tokens
 #: exceed the kernel's row tile) since the count was last reset
 HOST_READS = 0
+#: the capacity factor of a step costed on meta tensors (the reference
+#: EP's, ``distributed.moe_ep.EP_CAPACITY_FACTOR``)
+UNIFORM_CAPACITY_FACTOR = 1.25
 
 
 def moe_params_spec(d_model: int, moe: MoEConfig, dtype) -> dict:
@@ -100,14 +109,25 @@ def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
     return n_experts * (f * probs.mean(dim=0)).sum()
 
 
-def capacity(n_tokens: int, counts: torch.Tensor) -> int:
+def capacity(n_tokens: int, counts: torch.Tensor,
+             top_k: Optional[int] = None) -> int:
     """Capacity rows per expert that drop no pair: ``n_tokens`` up to the
     kernel's row tile, else the largest count rounded up to it (one host
-    read)."""
+    read).  Costing on meta tensors, a uniform router's at
+    `UNIFORM_CAPACITY_FACTOR` over ``top_k`` slots a token, with no
+    read."""
     global HOST_READS
     tile = gmm_ops.ROW_TILE
     if n_tokens <= tile:
         return n_tokens
+    if counting.dry(counts.device):
+        if top_k is None:
+            raise ValueError("costing a capacity on meta needs top_k")
+        uniform = math.ceil(UNIFORM_CAPACITY_FACTOR * n_tokens * top_k
+                            / counts.shape[0])
+        cap = -(-uniform // tile) * tile
+        counting.note("moe_capacity", cap)
+        return cap
     HOST_READS += 1
     return -(-int(counts.max()) // tile) * tile  # analysis: ignore[host-read] -- counted in HOST_READS
 
@@ -146,11 +166,12 @@ def moe_ffn(moe: MoEConfig, params: dict,
     weights, experts, aux = _route(moe, params, xf)
     counts, pos = dispatch(experts, e)
     rows = experts.long()
-    buf = torch.zeros((e, capacity(t, counts), d), dtype=x.dtype,
-                      device=x.device)
+    buf = torch.zeros((e, capacity(t, counts, moe.top_k), d),
+                      dtype=x.dtype, device=x.device)
     buf[rows, pos] = xf[:, None, :].expand(t, moe.top_k, d)
     out = gmm_ops.expert_swiglu(buf, params["w_gate"], params["w_up"],
-                                params["w_down"], counts)
+                                params["w_down"], counts,
+                                pairs=t * moe.top_k)
     y = (out[rows, pos].float() * weights[..., None]).sum(dim=1)
 
     if moe.n_shared:
@@ -175,7 +196,7 @@ def moe_ffn_train(moe: MoEConfig, params: dict,
 
     weights, experts, aux = _route(moe, params, xf)
     counts, pos = dispatch(experts, e)
-    c = capacity(t, counts)
+    c = capacity(t, counts, k)
     # each (token, slot) pair's row of the [E * C, d] buffer, in flat order
     slot = (experts.long() * c + pos).reshape(-1)
     token = torch.arange(t * k, device=x.device) // k

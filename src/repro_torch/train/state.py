@@ -110,10 +110,12 @@ def init_train_state(params, seed: int = 0) -> TrainState:
 def bind_state(model, state: TrainState) -> TrainState:
     """A restored state (its leaves on the model's device) made the
     model's: the restored parameters become the model's own tensors
-    (``Model.adopt``, no copy) and the cursor moves to the host."""
+    (``Model.adopt``, no copy) and the cursor moves to the host (a meta
+    cursor, a shape table's, stays meta)."""
     model.adopt(state.params)
+    cursor = state.data_cursor
     return TrainState(params=model.params(), opt=state.opt, rng=state.rng,
-                      data_cursor=state.data_cursor.cpu())
+                      data_cursor=cursor if cursor.is_meta else cursor.cpu())
 
 
 def train_state_shapes(model, seed: int = 0) -> TrainState:

@@ -22,6 +22,7 @@ from repro.configs import get_smoke_config as jsmoke  # noqa: E402
 from repro.core import types as jtypes  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager, ManagerConfig  # noqa: E402
 from repro_torch.checkpoint.service import CheckpointService  # noqa: E402
+from repro_torch.cluster import executor as executor_mod  # noqa: E402
 from repro_torch.cluster.executor import (  # noqa: E402
     ClusterExecutor,
     ManagedJob,
@@ -248,7 +249,21 @@ def test_snapshot_is_not_changed_by_later_steps(tmp_path):
     mgr.close()
 
 
-def test_measured_cr_is_charged_and_calibrates(tmp_path):
+class _StepClock:
+    """A ``time`` stand-in whose ``perf_counter`` advances a fixed step
+    per call, so that every measured save and restore costs the same
+    ticks whatever the machine's load."""
+
+    def __init__(self, step: float):
+        self.step, self.now = step, 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
+def test_measured_cr_is_charged_and_calibrates(tmp_path, monkeypatch):
+    monkeypatch.setattr(executor_mod, "time", _StepClock(2.5e-4))
     ex, managed = _scenario(
         ttypes, _mk,
         lambda root: CheckpointService(ManagerConfig(root=root,

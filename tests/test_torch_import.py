@@ -55,7 +55,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "cluster.executor", "analysis.base",
                 "analysis.dispatch_audit", "distributed.sharding",
                 "distributed.collectives", "distributed.moe_ep",
-                "launch.mesh", "optim.compression"):
+                "launch.mesh", "optim.compression", "launch.dryrun",
+                "roofline.analysis", "roofline.counting",
+                "kernels.flash_attention.cost", "kernels.moe_gmm.cost",
+                "kernels.ssm_scan.cost", "kernels.mlstm_scan.cost"):
         assert f"repro_torch.{mod}" in names, mod
 
 
