@@ -134,6 +134,14 @@ against the plain version and timed beside it in one run.
   the dry run's estimates. The kernels' bounds (`[attn-time]`,
   `[ssm-time]`, `[mlstm-time]`, `[moe-time]`) come from each kernel
   package's `cost`, the dry run's source too.
+* multi-device execution on the one card, last: `[ep-compare]` on a
+  one-rank NCCL group; then two gloo processes (`[ep-ranks]`,
+  `[shard-serve]`: internlm2-1.8b tensor-parallel with its cache split on
+  the sequence) and four more at the same time (`[shard-serve-hd]`:
+  glm4-9b cut to 4 layers on a (1, 4) mesh, its 2 KV heads split on
+  head_dim; `[shard-train-hd]`: two sharded train steps of internlm2-1.8b
+  cut to 2 layers on (2, 2), each rank's peak against the dry run's
+  estimate), each held against a one-process run; `[batch-devices]`.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -484,6 +492,11 @@ GMM_CASES = [(4, 96, 160, 224), (2, 128, 64, 64), (8, 32, 48, 96),
 #: one layer of deepseek-moe-16b's prefill attention (16/16 heads)
 MOE_ATTN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, _MOE.n_heads, _MOE.n_kv_heads,
                   _MOE.resolved_head_dim)
+#: the head_dim form's flash launch a rank on 16 model ranks at the
+#: serving shape: glm4-9b's 2 query heads and dbrx-132b's 3 (groups 16
+#: and 6 whole), each against its one KV head
+HD_RANK_ATTN = {"glm4_hd16": (SERVE_BATCH, SERVE_PROMPT, 2, 1, 128),
+                "dbrx_hd16": (SERVE_BATCH, SERVE_PROMPT, 3, 1, 128)}
 GMM_EXPERTS = (_MOE.moe.n_routed, _MOE.moe.top_k, _MOE.d_model,
                _MOE.moe.d_expert)                               # E k d f
 GMM_TOKENS = {"prefill": SERVE_BATCH * SERVE_PROMPT, "decode": SERVE_BATCH}
@@ -2862,6 +2875,7 @@ def phase_attn_compare():
     """Both kernels against the plain version: the reference's test shapes
     and the ragged ones in fp32 (SIMT) and bf16 (both), internlm2-1.8b's
     and deepseek-moe-16b's serving shapes in bf16, and in both dtypes
+    the head_dim form's launches a rank (HD_RANK_ATTN),
     hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64),
     the VLM's cross-attention and whisper's encoder and cross-attention
     (non-causal; each again with V zero but on the keys past the last
@@ -2899,6 +2913,12 @@ def phase_attn_compare():
                                     ("deepseek", MOE_ATTN_SHAPE)):
         serving[name] = run(attn_inputs(gen, b, s, s, h, kvh, d,
                                         torch.bfloat16), causal=True)
+    # the head_dim form's launches a rank: few query heads, one KV head
+    for name, (b, s, h, kvh, d) in HD_RANK_ATTN.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}_" + ("fp32" if dtype == torch.float32 else "bf16")
+            serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
+                               causal=True)
     b, s, h, kvh, d, window, meta = HYBRID_ATTN_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
         tag = "hymba_" + ("fp32" if dtype == torch.float32 else "bf16")
@@ -4139,12 +4159,11 @@ def phase_ep_compare(work):
                 timing=rows[cap])
 
 
-def shard_reference(work):
-    """The one-process bf16 run that [shard-serve] is held to: the full
-    internlm2-1.8b from `serve.build`'s seeded weights, a 4 x 2,048 prompt,
-    then SHARD_DECODE_STEPS greedy steps; saves the prompt, the fed ids and
-    every step's logits."""
-    cfg = get_config(SHARD_ARCH)
+def shard_reference(work, cfg, name):
+    """The one-process bf16 run that a sharded serve is held to: ``cfg``
+    from `serve.build`'s seeded weights, a 4 x 2,048 prompt, then
+    SHARD_DECODE_STEPS greedy steps; saves the prompt, the fed ids and
+    every step's logits to ``work/name``."""
     model = serve.build(cfg, SEED, DEV)
     tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
     cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SHARD_DECODE_STEPS)
@@ -4157,7 +4176,7 @@ def shard_reference(work):
         out.append(logits.cpu())
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.save({"tokens": tokens.cpu(), "fed": fed, "logits": out,
-                "weight_bytes": weights}, work / "shard_ref.pt")
+                "weight_bytes": weights}, work / name)
     del model, cache
     collect_garbage()
     torch.cuda.empty_cache()
@@ -4354,16 +4373,16 @@ def _ranks_train(mesh, res):
         train_param_err_tight=tight_bad, train_param_err=loose)
 
 
-def _ranks_serve(mesh, work, res):
-    """internlm2-1.8b at full width, placed by `param_shardings`,
-    ``decode_kv_shard`` on: the prompt, then SHARD_DECODE_STEPS steps on
-    the one-process run's ids, against its logits."""
+def _ranks_serve(mesh, work, res, cfg, ref_name):
+    """``cfg`` at full width, placed by `param_shardings`: the prompt, then
+    SHARD_DECODE_STEPS steps on the one-process run's ids (``work /
+    ref_name``), against its logits."""
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import attention as attention_mod
+    from repro_torch.models import transformer as tfm
 
-    ref = torch.load(work / "shard_ref.pt")
-    cfg = get_config(SHARD_ARCH).replace(decode_kv_shard=True)
+    ref = torch.load(work / ref_name)
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device="meta")
     shd.shard_model(model, mesh, device=DEV,
@@ -4376,7 +4395,7 @@ def _ranks_serve(mesh, work, res):
     heads = []
     with col.use_mesh(mesh), recording(
             attention_mod, "flash_attention",
-            lambda a, o: heads.append(a[0].shape[2])):
+            lambda a, o: heads.append((a[0].shape[2], a[1].shape[2]))):
         cache = model.init_cache(SERVE_BATCH,
                                  SERVE_PROMPT + SHARD_DECODE_STEPS)
         torch.cuda.reset_peak_memory_stats()
@@ -4410,6 +4429,8 @@ def _ranks_serve(mesh, work, res):
         decode_s += time.perf_counter() - t0
     rms = [rel_rms(got.cpu(), want) for got, want in zip(out, ref["logits"])]
     res.update(
+        serve_heads_aligned=tfm.heads_aligned(cfg, mesh),
+        serve_head_dim_split=tfm.head_dim_split(cfg, mesh),
         serve_layout=cache["layout"],
         serve_cache_k_local=list(cache["layers"]["k"].shape),
         serve_init_peak=init_peak,
@@ -4421,7 +4442,8 @@ def _ranks_serve(mesh, work, res):
             "flash_attention_wgmma"],
         serve_other_launches={k: v for k, v in prefill_launches.items()
                               if v and k != "flash_attention_wgmma"},
-        serve_flash_heads=sorted(set(heads)),
+        serve_flash_heads=sorted({q for q, _ in heads}),
+        serve_flash_kv_heads=sorted({kv for _, kv in heads}),
         serve_collectives_prefill=prefill_coll,
         serve_collectives_per_decode_step={
             k: v / (SHARD_DECODE_STEPS - 1) for k, v in decode_coll.items()},
@@ -4469,7 +4491,10 @@ def shard_rank(rank, store, work):
                      ("kv_decode", lambda: _ranks_kv_decode(mesh, res)),
                      ("reshard", lambda: _ranks_reshard(mesh, res)),
                      ("train", lambda: _ranks_train(mesh, res)),
-                     ("serve", lambda: _ranks_serve(mesh, work, res))):
+                     ("serve", lambda: _ranks_serve(
+                         mesh, work, res,
+                         get_config(SHARD_ARCH).replace(decode_kv_shard=True),
+                         "shard_ref.pt"))):
         t0 = time.perf_counter()
         fn()
         collect_garbage()
@@ -4481,24 +4506,51 @@ def shard_rank(rank, store, work):
     dist.destroy_process_group()
 
 
-def phase_shard_ranks(work, ep):
-    """[ep-ranks] and [shard-serve]: SHARD_RANKS processes share the card
-    over gloo on a (1, 2) mesh (`shard_rank`); each check must hold on
-    every rank."""
+def spawn_ranks(fn, n, work, store):
+    """``n`` spawned processes running ``fn(rank, store path, work)``."""
     import torch.multiprocessing as mp
 
-    one_weights = shard_reference(work)
+    return mp.start_processes(fn, args=(str(work / store), work), nprocs=n,
+                              join=False, start_method="spawn")
+
+
+def phase_shard_ranks(work):
+    """[ep-ranks], [shard-serve] and [shard-serve-hd]: SHARD_RANKS
+    processes (`shard_rank`, a (1, 2) mesh) and SHARD_HD_RANKS more
+    (`shard_hd_rank`) share the card over gloo at once, both sets bound by
+    gloo's copies through host memory on the host's cores; the host
+    meanwhile runs [shard-serve-hd]'s one-process run and costs its train
+    cell with `launch.dryrun`.  Each check must hold on every rank."""
     t0 = time.perf_counter()
-    ctx = mp.start_processes(shard_rank, args=(str(work / "gloo_store"),
-                                               work),
-                             nprocs=SHARD_RANKS, join=False,
-                             start_method="spawn")
-    while not ctx.join(timeout=5):
-        if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+    one_weights = shard_reference(work, get_config(SHARD_ARCH),
+                                  "shard_ref.pt")
+    ctxs = [spawn_ranks(shard_rank, SHARD_RANKS, work, "gloo_store")]
+    try:
+        hd_cfg = shard_hd_config(SHARD_HD_LAYERS)
+        hd_weights = shard_reference(work, hd_cfg, "shard_hd_ref.pt")
+        ctxs.append(spawn_ranks(shard_hd_rank, SHARD_HD_RANKS, work,
+                                "gloo_store_hd"))
+        ts = time.perf_counter()
+        est = shard_hd_estimate()
+        est_s = time.perf_counter() - ts
+        for ctx in ctxs:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                    raise AssertionError(f"the rank processes ran past "
+                                         f"{SHARD_TIMEOUT_S} s")
+    finally:
+        for ctx in ctxs:
             for p in ctx.processes:
-                p.kill()
-            raise AssertionError(f"the rank processes ran past "
-                                 f"{SHARD_TIMEOUT_S} s")
+                if p.is_alive():
+                    p.kill()
+    check_shard_ranks(work, one_weights)
+    check_shard_hd(work, hd_cfg, hd_weights, est, est_s)
+    log("shard-ranks", processes=SHARD_RANKS + SHARD_HD_RANKS,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def check_shard_ranks(work, one_weights):
+    """[ep-ranks] and [shard-serve]'s checks, on every rank's results."""
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(SHARD_RANKS)]
     n_layers = get_config(SHARD_ARCH).n_layers
@@ -4518,8 +4570,12 @@ def phase_shard_ranks(work, ep):
             "serve": (r["serve_layout"] == "seq"
                       and r["serve_flash_launches_prefill"] == n_layers
                       and not r["serve_other_launches"]
+                      # both head counts divide: each rank its heads
+                      and r["serve_heads_aligned"]
                       and r["serve_flash_heads"] == [
                           get_config(SHARD_ARCH).n_heads // SHARD_RANKS]
+                      and r["serve_flash_kv_heads"] == [
+                          get_config(SHARD_ARCH).n_kv_heads // SHARD_RANKS]
                       and r["serve_collectives_per_decode_step"].get(
                           "decode_combine") == 3 * n_layers
                       and r["serve_logits_finite"]
@@ -4556,6 +4612,7 @@ def phase_shard_ranks(work, ep):
             decode_ms_per_step=f"{r['serve_decode_ms_per_step']:.1f}",
             flash_launches_prefill=r["serve_flash_launches_prefill"],
             flash_heads=r["serve_flash_heads"],
+            flash_kv_heads=r["serve_flash_kv_heads"],
             collectives_prefill=r["serve_collectives_prefill"],
             collectives_per_decode_step=r[
                 "serve_collectives_per_decode_step"],
@@ -4567,8 +4624,235 @@ def phase_shard_ranks(work, ep):
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"rank {r['rank']} failed {bad}")
-    return sum(r["ep_launches"] for r in ranks), sum(
-        r["serve_flash_launches_prefill"] for r in ranks)
+
+
+# ---------------------------------------------------------------------------
+# [shard-serve-hd]: KV heads that do not divide the model axis, then the
+# sharded train step's per-layer FSDP gather, on four gloo ranks
+# ---------------------------------------------------------------------------
+
+#: glm4-9b at its published widths (32 query heads, 2 KV heads, head_dim
+#: 128, d_ff 13,696, vocab 151,552), its 40 layers cut to SHARD_HD_LAYERS
+#: so that the one-process run and four ranks fit the phase's budget; on
+#: a (1, 4) mesh its query heads divide the model axis and its KV heads do
+#: not, so attention splits K and V on head_dim: 8 query heads a rank
+#: against one KV head, the cache a quarter of head_dim
+SHARD_HD_ARCH = "glm4-9b"
+SHARD_HD_RANKS = 4
+SHARD_HD_LAYERS = 4
+#: then SHARD_HD_TRAIN_STEPS sharded train steps of SHARD_HD_TRAIN_ARCH at
+#: its published widths cut to SHARD_HD_TRAIN_LAYERS on a (2, 2) mesh,
+#: SERVE_BATCH x SERVE_PROMPT tokens in SHARD_HD_ACCUM microbatches, the
+#: model's 1,024-token chunks; each rank's peak within PEAK_TOL of
+#: `launch.dryrun`'s estimate of the cell.  Not glm4-9b: the dry run puts
+#: its train cell at 24.23 GB a rank (the loss gathers its 151,552 x 4,096
+#: unembedding whole), and four such ranks do not fit one 80 GB card
+SHARD_HD_TRAIN_ARCH = "internlm2-1.8b"
+SHARD_HD_TRAIN_LAYERS, SHARD_HD_TRAIN_STEPS, SHARD_HD_ACCUM = 2, 2, 2
+
+
+def shard_hd_config(layers, arch=SHARD_HD_ARCH):
+    return get_config(arch).replace(n_layers=layers)
+
+
+def shard_hd_train_cell():
+    """The train cell of [shard-serve-hd] as `launch.dryrun.build_cell`
+    takes it: (shape, tuning)."""
+    shape = ShapeSpec("shard_hd_train", seq_len=SERVE_PROMPT,
+                      global_batch=SERVE_BATCH, kind="train")
+    return shape, {"cfg": {"n_layers": SHARD_HD_TRAIN_LAYERS},
+                   "q_chunk": 1024, "kv_chunk": 1024,
+                   "grad_accum": SHARD_HD_ACCUM}
+
+
+def shard_hd_estimate():
+    """`launch.dryrun`'s memory record of one rank of the train cell: the
+    production pass on meta tensors over a fake world of the (2, 2) mesh
+    (the host only; its process group destroyed after)."""
+    import torch.distributed as dist
+
+    mesh = dryrun.fake_mesh((2, SHARD_HD_RANKS // 2), ("data", "model"))
+    try:
+        shape, tune = shard_hd_train_cell()
+        return roofline.memory_stats(dryrun.count_cell(
+            dryrun.build_cell(SHARD_HD_TRAIN_ARCH, shape, mesh, tune),
+            memory_only=True))
+    finally:
+        dist.destroy_process_group()
+
+
+def _ranks_hd_train(mesh, res):
+    """SHARD_HD_TRAIN_STEPS sharded train steps of the train cell on
+    ``mesh``: losses, grad norms and ms a step; the rank's peak, as
+    `launch.dryrun` counts it (its arguments, counted alike, plus what the
+    steps allocated above what was allocated before them); the per-layer
+    gather's peak of live gathered bytes against one layer's."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+    from repro_torch.train.state import prng_key
+
+    shape, tune = shard_hd_train_cell()
+    cfg = shard_hd_config(SHARD_HD_TRAIN_LAYERS, SHARD_HD_TRAIN_ARCH)
+    model = Model(cfg, device="meta",
+                  q_chunk=tune["q_chunk"], kv_chunk=tune["kv_chunk"])
+    shd.shard_model(model, mesh, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(
+                        SEED + 40))
+    params = model.params()
+    state = steps.TrainState(params=params, opt=steps.shard_opt(params),
+                             rng=prng_key(SEED, DEV),
+                             data_cursor=torch.zeros((), dtype=torch.int32))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    batch = {k: torch.randint(0, model.cfg.vocab, (shape.global_batch,
+                                                   shape.seq_len),
+                              generator=gen, device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = make_train_step(model, TrainConfig(grad_accum=tune["grad_accum"],
+                                              warmup_steps=0))
+    # the arguments as `launch.dryrun.count_cell` counts them: the state's
+    # local shards and the rank's box of the batch
+    args = (sum(dryrun._nbytes(t) for t in counting.tensors(state))
+            + dryrun._batch_bytes(batch, mesh))
+    layer = sum(p.to_local()[0].numel() * col.dp_size(mesh) * p.element_size()
+                for k, p in model.named_parameters()
+                if k.startswith("blocks.") and col.layer_dp_dim(p) > 0)
+    collect_garbage()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    col.reset_counts()
+    losses, norms, ms = [], [], []
+    with col.use_mesh(mesh):
+        for _ in range(SHARD_HD_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    res.update(
+        train_mesh=list(mesh.mesh.shape), train_losses=losses,
+        train_grad_norms=norms, train_ms=ms,
+        train_peak_bytes=args + torch.cuda.max_memory_allocated() - before,
+        train_argument_bytes=args,
+        train_layer_gathered_bytes=layer,
+        train_gathered_peak_bytes=int(col.LAYER_GATHER["peak"]),
+        train_collectives_per_step={
+            k: v / SHARD_HD_TRAIN_STEPS for k, v in col.COLLECTIVES.items()},
+        train_collective_bytes_per_step={
+            k: v / SHARD_HD_TRAIN_STEPS
+            for k, v in col.COLLECTIVE_BYTES.items()})
+
+
+def shard_hd_rank(rank, store, work):
+    """One of the SHARD_HD_RANKS processes of [shard-serve-hd]: a gloo group
+    through a FileStore; serves on a (1, 4) mesh, then trains on (2, 2);
+    writes its results to ``work/hd_rank{rank}.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo",
+                            store=dist.FileStore(store, SHARD_HD_RANKS),
+                            rank=rank, world_size=SHARD_HD_RANKS)
+    res, phases = {"rank": rank}, {}
+    for name, shape, fn in (
+            ("serve", (1, SHARD_HD_RANKS), lambda mesh: _ranks_serve(
+                mesh, work, res, shard_hd_config(SHARD_HD_LAYERS),
+                "shard_hd_ref.pt")),
+            ("train", (2, SHARD_HD_RANKS // 2),
+             lambda mesh: _ranks_hd_train(mesh, res))):
+        t0 = time.perf_counter()
+        fn(init_device_mesh("cuda", shape, mesh_dim_names=("data", "model")))
+        collect_garbage()
+        torch.cuda.empty_cache()
+        phases[name] = round(time.perf_counter() - t0, 2)
+    res["seconds"] = phases
+    (work / f"hd_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_shard_hd(work, cfg, one_weights, est, est_s):
+    """[shard-serve-hd]'s checks, on every rank's results: the serve on
+    ``cfg`` against its one-process run (``one_weights`` bytes), each
+    train rank's peak against ``est`` (`shard_hd_estimate`'s record,
+    costed in ``est_s`` seconds)."""
+    ranks = [json.loads((work / f"hd_rank{r}.json").read_text())
+             for r in range(SHARD_HD_RANKS)]
+    n, hd = cfg.n_layers, cfg.resolved_head_dim
+    estimate = est["argument_bytes"] + est["temp_bytes"]
+    for r in ranks:
+        peak_ratio = r["train_peak_bytes"] / estimate
+        checks = {
+            "serve": (r["serve_layout"] == "head_dim"
+                      and not r["serve_heads_aligned"]
+                      and r["serve_head_dim_split"]
+                      and r["serve_flash_launches_prefill"] == n
+                      and not r["serve_other_launches"]
+                      and r["serve_flash_heads"] == [
+                          cfg.n_heads // SHARD_HD_RANKS]
+                      and r["serve_flash_kv_heads"] == [1]
+                      and r["serve_cache_k_local"] == [
+                          n, SERVE_BATCH, SERVE_PROMPT + SHARD_DECODE_STEPS,
+                          cfg.n_kv_heads, hd // SHARD_HD_RANKS]
+                      and r["serve_collectives_per_decode_step"].get(
+                          "score_sum") == n
+                      and r["serve_weight_bytes_local"]
+                      <= one_weights / SHARD_HD_RANKS + 2 ** 20
+                      and r["serve_logits_finite"]
+                      and r["serve_logits_rel_rms"] <= SHARD_LOGITS_REL_RMS
+                      and r["serve_broken_rel_rms"]
+                      > 2 * SHARD_LOGITS_REL_RMS),
+            "train": (all(np.isfinite(r["train_losses"]))
+                      and all(np.isfinite(r["train_grad_norms"]))
+                      and abs(peak_ratio - 1) <= PEAK_TOL
+                      and 0 < r["train_gathered_peak_bytes"]
+                      <= r["train_layer_gathered_bytes"]),
+        }
+        log("shard-serve-hd", rank=r["rank"], config=SHARD_HD_ARCH,
+            layers=n, cut_from=get_config(SHARD_HD_ARCH).n_layers,
+            mesh=f"(1, {SHARD_HD_RANKS})", layout=r["serve_layout"],
+            heads_aligned=r["serve_heads_aligned"],
+            cache_k_local=r["serve_cache_k_local"], batch=SERVE_BATCH,
+            prompt=SERVE_PROMPT, decode_steps=SHARD_DECODE_STEPS,
+            weight_bytes_local=r["serve_weight_bytes_local"],
+            weight_bytes_one=one_weights,
+            init_peak=r["serve_init_peak"], serve_peak=r["serve_peak"],
+            prefill_ms=f"{r['serve_prefill_ms']:.1f}",
+            decode_ms_per_step=f"{r['serve_decode_ms_per_step']:.1f}",
+            flash_launches_prefill=r["serve_flash_launches_prefill"],
+            flash_heads=r["serve_flash_heads"],
+            flash_kv_heads=r["serve_flash_kv_heads"],
+            collectives_prefill=r["serve_collectives_prefill"],
+            collectives_per_decode_step=r[
+                "serve_collectives_per_decode_step"],
+            logits_rel_rms=f"{r['serve_logits_rel_rms']:.3e}",
+            logits_bar=SHARD_LOGITS_REL_RMS,
+            broken_rel_rms=f"{r['serve_broken_rel_rms']:.3e}",
+            logits_max_abs=f"{r['serve_logits_max_abs']:.3e}",
+            backend="gloo")
+        log("shard-train-hd", rank=r["rank"], config=SHARD_HD_TRAIN_ARCH,
+            layers=SHARD_HD_TRAIN_LAYERS,
+            cut_from=get_config(SHARD_HD_TRAIN_ARCH).n_layers,
+            mesh=r["train_mesh"],
+            batch=SERVE_BATCH, seq=SERVE_PROMPT, grad_accum=SHARD_HD_ACCUM,
+            losses=r["train_losses"], grad_norms=r["train_grad_norms"],
+            step_ms=[f"{v:.1f}" for v in r["train_ms"]],
+            peak_bytes=r["train_peak_bytes"],
+            argument_bytes=r["train_argument_bytes"],
+            dryrun_estimate_bytes=estimate,
+            dryrun_argument_bytes=est["argument_bytes"],
+            peak_over_estimate=f"{peak_ratio:.4f}", peak_tol=PEAK_TOL,
+            layer_gathered_bytes=r["train_layer_gathered_bytes"],
+            gathered_peak_bytes=r["train_gathered_peak_bytes"],
+            collectives_per_step=r["train_collectives_per_step"],
+            collective_bytes_per_step=r["train_collective_bytes_per_step"],
+            dryrun_s=f"{est_s:.1f}", seconds=r["seconds"])
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"[shard-serve-hd] rank {r['rank']} failed "
+                                 f"{bad}")
 
 
 def phase_batch_devices():
@@ -4779,12 +5063,13 @@ def kernel_entry(name, source, replaces, launches, err, t, extra=()):
 
 
 def multi_device_phases():
-    """[ep-compare], [ep-ranks], [shard-serve] and [batch-devices];
-    returns [ep-compare]'s record of the expert-parallel dispatch."""
+    """[ep-compare], [ep-ranks], [shard-serve], [shard-serve-hd] and
+    [batch-devices]; returns [ep-compare]'s record of the expert-parallel
+    dispatch."""
     with scratch_dir() as tmp:
         work = Path(tmp)
         ep = phase_ep_compare(work)
-        phase_shard_ranks(work, ep)
+        phase_shard_ranks(work)
     phase_batch_devices()
     return ep
 

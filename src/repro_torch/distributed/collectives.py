@@ -13,6 +13,8 @@ same code.
 * `embed_lookup`: the local ``[V, d/TP]`` rows for this rank's tokens.
 * `sharded_kv_decode_attention`: flash-decoding over a KV cache split on
   its sequence axis, combined with one MAX and two SUM all-reduces.
+* `head_dim_decode_attention`: decode over a KV cache split on head_dim,
+  the partial scores summed with one fp32 SUM all-reduce.
 * `constrain_heads`: heads over TP, else head_dim (a DTensor placement).
 * The tensor-parallel conventions of the model's sharded forward (the
   residual stream is replicated over the model axis, values and
@@ -20,21 +22,37 @@ same code.
   model axis) before a column-parallel region, `reduce_from_tp` (a SUM
   all-reduce, identity gradient) after a row-parallel one, `gather`
   (all-gather, its gradient this rank's slice) where a sharded tensor is
-  made whole, and `dp_mean` (the mean over the data axes, its gradient
-  divided by their size).  ``torch.distributed.nn.functional.all_reduce``
+  made whole where every rank consumes it alike, `gather_summed`
+  (all-gather, its gradient summed over the group and cut to this rank's
+  part: a reduce-scatter) where the ranks consume it differently, and
+  `dp_mean` (the mean over the data axes, its gradient divided by their
+  size).  The head_dim attention's `column_parallel_qkv` and
+  `kv_group_sum` sum their partial gradients in fp32 and round them once,
+  where the one-device step rounds, so that a sharded bf16 step rounds as
+  one device does.  ``torch.distributed.nn.functional.all_reduce``
   differentiates to a SUM of the gradients, which is right only where the
   loss is a sum over ranks; the forms here give the gradient of one loss
   that every rank of a model group computes alike.
 
+* `Stacked` / `gather_layer`: the sharded train step's per-layer FSDP
+  gather.  A stacked ``[L, ...]`` parameter stays in its shards; a stack
+  loop indexes it (`LayerShard`, no collective) and gathers the layer
+  over the data axes inside the layer's checkpointed function, so that
+  backward gathers it again and its gradient is summed over the data
+  axes and cut to this rank's box as it comes.
+
 `COLLECTIVES` counts the calls by kind since the last `reset_counts`, and
 `COLLECTIVE_BYTES` the bytes of their results by the reference's HLO
 names (``"all-reduce"``, ``"all-gather"``), which
-`roofline.counting.costing` reads.
+`roofline.counting.costing` reads.  `LAYER_GATHER` holds the bytes of the
+per-layer gathered weights alive now and their peak since the last
+`reset_counts`.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from collections import Counter
 from typing import Tuple
 
@@ -45,10 +63,13 @@ from repro_torch.distributed import sharding as shd
 
 #: collective calls over more than one rank by kind ("all_reduce_sum",
 #: "all_reduce_max", "all_gather") and by site ("decode_combine": the
-#: sharded decode's three)
+#: sharded decode's three; "score_sum": the head_dim decode's one)
 COLLECTIVES: Counter = Counter()
 #: result bytes of those calls by kind ("all-reduce", "all-gather")
 COLLECTIVE_BYTES: Counter = Counter()
+#: bytes of the per-layer gathered weights (`LayerShard.gather`) alive
+#: now ("live") and the most alive at once since `reset_counts` ("peak")
+LAYER_GATHER: Counter = Counter()
 
 _MESH = None
 
@@ -56,6 +77,7 @@ _MESH = None
 def reset_counts() -> None:
     COLLECTIVES.clear()
     COLLECTIVE_BYTES.clear()
+    LAYER_GATHER["peak"] = LAYER_GATHER["live"]
 
 
 @contextlib.contextmanager
@@ -203,6 +225,55 @@ class _Gather(torch.autograd.Function):
         return _slice(g, ctx.grp, ctx.dim).contiguous(), None, None
 
 
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return all_gather(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g.float(), ctx.grp).to(g.dtype)
+        return _slice(total, ctx.grp, ctx.dim).contiguous(), None, None
+
+
+class _KVGroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, grp, head, n_heads):
+        ctx.grp, ctx.head, ctx.n = grp, head, n_heads
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        slots = torch.zeros((ctx.n, *g.shape), dtype=torch.float32,
+                            device=g.device)
+        slots[ctx.head] = g
+        total = all_reduce(slots, ctx.grp)[ctx.head].to(g.dtype)
+        return total, None, None, None
+
+
+class _ColumnQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, grp):
+        ctx.save_for_backward(x, wq, wk, wv)
+        ctx.grp = grp
+        return x @ wq, x @ wk, x @ wv
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        x, wq, wk, wv = ctx.saved_tensors
+        # each path's partial product in fp32, the three summed over the
+        # model axis at once, then rounded and added as autograd adds the
+        # one-device step's three (v, then k, then q)
+        parts = torch.stack([g.float() @ w.float().T
+                             for g, w in ((gv, wv), (gk, wk), (gq, wq))])
+        sv, sk, sq = all_reduce(parts, ctx.grp).to(x.dtype)
+        rows = x.reshape(-1, x.shape[-1]).T
+        return ((sv + sk) + sq,
+                *(rows @ g.reshape(-1, g.shape[-1]) for g in (gq, gk, gv)),
+                None)
+
+
 class _DPMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, grp):
@@ -224,6 +295,33 @@ def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
     return _Gather.apply(x, grp, dim)
+
+
+def gather_summed(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``, for consumers that
+    differ by rank: the gradient is the fp32 SUM of the ranks' gradients,
+    cut to this rank's part."""
+    return _GatherSummed.apply(x, grp, dim)
+
+
+def kv_group_sum(z: torch.Tensor, mesh, head: int,
+                 n_heads: int) -> torch.Tensor:
+    """Identity on a chunk of KV head ``head`` (fp32, inside attention):
+    its gradient is summed in fp32 over the model ranks whose query heads
+    use that head, before attention rounds it to the compute dtype, so the
+    head's dK and dV round once, as on one device (one SUM all-reduce of
+    ``n_heads`` slots)."""
+    return _KVGroupSum.apply(z, tp_group(mesh), head, n_heads)
+
+
+def column_parallel_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                        wv: torch.Tensor, mesh):
+    """``(x @ wq, x @ wk, x @ wv)`` for x replicated over the model axis
+    and each w the rank's columns.  The input gradient is summed over the
+    model axis (what `copy_to_tp` does) from fp32 partial products, each
+    projection's sum rounded to x's dtype once, as the one-device step
+    rounds each of its three whole products."""
+    return _ColumnQKV.apply(x, wq, wk, wv, tp_group(mesh))
 
 
 def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -301,6 +399,96 @@ def dp_replicated(w):
 
 
 # ---------------------------------------------------------------------------
+# The per-layer FSDP gather of the sharded train step
+# ---------------------------------------------------------------------------
+
+
+def layer_dp_dim(w) -> int:
+    """The tensor dim of a stacked ``[L, ...]`` DTensor that the data axes
+    shard, or -1 where they shard none or the stack dim itself (a stacked
+    vector such as a norm: no layer's box lies on every data rank)."""
+    dp = shd.mesh_axes(w.device_mesh)[0]
+    dims = {p.dim for a, p in zip(w.device_mesh.mesh_dim_names, w.placements)
+            if a in dp and p.is_shard()}
+    if len(dims) != 1 or dims == {0}:
+        return -1
+    return dims.pop()
+
+
+class Stacked:
+    """A stacked ``[L, ...]`` parameter that the sharded train step keeps
+    in its shards: ``local`` is this rank's box (the leaf the step
+    differentiates against), ``like`` the storage DTensor it is the box
+    of; ``whole`` asks `LayerShard.gather` for the whole layer (the model
+    shard gathered too) instead of the model shard.  ``stack[i]`` is layer
+    i's box, without a collective."""
+
+    def __init__(self, local: torch.Tensor, like, whole: bool = False):
+        self.local, self.like, self.whole = local, like, whole
+        self._layers = None
+
+    def viewed(self, whole: bool) -> "Stacked":
+        return Stacked(self.local, self.like, whole)
+
+    def __getitem__(self, i: int) -> "LayerShard":
+        if self._layers is None:
+            self._layers = self.local.unbind(0)
+        return LayerShard(self._layers[i], self.like, self.whole)
+
+
+class LayerShard:
+    """Layer i's box of a `Stacked` parameter, gathered where the layer
+    runs (`gather_layer`)."""
+
+    def __init__(self, local: torch.Tensor, like, whole: bool):
+        self.local, self.like, self.whole = local, like, whole
+
+    def gather(self):
+        """The layer's compute view: a DTensor whole over the data axes
+        that keeps its model placement (what `dp_replicated` gives a whole
+        leaf), or with ``whole`` the plain whole tensor.  The data-axis
+        gather's gradient is summed over the data axes and cut to this
+        rank's box."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, like = self.like.device_mesh, self.like
+        dp = shd.mesh_axes(mesh)[0]
+        loc = _track(gather_summed(self.local, dp_group(mesh),
+                                   layer_dp_dim(like) - 1))
+        placements = tuple(
+            Replicate() if a in dp else (Shard(p.dim - 1) if p.is_shard()
+                                         else p)
+            for a, p in zip(mesh.mesh_dim_names, like.placements))
+        view = DTensor.from_local(loc, mesh, placements, run_check=False,
+                                  shape=like.shape[1:],
+                                  stride=shd._contiguous_stride(
+                                      like.shape[1:]))
+        if not self.whole:
+            return view
+        out = full(view)
+        return out if out.untyped_storage() is loc.untyped_storage() \
+            else _track(out)
+
+
+def gather_layer(tree):
+    """A layer's parameter tree with each `LayerShard` gathered; any other
+    leaf as it is (without a sharded train step: no change)."""
+    if isinstance(tree, dict):
+        return {k: gather_layer(v) for k, v in tree.items()}
+    return tree.gather() if isinstance(tree, LayerShard) else tree
+
+
+def _track(t: torch.Tensor) -> torch.Tensor:
+    """Count ``t``'s storage in `LAYER_GATHER` while it lives."""
+    st = t.untyped_storage()
+    n = st.nbytes()
+    LAYER_GATHER["live"] += n
+    LAYER_GATHER["peak"] = max(LAYER_GATHER["peak"], LAYER_GATHER["live"])
+    weakref.finalize(st, LAYER_GATHER.subtract, {"live": n})
+    return t
+
+
+# ---------------------------------------------------------------------------
 # The reference's explicit regions
 # ---------------------------------------------------------------------------
 
@@ -367,6 +555,38 @@ def sharded_kv_decode_attention(
     out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d)
     return out.to(q.dtype), k_cache, v_cache, kv_pos
+
+
+def head_dim_decode_attention(
+    q: torch.Tensor,          # [B, Tq, H, D] every head, this rank's rows
+    k_cache: torch.Tensor,    # [B, S, KVH, D/TP] this rank's head_dim slice
+    v_cache: torch.Tensor,
+    q_pos: torch.Tensor,      # [B, Tq]
+    kv_pos: torch.Tensor,     # [B, S]
+    mesh, *, window: int = 0, n_meta: int = 0,
+) -> torch.Tensor:
+    """`models.attention.decode_attention` over a cache split on head_dim
+    (the reference's cache placement where the KV heads do not divide the
+    model axis): each rank scores every head over its head_dim slice, the
+    partial scores are summed in fp32 with one SUM all-reduce
+    (``COLLECTIVES["score_sum"]``), the softmax is taken whole on every
+    rank and P.V runs on the local slice.  Returns this rank's head_dim
+    slice of every head's output, [B, Tq, H, D/TP] in q's dtype."""
+    from repro_torch.models.attention import NEG_INF, visibility_mask
+
+    b, tq, h, d = q.shape
+    kvh, d_loc = k_cache.shape[2], k_cache.shape[3]
+    qr = q.narrow(-1, tp_rank(mesh) * d_loc, d_loc).reshape(
+        b, tq, kvh, h // kvh, d_loc)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), k_cache.float())
+    s = all_reduce(s, tp_group(mesh)) * (1.0 / math.sqrt(d))
+    COLLECTIVES["score_sum"] += 1
+    vis = visibility_mask(q_pos, kv_pos, causal=True, window=window,
+                          n_meta=n_meta)
+    s = torch.where(vis[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, tq, h, d_loc).to(q.dtype)
 
 
 def swiglu_tp(params: dict, x: torch.Tensor, mesh) -> torch.Tensor:

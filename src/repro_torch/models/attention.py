@@ -83,10 +83,11 @@ def _pad_axis(x: torch.Tensor, axis: int, multiple: int, value=0):
 
 
 def _attend_q_chunk(qc, qp, kr, vr, kpr, *, causal, window, n_meta,
-                    out_dtype):
+                    out_dtype, kv_grad=None):
     """One Q chunk against every KV chunk: qc [B, qc, KVH, G, Dk], qp
     [B, qc]; kr [B, nk, kc, KVH, Dk], vr [B, nk, kc, KVH, Dv], kpr
-    [B, nk, kc] -> [B, qc, KVH, G, Dv] in ``out_dtype``."""
+    [B, nk, kc] -> [B, qc, KVH, G, Dv] in ``out_dtype``.  ``kv_grad``, if
+    given, is applied to each K and V chunk in fp32 (`chunked_attention`)."""
     b, n, kvh, g, dk = qc.shape
     scale = 1.0 / math.sqrt(dk)
     f32 = torch.float32
@@ -99,7 +100,10 @@ def _attend_q_chunk(qc, qp, kr, vr, kpr, *, causal, window, n_meta,
         kc, vc, kp = kr[:, j], vr[:, j], kpr[:, j]
         # the products of the inputs' values, summed in fp32 (the
         # reference's preferred_element_type=float32)
-        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kc.float()) * scale
+        kf, vf = kc.float(), vc.float()
+        if kv_grad is not None:
+            kf, vf = kv_grad(kf), kv_grad(vf)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kf) * scale
         vis = visibility_mask(qp, kp, causal=causal, window=window,
                               n_meta=n_meta)
         s = torch.where(vis[:, None, None], s, NEG_INF)
@@ -107,8 +111,7 @@ def _attend_q_chunk(qc, qp, kr, vr, kpr, *, causal, window, n_meta,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(vc.dtype).float(),
-                          vc.float())
+        pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(vc.dtype).float(), vf)
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -118,12 +121,14 @@ def _attend_q_chunk(qc, qp, kr, vr, kpr, *, causal, window, n_meta,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                       causal: bool = True, window: int = 0, n_meta: int = 0,
-                      q_chunk: int = 1024,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      kv_grad=None) -> torch.Tensor:
     """Flash-style attention with autograd: q [B, Sq, H, Dk], k [B, Skv,
     KVH, Dk], v [B, Skv, KVH, Dv], positions [B, Sq] and [B, Skv] (-1 an
     invalid slot) -> [B, Sq, H, Dv] in q's dtype.  GQA: H a multiple of
-    KVH; fp32 softmax sums."""
+    KVH; fp32 softmax sums.  ``kv_grad`` (an identity in value, e.g.
+    `distributed.collectives.kv_group_sum`) sees each K and V chunk in
+    fp32, where its gradient is still unrounded; None on one device."""
     b, sq, h, dk = q.shape
     _, skv, kvh, _ = k.shape
     dv = v.shape[-1]
@@ -149,7 +154,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(checkpoint(
             _attend_q_chunk, qr[:, i], qpr[:, i], kr, vr, kpr,
             causal=causal, window=window, n_meta=n_meta, out_dtype=q.dtype,
-            use_reentrant=False, preserve_rng_state=False))
+            kv_grad=kv_grad, use_reentrant=False, preserve_rng_state=False))
     out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, dv)
     return out[:, :sq]
 

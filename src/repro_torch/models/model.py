@@ -58,7 +58,8 @@ dense and MoE families run their stacks tensor-parallel
 (`models.transformer`), the embedding goes through
 `collectives.embed_lookup`, the logits are computed over the rank's vocab
 columns and gathered, and prefill and decode return the global logits;
-the other families gather every parameter whole (an explicit all-gather)
+the other families gather every parameter whole (an explicit all-gather;
+in a sharded train step a stacked layer's only where the stack runs it)
 and run their one-device code on their rows.  `init_cache` then builds
 the rank's own part of the cache, with its ``layout``
 (`transformer.kv_layout`).  `loss` returns the rank's share of the
@@ -291,12 +292,16 @@ class Model(nn.Module):
         tensor-parallel stack shards stay DTensors, every other DTensor is
         gathered whole (an explicit all-gather; a replicated one is its
         local tensor); a family without a tensor-parallel stack gathers
-        every leaf."""
+        every leaf.  A `collectives.Stacked` leaf (the sharded train
+        step's) stays in its shards and is gathered, the same way, a layer
+        at a time where the stack runs it."""
         tp = tfm.spmd_mesh(self.cfg) is not None
 
         def view(names, w):
-            if col._is_dtensor(w) and not (tp and names[-1]
-                                           in self._TP_LEAVES):
+            keep = tp and names[-1] in self._TP_LEAVES
+            if isinstance(w, col.Stacked):     # gathered a layer at a time
+                return w.viewed(whole=not keep)
+            if col._is_dtensor(w) and not keep:
                 return col.full(w)
             return w
 
@@ -585,7 +590,7 @@ class Model(nn.Module):
         hd = cfg.resolved_head_dim
         s = self.cache_slots(max_seq + cfg.n_meta_tokens)
         b = batch_size
-        s_kv, kvh, layout = s, cfg.n_kv_heads, None
+        s_kv, kvh, hd_kv, layout = s, cfg.n_kv_heads, hd, None
         if mesh is not None:
             n = col.dp_size(mesh)
             b = b // n if b % n == 0 else b
@@ -595,6 +600,8 @@ class Model(nn.Module):
                     s_kv = s // col.tp_size(mesh)
                 elif layout == "heads":
                     kvh = kvh // col.tp_size(mesh)
+                elif layout == "head_dim":
+                    hd_kv = hd // col.tp_size(mesh)
         cache: Cache = {"length": torch.zeros((), dtype=torch.int32,
                                               device=dev)}
         if cfg.family == "ssm":
@@ -613,8 +620,8 @@ class Model(nn.Module):
             layers = {"ckv": zeros(n_self, b, s, cfg.mla.kv_lora_rank),
                       "kr": zeros(n_self, b, s, cfg.mla.qk_rope_head_dim)}
         else:
-            layers = {"k": zeros(n_self, b, s_kv, kvh, hd),
-                      "v": zeros(n_self, b, s_kv, kvh, hd)}
+            layers = {"k": zeros(n_self, b, s_kv, kvh, hd_kv),
+                      "v": zeros(n_self, b, s_kv, kvh, hd_kv)}
         if cfg.family == "vlm":
             n_groups = cfg.n_layers // cfg.vision.cross_attn_every
             for name in ("xk", "xv"):

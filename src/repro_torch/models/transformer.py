@@ -38,17 +38,30 @@ decode and in train mode).
 Under an ambient mesh (`distributed.collectives.use_mesh`) the dense and
 MoE GQA stacks run tensor-parallel on each rank's local tensors
 (`_gqa_attention_tp`, `collectives.swiglu_tp`): the residual stream is
-replicated over the model axis, q, k and v are column-parallel with the
-heads over the model axis (the layout the reference's ``constrain_heads``
-pins) where both head counts divide, the output projection row-parallel
-with one SUM all-reduce; where the heads do not divide, the attention
-weights are gathered whole and every rank of a model group attends over
-all heads.  The KV cache's layout (`kv_layout`) is its sequence axis over
-the model axis with ``decode_kv_shard`` (decode then goes through
-`collectives.sharded_kv_decode_attention`), else the local heads, else
-whole.  The MoE FFN goes through `distributed.moe_ep.moe_ffn_ep` where
-the model axis divides ``n_routed``.  Without a mesh every path is the
-one-device one.
+replicated over the model axis, and attention takes one of three forms,
+the pins of the reference's ``constrain_heads``:
+
+* ``heads`` (`heads_aligned`: both head counts divide the model axis):
+  q, k and v column-parallel by heads;
+* ``head_dim`` (`head_dim_split`: the query heads divide, the KV heads
+  divide the model axis instead; internlm2-1.8b, glm4-9b,
+  mistral-nemo-12b and dbrx-132b on 16 model ranks): q column-parallel by
+  heads, k and v from the rank's columns all-gathered into whole KV
+  heads, each rank's query heads attending over the one KV head they use
+  (`_head_dim_attention`);
+* otherwise every head on every rank from gathered weights.
+
+The output projection is row-parallel, its partial sums reduced with one
+fp32 SUM all-reduce.  The KV cache's layout (`kv_layout`) is its sequence
+axis over the model axis with ``decode_kv_shard`` (decode then goes
+through `collectives.sharded_kv_decode_attention`), else the local heads,
+else the rank's head_dim slice of every KV head (decode through
+`collectives.head_dim_decode_attention`), else whole.  The MoE FFN goes
+through `distributed.moe_ep.moe_ffn_ep` where the model axis divides
+``n_routed``.  In train mode each layer gathers its own weights inside
+its checkpointed function (`collectives.gather_layer`: the sharded train
+step's per-layer FSDP gather; a no-op otherwise).  Without a mesh every
+path is the one-device one.
 """
 from __future__ import annotations
 
@@ -189,19 +202,34 @@ def spmd_mesh(cfg: ModelConfig):
 
 
 def heads_aligned(cfg: ModelConfig, mesh) -> bool:
+    """Whether both head counts divide the model axis: each rank then
+    holds whole query and KV heads."""
     n = col.tp_size(mesh)
     return cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0
+
+
+def head_dim_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether attention splits K and V on head_dim (`_head_dim_attention`):
+    the query heads divide the model axis, the KV heads do not but divide
+    it (so each rank's query heads use one KV head), and head_dim divides
+    it."""
+    n = col.tp_size(mesh)
+    return (cfg.n_heads % n == 0 and cfg.n_kv_heads % n != 0
+            and n % cfg.n_kv_heads == 0 and cfg.resolved_head_dim % n == 0)
 
 
 def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
     """How a rank holds the K/V cache under ``mesh``: "seq" (its slots
     ``[r * S / TP, (r + 1) * S / TP)``, every head: ``decode_kv_shard``
     without a window, so without a ring and its pinned slots), "heads"
-    (its heads) or "full"."""
+    (its KV heads), "head_dim" (its ``hd / TP`` slice of every KV head,
+    the reference's ``Shard(4)``) or "full"."""
     if (col.usable_mesh() is not None and cfg.decode_kv_shard
             and not cfg.sliding_window and slots % col.tp_size(mesh) == 0):
         return "seq"
-    return "heads" if heads_aligned(cfg, mesh) else "full"
+    if heads_aligned(cfg, mesh):
+        return "heads"
+    return "head_dim" if head_dim_split(cfg, mesh) else "full"
 
 
 def seq_write(cache: torch.Tensor, new: torch.Tensor, cursor,
@@ -222,17 +250,106 @@ def _gqa_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """`gqa_attention` over the model axis: a rank's heads where both head
     counts divide (q, k, v column-parallel, the output projection
-    row-parallel, its partial sums reduced in fp32), else every head on
-    every rank from gathered weights.  The flash kernel gets plain local
-    tensors."""
-    if not heads_aligned(cfg, mesh):
+    row-parallel, its partial sums reduced in fp32), `_head_dim_attention`
+    where only the query heads do, else every head on every rank from
+    gathered weights (what the hybrid and MLA families' sharded forms, and
+    query heads that do not divide the model axis, still wait for: ROADMAP
+    Queue 1, item 2).  The flash kernel gets plain local tensors."""
+    if heads_aligned(cfg, mesh):
+        w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
+        w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
+        out, cache = gqa_attention(cfg, w, col.copy_to_tp(x, mesh),
+                                   positions, mesh=mesh, **kw)
+    elif head_dim_split(cfg, mesh):
+        out, cache = _head_dim_attention(cfg, p, x, positions, mesh=mesh,
+                                         **kw)
+    else:
         w = {n: col.full(w) for n, w in p.items()}
         return gqa_attention(cfg, w, x, positions, mesh=mesh, **kw)
-    w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
-    w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
-    out, cache = gqa_attention(cfg, w, col.copy_to_tp(x, mesh), positions,
-                               mesh=mesh, **kw)
     return col.reduce_from_tp(out.float(), mesh).to(x.dtype), cache
+
+
+def _head_dim_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        positions: torch.Tensor, *, mesh, mode: str,
+                        layer_cache: Optional[dict] = None,
+                        kv_pos: Optional[torch.Tensor] = None, cursor=None,
+                        q_chunk: int = 1024, kv_chunk: int = 1024,
+                        kv_layout: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Attention where the query heads divide the model axis and the KV
+    heads do not (`head_dim_split`).  q is column-parallel (the rank's
+    H / TP heads); k and v come from the rank's columns of ``w_k`` and
+    ``w_v`` (a slice of one KV head's head_dim), all-gathered into whole
+    KV heads; the rank's query heads attend over the one KV head they use.
+    In train mode the gradients are summed over the model axis where one
+    device would have summed them before rounding
+    (`collectives.column_parallel_qkv`, `collectives.kv_group_sum`), so
+    that the gathered K and V, and the input, get the one-device step's
+    gradients; the gather's backward then cuts the rank's columns.  The
+    cache ("head_dim") holds the rank's head_dim slice of every KV head:
+    prefill writes it from the gathered K and V; decode all-gathers q
+    (every head), scores over the slice
+    (`collectives.head_dim_decode_attention`) and all-gathers its output's
+    head_dim.  With ``kv_layout="seq"`` the cache is the sequence split's,
+    as in `gqa_attention`.  x is replicated over the model axis.  Returns
+    (the rank's partial sum of the output projection in fp32, the layer's
+    cache; None in train mode)."""
+    b, t, _ = x.shape
+    dt, hd = x.dtype, cfg.resolved_head_dim
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    q, k, v = col.column_parallel_qkv(
+        x, *(col.tp_local(p[w], -1, mesh).to(dt)
+             for w in ("w_q", "w_k", "w_v")), mesh)
+    q = apply_rope(q.reshape(b, t, -1, hd), positions, cfg.rope_theta)
+    k, v = (col.gather(z, grp, -1).reshape(b, t, cfg.n_kv_heads, hd)
+            for z in (k, v))
+    k = apply_rope(k, positions, cfg.rope_theta)
+    h_loc = q.shape[2]
+    # the KV head of this rank's query heads, whose head_dim holds its
+    # columns of w_k and w_v
+    j = r * h_loc // (cfg.n_heads // cfg.n_kv_heads)
+    k_j, v_j = (z.narrow(2, j, 1).contiguous() for z in (k, v))
+    # the rank's head_dim slice of every KV head, for the cache
+    k_d, v_d = (z.narrow(3, r * (hd // n), hd // n) for z in (k, v))
+    seq = kv_layout == "seq"
+    attend = dict(window=cfg.sliding_window, n_meta=cfg.n_meta_tokens)
+    new_cache = None
+    if mode == "train":
+        out = chunked_attention(
+            q, k_j, v_j, positions, positions, causal=True, q_chunk=q_chunk,
+            kv_chunk=kv_chunk,
+            kv_grad=lambda z: col.kv_group_sum(z, mesh, j, cfg.n_kv_heads),
+            **attend)
+    elif mode == "prefill":
+        out = prefill_attention(q, k_j, v_j, positions, positions,
+                                causal=True, **attend)
+        if seq:
+            ck = seq_write(layer_cache["k"], k, cursor, mesh)
+            cv = seq_write(layer_cache["v"], v, cursor, mesh)
+        else:
+            ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k_d, v_d,
+                                 cursor, n_pinned=cfg.n_meta_tokens)
+        new_cache = {"k": ck, "v": cv}
+    elif mode == "decode":
+        q_all = col.all_gather(q, grp, 2)
+        if seq:
+            out, ck, cv, _ = col.sharded_kv_decode_attention(
+                q_all, layer_cache["k"], layer_cache["v"], k, v, positions,
+                kv_pos, cursor, mesh)
+        else:
+            ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k_d, v_d,
+                                 cursor, n_pinned=cfg.n_meta_tokens)
+            out = col.all_gather(col.head_dim_decode_attention(
+                q_all, ck, cv, positions, kv_pos, mesh, **attend), grp, -1)
+        out = out.narrow(2, r * h_loc, h_loc)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        raise ValueError(mode)
+    # the partial product of the rank's heads in fp32 (the bf16 operands'
+    # products summed as a bf16 GEMM sums them), so that the output is
+    # rounded to the compute dtype once, after the all-reduce
+    w_o = col.tp_local(p["w_o"], -2, mesh).to(dt)
+    return out.reshape(b, t, -1).float() @ w_o.float(), new_cache
 
 
 def _ffn_tp(cfg: ModelConfig, p: dict, h: torch.Tensor, mode: str,
@@ -431,8 +548,9 @@ def cross_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str,
 
 
 def _train_block(cfg, p, x, positions, q_chunk, kv_chunk):
-    x, _, aux = decoder_block(cfg, p, x, positions, mode="train",
-                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    x, _, aux = decoder_block(cfg, col.gather_layer(p), x, positions,
+                              mode="train", q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
     return x, aux
 
 
@@ -465,8 +583,8 @@ def stack_apply(cfg: ModelConfig, blocks_params: dict, x: torch.Tensor,
 
 
 def _train_cross(cfg, p, x, memory, q_chunk):
-    return cross_block(cfg, p, x, mode="train", memory=memory,
-                       q_chunk=q_chunk)[0]
+    return cross_block(cfg, col.gather_layer(p), x, mode="train",
+                       memory=memory, q_chunk=q_chunk)[0]
 
 
 def vlm_stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,

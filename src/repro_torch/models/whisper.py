@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.models.attention import (
     cache_write,
     chunked_attention,
@@ -114,6 +115,7 @@ def _out(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def _enc_block(cfg: ModelConfig, p: dict, h: torch.Tensor, train: bool):
+    p = col.gather_layer(p)
     a = _ln(cfg, p["ln_attn"], h)
     q, k, v = _project(cfg, p["attn"], a, a)
     if train:
@@ -184,7 +186,8 @@ def _dec_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
 
 
 def _train_dec_block(cfg, p, h, positions, enc_out):
-    return _dec_block(cfg, p, h, positions, enc_out, mode="train")
+    return _dec_block(cfg, col.gather_layer(p), h, positions, enc_out,
+                      mode="train")
 
 
 def decoder_forward(cfg: ModelConfig, dec_params: dict, x: torch.Tensor,

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import NEG_BIG, mlstm_chunk, pad_chunks
 from repro_torch.models.layers import (
@@ -380,7 +381,9 @@ def _write(stacked: NamedTuple, i: int, new: NamedTuple) -> None:
 
 
 def _pair(xl, n_heads, p_m, p_s, x, st_m, st_s, chunk):
-    """One (mLSTM, sLSTM) residual pair in train form."""
+    """One (mLSTM, sLSTM) residual pair in train form, its weights
+    gathered here (`collectives.gather_layer`)."""
+    p_m, p_s = col.gather_layer(p_m), col.gather_layer(p_s)
     out_m, _ = mlstm_forward_train(xl, n_heads, p_m, x, st_m, chunk=chunk)
     x = x + out_m
     out_s, _ = slstm_forward_train(xl, n_heads, p_s, x, st_s)

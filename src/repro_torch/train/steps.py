@@ -20,14 +20,27 @@ first cuBLAS call; the step raises without it.
 Under an ambient mesh (`distributed.collectives.use_mesh`) the step is
 sharded: the parameters (DTensors placed by
 `distributed.sharding.shard_model`) and AdamW's m and v (`shard_opt`)
-stay in their shards; each leaf is gathered over the data axes (an
-explicit all-gather) into the view the loss is differentiated against;
-the model takes the global batch and each rank its rows over the data
-axes (`models.model.Model.loss`), the MoE layers through the
-expert-parallel dispatch in train mode; each gradient is summed over the
-data axes and cut to the rank's shard; the clip's global norm sums every
-shard once (a leaf replicated over a mesh axis counted once); and AdamW
-updates each rank's shards in place.
+stay in their shards.  A stacked ``[L, ...]`` leaf that the data axes
+shard (every layer weight) stays so: the step differentiates against the
+rank's box (`collectives.Stacked`), and the stack gathers each layer over
+the data axes inside the layer's checkpointed function
+(`collectives.gather_layer`), again in backward's recompute, its gradient
+summed over the data axes and cut to the rank's box as each layer's
+backward runs; so at most one layer's gathered weights are alive at once
+(`collectives.LAYER_GATHER`).  With ``grad_accum > 1`` each microbatch's
+layer gradients are reduced as they come: the data-axis all-reduce of the
+stacked leaves runs once a microbatch, not once a step, and no unreduced
+whole-layer gradient outlives its layer's backward.  Every other leaf
+(embed, unembed, ``norm_f``, ``vision_proj``, the stacked norms) is
+gathered over the data axes once a step (an explicit all-gather) into the
+view the loss is differentiated against, and its gradient summed over the
+data axes and cut to the rank's shard after the last microbatch.  The
+model takes the global batch and each rank its rows over the data axes
+(`models.model.Model.loss`), the MoE layers through the expert-parallel
+dispatch in train mode; the clip's global norm sums every shard once (a
+leaf replicated over a mesh axis counted once); and AdamW updates each
+rank's shards in place.  Each gradient's sums run in a fixed order, so
+two runs of a step give the same bits.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points.
 """
@@ -127,6 +140,15 @@ def _sharded_grads(grads: dict, storage: dict, mesh) -> dict:
     return out
 
 
+#: the parameter tree's stacked [L, ...] subtrees
+_STACKS = ("['blocks']", "['cross']", "['m_blocks']", "['s_blocks']")
+
+
+def _in_stack(key: str) -> bool:
+    """Whether a leaf path (`leaf_paths`' key) lies in a layer stack."""
+    return any(s in key for s in _STACKS)
+
+
 def _sharded_norm(grads: dict, storage: dict, mesh) -> torch.Tensor:
     """The global norm over every shard: each rank's sum of squares,
     divided by the number of ranks that hold the same box, summed over
@@ -181,14 +203,26 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
 
     def sharded_step(state: TrainState, batch, mesh):
         storage = dict(leaf_paths(state.params))
-        views = {k: col.dp_replicated(p).detach().requires_grad_()
+        layered = {k for k, p in storage.items()
+                   if _in_stack(k) and col.layer_dp_dim(p) > 0}
+        views = {k: (p.to_local() if k in layered else col.dp_replicated(p)
+                     ).detach().requires_grad_()
                  for k, p in storage.items()}
-        tree = map_with_path(lambda k, _p: views[k], state.params)
-        grads, metrics = _grads(lambda mb: model.loss(mb, params=tree),
+
+        def tree():
+            # made anew for each microbatch: a Stacked leaf's layers are
+            # views of its box in that microbatch's graph
+            return map_with_path(
+                lambda k, p: col.Stacked(views[k], p) if k in layered
+                else views[k], state.params)
+
+        grads, metrics = _grads(lambda mb: model.loss(mb, params=tree()),
                                 views, batch, tcfg.grad_accum)
-        grads = _sharded_grads({k: g.float() for k, g in grads.items()},
-                               storage, mesh)
-        del views, tree
+        reduced = _sharded_grads({k: g.float() for k, g in grads.items()
+                                  if k not in layered}, storage, mesh)
+        grads = {k: reduced[k] if k not in layered else grads[k].float()
+                 for k in storage}
+        del views
         gnorm = _sharded_norm(grads, storage, mesh)
         scale = torch.clamp(tcfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

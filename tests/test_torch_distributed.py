@@ -95,6 +95,18 @@ with jax.set_mesh(mesh):
     cache, _ = jax.jit(model.decode_step)(params, cache, nxt)
     cache, logits = jax.jit(model.decode_step)(params, cache, nxt)
 out["dec.sharded"] = np.asarray(logits)
+
+# the same model without decode_kv_shard: its 2 KV heads do not divide the
+# 4-way model axis, so the cache splits head_dim (sharding.py:162-169)
+model = build_model(base.replace(decode_kv_shard=False), q_chunk=8,
+                    kv_chunk=8)
+with jax.set_mesh(mesh):
+    cache = model.init_cache(4, 20, dtype=jnp.float32)
+    cache, logits = jax.jit(model.prefill)(params, {"tokens": tok}, cache)
+    out["hd.prefill"] = np.asarray(logits)
+    for i in (1, 2):
+        cache, logits = jax.jit(model.decode_step)(params, cache, nxt)
+        out[f"hd.decode{i}"] = np.asarray(logits)
 np.savez(sys.argv[1], **out)
 """
 
@@ -179,6 +191,20 @@ def test_sharded_kv_decode_equals_baseline_and_reference(runs):
     assert np.abs(port["dec.sharded"] - ref["dec.sharded"]).max() < 1e-4
 
 
+def test_head_dim_kv_decode_equals_baseline_and_reference(runs):
+    ref, port = runs
+    # 4 query heads divide the 4-way model axis, 2 KV heads do not: each
+    # rank holds a quarter of head_dim of both KV heads, as the reference
+    assert str(port["hd.layout"]) == "head_dim"
+    assert tuple(port["hd.k_local"]) == (2, 2, 20, 2, 8 // 4)
+    for step in ("prefill", "decode1", "decode2"):
+        got = port[f"hd.{step}"]
+        assert np.abs(got - port[f"hd.baseline.{step}"]).max() < 1e-4, step
+        assert np.abs(got - ref[f"hd.{step}"]).max() < 1e-4, step
+    # one fp32 SUM of the partial scores a layer per decode step
+    assert int(port["hd.score_sums"]) == 2
+
+
 def test_sharded_train_step_equals_reference_and_one_process(runs):
     ref, port = runs
     # the reference's cell: capacity 1.25, aux averaged over the data
@@ -206,3 +232,26 @@ def test_sharded_train_step_equals_reference_and_one_process(runs):
         assert err.max() <= 1e-6 + 2 * lr, k
     # every sharded leaf held at most half of its values on a rank
     assert float(port["train.largest_local_share"]) <= 0.5
+    # the per-layer FSDP gather: no rank held more than one layer's
+    # gathered stacked weights at once, forward or backward
+    one_layer = int(port["train.layer_gathered_bytes"])
+    assert 0 < int(port["train.gathered_peak"]) <= one_layer
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base",
+                                  "llama-3.2-vision-11b"])
+def test_whole_layer_families_train_sharded_as_one_process(runs, arch):
+    """The families without a tensor-parallel stack compute whole layers
+    under a mesh, each stacked layer gathered where its stack runs it:
+    their sharded fp32 step equals the one-process step within the fp32
+    bars, and no rank held more than one layer's gathered weights (whole,
+    and its model shard on the way) at once."""
+    _, port = runs
+    got = {k: float(port[f"whole.{arch}.{k}"]) for k in (
+        "loss_sharded", "loss_one", "gnorm_sharded", "gnorm_one")}
+    np.testing.assert_allclose(got["loss_sharded"], got["loss_one"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["gnorm_sharded"], got["gnorm_one"],
+                               rtol=1e-4)
+    peak = int(port[f"whole.{arch}.gathered_peak"])
+    assert 0 < peak <= float(port[f"whole.{arch}.layer_bytes"])

@@ -189,22 +189,40 @@ def _decode(ref, mesh, out):
     src = _tree(ref, "dec.p.")
     tok = torch.from_numpy(ref["dec.tokens"]).int()
     nxt = torch.from_numpy(ref["dec.next"]).int()
-    for name, flag in (("baseline", False), ("sharded", True)):
+    # (name, decode_kv_shard, on the mesh): one process, the sequence
+    # split, and the head_dim split the 2 KV heads take without it
+    for name, flag, sharded in (("baseline", False, False),
+                                ("sharded", True, True),
+                                ("hd", False, True)):
         m = Model(base.replace(decode_kv_shard=flag), device="cpu",
                   q_chunk=8, kv_chunk=8)
         m.adopt(_nest(src))
-        if flag:
+        if sharded:
             shd.shard_model(m, mesh, source=src, device="cpu")
             col.reset_counts()
-        with col.use_mesh(mesh if flag else None):
+        logits = []
+        with col.use_mesh(mesh if sharded else None):
             cache = m.init_cache(4, 20, dtype=torch.float32)
-            cache, _ = m.prefill({"tokens": tok}, cache)
-            cache, _ = m.decode_step(cache, nxt)
-            if flag:
+            cache, first = m.prefill({"tokens": tok}, cache)
+            logits.append(first)
+            cache, step = m.decode_step(cache, nxt)
+            logits.append(step)
+            if sharded:
                 col.reset_counts()
-            cache, logits = m.decode_step(cache, nxt)
-        out[f"dec.{name}"] = logits.numpy()
-        if flag:
+            cache, step = m.decode_step(cache, nxt)
+            logits.append(step)
+        if name == "hd":
+            for step, lg in zip(("prefill", "decode1", "decode2"), logits):
+                out[f"hd.{step}"] = lg.numpy()
+            out["hd.layout"] = np.asarray(cache["layout"])
+            out["hd.k_local"] = np.asarray(cache["layers"]["k"].shape)
+            out["hd.score_sums"] = np.asarray(col.COLLECTIVES["score_sum"])
+            continue
+        out[f"dec.{name}"] = logits[-1].numpy()
+        if name == "baseline":
+            for step, lg in zip(("prefill", "decode1", "decode2"), logits):
+                out[f"hd.baseline.{step}"] = lg.numpy()
+        else:
             out["dec.layout"] = np.asarray(cache["layout"])
             out["dec.combine"] = np.asarray(col.COLLECTIVES["decode_combine"])
             out["dec.k_local"] = np.asarray(cache["layers"]["k"].shape)
@@ -237,15 +255,18 @@ def _train(ref, mesh, out):
                            rng=torch.zeros(2, dtype=torch.uint32),
                            data_cursor=torch.zeros((), dtype=torch.int32))
         was, moe_ep.EP_CAPACITY_FACTOR = moe_ep.EP_CAPACITY_FACTOR, factor
+        col.reset_counts()
         try:
             with col.use_mesh(mesh):
                 state, metrics = steps.make_train_step(m, tcfg)(state, batch)
         finally:
             moe_ep.EP_CAPACITY_FACTOR = was
+        peak[0] = max(peak[0], col.LAYER_GATHER["peak"])
         from repro_torch.checkpoint.reshard import save_global
         return save_global(state.params), metrics, m
 
     # the reference's cell: the default factor and aux coefficient
+    peak = [0]
     _, mt, _ = sharded(cfg(0.01), 1.25)
     out["train.loss_ref_cell"] = np.asarray(float(mt["loss"]))
     # drop-free and aux-free against the one-process step
@@ -274,6 +295,76 @@ def _train(ref, mesh, out):
     local = max(p.to_local().numel() / p.numel() for p in m2.parameters()
                 if any(pl.is_shard() for pl in p.placements))
     out["train.largest_local_share"] = np.asarray(local)
+    # one layer's weights as the stack gathers them: the model shard of
+    # each stacked leaf that the data axes shard, whole over them
+    layer = sum(p.to_local()[0].numel() * col.dp_size(mesh)
+                * p.element_size() for k, p in m2.named_parameters()
+                if k.startswith("blocks.") and col.layer_dp_dim(p) > 0)
+    out["train.layer_gathered_bytes"] = np.asarray(layer)
+    out["train.gathered_peak"] = np.asarray(peak[0])
+
+
+#: the families that compute whole layers under a mesh: each stacked
+#: layer gathered whole (data and model axes) where its stack runs it
+WHOLE_ARCHS = ("xlstm-350m", "whisper-base", "llama-3.2-vision-11b")
+
+
+def _train_whole(mesh, out):
+    """The sharded train step of WHOLE_ARCHS at smoke widths in fp32
+    against the one-process step: loss, grad norm, and the live gathered
+    bytes against one layer's (its whole weights and their model shard,
+    gathered one after the other)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps
+    from repro_torch.train.state import TrainState, init_train_state
+
+    tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
+    for arch in WHOLE_ARCHS:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        one = Model(cfg, device="cpu").init(torch.Generator().manual_seed(7))
+        src = {k: v.detach().clone() for k, v in one.named_parameters()}
+        gen = torch.Generator().manual_seed(8)
+        batch = {k: torch.randint(0, cfg.vocab, (4, 16), generator=gen,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.family in ("vlm", "audio"):
+            shape = ((4, cfg.vision.n_patches, cfg.vision.vision_dim)
+                     if cfg.family == "vlm"
+                     else (4, cfg.audio.n_audio_ctx, cfg.d_model))
+            batch["frontend"] = torch.randn(shape, generator=gen).to(
+                torch.bfloat16)
+        _, m1 = steps.make_train_step(one, tcfg)(
+            init_train_state(one.params()), batch)
+        two = Model(cfg, device="meta")
+        shd.shard_model(two, mesh, source=src, device="cpu")
+        state = TrainState(params=two.params(),
+                           opt=steps.shard_opt(two.params()),
+                           rng=torch.zeros(2, dtype=torch.uint32),
+                           data_cursor=torch.zeros((), dtype=torch.int32))
+        col.reset_counts()
+        with col.use_mesh(mesh):
+            _, m2 = steps.make_train_step(two, tcfg)(state, batch)
+        # one layer of the largest stack (an xLSTM pair runs both blocks)
+        stacks = {}
+        for k, p in two.named_parameters():
+            if col.layer_dp_dim(p) > 0:
+                name = "pair" if k.startswith(("m_blocks", "s_blocks")) \
+                    else k.rsplit(".", 2)[0].split(".")[0]
+                if k.startswith(("enc.", "dec.")):
+                    name = k[:3]
+                stacks[name] = stacks.get(name, 0) + (
+                    p.numel() // p.shape[0] * p.element_size())
+        layer = max(stacks.values()) * (1 + 1 / col.tp_size(mesh))
+        for key, val in (("loss_sharded", m2["loss"]), ("loss_one", m1["loss"]),
+                         ("gnorm_sharded", m2["grad_norm"]),
+                         ("gnorm_one", m1["grad_norm"])):
+            out[f"whole.{arch}.{key}"] = np.asarray(float(val))
+        out[f"whole.{arch}.gathered_peak"] = np.asarray(
+            int(col.LAYER_GATHER["peak"]))
+        out[f"whole.{arch}.layer_bytes"] = np.asarray(layer)
 
 
 def _pod_mesh(out):
@@ -318,6 +409,7 @@ def _rank(rank, path, ref_path, out_path):
     _pod_mesh(out)
     _decode(ref, mesh, out)
     _train(ref, mesh, out)
+    _train_whole(mesh, out)
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     if rank == 0:
         np.savez(out_path, **out)
