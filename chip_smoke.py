@@ -119,8 +119,9 @@ against the plain version and timed beside it in one run.
   (depth 2), the VLM (one group, a 32 GiB fast tier for its 25.8 GB
   state) and the full whisper-base, 2 steps, the second rerun bit for bit
   from a fast-tier snapshot; `[attn-compare]` holds the four new flash
-  shapes and `[attn-time]` times MLA's and the VLM cross shape, with the
-  cost of V's padding.
+  shapes (and the VLM cross shape a rank of 16 takes in the head_dim
+  form: 2 query heads, 1 KV head) and `[attn-time]` times MLA's and the
+  VLM cross shape, with the cost of V's padding.
 * the dry run (`repro_torch.launch.dryrun`): `[dryrun]` runs it for
   internlm2-1.8b train_4k and deepseek-moe-16b decode_32k on the (16, 16)
   mesh, two processes on the host started beside `[train]` (whose step
@@ -140,8 +141,12 @@ against the plain version and timed beside it in one run.
   the sequence) and four more at the same time (`[shard-serve-hd]`:
   glm4-9b cut to 4 layers on a (1, 4) mesh, its 2 KV heads split on
   head_dim; `[shard-train-hd]`: two sharded train steps of internlm2-1.8b
-  cut to 2 layers on (2, 2), each rank's peak against the dry run's
-  estimate), each held against a one-process run; `[batch-devices]`.
+  cut to 2 layers on (2, 2), its loss on each rank's vocab columns (no
+  unembedding gathered), each rank's peak against the dry run's
+  estimate; `[shard-serve-vlm]`: llama-3.2-vision-11b cut to one group
+  of 5 layers on (1, 4), its self layers and gated cross block on each
+  rank's 8 query and 2 KV heads, the vision cache on its KV heads), each
+  held against a one-process run; `[batch-devices]`.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -533,6 +538,11 @@ MLA_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, _MLA.n_heads,
 VLM_CROSS_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
                   _VLM.n_heads, _VLM.n_kv_heads, _VLM.resolved_head_dim,
                   _VLM.resolved_head_dim, False)
+#: the VLM's cross-attention a rank of the (16, 16) mesh in the head_dim
+#: form: 32 / 16 = 2 query heads against the one KV head they use
+VLM_CROSS_HD16_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
+                       _VLM.n_heads // 16, 1, _VLM.resolved_head_dim,
+                       _VLM.resolved_head_dim, False)
 AUDIO_ENC_ATTN = (SERVE_BATCH, _AUDIO.audio.n_audio_ctx,
                   _AUDIO.audio.n_audio_ctx, _AUDIO.n_heads,
                   _AUDIO.n_kv_heads, _AUDIO.resolved_head_dim,
@@ -2161,13 +2171,16 @@ def phase_cr_fast_tier():
 def step_bars(card, cpu, dtype, lr):
     """The parameters after one step on the card against the CPU's: the
     largest difference where |g| >= GRAD_TOL of the leaf's largest (the
-    first moment after one step is 0.1 g, clipped), and everywhere."""
+    first moment after one step is 0.1 g, clipped), and everywhere; each
+    CPU leaf copied to the card and compared there (the same exact fp32
+    differences, without the host's passes over every leaf)."""
     m = dict(serialize.leaf_paths(cpu.opt.m))
     got = dict(serialize.leaf_paths(card.params))
     tight = loose = 0.0
     for path, want in serialize.leaf_paths(cpu.params):
-        g = m[path].abs()
-        err = (got[path].detach().cpu().float() - want.detach().float()).abs()
+        g = m[path].to(DEV).abs()
+        err = (got[path].detach().float()
+               - want.detach().to(DEV).float()).abs()
         sel = g >= GRAD_TOL[dtype] * g.max()
         tight = max(tight, float(err[sel].max()) if sel.any() else 0.0)
         loose = max(loose, float(err.max()))
@@ -2877,7 +2890,8 @@ def phase_attn_compare():
     and deepseek-moe-16b's serving shapes in bf16, and in both dtypes
     the head_dim form's launches a rank (HD_RANK_ATTN),
     hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64),
-    the VLM's cross-attention and whisper's encoder and cross-attention
+    the VLM's cross-attention (whole, and a 16-rank head_dim rank's) and
+    whisper's encoder and cross-attention
     (non-causal; each again with V zero but on the keys past the last
     64-key tile), every case under ATTN_TOL and ATTN_REL_RMS.  Returns the
     largest absolute error of each kernel."""
@@ -2933,6 +2947,7 @@ def phase_attn_compare():
     scaled, faults = {}, {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in (
             ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -2971,6 +2986,7 @@ def phase_attn_compare():
         hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
         **{f"{n}_shape": "x".join(map(str, shape[:-1])) for n, shape in (
             ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN))},
         tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
@@ -3356,8 +3372,12 @@ def seed_gates(model):
         return model
     gen = torch.Generator(device=model.device).manual_seed(SEED + 8)
     for gate in (model.cross.gate_attn, model.cross.gate_ffn):
-        gate.copy_(0.8 * torch.randn(gate.shape, generator=gen,
-                                     device=model.device))
+        value = 0.8 * torch.randn(gate.shape, generator=gen,
+                                  device=model.device)
+        if hasattr(gate, "to_local"):        # a replicated DTensor
+            gate = gate.to_local()
+            assert gate.shape == value.shape, "gates sharded"
+        gate.copy_(value)
     return model
 
 
@@ -4161,13 +4181,15 @@ def phase_ep_compare(work):
 
 def shard_reference(work, cfg, name):
     """The one-process bf16 run that a sharded serve is held to: ``cfg``
-    from `serve.build`'s seeded weights, a 4 x 2,048 prompt, then
+    from `serve.build`'s seeded weights (a VLM's gates `seed_gates`'s), a
+    4 x 2,048 prompt (a VLM's on `serve_batch`'s patches), then
     SHARD_DECODE_STEPS greedy steps; saves the prompt, the fed ids and
-    every step's logits to ``work/name``."""
-    model = serve.build(cfg, SEED, DEV)
+    every step's logits to ``work/name``, through a temporary file, so
+    that a rank that waits for it reads it whole."""
+    model = seed_gates(serve.build(cfg, SEED, DEV))
     tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
     cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SHARD_DECODE_STEPS)
-    cache, logits = model.prefill({"tokens": tokens}, cache)
+    cache, logits = model.prefill(serve_batch(cfg, tokens), cache)
     out, fed = [logits.cpu()], []
     for _ in range(SHARD_DECODE_STEPS):
         nxt = serve.greedy(logits)
@@ -4176,11 +4198,21 @@ def shard_reference(work, cfg, name):
         out.append(logits.cpu())
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.save({"tokens": tokens.cpu(), "fed": fed, "logits": out,
-                "weight_bytes": weights}, work / name)
+                "weight_bytes": weights}, work / f"{name}.part")
+    os.replace(work / f"{name}.part", work / name)
     del model, cache
     collect_garbage()
     torch.cuda.empty_cache()
     return weights
+
+
+def serve_batch(cfg, tokens):
+    """A prefill batch of ``tokens``, with `seeded_frontend`'s patches
+    where ``cfg`` takes a frontend: what a sharded serve and its
+    one-process run both take."""
+    fe = seeded_frontend(cfg, SERVE_BATCH, SEED + 9)
+    return {"tokens": tokens} if fe is None else {"tokens": tokens,
+                                                  "frontend": fe}
 
 
 def collective_probe(rank, world):
@@ -4373,29 +4405,42 @@ def _ranks_train(mesh, res):
         train_param_err_tight=tight_bad, train_param_err=loose)
 
 
-def _ranks_serve(mesh, work, res, cfg, ref_name):
-    """``cfg`` at full width, placed by `param_shardings`: the prompt, then
-    SHARD_DECODE_STEPS steps on the one-process run's ids (``work /
-    ref_name``), against its logits."""
+def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
+                 wait_s=0.0):
+    """``cfg`` at full width, placed by `param_shardings` (a VLM's gates
+    `seed_gates`'s, its prefill on `serve_batch`'s patches): the
+    prompt, then SHARD_DECODE_STEPS steps on the one-process run's ids
+    (``work / ref_name``, waited for up to ``wait_s`` seconds), against
+    its logits; the prefill under `sync_sites`.  The results go to
+    ``res`` under ``key``."""
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import transformer as tfm
 
+    out_res = {}
+    deadline = time.perf_counter() + wait_s
+    while not (work / ref_name).exists():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no {ref_name} after {wait_s} s")
+        time.sleep(1)
     ref = torch.load(work / ref_name)
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device="meta")
     shd.shard_model(model, mesh, device=DEV,
                     generator=torch.Generator(device=DEV).manual_seed(SEED))
+    seed_gates(model)
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated()
-    res["serve_weight_bytes_local"] = sum(
+    out_res["weight_bytes_local"] = sum(
         p.to_local().numel() * p.element_size() for p in model.parameters())
     tokens = ref["tokens"].to(DEV)
+    batch = serve_batch(cfg, tokens)
     heads = []
     with col.use_mesh(mesh), recording(
             attention_mod, "flash_attention",
-            lambda a, o: heads.append((a[0].shape[2], a[1].shape[2]))):
+            lambda a, o: heads.append((a[0].shape[2], a[1].shape[2],
+                                       a[0].shape[1], a[1].shape[1]))):
         cache = model.init_cache(SERVE_BATCH,
                                  SERVE_PROMPT + SHARD_DECODE_STEPS)
         torch.cuda.reset_peak_memory_stats()
@@ -4403,8 +4448,8 @@ def _ranks_serve(mesh, work, res, cfg, ref_name):
         col.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache, logits = model.prefill({"tokens": tokens}, cache)
-        torch.cuda.synchronize()
+        (cache, logits), where, texts = sync_sites(
+            lambda: model.prefill(batch, cache))
         prefill_s = time.perf_counter() - t0
         prefill_launches = kernel_counts()
         prefill_coll = dict(col.COLLECTIVES)
@@ -4428,31 +4473,38 @@ def _ranks_serve(mesh, work, res, cfg, ref_name):
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
     rms = [rel_rms(got.cpu(), want) for got, want in zip(out, ref["logits"])]
-    res.update(
-        serve_heads_aligned=tfm.heads_aligned(cfg, mesh),
-        serve_head_dim_split=tfm.head_dim_split(cfg, mesh),
-        serve_layout=cache["layout"],
-        serve_cache_k_local=list(cache["layers"]["k"].shape),
-        serve_init_peak=init_peak,
-        serve_peak=torch.cuda.max_memory_allocated(),
-        serve_weight_bytes_one=ref["weight_bytes"],
-        serve_prefill_ms=prefill_s * 1e3,
-        serve_decode_ms_per_step=decode_s * 1e3 / SHARD_DECODE_STEPS,
-        serve_flash_launches_prefill=prefill_launches[
-            "flash_attention_wgmma"],
-        serve_other_launches={k: v for k, v in prefill_launches.items()
-                              if v and k != "flash_attention_wgmma"},
-        serve_flash_heads=sorted({q for q, _ in heads}),
-        serve_flash_kv_heads=sorted({kv for _, kv in heads}),
-        serve_collectives_prefill=prefill_coll,
-        serve_collectives_per_decode_step={
+    out_res.update(
+        heads_aligned=tfm.heads_aligned(cfg, mesh),
+        head_dim_split=tfm.head_dim_split(cfg, mesh),
+        layout=cache["layout"],
+        cache_k_local=list(cache["layers"]["k"].shape),
+        cache_xk_local=(list(cache["layers"]["xk"].shape)
+                        if "xk" in cache["layers"] else None),
+        init_peak=init_peak,
+        peak=torch.cuda.max_memory_allocated(),
+        weight_bytes_one=ref["weight_bytes"],
+        prefill_ms=prefill_s * 1e3,
+        decode_ms_per_step=decode_s * 1e3 / SHARD_DECODE_STEPS,
+        prefill_syncs=len(where),
+        prefill_sync_sites={w: where.count(w) for w in sorted(set(where))},
+        prefill_sync_messages=sorted(texts),
+        flash_launches_prefill=prefill_launches["flash_attention_wgmma"],
+        other_launches={k: v for k, v in prefill_launches.items()
+                        if v and k != "flash_attention_wgmma"},
+        flash_heads=sorted({h[0] for h in heads}),
+        flash_kv_heads=sorted({h[1] for h in heads}),
+        flash_shapes={f"{sq}x{skv}": sum(1 for h in heads
+                                         if h[2:] == (sq, skv))
+                      for sq, skv in sorted({h[2:] for h in heads})},
+        collectives_prefill=prefill_coll,
+        collectives_per_decode_step={
             k: v / (SHARD_DECODE_STEPS - 1) for k, v in decode_coll.items()},
-        serve_logits_rel_rms=max(rms),
-        serve_broken_rel_rms=rel_rms(broken.cpu(), ref["logits"][-1]),
-        serve_logits_max_abs=max(float((g.float().cpu() - w.float())
-                                       .abs().max())
-                                 for g, w in zip(out, ref["logits"])),
-        serve_logits_finite=all(bool(torch.isfinite(g).all()) for g in out))
+        logits_rel_rms=max(rms),
+        broken_rel_rms=rel_rms(broken.cpu(), ref["logits"][-1]),
+        logits_max_abs=max(float((g.float().cpu() - w.float()).abs().max())
+                           for g, w in zip(out, ref["logits"])),
+        logits_finite=all(bool(torch.isfinite(g).all()) for g in out))
+    res.update({f"{key}_{k}": v for k, v in out_res.items()})
 
 
 def fault_step(model, cache, tokens):
@@ -4515,12 +4567,13 @@ def spawn_ranks(fn, n, work, store):
 
 
 def phase_shard_ranks(work):
-    """[ep-ranks], [shard-serve] and [shard-serve-hd]: SHARD_RANKS
-    processes (`shard_rank`, a (1, 2) mesh) and SHARD_HD_RANKS more
-    (`shard_hd_rank`) share the card over gloo at once, both sets bound by
-    gloo's copies through host memory on the host's cores; the host
-    meanwhile runs [shard-serve-hd]'s one-process run and costs its train
-    cell with `launch.dryrun`.  Each check must hold on every rank."""
+    """[ep-ranks], [shard-serve], [shard-serve-hd] and [shard-serve-vlm]:
+    SHARD_RANKS processes (`shard_rank`, a (1, 2) mesh) and SHARD_HD_RANKS
+    more (`shard_hd_rank`) share the card over gloo at once, both sets
+    bound by gloo's copies through host memory on the host's cores; the
+    host meanwhile runs [shard-serve-hd]'s and [shard-serve-vlm]'s
+    one-process runs and costs the train cells with `launch.dryrun`.  Each
+    check must hold on every rank."""
     t0 = time.perf_counter()
     one_weights = shard_reference(work, get_config(SHARD_ARCH),
                                   "shard_ref.pt")
@@ -4530,9 +4583,14 @@ def phase_shard_ranks(work):
         hd_weights = shard_reference(work, hd_cfg, "shard_hd_ref.pt")
         ctxs.append(spawn_ranks(shard_hd_rank, SHARD_HD_RANKS, work,
                                 "gloo_store_hd"))
+        # the VLM's one-process run while the four ranks serve and train
+        # glm4-9b and internlm2-1.8b; they wait for its file
+        vlm_cfg = cut_config(VLM_ARCH, SHARD_VLM_LAYERS)
+        vlm_weights = shard_reference(work, vlm_cfg, "shard_vlm_ref.pt")
         ts = time.perf_counter()
         est = shard_hd_estimate()
         est_s = time.perf_counter() - ts
+        est_glm4 = shard_hd_estimate(SHARD_HD_ARCH, SHARD_HD_LAYERS)
         for ctx in ctxs:
             while not ctx.join(timeout=5):
                 if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
@@ -4544,7 +4602,8 @@ def phase_shard_ranks(work):
                 if p.is_alive():
                     p.kill()
     check_shard_ranks(work, one_weights)
-    check_shard_hd(work, hd_cfg, hd_weights, est, est_s)
+    check_shard_hd(work, hd_cfg, hd_weights, est, est_s, est_glm4)
+    check_shard_vlm(work, vlm_cfg, vlm_weights)
     log("shard-ranks", processes=SHARD_RANKS + SHARD_HD_RANKS,
         seconds=f"{time.perf_counter() - t0:.1f}")
 
@@ -4649,6 +4708,18 @@ SHARD_HD_LAYERS = 4
 #: unembedding whole), and four such ranks do not fit one 80 GB card
 SHARD_HD_TRAIN_ARCH = "internlm2-1.8b"
 SHARD_HD_TRAIN_LAYERS, SHARD_HD_TRAIN_STEPS, SHARD_HD_ACCUM = 2, 2, 2
+#: [shard-train-hd]'s all-gather bytes a step before the loss took the
+#: rank's vocab columns (run HD2, PR 27: the unembedding gathered whole
+#: once a microbatch)
+SHARD_HD_TRAIN_GATHER_BYTES_BEFORE = 2_935_570_432
+#: [shard-serve-vlm], on the same four ranks after [shard-train-hd]:
+#: llama-3.2-vision-11b at its published widths (32 query heads, 8 KV
+#: heads, head_dim 128, d_ff 14,336, vocab 128,256, 6,404 patches of
+#: 1,280) cut 40 -> 5 layers, one group of 4 self layers and a gated
+#: cross block; on a (1, 4) mesh both head counts divide the model axis,
+#: so each rank runs 8 query heads against 2 KV heads in every layer and
+#: holds 2 KV heads of each cache
+SHARD_VLM_LAYERS = _VLM.vision.cross_attn_every
 
 
 def shard_hd_config(layers, arch=SHARD_HD_ARCH):
@@ -4665,17 +4736,20 @@ def shard_hd_train_cell():
                    "grad_accum": SHARD_HD_ACCUM}
 
 
-def shard_hd_estimate():
-    """`launch.dryrun`'s memory record of one rank of the train cell: the
-    production pass on meta tensors over a fake world of the (2, 2) mesh
-    (the host only; its process group destroyed after)."""
+def shard_hd_estimate(arch=SHARD_HD_TRAIN_ARCH,
+                      layers=SHARD_HD_TRAIN_LAYERS):
+    """`launch.dryrun`'s memory record of one rank of the train cell (of
+    ``arch`` at ``layers``): the production pass on meta tensors over a
+    fake world of the (2, 2) mesh (the host only; its process group
+    destroyed after)."""
     import torch.distributed as dist
 
     mesh = dryrun.fake_mesh((2, SHARD_HD_RANKS // 2), ("data", "model"))
     try:
         shape, tune = shard_hd_train_cell()
+        tune = dict(tune, cfg={"n_layers": layers})
         return roofline.memory_stats(dryrun.count_cell(
-            dryrun.build_cell(SHARD_HD_TRAIN_ARCH, shape, mesh, tune),
+            dryrun.build_cell(arch, shape, mesh, tune),
             memory_only=True))
     finally:
         dist.destroy_process_group()
@@ -4737,6 +4811,7 @@ def _ranks_hd_train(mesh, res):
         train_argument_bytes=args,
         train_layer_gathered_bytes=layer,
         train_gathered_peak_bytes=int(col.LAYER_GATHER["peak"]),
+        train_unembed_gathers=col.COLLECTIVES["unembed_gather"],
         train_collectives_per_step={
             k: v / SHARD_HD_TRAIN_STEPS for k, v in col.COLLECTIVES.items()},
         train_collective_bytes_per_step={
@@ -4746,8 +4821,9 @@ def _ranks_hd_train(mesh, res):
 
 def shard_hd_rank(rank, store, work):
     """One of the SHARD_HD_RANKS processes of [shard-serve-hd]: a gloo group
-    through a FileStore; serves on a (1, 4) mesh, then trains on (2, 2);
-    writes its results to ``work/hd_rank{rank}.json``."""
+    through a FileStore; serves on a (1, 4) mesh, trains on (2, 2), then
+    serves the VLM on (1, 4) ([shard-serve-vlm]); writes its results to
+    ``work/hd_rank{rank}.json``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -4761,7 +4837,10 @@ def shard_hd_rank(rank, store, work):
                 mesh, work, res, shard_hd_config(SHARD_HD_LAYERS),
                 "shard_hd_ref.pt")),
             ("train", (2, SHARD_HD_RANKS // 2),
-             lambda mesh: _ranks_hd_train(mesh, res))):
+             lambda mesh: _ranks_hd_train(mesh, res)),
+            ("serve_vlm", (1, SHARD_HD_RANKS), lambda mesh: _ranks_serve(
+                mesh, work, res, cut_config(VLM_ARCH, SHARD_VLM_LAYERS),
+                "shard_vlm_ref.pt", key="vlm", wait_s=SHARD_TIMEOUT_S))):
         t0 = time.perf_counter()
         fn(init_device_mesh("cuda", shape, mesh_dim_names=("data", "model")))
         collect_garbage()
@@ -4773,11 +4852,12 @@ def shard_hd_rank(rank, store, work):
     dist.destroy_process_group()
 
 
-def check_shard_hd(work, cfg, one_weights, est, est_s):
+def check_shard_hd(work, cfg, one_weights, est, est_s, est_glm4):
     """[shard-serve-hd]'s checks, on every rank's results: the serve on
     ``cfg`` against its one-process run (``one_weights`` bytes), each
     train rank's peak against ``est`` (`shard_hd_estimate`'s record,
-    costed in ``est_s`` seconds)."""
+    costed in ``est_s`` seconds; ``est_glm4`` glm4-9b's cell at 4 layers,
+    printed beside it)."""
     ranks = [json.loads((work / f"hd_rank{r}.json").read_text())
              for r in range(SHARD_HD_RANKS)]
     n, hd = cfg.n_layers, cfg.resolved_head_dim
@@ -4808,7 +4888,9 @@ def check_shard_hd(work, cfg, one_weights, est, est_s):
                       and all(np.isfinite(r["train_grad_norms"]))
                       and abs(peak_ratio - 1) <= PEAK_TOL
                       and 0 < r["train_gathered_peak_bytes"]
-                      <= r["train_layer_gathered_bytes"]),
+                      <= r["train_layer_gathered_bytes"]
+                      # the loss on the rank's vocab columns
+                      and r["train_unembed_gathers"] == 0),
         }
         log("shard-serve-hd", rank=r["rank"], config=SHARD_HD_ARCH,
             layers=n, cut_from=get_config(SHARD_HD_ARCH).n_layers,
@@ -4846,12 +4928,88 @@ def check_shard_hd(work, cfg, one_weights, est, est_s):
             peak_over_estimate=f"{peak_ratio:.4f}", peak_tol=PEAK_TOL,
             layer_gathered_bytes=r["train_layer_gathered_bytes"],
             gathered_peak_bytes=r["train_gathered_peak_bytes"],
+            unembed_gathers=r["train_unembed_gathers"],
             collectives_per_step=r["train_collectives_per_step"],
             collective_bytes_per_step=r["train_collective_bytes_per_step"],
+            all_gather_bytes_per_step_before=(
+                SHARD_HD_TRAIN_GATHER_BYTES_BEFORE),
+            glm4_train_cell_4_layers_estimate_bytes=(
+                est_glm4["argument_bytes"] + est_glm4["temp_bytes"]),
             dryrun_s=f"{est_s:.1f}", seconds=r["seconds"])
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"[shard-serve-hd] rank {r['rank']} failed "
+                                 f"{bad}")
+
+
+def check_shard_vlm(work, cfg, one_weights):
+    """[shard-serve-vlm]'s checks, on every rank's results: the VLM's
+    tensor-parallel serve on ``cfg`` against its one-process run
+    (``one_weights`` bytes)."""
+    ranks = [json.loads((work / f"hd_rank{r}.json").read_text())
+             for r in range(SHARD_HD_RANKS)]
+    hd, n = cfg.resolved_head_dim, SHARD_HD_RANKS
+    per = cfg.vision.cross_attn_every
+    n_groups = cfg.n_layers // per
+    n_self = n_groups * (per - 1)
+    slots = SERVE_PROMPT + SHARD_DECODE_STEPS
+    for r in ranks:
+        checks = {
+            "layout": (r["vlm_layout"] == "heads" and r["vlm_heads_aligned"]),
+            # each layer's prefill through the tensor-core kernel, on the
+            # rank's heads: the self layers causal at 2,048, the cross
+            # block 2,048 x 6,404
+            "flash": (r["vlm_flash_launches_prefill"] == cfg.n_layers
+                      and not r["vlm_other_launches"]
+                      and r["vlm_flash_heads"] == [cfg.n_heads // n]
+                      and r["vlm_flash_kv_heads"] == [cfg.n_kv_heads // n]
+                      and r["vlm_flash_shapes"] == {
+                          f"{SERVE_PROMPT}x{SERVE_PROMPT}": n_self,
+                          f"{SERVE_PROMPT}x{cfg.vision.n_patches}":
+                              n_groups}),
+            "syncs": r["vlm_prefill_syncs"] == 0,
+            "caches": (r["vlm_cache_k_local"] == [
+                           n_self, SERVE_BATCH, slots, cfg.n_kv_heads // n, hd]
+                       and r["vlm_cache_xk_local"] == [
+                           n_groups, SERVE_BATCH, cfg.vision.n_patches,
+                           cfg.n_kv_heads // n, hd]),
+            "weights": (r["vlm_weight_bytes_local"]
+                        <= one_weights / n + 2 ** 20),
+            "logits": (r["vlm_logits_finite"]
+                       and r["vlm_logits_rel_rms"] <= SHARD_LOGITS_REL_RMS
+                       and r["vlm_broken_rel_rms"]
+                       > 2 * SHARD_LOGITS_REL_RMS),
+        }
+        log("shard-serve-vlm", rank=r["rank"], config=VLM_ARCH,
+            layers=cfg.n_layers, cut_from=get_config(VLM_ARCH).n_layers,
+            mesh=f"(1, {n})", layout=r["vlm_layout"],
+            cache_k_local=r["vlm_cache_k_local"],
+            cache_xk_local=r["vlm_cache_xk_local"], slots=slots,
+            batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+            patches=cfg.vision.n_patches, decode_steps=SHARD_DECODE_STEPS,
+            weight_bytes_local=r["vlm_weight_bytes_local"],
+            weight_bytes_one=one_weights,
+            params_one=one_weights // 4,
+            init_peak=r["vlm_init_peak"], serve_peak=r["vlm_peak"],
+            prefill_ms=f"{r['vlm_prefill_ms']:.1f}",
+            decode_ms_per_step=f"{r['vlm_decode_ms_per_step']:.1f}",
+            prefill_syncs=r["vlm_prefill_syncs"],
+            prefill_sync_sites=r["vlm_prefill_sync_sites"] or "none",
+            prefill_sync_messages=r["vlm_prefill_sync_messages"] or "none",
+            flash_launches_prefill=r["vlm_flash_launches_prefill"],
+            flash_shapes=r["vlm_flash_shapes"],
+            flash_heads=r["vlm_flash_heads"],
+            flash_kv_heads=r["vlm_flash_kv_heads"],
+            collectives_prefill=r["vlm_collectives_prefill"],
+            collectives_per_decode_step=r["vlm_collectives_per_decode_step"],
+            logits_rel_rms=f"{r['vlm_logits_rel_rms']:.3e}",
+            logits_bar=SHARD_LOGITS_REL_RMS,
+            broken_rel_rms=f"{r['vlm_broken_rel_rms']:.3e}",
+            logits_max_abs=f"{r['vlm_logits_max_abs']:.3e}",
+            backend="gloo")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"[shard-serve-vlm] rank {r['rank']} failed "
                                  f"{bad}")
 
 

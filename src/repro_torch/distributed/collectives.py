@@ -15,6 +15,9 @@ same code.
   its sequence axis, combined with one MAX and two SUM all-reduces.
 * `head_dim_decode_attention`: decode over a KV cache split on head_dim,
   the partial scores summed with one fp32 SUM all-reduce.
+* `vocab_parallel_ce`: the chunked cross-entropy over the rank's vocab
+  columns of the unembedding, combined with one MAX and two SUM
+  all-reduces a chunk; the unembedding is never gathered.
 * `constrain_heads`: heads over TP, else head_dim (a DTensor placement).
 * The tensor-parallel conventions of the model's sharded forward (the
   residual stream is replicated over the model axis, values and
@@ -58,12 +61,15 @@ from typing import Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import sharding as shd
 
 #: collective calls over more than one rank by kind ("all_reduce_sum",
 #: "all_reduce_max", "all_gather") and by site ("decode_combine": the
-#: sharded decode's three; "score_sum": the head_dim decode's one)
+#: sharded decode's three; "score_sum": the head_dim decode's one;
+#: "unembed_gather": the model's unembedding gathered whole, which
+#: `vocab_parallel_ce` and the sharded logits never do)
 COLLECTIVES: Counter = Counter()
 #: result bytes of those calls by kind ("all-reduce", "all-gather")
 COLLECTIVE_BYTES: Counter = Counter()
@@ -254,24 +260,32 @@ class _KVGroupSum(torch.autograd.Function):
 
 class _ColumnQKV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, wk, wv, grp):
-        ctx.save_for_backward(x, wq, wk, wv)
+    def forward(ctx, x, m, wq, wk, wv, grp):
+        # m: the K/V input (x itself for self-attention, passed as None)
+        ctx.save_for_backward(x, m, wq, wk, wv)
         ctx.grp = grp
-        return x @ wq, x @ wk, x @ wv
+        kv_in = x if m is None else m
+        return x @ wq, kv_in @ wk, kv_in @ wv
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
-        x, wq, wk, wv = ctx.saved_tensors
+        x, m, wq, wk, wv = ctx.saved_tensors
+        kv_in = x if m is None else m
         # each path's partial product in fp32, the three summed over the
         # model axis at once, then rounded and added as autograd adds the
         # one-device step's three (v, then k, then q)
-        parts = torch.stack([g.float() @ w.float().T
-                             for g, w in ((gv, wv), (gk, wk), (gq, wq))])
-        sv, sk, sq = all_reduce(parts, ctx.grp).to(x.dtype)
-        rows = x.reshape(-1, x.shape[-1]).T
-        return ((sv + sk) + sq,
-                *(rows @ g.reshape(-1, g.shape[-1]) for g in (gq, gk, gv)),
-                None)
+        parts = [g.float() @ w.float().T
+                 for g, w in ((gv, wv), (gk, wk), (gq, wq))]
+        flat = all_reduce(torch.cat([z.reshape(-1) for z in parts]),
+                          ctx.grp).to(x.dtype)
+        sv, sk, sq = (z.view_as(y) for z, y in zip(
+            flat.split([y.numel() for y in parts]), parts))
+        rows, kv_rows = (z.reshape(-1, z.shape[-1]).T for z in (x, kv_in))
+        dw = (rows @ gq.reshape(-1, gq.shape[-1]),
+              *(kv_rows @ g.reshape(-1, g.shape[-1]) for g in (gk, gv)))
+        if m is None:
+            return (sv + sk) + sq, None, *dw, None
+        return sq, sv + sk, *dw, None
 
 
 class _DPMean(torch.autograd.Function):
@@ -315,13 +329,15 @@ def kv_group_sum(z: torch.Tensor, mesh, head: int,
 
 
 def column_parallel_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-                        wv: torch.Tensor, mesh):
+                        wv: torch.Tensor, mesh, kv_in=None):
     """``(x @ wq, x @ wk, x @ wv)`` for x replicated over the model axis
-    and each w the rank's columns.  The input gradient is summed over the
-    model axis (what `copy_to_tp` does) from fp32 partial products, each
-    projection's sum rounded to x's dtype once, as the one-device step
-    rounds each of its three whole products."""
-    return _ColumnQKV.apply(x, wq, wk, wv, tp_group(mesh))
+    and each w the rank's columns; with ``kv_in`` (a cross block's vision
+    states, replicated alike) ``(x @ wq, kv_in @ wk, kv_in @ wv)``.  The
+    input gradients are summed over the model axis (what `copy_to_tp`
+    does) from fp32 partial products, in one SUM all-reduce, each
+    projection's sum rounded to its input's dtype once, as the one-device
+    step rounds each of its three whole products."""
+    return _ColumnQKV.apply(x, kv_in, wq, wk, wv, tp_group(mesh))
 
 
 def dp_mean(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -587,6 +603,78 @@ def head_dim_decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, tq, h, d_loc).to(q.dtype)
+
+
+class _VocabCE(torch.autograd.Function):
+    """One chunk's CE over the model axis's vocab split: hx [B, c, d]
+    replicated over the model axis, w this rank's [d, V / TP] columns in
+    hx's dtype, lx [B, c] global ids (-1 = ignore), ``lo`` the first id of
+    the rank's columns -> (sum of token losses, token count), fp32."""
+
+    @staticmethod
+    def forward(ctx, hx, w, lx, lo, grp):
+        logits = hx.float() @ w.float()                    # [B, c, V/TP]
+        m = all_reduce(logits.amax(dim=-1), grp, "max")
+        lse = m + torch.log(all_reduce(
+            torch.exp(logits - m[..., None]).sum(dim=-1), grp))
+        idx = lx.long() - lo
+        mine = (idx >= 0) & (idx < logits.shape[-1])
+        idx = idx.clamp(0, logits.shape[-1] - 1)
+        ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+        # the label's logit from the rank whose columns hold it
+        ll = all_reduce(torch.where(mine, ll, torch.zeros_like(ll)), grp)
+        mask = (lx >= 0).float()
+        ctx.save_for_backward(hx, w, logits, lse, idx, mine, mask)
+        ctx.grp = grp
+        count = mask.sum()
+        ctx.mark_non_differentiable(count)
+        return ((lse - ll) * mask).sum(), count
+
+    @staticmethod
+    def backward(ctx, g, _g_count):
+        hx, w, logits, lse, idx, mine, mask = ctx.saved_tensors
+        # (softmax - onehot) on the rank's columns, the upstream applied
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, idx[..., None], -mine.float()[..., None])
+        d = d * (mask * g)[..., None]
+        # dh's partial products in fp32, summed over the model axis, then
+        # rounded to h's dtype once, where the one-device step rounds
+        dh = all_reduce(d @ w.float().T, ctx.grp).to(hx.dtype)
+        rows = hx.float().reshape(-1, hx.shape[-1]).T
+        dw = (rows @ d.reshape(-1, d.shape[-1])).to(w.dtype)
+        return dh, dw, None, None, None
+
+
+def _vocab_ce_chunk(hx, lx, w, lo, grp):
+    return _VocabCE.apply(hx, w.to(hx.dtype), lx, lo, grp)
+
+
+def vocab_parallel_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                      mesh, *, chunk: int = 512
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked cross-entropy (``models.model.chunked_ce_loss``) over
+    the model axis: h [B, T, d] replicated over it, w this rank's [d, V /
+    TP] columns of the unembedding, labels [B, T] (-1 = ignore) -> (sum of
+    token losses, token count), fp32, the same on every model rank.  Each
+    chunk's logits are the rank's columns, the same fp32 products as one
+    device's; the row maxima are combined with a MAX all-reduce, the
+    exponential sums and the label's logit with SUM all-reduces.  In
+    backward dW stays local, and h's gradient is summed over the model
+    axis in fp32 before it is rounded to h's dtype.  Each chunk runs under
+    ``torch.utils.checkpoint``; the last chunk may be shorter."""
+    grp = tp_group(mesh)
+    lo = tp_rank(mesh) * w.shape[-1]
+    t = h.shape[1]
+    chunk = min(chunk, t)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, t, chunk):
+        ls, c = checkpoint(_vocab_ce_chunk, h[:, s:s + chunk],
+                           labels[:, s:s + chunk], w, lo, grp,
+                           use_reentrant=False, preserve_rng_state=False)
+        loss_sum = loss_sum + ls
+        count = count + c
+    return loss_sum, count
 
 
 def swiglu_tp(params: dict, x: torch.Tensor, mesh) -> torch.Tensor:

@@ -54,17 +54,22 @@ Under an ambient mesh (`distributed.collectives.use_mesh`; the parameters
 DTensors placed by `distributed.sharding.shard_model`, or global tensors)
 every entry point takes the global batch and each rank computes its rows
 over the data axes (all of them where the batch does not divide): the
-dense and MoE families run their stacks tensor-parallel
-(`models.transformer`), the embedding goes through
+dense, MoE and VLM families run their stacks tensor-parallel
+(`models.transformer`; the VLM's ``vision_proj`` is gathered whole and
+run on the rank's rows), the embedding goes through
 `collectives.embed_lookup`, the logits are computed over the rank's vocab
 columns and gathered, and prefill and decode return the global logits;
-the other families gather every parameter whole (an explicit all-gather;
-in a sharded train step a stacked layer's only where the stack runs it)
-and run their one-device code on their rows.  `init_cache` then builds
-the rank's own part of the cache, with its ``layout``
-(`transformer.kv_layout`).  `loss` returns the rank's share of the
-global loss, whose gradients summed over the data axes are the global
-loss's, and the global values in its metrics (``loss`` among them).
+the other families (xLSTM, audio, hybrid and MLA) gather every parameter
+whole (an explicit all-gather; in a sharded train step a stacked layer's
+only where the stack runs it) and run their one-device code on their
+rows.  `init_cache` then builds the rank's own part of the cache, with
+its ``layout`` (`transformer.kv_layout`).  `loss` returns the rank's
+share of the global loss, whose gradients summed over the data axes are
+the global loss's, and the global values in its metrics (``loss`` among
+them); where the stack runs tensor-parallel and the model axis divides
+the vocab, its cross-entropy runs on the rank's vocab columns
+(`collectives.vocab_parallel_ce`), and the unembedding is never
+gathered.
 
 ``param_shapes``, ``cache_shapes`` and ``input_specs`` give the shapes as
 ``device="meta"`` tensors, so that a full-size config allocates nothing.
@@ -289,12 +294,16 @@ class Model(nn.Module):
 
     def _spmd_params(self, params, mesh):
         """The tree a sharded forward computes with: the leaves that the
-        tensor-parallel stack shards stay DTensors, every other DTensor is
-        gathered whole (an explicit all-gather; a replicated one is its
-        local tensor); a family without a tensor-parallel stack gathers
-        every leaf.  A `collectives.Stacked` leaf (the sharded train
-        step's) stays in its shards and is gathered, the same way, a layer
-        at a time where the stack runs it."""
+        tensor-parallel stack shards stay DTensors (the dense, MoE and VLM
+        families'; the VLM's cross blocks' matrices among them), every
+        other DTensor is gathered whole (an explicit all-gather; a
+        replicated one is its local tensor: the norms, the VLM's gates and
+        its 1,280 x 4,096 ``vision_proj``, whose whole weights move fewer
+        bytes than gathering its [B, P, d] output would); a family without
+        a tensor-parallel stack (xLSTM, audio, hybrid, MLA) gathers every
+        leaf.  A `collectives.Stacked` leaf (the sharded train step's)
+        stays in its shards and is gathered, the same way, a layer at a
+        time where the stack runs it."""
         tp = tfm.spmd_mesh(self.cfg) is not None
 
         def view(names, w):
@@ -302,7 +311,7 @@ class Model(nn.Module):
             if isinstance(w, col.Stacked):     # gathered a layer at a time
                 return w.viewed(whole=not keep)
             if col._is_dtensor(w) and not keep:
-                return col.full(w)
+                return self._whole(w, names[-1])
             return w
 
         return map_with_names(view, params)
@@ -338,12 +347,20 @@ class Model(nn.Module):
             x = col.full(table)[tokens]
         return x.to(getattr(torch, self.cfg.compute_dtype))
 
-    def _logits(self, params, h_last):
-        """`_logits_last` over the whole vocab; under a usable mesh each
-        rank takes its vocab columns and the logits are gathered."""
+    def _vocab_split(self):
+        """The usable mesh whose model axis splits the untied unembedding
+        by vocab columns, else None."""
         mesh = col.usable_mesh()
         if (mesh is not None and not self.cfg.tie_embeddings
                 and self.cfg.vocab % col.tp_size(mesh) == 0):
+            return mesh
+        return None
+
+    def _logits(self, params, h_last):
+        """`_logits_last` over the whole vocab; under a usable mesh each
+        rank takes its vocab columns and the logits are gathered."""
+        mesh = self._vocab_split()
+        if mesh is not None:
             w = col.tp_local(params["unembed"], -1, mesh)
             return col.all_gather(_logits_last(h_last, w),
                                   col.tp_group(mesh), -1)
@@ -352,8 +369,16 @@ class Model(nn.Module):
     def _unembed_matrix(self, params):
         """The [d, V] unembedding, whole (a DTensor gathered)."""
         if self.cfg.tie_embeddings:
-            return col.full(params["embed"]).T
-        return col.full(params["unembed"])
+            return self._whole(params["embed"], "embed").T
+        return self._whole(params["unembed"], "unembed")
+
+    @staticmethod
+    def _whole(w, name: str):
+        """``collectives.full(w)``, counting a gathered unembedding in
+        ``COLLECTIVES["unembed_gather"]``."""
+        if name == "unembed" and col._is_dtensor(w):
+            col.COLLECTIVES["unembed_gather"] += 1
+        return col.full(w)
 
     def _positions(self, batch_size: int, start, length: int):
         pos = start + torch.arange(length, dtype=torch.int32,
@@ -382,10 +407,11 @@ class Model(nn.Module):
             if mode != "decode":
                 vision = batch["frontend"].to(x.dtype) @ params[
                     "vision_proj"].to(x.dtype)
+            layout = cache.get("layout") if cache is not None else None
             h, layers, aux = tfm.vlm_stack_apply(
                 cfg, {"blocks": params["blocks"], "cross": params["cross"]},
                 x, positions, mode=mode, vision_states=vision, **kw,
-                **chunks)
+                **chunks, kv_layout=layout)
         elif cfg.family == "ssm":
             if cache is None:
                 n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
@@ -418,7 +444,13 @@ class Model(nn.Module):
         """The causal-LM loss over a [B, T] batch of ``tokens`` and
         ``labels`` (and the VLM's or the audio model's ``frontend``):
         (``ce + aux / n_layers``, {ce_loss, aux_loss, tokens}), fp32, with
-        autograd through ``params`` (default: the model's own)."""
+        autograd through ``params`` (default: the model's own).  Under a
+        mesh whose model axis runs the stack tensor-parallel and divides
+        the untied vocab, the cross-entropy is `collectives.
+        vocab_parallel_ce` on the rank's unembedding columns; elsewhere
+        `chunked_ce_loss` on the whole unembedding, gathered (a vocab that
+        the model axis does not divide; the families whose stacks run
+        whole gather it with every other leaf)."""
         cfg = self.cfg
         params = self.params() if params is None else params
         tokens, labels = batch["tokens"], batch["labels"]
@@ -440,9 +472,15 @@ class Model(nn.Module):
         positions = self._positions(b, 0, t + nm)
         h, _, aux = self._trunk(params, x, positions, mode="train",
                                 cache=None, batch=batch)
-        loss_sum, count = chunked_ce_loss(h[:, nm:],
-                                          self._unembed_matrix(params),
-                                          labels)
+        vocab = (self._vocab_split() if tfm.spmd_mesh(cfg) is not None
+                 else None)
+        if vocab is not None:
+            loss_sum, count = col.vocab_parallel_ce(
+                h[:, nm:], col.tp_local(params["unembed"], -1, vocab),
+                labels, vocab)
+        else:
+            loss_sum, count = chunked_ce_loss(
+                h[:, nm:], self._unembed_matrix(params), labels)
         if mesh is not None:
             return self._sharded_loss(loss_sum, count, aux, mesh, split)
         loss = loss_sum / torch.clamp(count, min=1.0)
@@ -586,11 +624,30 @@ class Model(nn.Module):
 
     def _init_cache(self, batch_size: int, max_seq: int, dtype, dev,
                     mesh) -> Cache:
+        """The cache (`init_cache`); under ``mesh``, where the stack runs
+        tensor-parallel, the rank's box of it over the model axis, which
+        ``layout`` names (`transformer.kv_layout`): the self cache's
+        sequence, KV heads or head_dim.  The VLM's vision cache ``xk`` /
+        ``xv`` takes the same layout but never the sequence split (the
+        reference's ``cache_shardings`` splits only the self cache's
+        sequence): under "seq" it takes `transformer.cross_kv_layout`, its
+        KV heads, else head_dim, else whole.  The batch is over the data
+        axes."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         s = self.cache_slots(max_seq + cfg.n_meta_tokens)
         b = batch_size
         s_kv, kvh, hd_kv, layout = s, cfg.n_kv_heads, hd, None
+        x_kvh, x_hd = kvh, hd
+
+        def split(lay):              # (KV heads, head_dim) a rank holds
+            tp = col.tp_size(mesh)
+            if lay == "heads":
+                return cfg.n_kv_heads // tp, hd
+            if lay == "head_dim":
+                return cfg.n_kv_heads, hd // tp
+            return cfg.n_kv_heads, hd
+
         if mesh is not None:
             n = col.dp_size(mesh)
             b = b // n if b % n == 0 else b
@@ -598,10 +655,8 @@ class Model(nn.Module):
                 layout = tfm.kv_layout(cfg, mesh, s)
                 if layout == "seq":
                     s_kv = s // col.tp_size(mesh)
-                elif layout == "heads":
-                    kvh = kvh // col.tp_size(mesh)
-                elif layout == "head_dim":
-                    hd_kv = hd // col.tp_size(mesh)
+                kvh, hd_kv = split(layout)
+                x_kvh, x_hd = split(tfm.cross_kv_layout(cfg, mesh))
         cache: Cache = {"length": torch.zeros((), dtype=torch.int32,
                                               device=dev)}
         if cfg.family == "ssm":
@@ -626,7 +681,7 @@ class Model(nn.Module):
             n_groups = cfg.n_layers // cfg.vision.cross_attn_every
             for name in ("xk", "xv"):
                 layers[name] = zeros(n_groups, b, cfg.vision.n_patches,
-                                     cfg.n_kv_heads, hd)
+                                     x_kvh, x_hd)
         if cfg.family == "audio":
             for name in ("xk", "xv"):
                 layers[name] = zeros(cfg.n_layers, b, cfg.audio.n_audio_ctx,

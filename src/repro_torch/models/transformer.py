@@ -35,28 +35,31 @@ caches per group (``xk``, ``xv``) at prefill and reads at decode; the
 cross-attention is non-causal (the flash kernel at prefill, plain torch at
 decode and in train mode).
 
-Under an ambient mesh (`distributed.collectives.use_mesh`) the dense and
-MoE GQA stacks run tensor-parallel on each rank's local tensors
-(`_gqa_attention_tp`, `collectives.swiglu_tp`): the residual stream is
-replicated over the model axis, and attention takes one of three forms,
-the pins of the reference's ``constrain_heads``:
+Under an ambient mesh (`distributed.collectives.use_mesh`) the dense, MoE
+and VLM GQA stacks run tensor-parallel on each rank's local tensors
+(`_gqa_attention_tp`, `_cross_attention_tp`, `collectives.swiglu_tp`): the
+residual stream is replicated over the model axis, and attention takes
+one of three forms, the pins of the reference's ``constrain_heads``:
 
 * ``heads`` (`heads_aligned`: both head counts divide the model axis):
   q, k and v column-parallel by heads;
 * ``head_dim`` (`head_dim_split`: the query heads divide, the KV heads
   divide the model axis instead; internlm2-1.8b, glm4-9b,
-  mistral-nemo-12b and dbrx-132b on 16 model ranks): q column-parallel by
-  heads, k and v from the rank's columns all-gathered into whole KV
-  heads, each rank's query heads attending over the one KV head they use
-  (`_head_dim_attention`);
+  mistral-nemo-12b, dbrx-132b and llama-3.2-vision-11b on 16 model
+  ranks): q column-parallel by heads, k and v from the rank's columns
+  all-gathered into whole KV heads, each rank's query heads attending
+  over the one KV head they use (`_head_dim_attention`,
+  `_cross_head_dim_attention`);
 * otherwise every head on every rank from gathered weights.
 
 The output projection is row-parallel, its partial sums reduced with one
-fp32 SUM all-reduce.  The KV cache's layout (`kv_layout`) is its sequence
-axis over the model axis with ``decode_kv_shard`` (decode then goes
-through `collectives.sharded_kv_decode_attention`), else the local heads,
-else the rank's head_dim slice of every KV head (decode through
-`collectives.head_dim_decode_attention`), else whole.  The MoE FFN goes
+fp32 SUM all-reduce; a VLM cross block's gates apply after the reduce.
+The KV cache's layout (`kv_layout`) is its sequence axis over the model
+axis with ``decode_kv_shard`` (decode then goes through
+`collectives.sharded_kv_decode_attention`), else the local heads, else
+the rank's head_dim slice of every KV head (decode through
+`collectives.head_dim_decode_attention`), else whole; the VLM's vision
+K/V cache takes `cross_kv_layout`, the same but never "seq".  The MoE FFN goes
 through `distributed.moe_ep.moe_ffn_ep` where the model axis divides
 ``n_routed``.  In train mode each layer gathers its own weights inside
 its checkpointed function (`collectives.gather_layer`: the sharded train
@@ -194,9 +197,9 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def spmd_mesh(cfg: ModelConfig):
     """The ambient mesh when the cfg's stack runs tensor-parallel under it
-    (the dense and MoE GQA families), else None."""
+    (the dense, MoE and VLM GQA families), else None."""
     mesh = col.current_mesh()
-    if mesh is None or cfg.family not in ("dense", "moe") or cfg.mla:
+    if mesh is None or cfg.family not in ("dense", "moe", "vlm") or cfg.mla:
         return None
     return mesh
 
@@ -227,6 +230,14 @@ def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
     if (col.usable_mesh() is not None and cfg.decode_kv_shard
             and not cfg.sliding_window and slots % col.tp_size(mesh) == 0):
         return "seq"
+    return cross_kv_layout(cfg, mesh)
+
+
+def cross_kv_layout(cfg: ModelConfig, mesh) -> str:
+    """How a rank holds the VLM's vision K/V cache (``xk``, ``xv``):
+    `kv_layout`'s "heads", "head_dim" or "full", never "seq" (the
+    reference splits the sequence of the self cache only, its
+    ``cache_shardings``)."""
     if heads_aligned(cfg, mesh):
         return "heads"
     return "head_dim" if head_dim_split(cfg, mesh) else "full"
@@ -252,8 +263,8 @@ def _gqa_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
     counts divide (q, k, v column-parallel, the output projection
     row-parallel, its partial sums reduced in fp32), `_head_dim_attention`
     where only the query heads do, else every head on every rank from
-    gathered weights (what the hybrid and MLA families' sharded forms, and
-    query heads that do not divide the model axis, still wait for: ROADMAP
+    gathered weights (what query heads that do not divide the model axis
+    still wait for; the hybrid and MLA families' stacks run whole: ROADMAP
     Queue 1, item 2).  The flash kernel gets plain local tensors."""
     if heads_aligned(cfg, mesh):
         w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
@@ -512,20 +523,46 @@ def cross_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Gated cross-attention block (Llama-3.2-Vision): x [B, T, d] attends
     to every vision state, ``memory`` [B, P, d] (train, prefill) or the
-    cached K and V ``mem_kv`` (decode).  Returns (x, (k, v))."""
-    b, t, _ = x.shape
-    hd = cfg.resolved_head_dim
+    cached K and V ``mem_kv`` (decode).  Returns (x, (k, v)).  Under an
+    ambient mesh the block runs tensor-parallel (`_cross_attention_tp`,
+    `collectives.swiglu_tp`; ``mem_kv`` and the returned k and v are then
+    the rank's part, as `cross_kv_layout` names it); each gate multiplies
+    its sub-layer's output after the reduce."""
+    mesh = spmd_mesh(cfg)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    q = (h @ p["w_q"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
+    attend = dict(mode=mode, memory=memory, mem_kv=mem_kv, q_chunk=q_chunk)
+    if mesh is None:
+        out, kv = _cross_attention(cfg, p, h, **attend)
+    else:
+        out, kv = _cross_attention_tp(cfg, p, h, mesh=mesh, **attend)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+    h2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    ffn = (swiglu(p["ffn"], h2) if mesh is None
+           else col.swiglu_tp(p["ffn"], h2, mesh))
+    x = x + torch.tanh(p["gate_ffn"]).to(x.dtype) * ffn
+    return x, kv
+
+
+def _cross_attention(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
+                     mode: str, memory: Optional[torch.Tensor],
+                     mem_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                     q_chunk: int
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The cross block's attention on the normed h [B, T, d]: (out [B, T,
+    d], (k, v)).  The weights may hold a rank's heads only: ``out`` is
+    then the rank's partial sum of the output projection."""
+    b, t, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = (h @ p["w_q"].to(h.dtype)).reshape(b, t, -1, hd)
     if mem_kv is None:
         pm = memory.shape[1]
-        k = (memory @ p["w_k"].to(x.dtype)).reshape(b, pm, cfg.n_kv_heads, hd)
-        v = (memory @ p["w_v"].to(x.dtype)).reshape(b, pm, cfg.n_kv_heads, hd)
+        k = (memory @ p["w_k"].to(h.dtype)).reshape(b, pm, -1, hd)
+        v = (memory @ p["w_v"].to(h.dtype)).reshape(b, pm, -1, hd)
     else:
         k, v = mem_kv
     # zero positions on both sides: every key visible
-    zq = zero_positions(b, t, x.device)
-    zk = zero_positions(b, k.shape[1], x.device)
+    zq = zero_positions(b, t, h.device)
+    zk = zero_positions(b, k.shape[1], h.device)
     if mode == "train":
         out = chunked_attention(q, k, v, zq, zk, causal=False,
                                 q_chunk=q_chunk, kv_chunk=4096)
@@ -535,11 +572,94 @@ def cross_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str,
         out = decode_attention(q, k, v, zq, zk)
     else:
         raise ValueError(mode)
-    out = out.reshape(b, t, cfg.n_heads * hd) @ p["w_o"].to(x.dtype)
-    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
-    h2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    x = x + torch.tanh(p["gate_ffn"]).to(x.dtype) * swiglu(p["ffn"], h2)
-    return x, (k, v)
+    return out.reshape(b, t, -1) @ p["w_o"].to(h.dtype), (k, v)
+
+
+def _cross_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
+                        mesh, memory: Optional[torch.Tensor], **kw
+                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """`_cross_attention` over the model axis, in `_gqa_attention_tp`'s
+    three forms: a rank's heads where both head counts divide (q, k and v
+    column-parallel by heads, K and V from the vision states, the output
+    projection row-parallel), `_cross_head_dim_attention` where only the
+    query heads do, else every head on every rank from gathered weights.
+    The partial sums are reduced once in fp32.  The flash kernel gets
+    plain local tensors."""
+    if heads_aligned(cfg, mesh):
+        w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
+        w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
+        if memory is not None:
+            memory = col.copy_to_tp(memory, mesh)
+        out, kv = _cross_attention(cfg, w, col.copy_to_tp(h, mesh),
+                                   memory=memory, **kw)
+    elif head_dim_split(cfg, mesh):
+        out, kv = _cross_head_dim_attention(cfg, p, h, mesh=mesh,
+                                            memory=memory, **kw)
+    else:
+        w = {n: col.full(p[n]) for n in ("w_q", "w_k", "w_v", "w_o")}
+        return _cross_attention(cfg, w, h, memory=memory, **kw)
+    return col.reduce_from_tp(out.float(), mesh).to(h.dtype), kv
+
+
+def _cross_head_dim_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                              *, mesh, mode: str,
+                              memory: Optional[torch.Tensor],
+                              mem_kv: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]],
+                              q_chunk: int
+                              ) -> Tuple[torch.Tensor,
+                                         Tuple[torch.Tensor, torch.Tensor]]:
+    """The cross block's attention where the query heads divide the model
+    axis and the KV heads do not (`head_dim_split`), as
+    `_head_dim_attention` runs the self layers: q column-parallel (the
+    rank's H / TP heads), k and v from the vision states and the rank's
+    columns of ``w_k`` and ``w_v``, all-gathered into whole KV heads, the
+    rank's query heads attending over the one KV head they use.  In train
+    mode the gradients are summed over the model axis where one device
+    sums them (`collectives.column_parallel_qkv` with the vision states as
+    the K/V input, `collectives.kv_group_sum`).  The cache ("head_dim")
+    holds the rank's head_dim slice of every KV head: prefill returns it
+    from the gathered K and V; decode all-gathers q, scores over the slice
+    with zero positions on both sides, so that every key is visible
+    (`collectives.head_dim_decode_attention`), and all-gathers its
+    output's head_dim.  Returns (the rank's partial sum of the output
+    projection in fp32, (k, v): the rank's head_dim slices)."""
+    b, t, _ = h.shape
+    dt, hd = h.dtype, cfg.resolved_head_dim
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    wq, wk, wv = (col.tp_local(p[w], -1, mesh).to(dt)
+                  for w in ("w_q", "w_k", "w_v"))
+    h_loc = cfg.n_heads // n
+    # the KV head of this rank's query heads, whose head_dim holds its
+    # columns of w_k and w_v
+    j = r * h_loc // (cfg.n_heads // cfg.n_kv_heads)
+    zq = zero_positions(b, t, h.device)
+    if mem_kv is None:
+        pm = memory.shape[1]
+        q, k, v = col.column_parallel_qkv(h, wq, wk, wv, mesh, kv_in=memory)
+        k, v = (col.gather(z, grp, -1).reshape(b, pm, cfg.n_kv_heads, hd)
+                for z in (k, v))
+        k_j, v_j = (z.narrow(2, j, 1).contiguous() for z in (k, v))
+        kv = tuple(z.narrow(3, r * (hd // n), hd // n) for z in (k, v))
+    else:
+        q, kv = h @ wq, mem_kv
+    q = q.reshape(b, t, h_loc, hd)
+    if mode == "train":
+        out = chunked_attention(
+            q, k_j, v_j, zq, zero_positions(b, pm, h.device), causal=False,
+            q_chunk=q_chunk, kv_chunk=4096,
+            kv_grad=lambda z: col.kv_group_sum(z, mesh, j, cfg.n_kv_heads))
+    elif mode == "prefill":
+        out = noncausal_attention(q, k_j, v_j)
+    elif mode == "decode":
+        zk = zero_positions(b, kv[0].shape[1], h.device)
+        out = col.all_gather(col.head_dim_decode_attention(
+            col.all_gather(q, grp, 2), *kv, zq, zk, mesh), grp, -1)
+        out = out.narrow(2, r * h_loc, h_loc)
+    else:
+        raise ValueError(mode)
+    w_o = col.tp_local(p["w_o"], -2, mesh).to(dt)
+    return out.reshape(b, t, -1).float() @ w_o.float(), kv
 
 
 # ---------------------------------------------------------------------------
@@ -592,16 +712,19 @@ def vlm_stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
                     vision_states: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
                     kv_pos: Optional[torch.Tensor] = None, cursor=None,
-                    q_chunk: int = 1024, kv_chunk: int = 1024
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    kv_layout: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """The interleaved stack: groups of ``cross_attn_every - 1`` self
     layers (``params["blocks"]``, stacked ``[n_self, ...]``), each group
     followed by one gated cross-attention block (``params["cross"]``,
     ``[n_groups, ...]``).  ``vision_states`` [B, P, d] feed the cross
     blocks in train and prefill; prefill writes each group's K and V into
-    the cache's ``xk`` / ``xv`` [n_groups, B, P, KVH, D] in place, decode
-    reads them.  Returns (h, cache, aux_loss_sum); in train mode every
-    self layer and cross block runs under ``torch.utils.checkpoint``."""
+    the cache's ``xk`` / ``xv`` [n_groups, B, P, KVH, D] in place (under a
+    mesh the rank's part, `cross_kv_layout`), decode reads them.
+    ``kv_layout`` is the self layers' cache layout (`kv_layout`).  Returns
+    (h, cache, aux_loss_sum); in train mode every self layer and cross
+    block runs under ``torch.utils.checkpoint``."""
     per = cfg.vision.cross_attn_every - 1
     n_groups = cfg.n_layers // cfg.vision.cross_attn_every
     train = mode == "train"
@@ -618,7 +741,7 @@ def vlm_stack_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 x, _, aux_i = decoder_block(
                     cfg, p_i, x, positions, mode=mode,
                     layer_cache=layer_slice(self_cache, i), kv_pos=kv_pos,
-                    cursor=cursor)
+                    cursor=cursor, kv_layout=kv_layout)
             aux = aux + aux_i
         p_c = layer_slice(params["cross"], g)
         if train:

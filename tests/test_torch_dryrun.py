@@ -18,7 +18,10 @@ train_4k and decode_32k, costed on one device and on a (2, 4) mesh:
   record's keys are the reference's.
 
 Two configs: ``SMOKE`` is the smoke config's widths, whose 2 KV heads do
-not divide the 4-way model axis; ``HEADS`` gives it 4 KV heads.  At
+not divide the 4-way model axis; ``HEADS`` gives it 4 KV heads.  A third
+cell, llama-3.2-vision-11b at ``SMOKE`` widths and one group of 5 layers
+(``VLM_CELLS``), holds the VLM's tensor-parallel stack to the same counts,
+its two gaps pinned and explained (the test docstrings).  At
 ``SMOKE`` on (2, 4) the port splits K and V on head_dim as the reference
 pins them (q by heads, the KV cache a quarter of head_dim a rank), so the
 5% bars and the argument bytes hold at both configs.  Collective bytes
@@ -53,6 +56,13 @@ HEADS = dict(SMOKE, n_kv_heads=4)
 CELLS = [dict(arch=ARCH, shape=shape, mesh=mesh, cfg=cfg, name=name)
          for name, cfg in (("smoke", SMOKE), ("heads", HEADS))
          for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
+#: the VLM at SMOKE widths, one group of its published cross_attn_every
+#: (4 self layers and a gated cross block), its published vision (6,404
+#: patches of 1,280)
+VLM = "llama-3.2-vision-11b"
+VLM_SMOKE = dict(SMOKE, n_layers=5)
+VLM_CELLS = [dict(arch=VLM, shape=shape, mesh=mesh, cfg=VLM_SMOKE, name="vlm")
+             for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
 #: the train state's scalar leaves, in both packages: step int32 [],
 #: rng uint32 [2], data_cursor int32 []
 SCALAR_LEAVES = {"step": 4, "rng": 8, "data_cursor": 4}
@@ -72,7 +82,7 @@ def _run(script: str, *args) -> dict:
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     cells = json.dumps([{k: c[k] for k in ("arch", "shape", "mesh", "cfg")}
-                        for c in CELLS])
+                        for c in CELLS + VLM_CELLS])
     out = tmp_path_factory.mktemp("dryrun")
     with ThreadPoolExecutor(2) as pool:
         ref = pool.submit(_run, "torch_dryrun_ref.py", cells)
@@ -83,7 +93,7 @@ def both(tmp_path_factory):
 def _pairs(both):
     ref, port = both
     return {(c["name"], c["mesh"], c["shape"]): (r, p) for c, r, p in
-            zip(CELLS, ref["cells"], port["cells"])}
+            zip(CELLS + VLM_CELLS, ref["cells"], port["cells"])}
 
 
 @pytest.mark.parametrize("mesh", ["1", "2x4"])
@@ -128,6 +138,62 @@ def test_per_device_flops_split_over_the_mesh(both, shape):
     one = pairs["heads", "1", shape][1]["matmul_flops"]
     eight = pairs["heads", "2x4", shape][1]["matmul_flops"]
     assert abs(eight / (one / 8) - 1) <= 0.05, (eight, one / 8)
+
+
+@pytest.mark.parametrize("mesh", ["1", "2x4"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_vlm_matmul_flops_per_device_match_reference_dots(both, shape,
+                                                          mesh):
+    """The VLM's per-device matmul FLOPs against XLA's dots, its stack
+    tensor-parallel on (2, 4) (the self layers and the cross block in the
+    head_dim form, as the reference's pins split them).  Decode: within
+    5%.  Train: the cross block attends over 6,404 patches in two
+    4,096-key chunks, and XLA's text holds the second chunk in a while
+    loop whose body it counts once, so the port's count is XLA's plus one
+    chunk's attention FLOPs (QK and PV, forward, its two recomputes and
+    two backward products: 5 x 4 x B x T x 4,096 x H x hd over the
+    devices); on (2, 4) also plus the vision projection's work that every
+    model rank repeats on its rows (the port gathers ``vision_proj``
+    whole: forward and dW, 2 x 2 x rows x P x vision_dim x d, 3/4 of it
+    beyond the rank's share).  The gap is pinned within 1% of XLA's
+    count."""
+    ref, port = _pairs(both)["vlm", mesh, shape]
+    assert port["kernel_flops"] == 0
+    if shape == "decode_32k":
+        rel = port["matmul_flops"] / ref["dot_flops"] - 1
+        assert abs(rel) <= 0.05, (port["matmul_flops"], ref["dot_flops"])
+        return
+    cfg = get_config(VLM).replace(**VLM_SMOKE)
+    spec = SHAPES_BY_NAME[shape]
+    rows = spec.global_batch // dryrun.SHAPE_TUNING[shape]["grad_accum"]
+    n_dev, tp = (1, 1) if mesh == "1" else (8, 4)
+    chunk = (5 * 4 * rows * spec.seq_len * 4096 * cfg.n_heads
+             * cfg.resolved_head_dim) / n_dev
+    vis = cfg.vision
+    proj = (2 * 2 * rows * vis.n_patches * vis.vision_dim * cfg.d_model
+            / (n_dev // tp) * (1 - 1 / tp))
+    gap = port["matmul_flops"] - ref["dot_flops"]
+    assert abs(gap - (chunk + proj)) <= 0.01 * ref["dot_flops"], (
+        gap, chunk, proj)
+
+
+@pytest.mark.parametrize("mesh", ["1", "2x4"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_vlm_argument_bytes_equal_xla(both, shape, mesh):
+    """The VLM's argument bytes are XLA's, less at decode the leaves that
+    decode never reads and ``jax.jit`` prunes from its compiled arguments
+    (``keep_unused=False``): ``vision_proj`` and the cross blocks' ``w_k``
+    and ``w_v`` (K and V come from the cache), sharded over the
+    devices."""
+    ref, port = _pairs(both)["vlm", mesh, shape]
+    unread = 0
+    if shape == "decode_32k":
+        cfg = get_config(VLM).replace(**VLM_SMOKE)
+        hd, groups = cfg.resolved_head_dim, cfg.n_layers // 5
+        unread = 4 * (cfg.vision.vision_dim * cfg.d_model
+                      + 2 * groups * cfg.d_model * cfg.n_kv_heads * hd)
+        unread //= 1 if mesh == "1" else 8
+    assert port["argument_bytes"] - ref["argument_bytes"] == unread
 
 
 def _reference_record_keys():

@@ -262,6 +262,8 @@ def _train(ref, mesh, out):
         finally:
             moe_ep.EP_CAPACITY_FACTOR = was
         peak[0] = max(peak[0], col.LAYER_GATHER["peak"])
+        out["train.unembed_gathers"] = np.asarray(
+            col.COLLECTIVES["unembed_gather"])
         from repro_torch.checkpoint.reshard import save_global
         return save_global(state.params), metrics, m
 
@@ -304,9 +306,157 @@ def _train(ref, mesh, out):
     out["train.gathered_peak"] = np.asarray(peak[0])
 
 
+def _sharded_step(model, mesh, batch, tcfg):
+    """One sharded train step of ``model`` (placed on ``mesh``) on
+    ``batch``: its metrics, with the per-step counters read after it."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.train import steps
+    from repro_torch.train.state import TrainState
+
+    state = TrainState(params=model.params(),
+                       opt=steps.shard_opt(model.params()),
+                       rng=torch.zeros(2, dtype=torch.uint32),
+                       data_cursor=torch.zeros((), dtype=torch.int32))
+    col.reset_counts()
+    with col.use_mesh(mesh):
+        _, metrics = steps.make_train_step(model, tcfg)(state, batch)
+    return metrics
+
+
+VLM_ARCH = "llama-3.2-vision-11b"
+
+
+def _vlm(ref, mesh, out):
+    """The VLM smoke in fp32 on the (2, 4) mesh against the reference's
+    8-device run and one process: prefill and two decode steps at 2 KV
+    heads (``vlm``: the head_dim form) and 4 (``vlm4``: heads), the
+    layout, the local vision cache and the score sums of each decode step;
+    then the sharded train step at 2 KV heads."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps
+    from repro_torch.train.state import init_train_state
+
+    tok = torch.from_numpy(ref["vlm.tokens"]).int()
+    nxt = torch.from_numpy(ref["vlm.next"]).int()
+    fe = torch.from_numpy(ref["vlm.frontend"])
+    for name, kvh in (("vlm", 2), ("vlm4", 4)):
+        cfg = get_smoke_config(VLM_ARCH).replace(compute_dtype="float32",
+                                                 n_kv_heads=kvh)
+        src = _tree(ref, f"{name}.p.")
+        for sharded in (False, True):
+            m = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+            m.adopt(_nest({k: v.clone() for k, v in src.items()}))
+            if sharded:
+                shd.shard_model(m, mesh, source=src, device="cpu")
+            tag = f"{name}.{'sharded' if sharded else 'one'}"
+            sums = []
+            with col.use_mesh(mesh if sharded else None):
+                cache = m.init_cache(4, 8, dtype=torch.float32)
+                cache, lg = m.prefill({"tokens": tok, "frontend": fe}, cache)
+                out[f"{tag}.prefill"] = lg.numpy()
+                for i in (1, 2):
+                    col.reset_counts()
+                    cache, lg = m.decode_step(cache, nxt)
+                    out[f"{tag}.decode{i}"] = lg.numpy()
+                    sums.append(col.COLLECTIVES["score_sum"])
+            if sharded:
+                out[f"{name}.layout"] = np.asarray(cache["layout"])
+                out[f"{name}.xk_local"] = np.asarray(
+                    cache["layers"]["xk"].shape)
+                out[f"{name}.k_local"] = np.asarray(cache["layers"]["k"].shape)
+                out[f"{name}.score_sums"] = np.asarray(sums)
+
+    cfg = get_smoke_config(VLM_ARCH).replace(compute_dtype="float32")
+    src = _tree(ref, "vlm.p.")
+    batch = {k: torch.from_numpy(ref[f"vlm.train.{k}"]).int()
+             for k in ("tokens", "labels")}
+    batch["frontend"] = fe
+    tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
+    one = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+    one.adopt(_nest({k: v.clone() for k, v in src.items()}))
+    _, m1 = steps.make_train_step(one, tcfg)(init_train_state(one.params()),
+                                            batch)
+    two = Model(cfg, device="meta", q_chunk=8, kv_chunk=8)
+    shd.shard_model(two, mesh, source=src, device="cpu")
+    m2 = _sharded_step(two, mesh, batch, tcfg)
+    for key, val in (("loss_sharded", m2["loss"]), ("loss_one", m1["loss"]),
+                     ("gnorm_sharded", m2["grad_norm"]),
+                     ("gnorm_one", m1["grad_norm"])):
+        out[f"vlm.train.{key}"] = np.asarray(float(val))
+    out["vlm.train.unembed_gathers"] = np.asarray(
+        col.COLLECTIVES["unembed_gather"])
+    out["vlm.train.largest_local_share"] = np.asarray(max(
+        p.to_local().numel() / p.numel() for p in two.parameters()
+        if any(pl.is_shard() for pl in p.placements)))
+
+
+def _vocab_ce(mesh, out):
+    """`collectives.vocab_parallel_ce` against `chunked_ce_loss` on one
+    process (fp32): labels on both sides of every shard boundary, -1
+    labels, a last chunk shorter than the rest; then `Model.loss` under
+    the mesh at a vocab the model axis divides (128) and one it does not
+    (130), against one process, with the unembedding gathers counted."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model, chunked_ce_loss
+
+    gen = torch.Generator().manual_seed(21)
+    v, d, n = 128, 32, col.tp_size(mesh)
+    h = torch.randn(4, 21, d, generator=gen)
+    w = torch.randn(d, v, generator=gen) * 0.2
+    labels = torch.randint(0, v, (4, 21), generator=gen, dtype=torch.int32)
+    edges = [e for k in range(1, n) for e in (k * v // n - 1, k * v // n)]
+    labels[0, :len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    labels[1, :4] = torch.tensor([0, v - 1, -1, -1], dtype=torch.int32)
+    labels[2, -3:] = -1
+    h1, w1 = h.clone().requires_grad_(), w.clone().requires_grad_()
+    ls1, c1 = chunked_ce_loss(h1, w1, labels, chunk=8)
+    dh1, dw1 = torch.autograd.grad(ls1, [h1, w1])
+    r = col.tp_rank(mesh)
+    h2 = h.clone().requires_grad_()
+    w2 = w[:, r * v // n:(r + 1) * v // n].clone().requires_grad_()
+    col.reset_counts()
+    ls2, c2 = col.vocab_parallel_ce(h2, w2, labels, mesh, chunk=8)
+    dh2, dw2 = torch.autograd.grad(ls2, [h2, w2])
+    out["ce.chunk_collectives"] = np.asarray(
+        [col.COLLECTIVES["all_reduce_max"], col.COLLECTIVES["all_reduce_sum"]])
+    dw2 = col.all_gather(dw2, col.tp_group(mesh), -1)
+    errs = [float((ls2 - ls1).detach().abs() / ls1.detach().abs()),
+            float((dh2 - dh1).abs().max() / dh1.abs().max()),
+            float((dw2 - dw1).abs().max() / dw1.abs().max())]
+    out["ce.errs"] = col.all_reduce(torch.tensor(errs), dist.group.WORLD,
+                                    "max").numpy()
+    out["ce.count_equal"] = _every_rank(float(c1) == float(c2)
+                                        == float((labels >= 0).sum()))
+
+    tok = torch.randint(0, 128, (4, 12), generator=gen, dtype=torch.int32)
+    for vocab in (128, 130):
+        cfg = ModelConfig(name="m", family="dense", n_layers=2, d_model=32,
+                          n_heads=4, n_kv_heads=4, d_ff=64, vocab=vocab,
+                          compute_dtype="float32")
+        one = Model(cfg, device="cpu").init(torch.Generator().manual_seed(22))
+        src = {k: p.detach().clone() for k, p in one.named_parameters()}
+        batch = {"tokens": tok, "labels": (tok * 7 + 3) % vocab}
+        with torch.no_grad():
+            _, m1 = one.loss(batch)
+        two = Model(cfg, device="meta")
+        shd.shard_model(two, mesh, source=src, device="cpu")
+        col.reset_counts()
+        with col.use_mesh(mesh), torch.no_grad():
+            _, m2 = two.loss(batch)
+        out[f"ce.model_loss.{vocab}"] = np.asarray(
+            [float(m2["ce_loss"]), float(m1["ce_loss"])])
+        out[f"ce.unembed_gathers.{vocab}"] = np.asarray(
+            col.COLLECTIVES["unembed_gather"])
+
+
 #: the families that compute whole layers under a mesh: each stacked
 #: layer gathered whole (data and model axes) where its stack runs it
-WHOLE_ARCHS = ("xlstm-350m", "whisper-base", "llama-3.2-vision-11b")
+WHOLE_ARCHS = ("xlstm-350m", "whisper-base")
 
 
 def _train_whole(mesh, out):
@@ -319,7 +469,7 @@ def _train_whole(mesh, out):
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import Model
     from repro_torch.train import steps
-    from repro_torch.train.state import TrainState, init_train_state
+    from repro_torch.train.state import init_train_state
 
     tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
     for arch in WHOLE_ARCHS:
@@ -330,23 +480,15 @@ def _train_whole(mesh, out):
         batch = {k: torch.randint(0, cfg.vocab, (4, 16), generator=gen,
                                   dtype=torch.int32)
                  for k in ("tokens", "labels")}
-        if cfg.family in ("vlm", "audio"):
-            shape = ((4, cfg.vision.n_patches, cfg.vision.vision_dim)
-                     if cfg.family == "vlm"
-                     else (4, cfg.audio.n_audio_ctx, cfg.d_model))
-            batch["frontend"] = torch.randn(shape, generator=gen).to(
+        if cfg.family == "audio":
+            batch["frontend"] = torch.randn(
+                (4, cfg.audio.n_audio_ctx, cfg.d_model), generator=gen).to(
                 torch.bfloat16)
         _, m1 = steps.make_train_step(one, tcfg)(
             init_train_state(one.params()), batch)
         two = Model(cfg, device="meta")
         shd.shard_model(two, mesh, source=src, device="cpu")
-        state = TrainState(params=two.params(),
-                           opt=steps.shard_opt(two.params()),
-                           rng=torch.zeros(2, dtype=torch.uint32),
-                           data_cursor=torch.zeros((), dtype=torch.int32))
-        col.reset_counts()
-        with col.use_mesh(mesh):
-            _, m2 = steps.make_train_step(two, tcfg)(state, batch)
+        m2 = _sharded_step(two, mesh, batch, tcfg)
         # one layer of the largest stack (an xLSTM pair runs both blocks)
         stacks = {}
         for k, p in two.named_parameters():
@@ -410,6 +552,8 @@ def _rank(rank, path, ref_path, out_path):
     _decode(ref, mesh, out)
     _train(ref, mesh, out)
     _train_whole(mesh, out)
+    _vlm(ref, mesh, out)
+    _vocab_ce(mesh, out)
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     if rank == 0:
         np.savez(out_path, **out)
