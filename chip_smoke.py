@@ -11,7 +11,7 @@ bf16) that the bf16 serving paths take, and a SIMT one that keeps fp32
 against the plain version and timed beside it in one run.
 
 * the tick engine (`repro_torch.core.engine.simulate`) on a 100k-job,
-  16,384-CPU fleet with a T=4 checkpoint hierarchy, for all seven
+  16,384-CPU fleet with a T=4 checkpoint hierarchy, 50 ticks, for all seven
   policies: OMFS, its cheap-victim variant and the five baselines (hard
   division, capping, FCFS, backfill and backfill with C/R preemption).
   The three that plan evictions (the OMFS pair and backfill_cr) must go
@@ -25,7 +25,7 @@ against the plain version and timed beside it in one run.
   see each plan launch `sched_select` once per eviction branch and every
   host sync counted;
   then lifecycle-event capture: all seven policies on the launcher's
-  fleet (cut to 120 ticks) on the card against the Python backend's
+  fleet (cut to 80 ticks) on the card against the Python backend's
   EventBus, an undersized ring's drops, and omfs with capture on the
   100k-job fleet (its table unchanged, the capture's device share); then
   the batch and stream engines: the batched `sched_select` launch bit for
@@ -35,8 +35,9 @@ against the plain version and timed beside it in one run.
   plans) and one of omfs at four quanta (one group: 32 host syncs a tick
   for the four), that batch's four-cell plan timed beside four single
   launches, [events]'s fleet as one batch with capture (each log
-  [events]'s), `benchmarks/bench_sweep.py`'s 256-cell grid as one batch
-  against 256 sequential runs (16 host syncs a tick), and omfs on the
+  [events]'s), `benchmarks/bench_sweep.py`'s grid on one seed (128
+  cells) as one batch against 128 sequential runs (16 host syncs a tick),
+  and omfs on the
   fleet's arrivals through `simulate_stream` at a capacity sized from a
   first run's live peak, equal to the monolithic run with no deferral;
   then the launcher, also with ``--events --trace-out --metrics-out`` and
@@ -48,24 +49,25 @@ against the plain version and timed beside it in one run.
   bit against their plain versions; one train step of internlm2-1.8b at
   its published widths, cut to depth 2, on the card against the CPU from
   one seeded init (fp32 and bf16 compute); `repro_torch.launch.train` on
-  the full 24-layer internlm2-1.8b (1.89 B fp32 master weights, bf16
-  compute), batch 4 x 2,048 tokens, 10 steps, then 2 steps rerun from its
-  fast-tier snapshot bit for bit, its host syncs and its device busy
-  share; the codec over that trained state (21.11 GiB on the card); the
-  cluster executor, OMFS preempting real training jobs (the transparency
-  scenario of tests/test_e2e_train.py on the card, then two full-width
-  internlm2-1.8b jobs, the larger evicted, checkpointed and restored once,
-  its losses bit-equal to the launcher's uninterrupted run, one job's
-  state resident at a time); a `CheckpointService` fast-tier
-  save/save/restore cycle at depth 1 (4.94 GiB) around a real train step;
+  internlm2-1.8b at its published widths cut to 12 of its 24 layers
+  (fp32 master weights, bf16 compute), batch 4 x 2,048 tokens, 10 steps,
+  then 2 steps rerun from its fast-tier snapshot bit for bit, its host
+  syncs and its device busy share; the codec over that trained state;
+  the cluster executor, OMFS preempting real training jobs (the
+  transparency scenario of tests/test_e2e_train.py on the card, then two
+  full-width internlm2-1.8b jobs at that depth, the larger evicted,
+  checkpointed and restored once, its losses bit-equal to the launcher's
+  uninterrupted run, one job's state resident at a time); a
+  `CheckpointService` fast-tier save/save/restore cycle at depth 1 (4.94
+  GiB) around a real train step;
   and `repro_torch.launch.cr_cost.measure` on two trained snapshots of the
   job that `benchmarks/bench_cr_cost.py` measures, whose calibrated cost
   lattice then prices the launcher's default fleet on both backends;
   then the other families' training: one step card against CPU for
   deepseek-moe-16b, hymba-1.5b and xlstm-350m at published widths, depth
   2 (fp32); `repro_torch.launch.train` on deepseek-moe-16b cut to depth 2
-  (batch 4 x 2,048), on the full 32-layer hymba-1.5b and on xlstm-350m
-  cut to 8 of its 24 layers (the sLSTM's per-token loop), rows of 512
+  (batch 4 x 2,048), on hymba-1.5b cut to 16 of its 32 layers and on
+  xlstm-350m cut to 4 of its 24 (the per-token loops), rows of 512
   tokens, each with a
   bit-equal rerun from its snapshot, 0 kernel launches, its host syncs,
   its profile and, for the recurrent two, the per-token loop's share of a
@@ -87,8 +89,9 @@ against the plain version and timed beside it in one run.
   xlstm-350m at the full widths and depth 2 on the card against the CPU
   (fp32); then `repro_torch.launch.serve` on the full 32-layer hymba-1.5b
   (32 flash and 32 `ssm_scan` launches per prefill, 32 `ssm_scan` per
-  decode step) and the full 24-layer xlstm-350m (12 `mlstm_scan` launches
-  per prefill and 12 per decode step, from the carried state), batch 4,
+  decode step) and xlstm-350m cut to 12 of its 24 layers (6 `mlstm_scan`
+  launches per prefill and 6 per decode step, from the carried state),
+  batch 4,
   prompt 2,048, 32 tokens, with the share of xlstm's prefill spent in the
   sLSTM, the host syncs of an xlstm prefill onto a non-empty cache, and
   one prefill and one decode step of each under torch.profiler;
@@ -145,8 +148,14 @@ against the plain version and timed beside it in one run.
   unembedding gathered), each rank's peak against the dry run's
   estimate; `[shard-serve-vlm]`: llama-3.2-vision-11b cut to one group
   of 5 layers on (1, 4), its self layers and gated cross block on each
-  rank's 8 query and 2 KV heads, the vision cache on its KV heads), each
-  held against a one-process run; `[batch-devices]`.
+  rank's 8 query and 2 KV heads, the vision cache on its KV heads) and
+  four more again (`[shard-serve-mla]`: minicpm3-4b cut to 2 layers on
+  (1, 4), 10 heads a rank through the flash kernel, its latent cache a
+  quarter of each width a rank; `[shard-serve-hybrid]`: hymba-1.5b cut
+  to 2 layers on (1, 4), the scan on 800 channels a rank), each held
+  against a one-process run; `[batch-devices]`.  `[attn-compare]`,
+  `[attn-time]`, `[ssm-compare]` and `[ssm-time]` hold and time the
+  flash launch of a rank's 10 MLA heads and the scan on 800 channels.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -163,6 +172,7 @@ Exits non-zero without a result where no CUDA device is visible.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -310,7 +320,10 @@ FLEET_CPUS = 16_384
 FLEET_TENANTS = 16
 FLEET_QUANTUM = 10
 FLEET_DEPTH = 32
-FLEET_HORIZON = 100
+#: ticks of every fleet phase (100 until the MLA and hybrid rank phases
+#: needed the time): by tick 50 each planner has evicted 11 to 27 times
+#: and spilled, and each of [batch-fleet]'s quanta has evicted
+FLEET_HORIZON = 50
 #: the registered policies, and the three that plan evictions
 POLICIES = ("omfs", "omfs_cheap_victim", "static_partition", "capping",
             "fcfs", "backfill", "backfill_cr")
@@ -335,42 +348,51 @@ BATCH_SHAPES = ((1, (100_000,), 4),
                 (256, (1, 127, 129, 512, 1024, 4097), 2))
 #: [batch-fleet]: omfs on the fleet at these quanta, one batch
 BATCH_QUANTA = (5, 10, 20, 40)
-#: [batch-sweep]: benchmarks/bench_sweep.py's full grid, 256 cells
+#: [batch-sweep]: benchmarks/bench_sweep.py's grid on its first seed,
+#: 128 cells (both seeds, 256 cells, until the MLA and hybrid rank
+#: phases needed the time)
 SWEEP_QUANTA = (1, 2, 3, 4, 5, 6, 8, 12)
 SWEEP_DEPTHS = (1, 2, 3, 4, 5, 6, 7, 8)
 SWEEP_POLICIES = ("omfs", "omfs_cheap_victim")
-SWEEP_SEEDS = (0, 1)
+SWEEP_SEEDS = (0,)
 SWEEP_JOBS, SWEEP_CPUS, SWEEP_HORIZON = 32, 32, 100
 #: ticks each sweep cell runs (the workload's arrivals span SWEEP_HORIZON;
 #: half of it still evicts in both planners, and the sequential loop the
 #: batch is held against is the phase's cost)
 SWEEP_TICKS = 50
 #: [stream-fleet]: the fleet's arrivals (8 a tick) through a stream of
-#: 100-tick segments, 4 of them (6 until slice 10's phases needed the
-#: time); the first run's capacity holds every arrival
-STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 400, 100, 1 << 15
+#: 50-tick segments, 4 of them (100-tick segments until the MLA and
+#: hybrid rank phases needed the time, 6 of them until slice 10's
+#: phases did; 100-tick segments defer arrivals at 200 ticks); the
+#: first run's capacity holds every arrival
+STREAM_HORIZON, STREAM_SEGMENT, STREAM_AMPLE = 200, 50, 1 << 15
 
 # checkpoint-restart: the codec's sizes, and the job bench_cr_cost.py
 # measures (internlm2-1.8b's smoke heads at d_model 256, 4 layers)
 CODEC_SIZES = (1, 127, 128, 129, 33_000, 2048 * 128, 10**8 + 3)
 FAST_TIER_DEPTH = 1
 #: [cr-path]'s calibrated fleet: the launcher's, its first CR_FLEET_TICKS
-#: ticks on both backends (800 before the dry run's phases)
-CR_FLEET_TICKS = 400
+#: ticks on both backends (800 before the dry run's phases, 400 before
+#: the MLA and hybrid rank phases)
+CR_FLEET_TICKS = 200
 CR_JOB = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
               vocab=8192)
 TICK_SECONDS = 0.1
 
-# training: the launcher at internlm2-1.8b's full widths and depth, the
-# serving shape (batch 4 x 2,048), the model's attention chunks (1,024); the launcher
-# snapshots the state after TRAIN_SNAPSHOT (fast tier only, sized above the
-# 21.11 GiB state) and 2 steps rerun from there; [train-vs-cpu] is one step
+# training: the launcher at internlm2-1.8b's full widths, depth
+# TRAIN_LAYERS, the serving shape (batch 4 x 2,048), the model's attention
+# chunks (1,024); the launcher snapshots the state after TRAIN_SNAPSHOT
+# (fast tier only, sized above the state: 21.11 GiB at the full depth)
+# and 2 steps rerun from there; [train-vs-cpu] is one step
 # at the full widths and depth 2, batch 1 x 256, on the card and the CPU;
 # its bars are tests/test_torch_train.py's: loss and grad norm relative
 # (STEP_TOL), the parameters after the step within 1e-6 + 1e-3 lr where the
 # gradient is at least GRAD_TOL of its leaf's largest, 1e-6 + 2 lr
 # elsewhere
 TRAIN_ARCH = "internlm2-1.8b"
+#: [train]'s and [executor]'s depth: 12 of internlm2-1.8b's 24 layers
+#: (the full depth until the MLA and hybrid rank phases needed the time)
+TRAIN_LAYERS = 12
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 10
 TRAIN_SNAPSHOT = 8
 TRAIN_FAST_TIER_GIB = 24
@@ -390,11 +412,12 @@ EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 # in): deepseek-moe-16b at its published widths cut to MOE_TRAIN_LAYERS
 # (its TrainState, 19.1 GB, fits the 24 GiB fast tier; depth 3 would be
 # 26.2 GB), batch TRAIN_BATCH x TRAIN_SEQ; hymba-1.5b at its published
-# widths cut to HYBRID_TRAIN_LAYERS (16 of 32) and xlstm-350m at its
-# published widths cut to XLSTM_TRAIN_LAYERS (2 mLSTM/sLSTM pairs of 12):
+# widths cut to HYBRID_TRAIN_LAYERS (8 of 32) and xlstm-350m at its
+# published widths cut to XLSTM_TRAIN_LAYERS (1 mLSTM/sLSTM pair of 12):
 # their per-token loops make their depth cost the script more than its
 # limit allows (slice 10's phases cut xlstm to 8 layers, the dry run's
-# phases hymba to 16 and xlstm to 4), TRAIN_BATCH rows of HYBRID_TRAIN_SEQ and
+# phases hymba to 16 and xlstm to 4, the MLA and hybrid rank phases
+# hymba to 8 and xlstm to 2), TRAIN_BATCH rows of HYBRID_TRAIN_SEQ and
 # XLSTM_TRAIN_SEQ tokens (hymba adds its 128 meta tokens); their one step
 # reruns from a snapshot of the initial state.
 # [executor-moe] is [executor]'s scenario with B the deepseek launcher run
@@ -403,7 +426,7 @@ EXEC_WORK, EXEC_SUBMIT_A, EXEC_TICK_S = (4, 2), 2, 10.0
 # TRAIN_CPU_LAYERS (xlstm one pair), in fp32
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 8
 HYBRID_TRAIN_SEQ, XLSTM_TRAIN_SEQ, RECURRENT_TRAIN_STEPS = 512, 512, 1
-HYBRID_TRAIN_LAYERS, XLSTM_TRAIN_LAYERS = 16, 4
+HYBRID_TRAIN_LAYERS, XLSTM_TRAIN_LAYERS = 8, 2
 # [launcher]'s backend check: the launcher's fleet cut to 256 CPUs and 300
 # ticks, where pass depth 64 covers every queue, so the tensor pass sees
 # what the host reference sees; [sched-status] the launcher's defaults
@@ -452,12 +475,20 @@ SERVE_CPU_TOL = 1e-3
 # SERVE_PROMPT (hymba adds its 128 meta tokens; one mLSTM block's heads)
 HYBRID_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-350m"
 _HYMBA, _XLSTM = get_config(HYBRID_ARCH), get_config(XLSTM_ARCH)
+#: [serve-xlstm]'s depth: 6 mLSTM/sLSTM pairs of 12 (the full 24 layers
+#: until the MLA and hybrid rank phases needed the time: the sLSTM's
+#: per-token loop makes its prefill and that prefill's profile
+#: host-bound)
+XLSTM_SERVE_LAYERS = 12
 # B S di ds; the last two: di not a multiple of a block's channels, and
 # di, ds odd (the kernel's 4-byte copies)
 SSM_CASES = [(2, 100, 64, 8), (1, 64, 32, 16), (3, 33, 16, 4),
              (2, 257, 200, 16), (1, 70, 37, 5)]
 SSM_PREFILL = (SERVE_BATCH, SERVE_PROMPT + _HYMBA.n_meta_tokens,
                _HYMBA.ssm.expand * _HYMBA.d_model, _HYMBA.ssm.d_state)
+#: the scan a rank of [shard-serve-hybrid]'s (1, 4) mesh: 3,200 / 4 = 800
+#: channels
+SSM_TP4_PREFILL = SSM_PREFILL[:2] + (SSM_PREFILL[2] // 4, SSM_PREFILL[3])
 #: one layer of hymba-1.5b's prefill attention: the 128 meta tokens and
 #: the prompt under its 1,024 window, so that rows past 1,152 lose keys to
 #: the window but keep the meta tokens (B, S, Hq, Hkv, d, window, n_meta)
@@ -543,6 +574,10 @@ VLM_CROSS_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
 VLM_CROSS_HD16_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
                        _VLM.n_heads // 16, 1, _VLM.resolved_head_dim,
                        _VLM.resolved_head_dim, False)
+#: MLA's prefill attention a rank of [shard-serve-mla]'s (1, 4) mesh:
+#: 40 / 4 = 10 heads
+MLA_TP4_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, _MLA.n_heads // 4,
+                _MLA.n_heads // 4) + MLA_ATTN[5:]
 AUDIO_ENC_ATTN = (SERVE_BATCH, _AUDIO.audio.n_audio_ctx,
                   _AUDIO.audio.n_audio_ctx, _AUDIO.n_heads,
                   _AUDIO.n_kv_heads, _AUDIO.resolved_head_dim,
@@ -859,9 +894,12 @@ def phase_kernel_compare():
     return err
 
 
+@functools.cache
 def fleet_workload():
     """bench_sched_scale's scale generator: enough arrivals to reach
-    FLEET_JOBS rows, 0.5 jobs per tick per tenant, mean work 60."""
+    FLEET_JOBS rows, 0.5 jobs per tick per tenant, mean work 60.  Built
+    once (~7 s of the host) and shared by every fleet phase: the tensor
+    backends read the jobs into tables and never write to them."""
     gen_horizon = max(200, int(1.5 * FLEET_JOBS / (FLEET_TENANTS * 0.5)))
     spec = WorkloadSpec(n_users=FLEET_TENANTS, horizon=gen_horizon,
                         cpu_total=FLEET_CPUS, seed=1, arrival_rate=0.5,
@@ -1529,10 +1567,11 @@ def group_syncs(results):
 
 
 def phase_batch_sweep():
-    """bench_sweep.py's full grid (quantum x pass depth x victim key x
-    seed, 256 cells) as one `simulate_batch` on the card: every cell must
-    equal its sequential `simulate` on the card and the "torch" backend's
-    batch; cells/s both ways, host syncs per tick, launches and plans."""
+    """bench_sweep.py's grid (quantum x pass depth x victim key x
+    seed, SWEEP_SEEDS: 128 cells) as one `simulate_batch` on the card:
+    every cell must equal its sequential `simulate` on the card and the
+    "torch" backend's batch; cells/s both ways, host syncs per tick,
+    launches and plans."""
     workloads = {s: sweep_workload(s) for s in SWEEP_SEEDS}
     grid = [(q, d, p, s) for q in SWEEP_QUANTA for d in SWEEP_DEPTHS
             for p in SWEEP_POLICIES for s in SWEEP_SEEDS]
@@ -2048,7 +2087,8 @@ def time_leaves(fn, leaves, iters, warmup=1):
 
 def phase_codec_state(state, cfg):
     """The codec over every fp32 leaf of ``state``: `[train]`'s trained
-    TrainState at the published widths and depth of internlm2-1.8b."""
+    TrainState at the published widths of internlm2-1.8b, depth
+    TRAIN_LAYERS."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     state = serialize.map_with_path(lambda _k, t: t.detach(), state)
@@ -2398,11 +2438,12 @@ def train_phase(phase, arch, cfg, *, seq, steps, snapshot,
 
 
 def phase_train():
-    """[train]: internlm2-1.8b at its full widths and depth, TRAIN_STEPS
-    steps of TRAIN_BATCH x TRAIN_SEQ, the last two rerun from the
+    """[train]: internlm2-1.8b at its full widths, depth TRAIN_LAYERS,
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, the last two rerun from the
     TRAIN_SNAPSHOT snapshot (`train_phase`).  Returns the launcher's record,
     the run's peak device memory and the median step in ms."""
-    return train_phase("train", TRAIN_ARCH, get_config(TRAIN_ARCH),
+    return train_phase("train", TRAIN_ARCH,
+                       cut_config(TRAIN_ARCH, TRAIN_LAYERS),
                        seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                        snapshot=TRAIN_SNAPSHOT)
 
@@ -2633,7 +2674,7 @@ def phase_executor(train_losses, train_peak):
         losses_bit_equal=True, seconds=f"{secs:.1f}",
         launches=kernel_counts())
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = cut_config(TRAIN_ARCH, TRAIN_LAYERS)
     collect_garbage()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2889,8 +2930,9 @@ def phase_attn_compare():
     and the ragged ones in fp32 (SIMT) and bf16 (both), internlm2-1.8b's
     and deepseek-moe-16b's serving shapes in bf16, and in both dtypes
     the head_dim form's launches a rank (HD_RANK_ATTN),
-    hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64),
-    the VLM's cross-attention (whole, and a 16-rank head_dim rank's) and
+    hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64;
+    whole, and a rank's 10 heads of [shard-serve-mla]), the VLM's
+    cross-attention (whole, and a 16-rank head_dim rank's) and
     whisper's encoder and cross-attention
     (non-causal; each again with V zero but on the keys past the last
     64-key tile), every case under ATTN_TOL and ATTN_REL_RMS.  Returns the
@@ -2946,7 +2988,8 @@ def phase_attn_compare():
     # tail cut must read above the scaled bar
     scaled, faults = {}, {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in (
-            ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+            ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN)):
@@ -2985,7 +3028,8 @@ def phase_attn_compare():
            for name, rel in faults.items()},
         hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
         **{f"{n}_shape": "x".join(map(str, shape[:-1])) for n, shape in (
-            ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN),
+            ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+            ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN))},
@@ -3011,9 +3055,10 @@ def in_turns(fns, iters, warmup):
 
 
 def phase_attn_time():
-    """Both kernels in bf16, as the serve paths call them, at three
+    """Both kernels in bf16, as the serve paths call them, at four
     shapes: one layer of internlm2-1.8b's prefill (ATTN_SHAPE), MLA's
-    prefill attention (causal, Dk 96, Dv 64) and the VLM's cross-attention
+    prefill attention (causal, Dk 96, Dv 64), whole and a rank's 10 heads
+    of [shard-serve-mla], and the VLM's cross-attention
     (non-causal, 2,048 x 6,404, GQA 32/8); beside them the plain version
     and the library's fused attention (SDPA on the same tensors viewed [B,
     H, S, D]; never called by the port), in turns, and the bound; for MLA
@@ -3025,7 +3070,8 @@ def phase_attn_time():
     saved = kernel_counts()
     b, s, h, kvh, d = ATTN_SHAPE
     shapes = (("internlm2", (b, s, s, h, kvh, d, d, True)),
-              ("mla", MLA_ATTN), ("vlm_cross", VLM_CROSS_ATTN))
+              ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+              ("vlm_cross", VLM_CROSS_ATTN))
     out = {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in shapes:
         q, k, v = attn_inputs(gen, b, sq, skv, h, kvh, d, torch.bfloat16, dv)
@@ -3069,8 +3115,8 @@ def phase_attn_time():
                 tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
                 x_library=f"{ms[route] / ms['library']:.2f}",
                 **(extra if route == "wgmma" else {}))
-            if name == "internlm2":
-                out[route] = dict(ms=ms[route], plain_ms=ms["plain"],
+            if name in ("internlm2", "mla_tp4"):
+                out.setdefault(name, {})[route] = dict(ms=ms[route], plain_ms=ms["plain"],
                                   library_ms=ms["library"],
                                   bound_ms=bound["bound_ms"],
                                   bound_by=bound["bound_by"])
@@ -3171,6 +3217,12 @@ def phase_ssm_compare():
         "prefill_h0": compare_ssm(ssm_inputs(gen, b, s, di, ds),
                                   serving=True),
         "decode": compare_ssm(ssm_inputs(gen, b, 1, di, ds), serving=True)}
+    # a rank's 800 channels of [shard-serve-hybrid]
+    b, s, di, ds = SSM_TP4_PREFILL
+    serving["tp4_prefill"] = compare_ssm(ssm_inputs(gen, b, s, di, ds),
+                                         serving=True)
+    serving["tp4_decode"] = compare_ssm(ssm_inputs(gen, b, 1, di, ds),
+                                        serving=True)
     set_kernel_counts(saved)
     log("ssm-compare", cases=len(SSM_CASES) + len(serving),
         test_shapes_err=f"{test_err:.3e}", tol=SSM_TOL,
@@ -3182,15 +3234,19 @@ def phase_ssm_compare():
 
 def phase_ssm_time():
     """The kernel and its plain version at Hymba's prefill shape and at one
-    decode step (S = 1), beside the bound.  ``ms`` is the card's time of
+    decode step (S = 1), whole and on a rank's 800 channels of
+    [shard-serve-hybrid], beside the bound.  ``ms`` is the card's time of
     back-to-back calls queued ahead (``queued_ms``); ``host_ms`` the same
     calls timed as the host issues them, which at S = 1 is the wrapper's
     host time.  No single PyTorch call computes the scan."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     saved = kernel_counts()
     rows = {}
-    b, s, di, ds = SSM_PREFILL
-    for name, steps in (("prefill", s), ("decode", 1)):
+    for name, (b, steps, di, ds) in (
+            ("prefill", SSM_PREFILL), ("decode", SSM_PREFILL[:1] + (1,)
+                                       + SSM_PREFILL[2:]),
+            ("tp4_prefill", SSM_TP4_PREFILL),
+            ("tp4_decode", SSM_TP4_PREFILL[:1] + (1,) + SSM_TP4_PREFILL[2:])):
         args = ssm_inputs(gen, b, steps, di, ds)
         ms = queued_ms(lambda a=args: ssm_ops.selective_scan(*a),
                        iters=20 if steps > 1 else 200)
@@ -3490,9 +3546,10 @@ def slstm_share(model, tokens):
 
 
 def phase_serve(arch, phase, per_prefill, per_decode, *,
-                prompt=SERVE_PROMPT, frontend=None):
+                prompt=SERVE_PROMPT, frontend=None, layers=None):
     """An arch's main serving path: `repro_torch.launch.serve`'s own
-    functions at its full published widths and depth (master weights in
+    functions at its full published widths and depth, or cut to depth
+    ``layers`` (`cut_config`) where that is given (master weights in
     the config's param dtype, fp32, from a seeded generator, a VLM's gates
     by `seed_gates`; bf16 compute and cache), batch SERVE_BATCH,
     ``prompt`` tokens (SERVE_PROMPT by
@@ -3503,7 +3560,7 @@ def phase_serve(arch, phase, per_prefill, per_decode, *,
     memory allocated before the request.  For an MoE arch the line adds
     the host reads of the dispatch, the capacities C it chose, and the
     card's memory left above the peak."""
-    cfg = get_config(arch)
+    cfg = get_config(arch) if layers is None else cut_config(arch, layers)
     t0 = time.perf_counter()
     model = seed_gates(serve.build(cfg, SEED, DEV))
     torch.cuda.synchronize()
@@ -4411,7 +4468,8 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
     `seed_gates`'s, its prefill on `serve_batch`'s patches): the
     prompt, then SHARD_DECODE_STEPS steps on the one-process run's ids
     (``work / ref_name``, waited for up to ``wait_s`` seconds), against
-    its logits; the prefill under `sync_sites`.  The results go to
+    its logits; the prefill and the first decode step under `sync_sites`;
+    every flash and scan launch's shape recorded.  The results go to
     ``res`` under ``key``."""
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
@@ -4434,13 +4492,25 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
     init_peak = torch.cuda.max_memory_allocated()
     out_res["weight_bytes_local"] = sum(
         p.to_local().numel() * p.element_size() for p in model.parameters())
+    # the leaves the rules leave whole on the model axis (a vocab it does
+    # not divide: hymba's unembedding)
+    model_dim = model.embed.device_mesh.mesh_dim_names.index("model")
+    out_res["weight_bytes_model_replicated"] = sum(
+        p.to_local().numel() * p.element_size() for p in model.parameters()
+        if not p.placements[model_dim].is_shard())
     tokens = ref["tokens"].to(DEV)
     batch = serve_batch(cfg, tokens)
-    heads = []
+    heads, dims, scans = [], set(), []
+
+    def flash_call(a, _o):
+        heads.append((a[0].shape[2], a[1].shape[2], a[0].shape[1],
+                      a[1].shape[1]))
+        dims.add((a[0].shape[3], a[2].shape[3]))
+
     with col.use_mesh(mesh), recording(
-            attention_mod, "flash_attention",
-            lambda a, o: heads.append((a[0].shape[2], a[1].shape[2],
-                                       a[0].shape[1], a[1].shape[1]))):
+            attention_mod, "flash_attention", flash_call), recording(
+            ssm_mod, "selective_scan",
+            lambda a, _o: scans.append(list(a[3].shape))):
         cache = model.init_cache(SERVE_BATCH,
                                  SERVE_PROMPT + SHARD_DECODE_STEPS)
         torch.cuda.reset_peak_memory_stats()
@@ -4453,19 +4523,29 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         prefill_s = time.perf_counter() - t0
         prefill_launches = kernel_counts()
         prefill_coll = dict(col.COLLECTIVES)
+        prefill_scans, scans[:] = list(scans), []
         out = [logits]
+        fed = [n.to(DEV) for n in ref["fed"]]
+        torch.cuda.synchronize()
         col.reset_counts()
+        zero_kernel_counts()
         t0 = time.perf_counter()
-        for nxt in ref["fed"][:-1]:
-            cache, logits = model.decode_step(cache, nxt.to(DEV))
+        for i, nxt in enumerate(fed[:-1]):
+            step = lambda n=nxt: model.decode_step(cache, n)  # noqa: E731
+            if i == 0:
+                (cache, logits), dec_where, dec_texts = sync_sites(step)
+            else:
+                cache, logits = step()
             out.append(logits)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         decode_coll = dict(col.COLLECTIVES)
+        decode_launches = kernel_counts()
+        decode_scans = list(scans)
         # a broken run for the bar: the last step with every all-reduce
         # left to the rank's own half (each attends over its slots only,
         # each row-parallel sum keeps its half), from a copy of the cache
-        last = ref["fed"][-1].to(DEV)
+        last = fed[-1]
         broken = fault_step(model, cache, last)
         t0 = time.perf_counter()
         cache, logits = model.decode_step(cache, last)
@@ -4473,13 +4553,15 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
     rms = [rel_rms(got.cpu(), want) for got, want in zip(out, ref["logits"])]
+    boxes = {k: list(v.shape) for k, v in cache["layers"].items()}
+    steps = SHARD_DECODE_STEPS - 1
     out_res.update(
         heads_aligned=tfm.heads_aligned(cfg, mesh),
         head_dim_split=tfm.head_dim_split(cfg, mesh),
         layout=cache["layout"],
-        cache_k_local=list(cache["layers"]["k"].shape),
-        cache_xk_local=(list(cache["layers"]["xk"].shape)
-                        if "xk" in cache["layers"] else None),
+        cache_local=boxes,
+        cache_k_local=boxes.get("k"),
+        cache_xk_local=boxes.get("xk"),
         init_peak=init_peak,
         peak=torch.cuda.max_memory_allocated(),
         weight_bytes_one=ref["weight_bytes"],
@@ -4488,17 +4570,26 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         prefill_syncs=len(where),
         prefill_sync_sites={w: where.count(w) for w in sorted(set(where))},
         prefill_sync_messages=sorted(texts),
+        decode_syncs=len(dec_where),
+        decode_sync_sites={w: dec_where.count(w)
+                           for w in sorted(set(dec_where))},
+        decode_sync_messages=sorted(dec_texts),
         flash_launches_prefill=prefill_launches["flash_attention_wgmma"],
         other_launches={k: v for k, v in prefill_launches.items()
                         if v and k != "flash_attention_wgmma"},
+        launches_per_decode_step={k: v / steps
+                                  for k, v in decode_launches.items() if v},
         flash_heads=sorted({h[0] for h in heads}),
         flash_kv_heads=sorted({h[1] for h in heads}),
+        flash_head_dims=sorted(dims),
         flash_shapes={f"{sq}x{skv}": sum(1 for h in heads
                                          if h[2:] == (sq, skv))
                       for sq, skv in sorted({h[2:] for h in heads})},
+        scan_shapes_prefill=sorted({tuple(x) for x in prefill_scans}),
+        scan_shapes_decode=sorted({tuple(x) for x in decode_scans}),
         collectives_prefill=prefill_coll,
         collectives_per_decode_step={
-            k: v / (SHARD_DECODE_STEPS - 1) for k, v in decode_coll.items()},
+            k: v / steps for k, v in decode_coll.items()},
         logits_rel_rms=max(rms),
         broken_rel_rms=rel_rms(broken.cpu(), ref["logits"][-1]),
         logits_max_abs=max(float((g.float().cpu() - w.float()).abs().max())
@@ -4546,7 +4637,7 @@ def shard_rank(rank, store, work):
                      ("serve", lambda: _ranks_serve(
                          mesh, work, res,
                          get_config(SHARD_ARCH).replace(decode_kv_shard=True),
-                         "shard_ref.pt"))):
+                         "shard_ref.pt", wait_s=SHARD_TIMEOUT_S))):
         t0 = time.perf_counter()
         fn()
         collect_garbage()
@@ -4567,24 +4658,32 @@ def spawn_ranks(fn, n, work, store):
 
 
 def phase_shard_ranks(work):
-    """[ep-ranks], [shard-serve], [shard-serve-hd] and [shard-serve-vlm]:
-    SHARD_RANKS processes (`shard_rank`, a (1, 2) mesh) and SHARD_HD_RANKS
-    more (`shard_hd_rank`) share the card over gloo at once, both sets
-    bound by gloo's copies through host memory on the host's cores; the
-    host meanwhile runs [shard-serve-hd]'s and [shard-serve-vlm]'s
-    one-process runs and costs the train cells with `launch.dryrun`.  Each
-    check must hold on every rank."""
+    """[ep-ranks], [shard-serve], [shard-serve-hd], [shard-serve-vlm],
+    [shard-serve-mla] and [shard-serve-hybrid]: SHARD_RANKS processes
+    (`shard_rank`, a (1, 2) mesh), SHARD_HD_RANKS more (`shard_hd_rank`)
+    and SHARD_NEW_RANKS more (`shard_new_rank`) share the card over gloo
+    at once, every set bound by gloo's copies through host memory on the
+    host's cores; the host meanwhile runs the one-process runs that the
+    later serves wait for and costs the train cells with `launch.dryrun`.
+    Each check must hold on every rank."""
     t0 = time.perf_counter()
-    one_weights = shard_reference(work, get_config(SHARD_ARCH),
-                                  "shard_ref.pt")
-    ctxs = [spawn_ranks(shard_rank, SHARD_RANKS, work, "gloo_store")]
+    # every rank set starts at once; the host then makes the one-process
+    # runs in the order the ranks' serves wait for them
+    ctxs = []
     try:
+        for fn, n, store in ((shard_rank, SHARD_RANKS, "gloo_store"),
+                             (shard_hd_rank, SHARD_HD_RANKS, "gloo_store_hd"),
+                             (shard_new_rank, SHARD_NEW_RANKS,
+                              "gloo_store_new")):
+            ctxs.append(spawn_ranks(fn, n, work, store))
         hd_cfg = shard_hd_config(SHARD_HD_LAYERS)
         hd_weights = shard_reference(work, hd_cfg, "shard_hd_ref.pt")
-        ctxs.append(spawn_ranks(shard_hd_rank, SHARD_HD_RANKS, work,
-                                "gloo_store_hd"))
-        # the VLM's one-process run while the four ranks serve and train
-        # glm4-9b and internlm2-1.8b; they wait for its file
+        new_weights = {"mla": shard_reference(
+            work, cut_config(MLA_ARCH, SHARD_NEW_LAYERS), "shard_mla_ref.pt")}
+        one_weights = shard_reference(work, get_config(SHARD_ARCH),
+                                      "shard_ref.pt")
+        new_weights["hyb"] = shard_reference(
+            work, cut_config(HYBRID_ARCH, SHARD_NEW_LAYERS), "shard_hyb_ref.pt")
         vlm_cfg = cut_config(VLM_ARCH, SHARD_VLM_LAYERS)
         vlm_weights = shard_reference(work, vlm_cfg, "shard_vlm_ref.pt")
         ts = time.perf_counter()
@@ -4604,8 +4703,11 @@ def phase_shard_ranks(work):
     check_shard_ranks(work, one_weights)
     check_shard_hd(work, hd_cfg, hd_weights, est, est_s, est_glm4)
     check_shard_vlm(work, vlm_cfg, vlm_weights)
-    log("shard-ranks", processes=SHARD_RANKS + SHARD_HD_RANKS,
+    launches = check_shard_new(work, new_weights)
+    log("shard-ranks",
+        processes=SHARD_RANKS + SHARD_HD_RANKS + SHARD_NEW_RANKS,
         seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
 
 
 def check_shard_ranks(work, one_weights):
@@ -4720,6 +4822,18 @@ SHARD_HD_TRAIN_GATHER_BYTES_BEFORE = 2_935_570_432
 #: so each rank runs 8 query heads against 2 KV heads in every layer and
 #: holds 2 KV heads of each cache
 SHARD_VLM_LAYERS = _VLM.vision.cross_attn_every
+#: [shard-serve-mla] and [shard-serve-hybrid], on SHARD_NEW_RANKS more gloo
+#: ranks beside [shard-serve-hd]'s: minicpm3-4b at its published widths
+#: (40 heads, Dk 96 / Dv 64, the latent cache 256 + 32 wide, d_ff 6,400,
+#: vocab 73,448) and hymba-1.5b at its (25 query and 5 KV heads, d_inner
+#: 3,200, d_ff 5,504, vocab 32,001, 128 meta tokens, window 1,024), each
+#: cut to SHARD_NEW_LAYERS, on a (1, 4) mesh: MLA in the heads form (10
+#: heads a rank), its cache a quarter of each latent width a rank; hymba's
+#: attention on gathered weights (25 and 5 heads divide no 4-way axis),
+#: its SSM on 800 channels a rank.  Two layers each: the four processes
+#: share the host's cores and gloo's copies with the six others
+SHARD_NEW_RANKS = 4
+SHARD_NEW_LAYERS = 2
 
 
 def shard_hd_config(layers, arch=SHARD_HD_ARCH):
@@ -4835,7 +4949,7 @@ def shard_hd_rank(rank, store, work):
     for name, shape, fn in (
             ("serve", (1, SHARD_HD_RANKS), lambda mesh: _ranks_serve(
                 mesh, work, res, shard_hd_config(SHARD_HD_LAYERS),
-                "shard_hd_ref.pt")),
+                "shard_hd_ref.pt", wait_s=SHARD_TIMEOUT_S)),
             ("train", (2, SHARD_HD_RANKS // 2),
              lambda mesh: _ranks_hd_train(mesh, res)),
             ("serve_vlm", (1, SHARD_HD_RANKS), lambda mesh: _ranks_serve(
@@ -4850,6 +4964,154 @@ def shard_hd_rank(rank, store, work):
     (work / f"hd_rank{rank}.json").write_text(json.dumps(res))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def shard_new_rank(rank, store, work):
+    """One of the SHARD_NEW_RANKS processes of [shard-serve-mla] and
+    [shard-serve-hybrid]: a gloo group through a FileStore, a (1, 4)
+    mesh; each serve waits for its one-process run's file; writes its
+    results to ``work/new_rank{rank}.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(DEV)
+    dist.init_process_group("gloo",
+                            store=dist.FileStore(store, SHARD_NEW_RANKS),
+                            rank=rank, world_size=SHARD_NEW_RANKS)
+    mesh = init_device_mesh("cuda", (1, SHARD_NEW_RANKS),
+                            mesh_dim_names=("data", "model"))
+    res, phases = {"rank": rank}, {}
+    for key, arch in (("mla", MLA_ARCH), ("hyb", HYBRID_ARCH)):
+        t0 = time.perf_counter()
+        _ranks_serve(mesh, work, res, cut_config(arch, SHARD_NEW_LAYERS),
+                     f"shard_{key}_ref.pt", key=key, wait_s=SHARD_TIMEOUT_S)
+        collect_garbage()
+        torch.cuda.empty_cache()
+        phases[key] = round(time.perf_counter() - t0, 2)
+    res["seconds"] = phases
+    (work / f"new_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_shard_new(work, weights):
+    """[shard-serve-mla]'s and [shard-serve-hybrid]'s checks, on every
+    rank's results, against their one-process runs (``weights``: the
+    one-process weight bytes by key); returns the ranks' launches of
+    MLA's flash and of hymba's scan."""
+    ranks = [json.loads((work / f"new_rank{r}.json").read_text())
+             for r in range(SHARD_NEW_RANKS)]
+    n, n_layers = SHARD_NEW_RANKS, SHARD_NEW_LAYERS
+    slots = SERVE_PROMPT + SHARD_DECODE_STEPS
+    mla_cfg, hyb = (cut_config(a, n_layers) for a in (MLA_ARCH, HYBRID_ARCH))
+    mla = mla_cfg.mla
+    di = hyb.ssm.expand * hyb.d_model
+    ring = Model(hyb, device="meta").cache_slots(slots + hyb.n_meta_tokens)
+    want = {
+        "mla": dict(
+            layout="latent", heads=[mla_cfg.n_heads // n],
+            kv_heads=[mla_cfg.n_heads // n],
+            head_dims=[[mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+                        mla.v_head_dim]],
+            other={}, per_decode={}, scans=([], []),
+            cache={"ckv": [n_layers, SERVE_BATCH, slots,
+                           mla.kv_lora_rank // n],
+                   "kr": [n_layers, SERVE_BATCH, slots,
+                          mla.qk_rope_head_dim // n]},
+            score_sums=n_layers),
+        "hyb": dict(
+            layout="full", heads=[hyb.n_heads], kv_heads=[hyb.n_kv_heads],
+            head_dims=[[hyb.head_dim, hyb.head_dim]],
+            other={"ssm_scan": n_layers},
+            per_decode={"ssm_scan": float(n_layers)},
+            scans=([[SERVE_BATCH, SERVE_PROMPT + hyb.n_meta_tokens,
+                     di // n]], [[SERVE_BATCH, 1, di // n]]),
+            cache={"k": [n_layers, SERVE_BATCH, ring, hyb.n_kv_heads,
+                         hyb.head_dim],
+                   "ssm_h": [n_layers, SERVE_BATCH, di // n,
+                             hyb.ssm.d_state],
+                   "ssm_conv": [n_layers, SERVE_BATCH, hyb.ssm.d_conv - 1,
+                                di // n]},
+            score_sums=None)}
+    for r in ranks:
+        bad = []
+        for key, phase, arch in (("mla", "shard-serve-mla", MLA_ARCH),
+                                 ("hyb", "shard-serve-hybrid", HYBRID_ARCH)):
+            w, g = want[key], (lambda k, key=key: r[f"{key}_{k}"])
+            checks = {
+                "layout": g("layout") == w["layout"],
+                # the prefill's attention through the tensor-core kernel
+                # on the rank's heads (MLA) or every head (hymba), the
+                # scan on the rank's channels, one launch a layer
+                "launches": (g("flash_launches_prefill") == n_layers
+                             and g("other_launches") == w["other"]
+                             and g("launches_per_decode_step")
+                             == w["per_decode"]),
+                "shapes": (g("flash_heads") == w["heads"]
+                           and g("flash_kv_heads") == w["kv_heads"]
+                           and g("flash_head_dims") == w["head_dims"]
+                           and [g("scan_shapes_prefill"),
+                                g("scan_shapes_decode")] == list(w["scans"])),
+                "caches": all(g("cache_local")[k] == v
+                              for k, v in w["cache"].items()),
+                "score_sums": (w["score_sums"] is None
+                               or g("collectives_per_decode_step").get(
+                                   "score_sum") == w["score_sums"]),
+                "syncs": g("prefill_syncs") == 0 and g("decode_syncs") == 0,
+                # a quarter of every leaf that the rules split over the
+                # model axis, each other leaf whole
+                "weights": (g("weight_bytes_local")
+                            - g("weight_bytes_model_replicated")
+                            <= (weights[key]
+                                - g("weight_bytes_model_replicated")) / n
+                            + 2 ** 20),
+                "logits": (g("logits_finite")
+                           and g("logits_rel_rms") <= SHARD_LOGITS_REL_RMS
+                           and g("broken_rel_rms")
+                           > 2 * SHARD_LOGITS_REL_RMS),
+            }
+            log(phase, rank=r["rank"], config=arch, layers=n_layers,
+                cut_from=get_config(arch).n_layers, mesh=f"(1, {n})",
+                layout=g("layout"), cache_local=g("cache_local"),
+                slots=slots, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                decode_steps=SHARD_DECODE_STEPS,
+                weight_bytes_local=g("weight_bytes_local"),
+                weight_bytes_model_replicated=g(
+                    "weight_bytes_model_replicated"),
+                weight_bytes_one=weights[key],
+                init_peak=g("init_peak"), serve_peak=g("peak"),
+                prefill_ms=f"{g('prefill_ms'):.1f}",
+                decode_ms_per_step=f"{g('decode_ms_per_step'):.1f}",
+                prefill_syncs=g("prefill_syncs"),
+                decode_syncs=g("decode_syncs"),
+                sync_sites={**g("prefill_sync_sites"),
+                            **g("decode_sync_sites")} or "none",
+                flash_launches_prefill=g("flash_launches_prefill"),
+                other_launches_prefill=g("other_launches") or "none",
+                launches_per_decode_step=(g("launches_per_decode_step")
+                                          or "none"),
+                flash_shapes=g("flash_shapes"), flash_heads=g("flash_heads"),
+                flash_kv_heads=g("flash_kv_heads"),
+                flash_head_dims=g("flash_head_dims"),
+                scan_shapes_prefill=g("scan_shapes_prefill") or "none",
+                scan_shapes_decode=g("scan_shapes_decode") or "none",
+                collectives_prefill=g("collectives_prefill"),
+                collectives_per_decode_step=g(
+                    "collectives_per_decode_step"),
+                logits_rel_rms=f"{g('logits_rel_rms'):.3e}",
+                logits_bar=SHARD_LOGITS_REL_RMS,
+                broken_rel_rms=f"{g('broken_rel_rms'):.3e}",
+                logits_max_abs=f"{g('logits_max_abs'):.3e}",
+                seconds=r["seconds"][key], backend="gloo")
+            bad += [f"{phase}:{k}" for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"rank {r['rank']} failed {bad}")
+    # every rank's launches on the main path: MLA's flash on its heads,
+    # hymba's scan on its channels (prefill and the timed decode steps)
+    return {"flash_mla": sum(r["mla_flash_launches_prefill"] for r in ranks),
+            "ssm_hyb": sum(r["hyb_other_launches"]["ssm_scan"]
+                           + round(r["hyb_launches_per_decode_step"]["ssm_scan"]
+                                   * (SHARD_DECODE_STEPS - 1)) for r in ranks)}
 
 
 def check_shard_hd(work, cfg, one_weights, est, est_s, est_glm4):
@@ -5136,10 +5398,14 @@ def phase_dryrun_vs_card(model, tokens, train_peak, train_ms):
               "train": ShapeSpec("train_step", seq_len=TRAIN_SEQ,
                                  global_batch=TRAIN_BATCH, kind="train")}
     meta, meta_s = {}, {}
+    # [train] runs TRAIN_LAYERS of the train arch's layers
+    tunes = {"prefill": dict(chunks, grad_accum=1),
+             "train": dict(chunks, grad_accum=1,
+                           cfg={"n_layers": TRAIN_LAYERS})}
     for kind, arch in (("prefill", SERVE_ARCH), ("train", TRAIN_ARCH)):
         ts = time.perf_counter()
         meta[kind] = dryrun.count_cell(dryrun.build_cell(
-            arch, shapes[kind], None, dict(chunks, grad_accum=1)))
+            arch, shapes[kind], None, tunes[kind]))
         meta_s[kind] = time.perf_counter() - ts
     step = make_prefill_step(model)
     batch = {"tokens": tokens}
@@ -5201,8 +5467,9 @@ def phase_dryrun_vs_card(model, tokens, train_peak, train_ms):
         card_rise_bytes=rise, meta_temp_bytes=int(
             roofline.memory_stats(pre)["temp_bytes"]),
         argument_bytes=args, kernels=card.kernels, **rows["prefill"])
-    log("dryrun-vs-card", config=TRAIN_ARCH, step="train",
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, train_peak_from="[train]",
+    log("dryrun-vs-card", config=TRAIN_ARCH, layers=TRAIN_LAYERS,
+        step="train", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        train_peak_from="[train]",
         **rows["train"], peak_tol=PEAK_TOL,
         terms="estimates from the H100 datasheet constants",
         seconds=f"{time.perf_counter() - t0:.1f}")
@@ -5221,15 +5488,17 @@ def kernel_entry(name, source, replaces, launches, err, t, extra=()):
 
 
 def multi_device_phases():
-    """[ep-compare], [ep-ranks], [shard-serve], [shard-serve-hd] and
-    [batch-devices]; returns [ep-compare]'s record of the expert-parallel
-    dispatch."""
+    """[ep-compare], [ep-ranks], [shard-serve], [shard-serve-hd] (with
+    [shard-train-hd]), [shard-serve-vlm], [shard-serve-mla],
+    [shard-serve-hybrid] and [batch-devices]; returns [ep-compare]'s
+    record of the expert-parallel dispatch and the new ranks' kernel
+    launches (`check_shard_new`)."""
     with scratch_dir() as tmp:
         work = Path(tmp)
         ep = phase_ep_compare(work)
-        phase_shard_ranks(work)
+        ranks = phase_shard_ranks(work)
     phase_batch_devices()
-    return ep
+    return ep, ranks
 
 
 def main():
@@ -5312,22 +5581,23 @@ def main():
     mlstm_err = phase_mlstm_compare()
     mlstm = phase_mlstm_time()
     n_hybrid = _HYMBA.n_layers
-    n_mlstm = _XLSTM.n_layers // _XLSTM.xlstm.slstm_every
+    n_mlstm = XLSTM_SERVE_LAYERS // _XLSTM.xlstm.slstm_every
     phase_vs_cpu(HYBRID_ARCH, "hybrid-vs-cpu",
                  {"flash_attention": CPU_LAYERS, "ssm_scan": CPU_LAYERS},
                  {"ssm_scan": CPU_LAYERS})
     phase_vs_cpu(XLSTM_ARCH, "xlstm-vs-cpu", {"mlstm_scan": CPU_LAYERS // 2},
                  {"mlstm_scan": CPU_LAYERS // 2})
     recurrent = {}
-    for arch, phase, per_prefill, per_decode, names in (
+    for arch, phase, per_prefill, per_decode, names, layers in (
             (HYBRID_ARCH, "serve-hymba",
              {"flash_attention_wgmma": n_hybrid, "ssm_scan": n_hybrid},
-             {"ssm_scan": n_hybrid}, ("flash_fwd", "ssm_scan_fwd")),
+             {"ssm_scan": n_hybrid}, ("flash_fwd", "ssm_scan_fwd"), None),
             (XLSTM_ARCH, "serve-xlstm", {"mlstm_scan": n_mlstm},
              {"mlstm_scan": n_mlstm},
-             ("mlstm_gates", "mlstm_carry", "mlstm_out"))):
+             ("mlstm_gates", "mlstm_carry", "mlstm_out"),
+             XLSTM_SERVE_LAYERS)):
         model, tokens, recurrent[arch] = phase_serve(
-            arch, phase, per_prefill, per_decode)
+            arch, phase, per_prefill, per_decode, layers=layers)
         if arch == XLSTM_ARCH:
             phase_xlstm_syncs(model, tokens)
         phase_profile(phase, arch, model, tokens, names, per_prefill,
@@ -5353,7 +5623,7 @@ def main():
     collect_garbage()
     torch.cuda.empty_cache()
     new_flash = phase_new_families_serve(frontends)
-    ep = multi_device_phases()
+    ep, ranks = multi_device_phases()
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     gmm_src = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu"
     record = {"kernels": [kernel_entry(
@@ -5379,17 +5649,28 @@ def main():
                      "src/repro/kernels/flash_attention/kernel.py:34",
                      dense_cpu["flash_attention"]
                      + new_flash["flash_attention"], attn_err["simt"],
-                     attn["simt"]),
+                     attn["internlm2"]["simt"]),
         kernel_entry("flash_attention_fwd_wgmma", flash_src,
                      "src/repro/kernels/flash_attention/kernel.py:34",
                      dense["flash_attention_wgmma"]
                      + new_flash["flash_attention_wgmma"], attn_err["wgmma"],
-                     attn["wgmma"]),
+                     attn["internlm2"]["wgmma"]),
+        # [shard-serve-mla]'s launches on a rank's 10 heads, all ranks
+        kernel_entry("flash_attention_fwd_wgmma_mla_rank", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     ranks["flash_mla"], attn_err["wgmma"],
+                     attn["mla_tp4"]["wgmma"]),
         kernel_entry("ssm_scan",
                      "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:25",
                      recurrent[HYBRID_ARCH]["ssm_scan"], ssm_err,
                      ssm["prefill"], extra=("host_ms",)),
+        # [shard-serve-hybrid]'s launches on a rank's 800 channels
+        kernel_entry("ssm_scan_rank",
+                     "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:25",
+                     ranks["ssm_hyb"], ssm_err, ssm["tp4_prefill"],
+                     extra=("host_ms",)),
         kernel_entry("mlstm_scan",
                      "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
                      "src/repro/kernels/mlstm_scan/kernel.py:46",

@@ -14,7 +14,9 @@ same code.
 * `sharded_kv_decode_attention`: flash-decoding over a KV cache split on
   its sequence axis, combined with one MAX and two SUM all-reduces.
 * `head_dim_decode_attention`: decode over a KV cache split on head_dim,
-  the partial scores summed with one fp32 SUM all-reduce.
+  the partial scores summed with one fp32 SUM all-reduce;
+  `latent_decode_attention`, its MLA twin over a latent cache split on
+  its last dims.
 * `vocab_parallel_ce`: the chunked cross-entropy over the rank's vocab
   columns of the unembedding, combined with one MAX and two SUM
   all-reduces a chunk; the unembedding is never gathered.
@@ -67,7 +69,8 @@ from repro_torch.distributed import sharding as shd
 
 #: collective calls over more than one rank by kind ("all_reduce_sum",
 #: "all_reduce_max", "all_gather") and by site ("decode_combine": the
-#: sharded decode's three; "score_sum": the head_dim decode's one;
+#: sharded decode's three; "score_sum": the head_dim and latent
+#: decodes' one;
 #: "unembed_gather": the model's unembedding gathered whole, which
 #: `vocab_parallel_ce` and the sharded logits never do)
 COLLECTIVES: Counter = Counter()
@@ -603,6 +606,38 @@ def head_dim_decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, tq, h, d_loc).to(q.dtype)
+
+
+def latent_decode_attention(
+    q_abs: torch.Tensor,      # [B, Tq, H, r/TP] every head, this rank's slice
+    q_rope: torch.Tensor,     # [B, Tq, H, dr/TP]
+    ckv_cache: torch.Tensor,  # [B, S, r/TP] this rank's latent columns
+    kr_cache: torch.Tensor,   # [B, S, dr/TP]
+    q_pos: torch.Tensor,      # [B, Tq]
+    kv_pos: torch.Tensor,     # [B, S]
+    mesh, *, scale: float,
+) -> torch.Tensor:
+    """MLA's absorbed decode (`models.mla.mla_attention_decode`) over a
+    latent cache split on its last dims (the reference's ``ckv`` / ``kr``
+    placement): each rank scores every head over its slices of the latent
+    and the rotary key in fp32, the partial scores are summed with one
+    SUM all-reduce (``COLLECTIVES["score_sum"]``), the softmax is taken
+    whole on every rank, P·c_kv runs on the rank's latent columns and the
+    slices are all-gathered.  Returns the whole latent output [B, Tq, H,
+    r] in q_abs's dtype, P cast to the cache's dtype first, as on one
+    device."""
+    from repro_torch.models.attention import NEG_INF, visibility_mask
+
+    grp = tp_group(mesh)
+    s = (torch.einsum("bthr,bsr->bhts", q_abs.float(), ckv_cache.float())
+         + torch.einsum("bthp,bsp->bhts", q_rope.float(), kr_cache.float()))
+    s = all_reduce(s, grp) * scale
+    COLLECTIVES["score_sum"] += 1
+    vis = visibility_mask(q_pos, kv_pos, causal=True)
+    s = torch.where(vis[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhts,bsr->bthr", p.to(ckv_cache.dtype), ckv_cache)
+    return all_gather(o.to(q_abs.dtype), grp, -1)
 
 
 class _VocabCE(torch.autograd.Function):

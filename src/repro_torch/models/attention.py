@@ -33,9 +33,11 @@ The port of ``src/repro/models/attention.py``.
 * The cache writers scatter **in place** (``index_copy_`` on the cache
   tensor, or on the view of one layer of the stacked cache) and return the
   tensor they wrote.  The reference's ``mode="drop"`` (entries overwritten
-  by a later entry of the same write land on slot ``size``) becomes a mask
-  before the scatter, since torch raises on an index out of bounds; a write
-  that fits the ring drops nothing and needs no mask.
+  by a later entry of the same write land on slot ``size``), since torch
+  raises on an index out of bounds, becomes a write of the entries that
+  can be kept, of a size known on the host, each dropped one turned into
+  a second write of the last entry: no read back; a write that fits the
+  ring drops nothing.
 """
 from __future__ import annotations
 
@@ -46,7 +48,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.roofline import counting
 
 NEG_INF = -1e30
 
@@ -292,15 +293,20 @@ def _scatter(cache: torch.Tensor, new: torch.Tensor, cursor,
     slots = ring_slots(cursor, n_new, size, n_pinned).to(cache.device)
     new = new.to(cache.dtype)
     ring = max(size - n_pinned, 1)
-    if n_new > ring and counting.dry(cache.device):
-        # costing on meta, where the mask cannot be read: the entries a
-        # write from an empty cache keeps (the pinned ones, the last ring)
-        kept = ring + min(n_pinned, n_new - ring)
-        counting.note("ring_write", "from an empty cache")
-        slots, new = slots[:kept], new[:, :kept]
-    elif n_new > ring:
-        keep = slots < size          # a host sync, only when the ring wraps
-        slots, new = slots[keep], new[:, keep]
+    if n_new > ring:
+        # the write keeps the last `ring` entries and, of the first
+        # min(n_pinned, n_new - ring), those whose slot is pinned (the
+        # cursor on the device decides which): a first entry that is
+        # dropped writes the last entry's value into the last entry's
+        # slot, the same value twice, so that nothing is read back (on
+        # meta tensors too)
+        head = min(n_pinned, n_new - ring)
+        first, last = slots[:head], slots[n_new - ring:]
+        drop = first == size
+        mask = drop.view(1, head, *([1] * (new.dim() - 2)))
+        slots = torch.cat([torch.where(drop, slots[-1], first), last])
+        new = torch.cat([torch.where(mask, new[:, -1:], new[:, :head]),
+                         new[:, n_new - ring:]], dim=1)
     return cache.index_copy_(1, slots.long(), new)
 
 

@@ -54,16 +54,16 @@ Under an ambient mesh (`distributed.collectives.use_mesh`; the parameters
 DTensors placed by `distributed.sharding.shard_model`, or global tensors)
 every entry point takes the global batch and each rank computes its rows
 over the data axes (all of them where the batch does not divide): the
-dense, MoE and VLM families run their stacks tensor-parallel
-(`models.transformer`; the VLM's ``vision_proj`` is gathered whole and
-run on the rank's rows), the embedding goes through
+dense (MLA among them), MoE, hybrid and VLM families run their stacks
+tensor-parallel (`models.transformer`; the VLM's ``vision_proj`` and
+hymba's meta tokens are gathered whole), the embedding goes through
 `collectives.embed_lookup`, the logits are computed over the rank's vocab
 columns and gathered, and prefill and decode return the global logits;
-the other families (xLSTM, audio, hybrid and MLA) gather every parameter
-whole (an explicit all-gather; in a sharded train step a stacked layer's
-only where the stack runs it) and run their one-device code on their
-rows.  `init_cache` then builds the rank's own part of the cache, with
-its ``layout`` (`transformer.kv_layout`).  `loss` returns the rank's
+the other families (xLSTM, audio) gather every parameter whole (an
+explicit all-gather; in a sharded train step a stacked layer's only where
+the stack runs it) and run their one-device code on their rows.
+`init_cache` then builds the rank's own part of the cache, with its
+``layout`` (`transformer.kv_layout`).  `loss` returns the rank's
 share of the global loss, whose gradients summed over the data axes are
 the global loss's, and the global values in its metrics (``loss`` among
 them); where the stack runs tensor-parallel and the model axis divides
@@ -287,21 +287,28 @@ class Model(nn.Module):
 
     # -- sharded execution --------------------------------------------------
 
-    #: the leaves that the tensor-parallel stack takes sharded; it takes
-    #: every other leaf (the norms above all) whole
-    _TP_LEAVES = frozenset({"w_q", "w_k", "w_v", "w_o", "w_gate", "w_up",
-                            "w_down", "router", "embed", "unembed"})
+    #: the leaves that the tensor-parallel stack takes as placed, each
+    #: layer's share of them where the layer runs (GQA, the FFN and the
+    #: MoE; MLA's up- and down-projections; the SSM's matrices and
+    #: ``a_log``, `models.ssm.local_params`); it takes every other leaf
+    #: (the norms and the replicated vectors above all) whole
+    _TP_LEAVES = frozenset({
+        "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down", "router",
+        "embed", "unembed",
+        "w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "w_kr",
+        "w_in", "conv_w", "conv_b", "w_xproj", "w_dt", "a_log", "w_out"})
 
     def _spmd_params(self, params, mesh):
         """The tree a sharded forward computes with: the leaves that the
-        tensor-parallel stack shards stay DTensors (the dense, MoE and VLM
-        families'; the VLM's cross blocks' matrices among them), every
-        other DTensor is gathered whole (an explicit all-gather; a
-        replicated one is its local tensor: the norms, the VLM's gates and
+        tensor-parallel stack takes as placed stay DTensors (the dense,
+        MLA, MoE, hybrid and VLM families'; the VLM's cross blocks'
+        matrices among them), and each layer takes its share, or gathers
+        the layer's whole leaf, where it runs; every other DTensor is
+        gathered whole (an explicit all-gather; a replicated one is its
+        local tensor: the norms, hymba's meta tokens, the VLM's gates and
         its 1,280 x 4,096 ``vision_proj``, whose whole weights move fewer
         bytes than gathering its [B, P, d] output would); a family without
-        a tensor-parallel stack (xLSTM, audio, hybrid, MLA) gathers every
-        leaf.  A `collectives.Stacked` leaf (the sharded train step's)
+        a tensor-parallel stack (xLSTM, audio) gathers every leaf.  A `collectives.Stacked` leaf (the sharded train step's)
         stays in its shards and is gathered, the same way, a layer at a
         time where the stack runs it."""
         tp = tfm.spmd_mesh(self.cfg) is not None
@@ -449,7 +456,8 @@ class Model(nn.Module):
         the untied vocab, the cross-entropy is `collectives.
         vocab_parallel_ce` on the rank's unembedding columns; elsewhere
         `chunked_ce_loss` on the whole unembedding, gathered (a vocab that
-        the model axis does not divide; the families whose stacks run
+        the model axis does not divide, as hymba's 32,001; the families
+        whose stacks run
         whole gather it with every other leaf)."""
         cfg = self.cfg
         params = self.params() if params is None else params
@@ -627,7 +635,10 @@ class Model(nn.Module):
         """The cache (`init_cache`); under ``mesh``, where the stack runs
         tensor-parallel, the rank's box of it over the model axis, which
         ``layout`` names (`transformer.kv_layout`): the self cache's
-        sequence, KV heads or head_dim.  The VLM's vision cache ``xk`` /
+        sequence, KV heads or head_dim, MLA's latent columns ("latent":
+        ``kv_lora_rank / TP`` of ``ckv``, ``qk_rope_head_dim / TP`` of
+        ``kr``); the hybrid's ``ssm_h`` and ``ssm_conv`` hold the rank's
+        ``d_inner / TP`` channels where `transformer.ssm_split` holds.  The VLM's vision cache ``xk`` /
         ``xv`` takes the same layout but never the sequence split (the
         reference's ``cache_shardings`` splits only the self cache's
         sequence): under "seq" it takes `transformer.cross_kv_layout`, its
@@ -672,8 +683,10 @@ class Model(nn.Module):
             per = cfg.vision.cross_attn_every
             n_self = cfg.n_layers // per * (per - 1)
         if cfg.mla is not None:
-            layers = {"ckv": zeros(n_self, b, s, cfg.mla.kv_lora_rank),
-                      "kr": zeros(n_self, b, s, cfg.mla.qk_rope_head_dim)}
+            lat = col.tp_size(mesh) if layout == "latent" else 1
+            layers = {"ckv": zeros(n_self, b, s, cfg.mla.kv_lora_rank // lat),
+                      "kr": zeros(n_self, b, s,
+                                  cfg.mla.qk_rope_head_dim // lat)}
         else:
             layers = {"k": zeros(n_self, b, s_kv, kvh, hd_kv),
                       "v": zeros(n_self, b, s_kv, kvh, hd_kv)}
@@ -688,6 +701,8 @@ class Model(nn.Module):
                                      cfg.n_kv_heads, hd)
         if cfg.family == "hybrid":
             di = cfg.ssm.expand * cfg.d_model
+            if layout is not None and tfm.ssm_split(cfg, mesh):
+                di //= col.tp_size(mesh)
             layers["ssm_h"] = torch.zeros(
                 (cfg.n_layers, b, di, cfg.ssm.d_state), dtype=torch.float32,
                 device=dev)

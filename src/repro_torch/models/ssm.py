@@ -19,6 +19,10 @@ the card far more host time than work (ROADMAP Queue 3).
 The state is ``SSMState(h [B, d_inner, d_state] fp32, conv [B, d_conv - 1,
 d_inner])``.  ``delta``, ``B``, ``C`` and the conv output enter the scan in
 fp32; ``y`` returns to the compute dtype only before the ``silu(z)`` gate.
+
+Under a mesh the hybrid stack runs `ssm_forward_tp` (and its train twin
+`ssm_forward_train_tp`): the scan on the rank's ``d_inner / TP``
+channels, from its part of the state.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels.ssm_scan.ops import selective_scan
 from repro_torch.models.layers import (
     causal_conv,
@@ -100,10 +105,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _dbc(ssm: SSMConfig, dt_rank: int, params: dict, xc: torch.Tensor):
+def _dbc(ssm: SSMConfig, dt_rank: int, params: dict, xc: torch.Tensor,
+         total=None):
     """delta [.., d_inner], B [.., d_state], C [.., d_state], all fp32 and
-    contiguous."""
+    contiguous.  ``total`` (if given) makes the whole projection from a
+    rank's partial one (`ssm_forward_tp`)."""
     proj = xc @ params["w_xproj"].to(xc.dtype)
+    if total is not None:
+        proj = total(proj)
     dt = proj[..., :dt_rank]
     b = proj[..., dt_rank:dt_rank + ssm.d_state].float().contiguous()
     c = proj[..., dt_rank + ssm.d_state:].float().contiguous()
@@ -193,6 +202,107 @@ def ssm_forward_train(ssm: SSMConfig, params: dict, x: torch.Tensor, *,
                                                           state)
     h, y = chunked_scan(state.h, a, delta, bmat, cmat, xf, chunk)
     return _ssm_out(params, x, y, xf, z), SSMState(h=h, conv=conv_tail)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel forms: each rank runs its d_inner / TP channels
+# ---------------------------------------------------------------------------
+
+
+def local_params(params: dict, mesh) -> dict:
+    """A layer's SSM weights for this rank's channels ``[r * di / TP, (r +
+    1) * di / TP)`` of ``mesh``'s model axis, as the reference's rules
+    place them (`distributed.sharding`): ``w_in``'s model box (contiguous
+    over its ``2 * d_inner`` columns, so half a rank's xi and z columns
+    lie elsewhere: `_scan_inputs_tp` exchanges the products instead),
+    ``conv_w``, ``conv_b`` and ``w_dt`` by channel columns, ``w_out`` by
+    channel rows; ``w_xproj`` (its output width does not divide the model
+    axis), ``a_log`` (placed with d_state over it), ``dt_bias`` and
+    ``d_skip`` (replicated) whole, their gradients summed over the model
+    axis (`collectives.copy_to_tp`: each rank reads its rows only), and
+    cut to the rank's rows."""
+    n, r = col.tp_size(mesh), col.tp_rank(mesh)
+    di = params["w_out"].shape[-2]
+    rows = slice(r * di // n, (r + 1) * di // n)
+    out = {k: col.tp_local(params[k], -1, mesh)
+           for k in ("w_in", "conv_w", "conv_b", "w_dt")}
+    out["w_out"] = col.tp_local(params["w_out"], -2, mesh)
+    for k in ("w_xproj", "a_log", "dt_bias", "d_skip"):
+        out[k] = col.copy_to_tp(col.full(params[k]), mesh)[rows]
+    return out
+
+
+def _scan_inputs_tp(ssm: SSMConfig, lp: dict, x: torch.Tensor,
+                    state: SSMState, mesh):
+    """`_scan_inputs` on the rank's channels (``lp``: `local_params`), x
+    [B, T, d_model] replicated over the model axis.  The in-projection's
+    products on the rank's box of ``w_in`` are all-gathered and the
+    rank's xi and z columns cut from them (`collectives.gather_summed`:
+    the ranks read different columns, so the gradient is summed and cut);
+    the x-projection's partial sums over the rank's channels are summed
+    over the model axis in fp32, forward and (as every rank's channels
+    read dt, B and C) backward alike."""
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    dt_rank = ssm.dt_rank or -(-x.shape[-1] // 16)
+    dl = lp["conv_w"].shape[-1]
+    a = -torch.exp(lp["a_log"])                      # [dl, d_state] f32
+    xz = col.gather_summed(col.copy_to_tp(x, mesh)
+                           @ lp["w_in"].to(x.dtype), grp, -1)
+    xi = xz.narrow(-1, r * dl, dl)
+    z = xz.narrow(-1, n * dl + r * dl, dl)
+    xc, conv_tail = causal_conv(xi, lp["conv_w"], lp["conv_b"], state.conv)
+    xc = F.silu(xc)
+
+    def total(part):
+        whole = col.reduce_from_tp(part.float(), mesh).to(part.dtype)
+        return col.copy_to_tp(whole, mesh)
+
+    delta, bmat, cmat = _dbc(ssm, dt_rank, lp, xc, total)
+    return a, delta, bmat, cmat, xc.float().contiguous(), z, conv_tail
+
+
+def _reduced_out(lp: dict, x: torch.Tensor, y: torch.Tensor,
+                 xf: torch.Tensor, z: torch.Tensor, mesh) -> torch.Tensor:
+    """`_ssm_out` on the rank's channels: the row-parallel ``w_out``'s
+    partial sums reduced in fp32, rounded to x's dtype once."""
+    part = _ssm_out(lp, x, y, xf, z)
+    return col.reduce_from_tp(part.float(), mesh).to(x.dtype)
+
+
+def ssm_forward_tp(ssm: SSMConfig, params: dict, x: torch.Tensor,
+                   state: SSMState, mesh) -> Tuple[torch.Tensor, SSMState]:
+    """`ssm_forward` over ``mesh``'s model axis: the scan (the kernel on
+    the card) on this rank's ``d_inner / TP`` channels from its part of
+    the state (h [B, d_inner / TP, d_state], conv [B, d_conv - 1, d_inner
+    / TP]).  Returns (y [B, T, d_model], whole on every rank; the rank's
+    new state)."""
+    lp = local_params(params, mesh)
+    a, delta, bmat, cmat, xf, z, conv_tail = _scan_inputs_tp(ssm, lp, x,
+                                                             state, mesh)
+    y, h = selective_scan(delta, bmat, cmat, xf, a.contiguous(),
+                          state.h.contiguous())
+    return (_reduced_out(lp, x, y, xf, z, mesh),
+            SSMState(h=h, conv=conv_tail))
+
+
+def ssm_forward_train_tp(ssm: SSMConfig, params: dict, x: torch.Tensor,
+                         mesh, *, chunk: int = 128
+                         ) -> Tuple[torch.Tensor, SSMState]:
+    """`ssm_forward_train` on the rank's channels (`ssm_forward_tp`'s
+    split, on the same local-channel weights), from the zero state, with
+    autograd and no kernel."""
+    lp = local_params(params, mesh)
+    b, dl = x.shape[0], lp["conv_w"].shape[-1]
+    state = SSMState(
+        h=torch.zeros((b, dl, ssm.d_state), dtype=torch.float32,
+                      device=x.device),
+        conv=torch.zeros((b, ssm.d_conv - 1, dl), dtype=torch.float32,
+                         device=x.device))
+    a, delta, bmat, cmat, xf, z, conv_tail = _scan_inputs_tp(ssm, lp, x,
+                                                             state, mesh)
+    h, y = chunked_scan(state.h, a, delta, bmat, cmat, xf, chunk)
+    return (_reduced_out(lp, x, y, xf, z, mesh),
+            SSMState(h=h, conv=conv_tail))
 
 
 def ssm_decode_step(ssm: SSMConfig, params: dict, x: torch.Tensor,

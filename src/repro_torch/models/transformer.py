@@ -35,11 +35,13 @@ caches per group (``xk``, ``xv``) at prefill and reads at decode; the
 cross-attention is non-causal (the flash kernel at prefill, plain torch at
 decode and in train mode).
 
-Under an ambient mesh (`distributed.collectives.use_mesh`) the dense, MoE
-and VLM GQA stacks run tensor-parallel on each rank's local tensors
-(`_gqa_attention_tp`, `_cross_attention_tp`, `collectives.swiglu_tp`): the
-residual stream is replicated over the model axis, and attention takes
-one of three forms, the pins of the reference's ``constrain_heads``:
+Under an ambient mesh (`distributed.collectives.use_mesh`) the dense, MLA,
+MoE, hybrid and VLM stacks run tensor-parallel on each rank's local
+tensors (`_gqa_attention_tp`, `_mla_attention_tp`, `_cross_attention_tp`,
+`collectives.swiglu_tp`, the hybrid's SSM on the rank's channels through
+`ssm.ssm_forward_tp`): the residual stream is replicated over the model
+axis, and GQA attention takes one of three forms, the pins of the
+reference's ``constrain_heads``:
 
 * ``heads`` (`heads_aligned`: both head counts divide the model axis):
   q, k and v column-parallel by heads;
@@ -59,7 +61,11 @@ axis with ``decode_kv_shard`` (decode then goes through
 `collectives.sharded_kv_decode_attention`), else the local heads, else
 the rank's head_dim slice of every KV head (decode through
 `collectives.head_dim_decode_attention`), else whole; the VLM's vision
-K/V cache takes `cross_kv_layout`, the same but never "seq".  The MoE FFN goes
+K/V cache takes `cross_kv_layout`, the same but never "seq"; an MLA cache
+holds the rank's columns of ``ckv`` and ``kr`` where the model axis
+divides both ("latent", decode through
+`collectives.latent_decode_attention`), else whole; the hybrid's SSM
+state its channels where the model axis divides d_inner (`ssm_split`).  The MoE FFN goes
 through `distributed.moe_ep.moe_ffn_ep` where the model axis divides
 ``n_routed``.  In train mode each layer gathers its own weights inside
 its checkpointed function (`collectives.gather_layer`: the sharded train
@@ -68,6 +74,7 @@ path is the one-device one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -197,9 +204,10 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 def spmd_mesh(cfg: ModelConfig):
     """The ambient mesh when the cfg's stack runs tensor-parallel under it
-    (the dense, MoE and VLM GQA families), else None."""
+    (the dense (MLA among them), MoE, hybrid and VLM families), else
+    None."""
     mesh = col.current_mesh()
-    if mesh is None or cfg.family not in ("dense", "moe", "vlm") or cfg.mla:
+    if mesh is None or cfg.family not in ("dense", "moe", "hybrid", "vlm"):
         return None
     return mesh
 
@@ -221,12 +229,32 @@ def head_dim_split(cfg: ModelConfig, mesh) -> bool:
             and n % cfg.n_kv_heads == 0 and cfg.resolved_head_dim % n == 0)
 
 
+def latent_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the model axis divides both MLA cache widths (``kv_lora_rank``
+    and ``qk_rope_head_dim``: the reference's ``_fits``), so that a rank
+    holds its columns of ``ckv`` and ``kr``."""
+    n = col.tp_size(mesh)
+    return all(w % n == 0 and w >= n for w in (cfg.mla.kv_lora_rank,
+                                               cfg.mla.qk_rope_head_dim))
+
+
+def ssm_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the hybrid's SSM runs on a rank's ``d_inner / TP`` channels
+    (the model axis divides d_inner, as the reference's cache rule asks
+    of ``ssm_h`` and ``ssm_conv``)."""
+    n, di = col.tp_size(mesh), cfg.ssm.expand * cfg.d_model
+    return di % n == 0 and di >= n
+
+
 def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
     """How a rank holds the K/V cache under ``mesh``: "seq" (its slots
     ``[r * S / TP, (r + 1) * S / TP)``, every head: ``decode_kv_shard``
     without a window, so without a ring and its pinned slots), "heads"
     (its KV heads), "head_dim" (its ``hd / TP`` slice of every KV head,
-    the reference's ``Shard(4)``) or "full"."""
+    the reference's ``Shard(4)``) or "full"; an MLA cache "latent" (its
+    columns of ``ckv`` and ``kr``, `latent_split`) or "full"."""
+    if cfg.mla is not None:
+        return "latent" if latent_split(cfg, mesh) else "full"
     if (col.usable_mesh() is not None and cfg.decode_kv_shard
             and not cfg.sliding_window and slots % col.tp_size(mesh) == 0):
         return "seq"
@@ -264,8 +292,8 @@ def _gqa_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
     row-parallel, its partial sums reduced in fp32), `_head_dim_attention`
     where only the query heads do, else every head on every rank from
     gathered weights (what query heads that do not divide the model axis
-    still wait for; the hybrid and MLA families' stacks run whole: ROADMAP
-    Queue 1, item 2).  The flash kernel gets plain local tensors."""
+    still wait for: ROADMAP Queue 1, item 2.2).  The flash kernel gets
+    plain local tensors."""
     if heads_aligned(cfg, mesh):
         w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
         w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
@@ -413,6 +441,120 @@ def _mla_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  "kr": cache_write_single(layer_cache["kr"], kr_new, cursor)}
 
 
+#: the MLA weights every rank takes whole: it computes the query latent,
+#: ``ckv`` and ``kr`` alike
+_MLA_WHOLE = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+
+
+def _mla_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                      positions: torch.Tensor, *, mesh, mode: str,
+                      layer_cache: Optional[dict], kv_pos, cursor,
+                      q_chunk: int, kv_chunk: int,
+                      kv_layout: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """`_mla_attention` over the model axis.  Every rank computes the
+    query latent, ``ckv`` and ``kr`` whole, from whole down-projections.
+    Where the model axis divides the heads (the heads form) ``w_uq``,
+    ``w_uk`` and ``w_uv`` are column-parallel by heads and ``w_o``
+    row-parallel, its partial sums reduced once in fp32; the three latents
+    pass `collectives.copy_to_tp`, so that the down-projections' gradients
+    sum over the ranks' heads.  Elsewhere every head runs on every rank
+    from gathered weights (ROADMAP Queue 1, item 2.2).  Prefill runs the
+    flash kernel on the rank's heads.  With ``kv_layout="latent"`` the
+    cache holds the rank's columns of ``ckv`` and ``kr``: prefill and
+    decode write the rank's slice of the whole latents, and decode scores
+    every head over the slices (`collectives.latent_decode_attention`:
+    the queries of every head, one all-gather over heads in the heads
+    form; one fp32 SUM of the partial scores; the latent output
+    all-gathered), then applies the rank's heads of ``w_uv`` and
+    ``w_o``."""
+    mla = cfg.mla
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    heads = cfg.n_heads % n == 0
+    w = {k: col.full(p[k]) for k in _MLA_WHOLE}
+    if heads:
+        h_loc = cfg.n_heads // n
+        w.update({k: col.tp_local(p[k], -1, mesh)
+                  for k in ("w_uq", "w_uk", "w_uv")})
+        w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
+        share = lambda z: col.copy_to_tp(z, mesh)       # noqa: E731
+    else:
+        h_loc, share = cfg.n_heads, None
+        w.update({k: col.full(p[k]) for k in ("w_uq", "w_uk", "w_uv", "w_o")})
+    latent = kv_layout == "latent"
+
+    def mine(z):             # the rank's columns of a whole latent
+        if not latent:
+            return z
+        return z.narrow(-1, r * (z.shape[-1] // n), z.shape[-1] // n)
+
+    new_cache = None
+    if mode == "decode":
+        ckv_new, kr_new = mla_mod.mla_latents(mla, w, h, positions,
+                                              cfg.rope_theta)
+        ckv = cache_write_single(layer_cache["ckv"], mine(ckv_new), cursor)
+        kr = cache_write_single(layer_cache["kr"], mine(kr_new), cursor)
+        new_cache = {"ckv": ckv, "kr": kr}
+        if not latent:
+            out = mla_mod.mla_attention_decode(mla, h_loc, w, h, positions,
+                                               ckv, kr, kv_pos,
+                                               cfg.rope_theta)
+        else:
+            q_abs, q_rope = mla_mod.absorbed_query(mla, h_loc, w, h,
+                                                   positions, cfg.rope_theta)
+            if heads:        # every head's queries: one all-gather
+                q = col.all_gather(torch.cat([q_abs, q_rope], -1), grp, 2)
+                q_abs, q_rope = q.split([mla.kv_lora_rank,
+                                         mla.qk_rope_head_dim], -1)
+            o_lat = col.latent_decode_attention(
+                mine(q_abs), mine(q_rope), ckv, kr, positions, kv_pos, mesh,
+                scale=1.0 / math.sqrt(mla.qk_nope_head_dim
+                                      + mla.qk_rope_head_dim))
+            if heads:
+                o_lat = o_lat.narrow(2, r * h_loc, h_loc)
+            out = mla_mod.latent_out(mla, h_loc, w, o_lat)
+    elif mode in ("train", "prefill"):
+        out, (ckv_new, kr_new) = mla_mod.mla_attention_full(
+            mla, h_loc, w, h, positions, cfg.rope_theta, mode=mode,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, share=share)
+        if mode == "prefill":
+            new_cache = {
+                "ckv": cache_write_single(layer_cache["ckv"], mine(ckv_new),
+                                          cursor),
+                "kr": cache_write_single(layer_cache["kr"], mine(kr_new),
+                                         cursor)}
+    else:
+        raise ValueError(mode)
+    if heads:
+        out = col.reduce_from_tp(out.float(), mesh).to(h.dtype)
+    return out, new_cache
+
+
+def _ssm_mix(cfg: ModelConfig, p: dict, h: torch.Tensor, mode: str,
+             layer_cache: Optional[dict], mesh) -> torch.Tensor:
+    """The hybrid layer's SSM branch on the normed input: (y [B, T, d]),
+    its state read and written in the layer's cache in place (train mode:
+    from the zero state, nothing written).  Under ``mesh`` with
+    `ssm_split`, on the rank's channels (`ssm.ssm_forward_tp`), y whole
+    after its fp32 SUM; without a mesh, or where the model axis does not
+    divide d_inner, the one-device SSM (on gathered weights)."""
+    tp = mesh is not None and ssm_split(cfg, mesh)
+    if not tp and mesh is not None:
+        p = {k: col.full(w) for k, w in p.items()}
+    if mode == "train":
+        if tp:
+            return ssm_mod.ssm_forward_train_tp(cfg.ssm, p, h, mesh)[0]
+        return ssm_mod.ssm_forward_train(cfg.ssm, p, h)[0]
+    st = ssm_mod.SSMState(h=layer_cache["ssm_h"], conv=layer_cache["ssm_conv"])
+    if tp:
+        y, st_new = ssm_mod.ssm_forward_tp(cfg.ssm, p, h, st, mesh)
+    else:
+        y, st_new = ssm_mod.ssm_forward(cfg.ssm, p, h, st)
+    layer_cache["ssm_h"].copy_(st_new.h)
+    layer_cache["ssm_conv"].copy_(st_new.conv)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # Layer blocks
 # ---------------------------------------------------------------------------
@@ -447,50 +589,47 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One decoder layer (GQA or MLA attention; dense, MoE or hybrid
     channel mix).  Returns (x, layer_cache, aux_loss): the MoE layer's
-    load-balance loss, else 0.  Under an ambient mesh the GQA families run
-    tensor-parallel (``kv_layout`` is the cache's `kv_layout`)."""
+    load-balance loss, else 0.  Under an ambient mesh the stack runs
+    tensor-parallel (``kv_layout`` is the cache's `kv_layout`):
+    `_gqa_attention_tp` or `_mla_attention_tp`, the hybrid's SSM on the
+    rank's channels (`_ssm_mix`) and `_ffn_tp`; every sub-layer's output
+    is whole on every rank before the residual add (the hybrid's two
+    after their fp32 sums, before either output norm)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     mesh = spmd_mesh(cfg)
+    attend = dict(mode=mode, layer_cache=layer_cache, kv_pos=kv_pos,
+                  cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
     if mesh is not None:
-        attn_out, new_cache = _gqa_attention_tp(
-            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
-            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk,
-            kv_layout=kv_layout, mesh=mesh)
-        x = x + attn_out
-        ffn_out, aux = _ffn_tp(cfg, p, rms_norm(x, p["norm_ffn"],
-                                                cfg.norm_eps), mode, mesh)
-        return x + ffn_out, new_cache, aux
-    if cfg.mla is not None:
-        attn_out, new_cache = _mla_attention(
-            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
-            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        tp_attention = (_mla_attention_tp if cfg.mla is not None
+                        else _gqa_attention_tp)
+        attn_out, new_cache = tp_attention(cfg, p["attn"], h, positions,
+                                           mesh=mesh, kv_layout=kv_layout,
+                                           **attend)
+    elif cfg.mla is not None:
+        attn_out, new_cache = _mla_attention(cfg, p["attn"], h, positions,
+                                             **attend)
     else:
-        attn_out, new_cache = gqa_attention(
-            cfg, p["attn"], h, positions, mode=mode, layer_cache=layer_cache,
-            kv_pos=kv_pos, cursor=cursor, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        attn_out, new_cache = gqa_attention(cfg, p["attn"], h, positions,
+                                            **attend)
     if cfg.family == "hybrid" and cfg.ssm is not None:
         # Hymba: attention and mamba heads in parallel on the same normed
         # input, each output normed, then averaged
-        if mode == "train":
-            ssm_out, _ = ssm_mod.ssm_forward_train(cfg.ssm, p["ssm"], h)
-        else:
-            st = ssm_mod.SSMState(h=layer_cache["ssm_h"],
-                                  conv=layer_cache["ssm_conv"])
-            ssm_out, st_new = ssm_mod.ssm_forward(cfg.ssm, p["ssm"], h, st)
-            layer_cache["ssm_h"].copy_(st_new.h)
-            layer_cache["ssm_conv"].copy_(st_new.conv)
+        ssm_out = _ssm_mix(cfg, p["ssm"], h, mode, layer_cache, mesh)
         x = x + 0.5 * (rms_norm(attn_out, p["norm_attn_out"], cfg.norm_eps)
                        + rms_norm(ssm_out, p["norm_ssm_out"], cfg.norm_eps))
     else:
         x = x + attn_out
-    if cfg.moe is not None:
+    h2 = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    if mesh is not None:
+        ffn_out, aux = _ffn_tp(cfg, p, h2, mode, mesh)
+        x = x + ffn_out
+    elif cfg.moe is not None:
         moe_ffn = moe_mod.moe_ffn_train if mode == "train" else moe_mod.moe_ffn
-        ffn_out, aux = moe_ffn(
-            cfg.moe, p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
+        ffn_out, aux = moe_ffn(cfg.moe, p["ffn"], h2)
         x = x + ffn_out
     elif cfg.d_ff > 0:
-        x = x + swiglu(p["ffn"], rms_norm(x, p["norm_ffn"], cfg.norm_eps))
+        x = x + swiglu(p["ffn"], h2)
     return x, new_cache, aux
 
 

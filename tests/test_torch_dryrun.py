@@ -21,7 +21,8 @@ Two configs: ``SMOKE`` is the smoke config's widths, whose 2 KV heads do
 not divide the 4-way model axis; ``HEADS`` gives it 4 KV heads.  A third
 cell, llama-3.2-vision-11b at ``SMOKE`` widths and one group of 5 layers
 (``VLM_CELLS``), holds the VLM's tensor-parallel stack to the same counts,
-its two gaps pinned and explained (the test docstrings).  At
+its two gaps pinned and explained (the test docstrings); the MLA and
+hybrid smokes (``NEW_CELLS``) hold theirs, with a gap each.  At
 ``SMOKE`` on (2, 4) the port splits K and V on head_dim as the reference
 pins them (q by heads, the KV cache a quarter of head_dim a rank), so the
 5% bars and the argument bytes hold at both configs.  Collective bytes
@@ -63,6 +64,21 @@ VLM = "llama-3.2-vision-11b"
 VLM_SMOKE = dict(SMOKE, n_layers=5)
 VLM_CELLS = [dict(arch=VLM, shape=shape, mesh=mesh, cfg=VLM_SMOKE, name="vlm")
              for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
+#: the MLA (minicpm3-4b) and hybrid (hymba-1.5b) smokes, their stacks
+#: tensor-parallel on (2, 4): MLA in the heads form with its latent cache
+#: split, hymba's attention in the head_dim form and its SSM on a quarter
+#: of its channels a rank (``mla`` and ``ssm`` as dicts of their fields)
+MLA = "minicpm3-4b"
+HYBRID = "hymba-1.5b"
+NEW_SMOKES = {
+    MLA: dict(SMOKE, n_kv_heads=4, mla=dict(
+        q_lora_rank=16, kv_lora_rank=8, qk_nope_head_dim=8,
+        qk_rope_head_dim=4, v_head_dim=8)),
+    HYBRID: dict(SMOKE, head_dim=8, sliding_window=8, n_meta_tokens=4,
+                 ssm=dict(d_state=4, d_conv=3, expand=2))}
+NEW_CELLS = [dict(arch=arch, shape=shape, mesh=mesh, cfg=cfg, name=arch)
+             for arch, cfg in NEW_SMOKES.items()
+             for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
 #: the train state's scalar leaves, in both packages: step int32 [],
 #: rng uint32 [2], data_cursor int32 []
 SCALAR_LEAVES = {"step": 4, "rng": 8, "data_cursor": 4}
@@ -82,7 +98,7 @@ def _run(script: str, *args) -> dict:
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     cells = json.dumps([{k: c[k] for k in ("arch", "shape", "mesh", "cfg")}
-                        for c in CELLS + VLM_CELLS])
+                        for c in CELLS + VLM_CELLS + NEW_CELLS])
     out = tmp_path_factory.mktemp("dryrun")
     with ThreadPoolExecutor(2) as pool:
         ref = pool.submit(_run, "torch_dryrun_ref.py", cells)
@@ -93,7 +109,8 @@ def both(tmp_path_factory):
 def _pairs(both):
     ref, port = both
     return {(c["name"], c["mesh"], c["shape"]): (r, p) for c, r, p in
-            zip(CELLS + VLM_CELLS, ref["cells"], port["cells"])}
+            zip(CELLS + VLM_CELLS + NEW_CELLS, ref["cells"],
+                port["cells"])}
 
 
 @pytest.mark.parametrize("mesh", ["1", "2x4"])
@@ -193,6 +210,76 @@ def test_vlm_argument_bytes_equal_xla(both, shape, mesh):
         unread = 4 * (cfg.vision.vision_dim * cfg.d_model
                       + 2 * groups * cfg.d_model * cfg.n_kv_heads * hd)
         unread //= 1 if mesh == "1" else 8
+    assert port["argument_bytes"] - ref["argument_bytes"] == unread
+
+
+def _new_config(arch):
+    from repro_torch.configs.base import MLAConfig, SSMConfig
+
+    nested = {"mla": MLAConfig, "ssm": SSMConfig}
+    return get_config(arch).replace(**{
+        k: nested[k](**v) if k in nested else v
+        for k, v in NEW_SMOKES[arch].items()})
+
+
+@pytest.mark.parametrize("mesh", ["1", "2x4"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", [MLA, HYBRID])
+def test_mla_hybrid_matmul_flops_per_device_match_reference_dots(
+        both, arch, shape, mesh):
+    """The MLA and hybrid smokes' per-device matmul FLOPs against XLA's
+    dots, their stacks tensor-parallel on (2, 4).  Within 5%, with two
+    gaps pinned within 1% of XLA's count.  Hymba's train step: its 4
+    meta tokens make the sequence 4,100, which 4,096-position chunks pad
+    to two q chunks and two KV chunks; XLA's text holds the pairs in
+    while loops whose bodies it counts once, so the port's count is
+    XLA's plus three chunk pairs' attention FLOPs (QK and PV, forward,
+    two recomputes and two backward products: 3 x 5 x 4 x B x 4,096^2 x
+    H x hd a layer, over the devices).  MLA's decode on (2, 4): a rank's
+    slice of the rotary key is one column wide, and torch's einsum forms
+    a one-wide contraction as an elementwise product and a sum, which
+    the counter does not count: the port's count is XLA's less those
+    scores (2 x rows x H x S x dr / TP a layer, each rank's rows).  Only
+    hymba's decode step reaches a kernel (the scan, whose cost the counter
+    keeps apart from the matmuls)."""
+    ref, port = _pairs(both)[arch, mesh, shape]
+    scan = arch == HYBRID and shape == "decode_32k"
+    assert (port["kernel_flops"] > 0) == scan
+    cfg = _new_config(arch)
+    spec = SHAPES_BY_NAME[shape]
+    n_dev, tp = (1, 1) if mesh == "1" else (8, 4)
+    want = 0.0
+    if arch == HYBRID and shape == "train_4k":
+        rows = spec.global_batch // dryrun.SHAPE_TUNING[shape]["grad_accum"]
+        want = (3 * 5 * 4 * rows * spec.seq_len ** 2 * cfg.n_heads
+                * cfg.resolved_head_dim * cfg.n_layers) / n_dev
+    elif arch == MLA and shape == "decode_32k" and mesh == "2x4":
+        rows = spec.global_batch // (n_dev // tp)
+        want = -(2 * rows * cfg.n_heads * spec.seq_len
+                 * cfg.mla.qk_rope_head_dim // tp * cfg.n_layers)
+    gap = port["matmul_flops"] - ref["dot_flops"]
+    if want:
+        assert abs(gap - want) <= 0.01 * ref["dot_flops"], (gap, want)
+    else:
+        assert abs(gap) <= 0.05 * ref["dot_flops"], (
+            port["matmul_flops"], ref["dot_flops"])
+
+
+@pytest.mark.parametrize("mesh", ["1", "2x4"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", [MLA, HYBRID])
+def test_mla_hybrid_argument_bytes_equal_xla(both, arch, shape, mesh):
+    """The MLA and hybrid smokes' argument bytes are XLA's: the latent
+    cache a quarter of its widths a rank, the SSM state a quarter of its
+    channels; less at hymba's decode its meta tokens, which decode never
+    reads and ``jax.jit`` prunes (``meta`` [4, d], d over the model
+    axis)."""
+    ref, port = _pairs(both)[arch, mesh, shape]
+    unread = 0
+    if arch == HYBRID and shape == "decode_32k":
+        cfg = _new_config(arch)
+        unread = 4 * cfg.n_meta_tokens * cfg.d_model // (1 if mesh == "1"
+                                                         else 4)
     assert port["argument_bytes"] - ref["argument_bytes"] == unread
 
 

@@ -326,9 +326,12 @@ def test_meta_state_binds_and_steps_without_allocating():
 
 
 def test_ring_write_on_meta_keeps_what_an_empty_cache_keeps():
-    """A prefill longer than a sliding window's ring: on meta the kept
-    entries cannot be read from the mask, so the write keeps what a write
-    from an empty cache keeps (the pinned entries and the last ring)."""
+    """A prefill longer than a sliding window's ring: the write reads no
+    mask back (it writes the pinned candidates and the last ring, a
+    dropped candidate as a second copy of the last entry), so on meta it
+    runs as on the card, with or without a costing, assuming nothing, and
+    writes what a write from an empty cache keeps (the pinned entries and
+    the last ring)."""
     from repro_torch.models.attention import _scatter, ring_slots
 
     size, n_pinned, n_new = 8, 2, 13
@@ -339,9 +342,20 @@ def test_ring_write_on_meta_keeps_what_an_empty_cache_keeps():
         out = _scatter(cache, new, torch.zeros((), dtype=torch.int32,
                                                device="meta"), n_pinned)
     assert out.shape == cache.shape and out.is_meta
-    assert c.notes == {"ring_write": ["from an empty cache"]}
+    assert c.notes == {}
     # the index_copy_ read the kept rows of `new` and the slots: its bytes
     assert c.op_bytes >= kept * 2 * 4 * 4
-    with pytest.raises(NotImplementedError):
-        _scatter(cache, new, torch.zeros((), dtype=torch.int32,
-                                         device="meta"), n_pinned)
+    out = _scatter(cache, new, torch.zeros((), dtype=torch.int32,
+                                           device="meta"), n_pinned)
+    assert out.shape == cache.shape and out.is_meta
+    # on real tensors the same write equals the reference's drop rule
+    base = torch.randn(1, size, 2, 4)
+    vals = torch.randn(1, n_new, 2, 4)
+    for cursor in (0, 1, 5):
+        slots = ring_slots(cursor, n_new, size, n_pinned)
+        keep = slots < size
+        want = base.clone().index_copy_(1, slots[keep].long(), vals[:, keep])
+        got = _scatter(base.clone(), vals, torch.tensor(cursor,
+                                                        dtype=torch.int32),
+                       n_pinned)
+        assert torch.equal(got, want), cursor

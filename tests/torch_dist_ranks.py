@@ -393,6 +393,85 @@ def _vlm(ref, mesh, out):
         if any(pl.is_shard() for pl in p.placements)))
 
 
+#: (name, arch, config changes) of the MLA and hybrid smokes: the
+#: reference's fp32 smokes (``mla``: 4 heads, the heads form; ``hyb``: 4
+#: query and 2 KV heads, the head_dim form) and, against one process only,
+#: 2 heads that the 4-way model axis does not divide (the gathered form
+#: with the latent cache and the SSM still split)
+NEW_FAMILIES = (("mla", "minicpm3-4b", {}), ("hyb", "hymba-1.5b", {}),
+                ("mla2", "minicpm3-4b", {"n_heads": 2, "n_kv_heads": 2}),
+                ("hyb2", "hymba-1.5b", {"n_heads": 2}))
+
+
+def _new_families(ref, mesh, out):
+    """The MLA and hybrid smokes in fp32 on the (2, 4) mesh against the
+    reference's 8-device run and one process: prefill and two decode
+    steps, the layout, the local cache boxes and the score sums of each
+    decode step; then the sharded train step against the one-process
+    step.  The ``2`` variants take the reference's parameters with their
+    heads cut to two."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps
+    from repro_torch.train.state import init_train_state
+
+    tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
+    for name, arch, change in NEW_FAMILIES:
+        base = name.rstrip("2")
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                             **change)
+        tok = torch.from_numpy(ref[f"{base}.tokens"]).int()
+        nxt = torch.from_numpy(ref[f"{base}.next"]).int()
+        shapes = dict(Model(cfg, device="meta").named_parameters())
+        # the reference's parameters, cut to the variant's head columns
+        src = {k: v[tuple(slice(0, n) for n in shapes[k].shape)].clone()
+               for k, v in _tree(ref, f"{base}.p.").items()}
+        for sharded in (False, True):
+            m = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+            m.adopt(_nest({k: v.clone() for k, v in src.items()}))
+            if sharded:
+                shd.shard_model(m, mesh, source=src, device="cpu")
+            tag = f"{name}.{'sharded' if sharded else 'one'}"
+            sums = []
+            with col.use_mesh(mesh if sharded else None):
+                cache = m.init_cache(4, tok.shape[1] + 4,
+                                     dtype=torch.float32)
+                cache, lg = m.prefill({"tokens": tok}, cache)
+                out[f"{tag}.prefill"] = lg.numpy()
+                for i in (1, 2):
+                    col.reset_counts()
+                    cache, lg = m.decode_step(cache, nxt)
+                    out[f"{tag}.decode{i}"] = lg.numpy()
+                    sums.append(col.COLLECTIVES["score_sum"])
+            if sharded:
+                out[f"{name}.layout"] = np.asarray(cache["layout"])
+                out[f"{name}.score_sums"] = np.asarray(sums)
+                for k, v in cache["layers"].items():
+                    out[f"{name}.local.{k}"] = np.asarray(v.shape)
+
+        batch = {k: torch.from_numpy(ref[f"{base}.train.{k}"]).int()
+                 for k in ("tokens", "labels")}
+        one = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+        one.adopt(_nest({k: v.clone() for k, v in src.items()}))
+        _, m1 = steps.make_train_step(one, tcfg)(
+            init_train_state(one.params()), batch)
+        two = Model(cfg, device="meta", q_chunk=8, kv_chunk=8)
+        shd.shard_model(two, mesh, source=src, device="cpu")
+        m2 = _sharded_step(two, mesh, batch, tcfg)
+        for key, val in (("loss_sharded", m2["loss"]),
+                         ("loss_one", m1["loss"]),
+                         ("gnorm_sharded", m2["grad_norm"]),
+                         ("gnorm_one", m1["grad_norm"])):
+            out[f"{name}.train.{key}"] = np.asarray(float(val))
+        out[f"{name}.train.unembed_gathers"] = np.asarray(
+            col.COLLECTIVES["unembed_gather"])
+        out[f"{name}.train.largest_local_share"] = np.asarray(max(
+            p.to_local().numel() / p.numel() for p in two.parameters()
+            if any(pl.is_shard() for pl in p.placements)))
+
+
 def _vocab_ce(mesh, out):
     """`collectives.vocab_parallel_ce` against `chunked_ce_loss` on one
     process (fp32): labels on both sides of every shard boundary, -1
@@ -553,6 +632,7 @@ def _rank(rank, path, ref_path, out_path):
     _train(ref, mesh, out)
     _train_whole(mesh, out)
     _vlm(ref, mesh, out)
+    _new_families(ref, mesh, out)
     _vocab_ce(mesh, out)
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     if rank == 0:

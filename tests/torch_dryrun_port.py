@@ -2,7 +2,8 @@
 so that the test process initialises no process group.
 
 ``python tests/torch_dryrun_port.py CELLS_JSON OUT_DIR`` counts each cell
-(``{"arch", "shape", "mesh": "1" | "2x4", "cfg": {config fields}}``) as
+(``{"arch", "shape", "mesh": "1" | "2x4", "cfg": {config fields}}``,
+``mla`` and ``ssm`` as dicts of their fields) as
 `repro_torch.launch.dryrun` costs it (``build_cell(..., costing=True)``,
 on one device or on a (2, 4) mesh of a fake world of 8 ranks), and
 prints one JSON object: per cell the matmul FLOPs, the argument bytes and
@@ -16,8 +17,17 @@ from pathlib import Path
 
 import torch.distributed as dist
 
+from repro_torch.configs.base import MLAConfig, SSMConfig
 from repro_torch.launch import dryrun
 from repro_torch.roofline import analysis
+
+
+def config_fields(fields: dict) -> dict:
+    """A cell's config fields, its nested ``mla`` and ``ssm`` dicts made
+    the configs' dataclasses."""
+    nested = {"mla": MLAConfig, "ssm": SSMConfig}
+    return {k: nested[k](**v) if k in nested else v
+            for k, v in fields.items()}
 
 
 def main():
@@ -27,14 +37,14 @@ def main():
         mesh = (None if c["mesh"] == "1"
                 else dryrun.fake_mesh((2, 4), ("data", "model")))
         costs = dryrun.count_cell(dryrun.build_cell(
-            c["arch"], c["shape"], mesh, {"cfg": c["cfg"]}, costing=True))
+            c["arch"], c["shape"], mesh, {"cfg": config_fields(c["cfg"])}, costing=True))
         got.append({"matmul_flops": costs.matmul_flops,
                     "kernel_flops": costs.kernel_flops,
                     "argument_bytes": costs.argument_bytes,
                     "coll": analysis.collective_bytes(costs.coll)})
     c = cells[0]
     record = dryrun.run_cell(c["arch"], c["shape"], False, out_dir,
-                             {"cfg": c["cfg"]}, tag="test")
+                             {"cfg": config_fields(c["cfg"])}, tag="test")
     dist.destroy_process_group()
     print(json.dumps({"cells": got, "record": record}))
 
