@@ -502,6 +502,8 @@ MLSTM_ODD = (2, 70, 33, 16)
 MLSTM_PREFILL = (SERVE_BATCH * _XLSTM.n_heads, SERVE_PROMPT,
                  int(_XLSTM.xlstm.proj_factor_mlstm * _XLSTM.d_model)
                  // _XLSTM.n_heads, 256)
+#: the scan a rank of [shard-serve-xlstm]'s (1, 4) mesh: its 1 head of 4
+MLSTM_TP4 = (MLSTM_PREFILL[0] // 4,) + MLSTM_PREFILL[1:]
 MLSTM_RAGGED_S = 2000
 #: a carried state is the plain version's state after this many steps of a
 #: prefill from the zero state on random inputs: C, n and m as a prefill
@@ -586,6 +588,11 @@ AUDIO_CROSS_ATTN = (SERVE_BATCH, AUDIO_PROMPT, _AUDIO.audio.n_audio_ctx,
                     _AUDIO.n_heads, _AUDIO.n_kv_heads,
                     _AUDIO.resolved_head_dim, _AUDIO.resolved_head_dim,
                     False)
+#: whisper's encoder attention a rank of [shard-serve-audio]'s (1, 4)
+#: mesh: 8 / 4 = 2 query and 2 KV heads
+AUDIO_ENC_TP4_ATTN = (AUDIO_ENC_ATTN[:3] + (_AUDIO.n_heads // 4,
+                                            _AUDIO.n_kv_heads // 4)
+                      + AUDIO_ENC_ATTN[5:])
 #: depths of the [*-vs-cpu] and [train-new-families-vs-cpu] cuts: the VLM
 #: one group (4 self layers, 1 cross block), whisper 2 encoder and 2
 #: decoder layers, minicpm3 CPU_LAYERS
@@ -2933,10 +2940,11 @@ def phase_attn_compare():
     hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64;
     whole, and a rank's 10 heads of [shard-serve-mla]), the VLM's
     cross-attention (whole, and a 16-rank head_dim rank's) and
-    whisper's encoder and cross-attention
-    (non-causal; each again with V zero but on the keys past the last
-    64-key tile), every case under ATTN_TOL and ATTN_REL_RMS.  Returns the
-    largest absolute error of each kernel."""
+    whisper's encoder (whole, and a rank's 2 heads of
+    [shard-serve-audio]) and cross-attention (non-causal; each again
+    with V zero but on the keys past the last 64-key tile), every case
+    under ATTN_TOL and ATTN_REL_RMS.  Returns the largest absolute error
+    of each kernel."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     saved = kernel_counts()
     errs = {(dt, r): 0.0 for dt in (torch.float32, torch.bfloat16)
@@ -2992,6 +3000,7 @@ def phase_attn_compare():
             ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
+            ("whisper_enc_tp4", AUDIO_ENC_TP4_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN)):
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"{name}_" + ("fp32" if dtype == torch.float32 else "bf16")
@@ -3032,6 +3041,7 @@ def phase_attn_compare():
             ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
+            ("whisper_enc_tp4", AUDIO_ENC_TP4_ATTN),
             ("whisper_cross", AUDIO_CROSS_ATTN))},
         tol_fp32=ATTN_TOL[torch.float32], tol_bf16=ATTN_TOL[torch.bfloat16],
         rel_rms_bar_fp32=ATTN_REL_RMS[torch.float32],
@@ -3055,23 +3065,31 @@ def in_turns(fns, iters, warmup):
 
 
 def phase_attn_time():
-    """Both kernels in bf16, as the serve paths call them, at four
+    """Both kernels in bf16, as the serve paths call them, at eight
     shapes: one layer of internlm2-1.8b's prefill (ATTN_SHAPE), MLA's
     prefill attention (causal, Dk 96, Dv 64), whole and a rank's 10 heads
-    of [shard-serve-mla], and the VLM's cross-attention
-    (non-causal, 2,048 x 6,404, GQA 32/8); beside them the plain version
+    of [shard-serve-mla], the VLM's cross-attention (non-causal, 2,048 x
+    6,404, GQA 32/8), whole and a 16-rank head_dim rank's (2 query heads
+    on 1 KV head), and whisper's non-causal encoder (1,500 x 1,500), whole
+    and a rank's 2 heads of [shard-serve-audio], and its cross-attention
+    (416 x 1,500); beside them the plain version
     and the library's fused attention (SDPA on the same tensors viewed [B,
     H, S, D]; never called by the port), in turns, and the bound; for MLA
     also the cost of V's padding, the tensor-core launch on a V of Dv = Dk
     = 96 beside the same launch on the real Dv = 64 (padded to 96 in the
-    wrapper, the output cut back).  Returns the internlm2 shape's timings
-    of each kernel, for the kernels' record."""
+    wrapper, the output cut back).  Returns the timings of each kernel at
+    the internlm2 shape and the two ranks' shapes, for the kernels'
+    record."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     saved = kernel_counts()
     b, s, h, kvh, d = ATTN_SHAPE
     shapes = (("internlm2", (b, s, s, h, kvh, d, d, True)),
               ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
-              ("vlm_cross", VLM_CROSS_ATTN))
+              ("vlm_cross", VLM_CROSS_ATTN),
+              ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
+              ("whisper_enc", AUDIO_ENC_ATTN),
+              ("whisper_enc_tp4", AUDIO_ENC_TP4_ATTN),
+              ("whisper_cross", AUDIO_CROSS_ATTN))
     out = {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in shapes:
         q, k, v = attn_inputs(gen, b, sq, skv, h, kvh, d, torch.bfloat16, dv)
@@ -3115,7 +3133,7 @@ def phase_attn_time():
                 tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
                 x_library=f"{ms[route] / ms['library']:.2f}",
                 **(extra if route == "wgmma" else {}))
-            if name in ("internlm2", "mla_tp4"):
+            if name in ("internlm2", "mla_tp4", "whisper_enc_tp4"):
                 out.setdefault(name, {})[route] = dict(ms=ms[route], plain_ms=ms["plain"],
                                   library_ms=ms["library"],
                                   bound_ms=bound["bound_ms"],
@@ -3307,7 +3325,8 @@ def compare_mlstm(args, chunk, serving, state=None):
 def phase_mlstm_compare():
     """The reference's test shapes from the zero state and from a carried
     one; xlstm-350m's prefill shape (S = 2,048, and a ragged 2,000) from
-    both, and one decode step (S = 1) from a carried state."""
+    both, and one decode step (S = 1) from a carried state; a rank's
+    prefill of [shard-serve-xlstm] (BH 4) from a carried state."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
     saved = kernel_counts()
     t0 = time.perf_counter()
@@ -3319,7 +3338,9 @@ def phase_mlstm_compare():
             test["h"] = max(test["h"], e["h"])
             test["state"] = max(test["state"], e["C"], e["n"], e["m"])
     bh, s, dh, chunk = MLSTM_PREFILL
-    serving = {}
+    serving = {"rank_S2048_carried": compare_mlstm(
+        mlstm_inputs(gen, MLSTM_TP4[0], s, dh), chunk, serving=True,
+        state=mlstm_state(gen, MLSTM_TP4[0], dh))}
     for n in (s, MLSTM_RAGGED_S, 1):
         if n > 1:
             serving[f"S{n}"] = compare_mlstm(mlstm_inputs(gen, bh, n, dh),
@@ -3344,17 +3365,21 @@ def phase_mlstm_time():
     """The kernel and its plain version at xlstm-350m's prefill shape (one
     mLSTM block, batch 4) from the zero state and from a carried one, and
     at one decode step (S = 1, carried), beside the bound and the design's
-    3xTF32 floor.  ``ms`` is the card's time of back-to-back calls queued
-    ahead (``queued_ms``); ``host_ms`` the same calls as the host issues
-    them.  No single PyTorch call computes the scan."""
+    3xTF32 floor; and a rank's prefill of [shard-serve-xlstm] (BH 4, its
+    1 head of 4, carried).  ``ms`` is the card's time of back-to-back
+    calls queued ahead (``queued_ms``); ``host_ms`` the same calls as the
+    host issues them.  No single PyTorch call computes the scan."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
     saved = kernel_counts()
     bh, s, dh, chunk = MLSTM_PREFILL
     rows = {}
     state = mlstm_state(gen, bh, dh)
-    for name, steps, st in (("prefill_zero", s, None),
-                            ("prefill_carried", s, state),
-                            ("decode_carried", 1, state)):
+    rank_state = mlstm_state(gen, MLSTM_TP4[0], dh)
+    for name, bh, steps, st in (("prefill_zero", bh, s, None),
+                                ("prefill_carried", bh, s, state),
+                                ("decode_carried", bh, 1, state),
+                                ("rank_carried", MLSTM_TP4[0], s,
+                                 rank_state)):
         args = mlstm_inputs(gen, bh, steps, dh)
         fn = lambda a=args, st=st: mlstm_ops.mlstm_scan(*a, st, chunk=chunk)
         ms = queued_ms(fn, iters=10 if steps > 1 else 100)
@@ -4236,16 +4261,17 @@ def phase_ep_compare(work):
                 timing=rows[cap])
 
 
-def shard_reference(work, cfg, name):
+def shard_reference(work, cfg, name, prompt=SERVE_PROMPT):
     """The one-process bf16 run that a sharded serve is held to: ``cfg``
     from `serve.build`'s seeded weights (a VLM's gates `seed_gates`'s), a
-    4 x 2,048 prompt (a VLM's on `serve_batch`'s patches), then
+    4 x ``prompt`` prompt (a VLM's and the audio model's on
+    `serve_batch`'s patches or frames), then
     SHARD_DECODE_STEPS greedy steps; saves the prompt, the fed ids and
     every step's logits to ``work/name``, through a temporary file, so
     that a rank that waits for it reads it whole."""
     model = seed_gates(serve.build(cfg, SEED, DEV))
-    tokens = serve.prompts(cfg, SERVE_BATCH, SERVE_PROMPT, SEED + 1, DEV)
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SHARD_DECODE_STEPS)
+    tokens = serve.prompts(cfg, SERVE_BATCH, prompt, SEED + 1, DEV)
+    cache = model.init_cache(SERVE_BATCH, prompt + SHARD_DECODE_STEPS)
     cache, logits = model.prefill(serve_batch(cfg, tokens), cache)
     out, fed = [logits.cpu()], []
     for _ in range(SHARD_DECODE_STEPS):
@@ -4465,12 +4491,12 @@ def _ranks_train(mesh, res):
 def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
                  wait_s=0.0):
     """``cfg`` at full width, placed by `param_shardings` (a VLM's gates
-    `seed_gates`'s, its prefill on `serve_batch`'s patches): the
-    prompt, then SHARD_DECODE_STEPS steps on the one-process run's ids
-    (``work / ref_name``, waited for up to ``wait_s`` seconds), against
-    its logits; the prefill and the first decode step under `sync_sites`;
-    every flash and scan launch's shape recorded.  The results go to
-    ``res`` under ``key``."""
+    `seed_gates`'s, its prefill on `serve_batch`'s patches or frames):
+    the one-process run's prompt, then SHARD_DECODE_STEPS steps on its
+    ids (``work / ref_name``, waited for up to ``wait_s`` seconds),
+    against its logits; the prefill and the first decode step under
+    `sync_sites`; every flash and scan launch's shape recorded.  The
+    results go to ``res`` under ``key``."""
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import attention as attention_mod
@@ -4500,7 +4526,7 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         if not p.placements[model_dim].is_shard())
     tokens = ref["tokens"].to(DEV)
     batch = serve_batch(cfg, tokens)
-    heads, dims, scans = [], set(), []
+    heads, dims, scans, mlstms = [], set(), [], []
 
     def flash_call(a, _o):
         heads.append((a[0].shape[2], a[1].shape[2], a[0].shape[1],
@@ -4510,9 +4536,11 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
     with col.use_mesh(mesh), recording(
             attention_mod, "flash_attention", flash_call), recording(
             ssm_mod, "selective_scan",
-            lambda a, _o: scans.append(list(a[3].shape))):
+            lambda a, _o: scans.append(list(a[3].shape))), recording(
+            xlstm_mod, "mlstm_scan",
+            lambda a, _o: mlstms.append(list(a[0].shape))):
         cache = model.init_cache(SERVE_BATCH,
-                                 SERVE_PROMPT + SHARD_DECODE_STEPS)
+                                 tokens.shape[1] + SHARD_DECODE_STEPS)
         torch.cuda.reset_peak_memory_stats()
         zero_kernel_counts()
         col.reset_counts()
@@ -4524,6 +4552,7 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         prefill_launches = kernel_counts()
         prefill_coll = dict(col.COLLECTIVES)
         prefill_scans, scans[:] = list(scans), []
+        prefill_mlstms, mlstms[:] = list(mlstms), []
         out = [logits]
         fed = [n.to(DEV) for n in ref["fed"]]
         torch.cuda.synchronize()
@@ -4541,7 +4570,7 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         decode_s = time.perf_counter() - t0
         decode_coll = dict(col.COLLECTIVES)
         decode_launches = kernel_counts()
-        decode_scans = list(scans)
+        decode_scans, decode_mlstms = list(scans), list(mlstms)
         # a broken run for the bar: the last step with every all-reduce
         # left to the rank's own half (each attends over its slots only,
         # each row-parallel sum keeps its half), from a copy of the cache
@@ -4553,7 +4582,7 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
     rms = [rel_rms(got.cpu(), want) for got, want in zip(out, ref["logits"])]
-    boxes = {k: list(v.shape) for k, v in cache["layers"].items()}
+    boxes = {k: list(v.shape) for k, v in cache_leaves(cache)}
     steps = SHARD_DECODE_STEPS - 1
     out_res.update(
         heads_aligned=tfm.heads_aligned(cfg, mesh),
@@ -4587,6 +4616,8 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
                       for sq, skv in sorted({h[2:] for h in heads})},
         scan_shapes_prefill=sorted({tuple(x) for x in prefill_scans}),
         scan_shapes_decode=sorted({tuple(x) for x in decode_scans}),
+        mlstm_shapes_prefill=sorted({tuple(x) for x in prefill_mlstms}),
+        mlstm_shapes_decode=sorted({tuple(x) for x in decode_mlstms}),
         collectives_prefill=prefill_coll,
         collectives_per_decode_step={
             k: v / steps for k, v in decode_coll.items()},
@@ -4659,7 +4690,8 @@ def spawn_ranks(fn, n, work, store):
 
 def phase_shard_ranks(work):
     """[ep-ranks], [shard-serve], [shard-serve-hd], [shard-serve-vlm],
-    [shard-serve-mla] and [shard-serve-hybrid]: SHARD_RANKS processes
+    [shard-serve-mla], [shard-serve-hybrid], [shard-serve-xlstm] and
+    [shard-serve-audio]: SHARD_RANKS processes
     (`shard_rank`, a (1, 2) mesh), SHARD_HD_RANKS more (`shard_hd_rank`)
     and SHARD_NEW_RANKS more (`shard_new_rank`) share the card over gloo
     at once, every set bound by gloo's copies through host memory on the
@@ -4679,13 +4711,19 @@ def phase_shard_ranks(work):
         hd_cfg = shard_hd_config(SHARD_HD_LAYERS)
         hd_weights = shard_reference(work, hd_cfg, "shard_hd_ref.pt")
         new_weights = {"mla": shard_reference(
-            work, cut_config(MLA_ARCH, SHARD_NEW_LAYERS), "shard_mla_ref.pt")}
+            work, dict(SHARD_NEW_SERVES)["mla"], "shard_mla_ref.pt")}
         one_weights = shard_reference(work, get_config(SHARD_ARCH),
                                       "shard_ref.pt")
-        new_weights["hyb"] = shard_reference(
-            work, cut_config(HYBRID_ARCH, SHARD_NEW_LAYERS), "shard_hyb_ref.pt")
+        cfgs = dict(SHARD_NEW_SERVES)
+        new_weights["hyb"] = shard_reference(work, cfgs["hyb"],
+                                             "shard_hyb_ref.pt")
         vlm_cfg = cut_config(VLM_ARCH, SHARD_VLM_LAYERS)
         vlm_weights = shard_reference(work, vlm_cfg, "shard_vlm_ref.pt")
+        # after the VLM's: [shard-serve-vlm]'s ranks finish last
+        new_weights["xlstm"] = shard_reference(work, cfgs["xlstm"],
+                                               "shard_xlstm_ref.pt")
+        new_weights["audio"] = shard_reference(
+            work, cfgs["audio"], "shard_audio_ref.pt", prompt=AUDIO_PROMPT)
         ts = time.perf_counter()
         est = shard_hd_estimate()
         est_s = time.perf_counter() - ts
@@ -4809,7 +4847,10 @@ SHARD_HD_LAYERS = 4
 #: its train cell at 24.23 GB a rank (the loss gathers its 151,552 x 4,096
 #: unembedding whole), and four such ranks do not fit one 80 GB card
 SHARD_HD_TRAIN_ARCH = "internlm2-1.8b"
-SHARD_HD_TRAIN_LAYERS, SHARD_HD_TRAIN_STEPS, SHARD_HD_ACCUM = 2, 2, 2
+#: one step: its checks (finite loss and norm, the peak, the gathered
+#: bytes) need no second, and these ranks, the slowest set of
+#: [shard-ranks], share the host's cores with [shard-serve-xlstm]'s
+SHARD_HD_TRAIN_LAYERS, SHARD_HD_TRAIN_STEPS, SHARD_HD_ACCUM = 2, 1, 2
 #: [shard-train-hd]'s all-gather bytes a step before the loss took the
 #: rank's vocab columns (run HD2, PR 27: the unembedding gathered whole
 #: once a microbatch)
@@ -4834,6 +4875,18 @@ SHARD_VLM_LAYERS = _VLM.vision.cross_attn_every
 #: share the host's cores and gloo's copies with the six others
 SHARD_NEW_RANKS = 4
 SHARD_NEW_LAYERS = 2
+#: [shard-serve-xlstm] and [shard-serve-audio], on the same four ranks
+#: after hymba's: xlstm-350m at its published widths (4 heads, d_inner
+#: 2,048, d_ff 1,364, vocab 50,304) cut 24 -> SHARD_XLSTM_LAYERS (one
+#: pair): each rank's mLSTM on its 1 head (the scan on [4, 2,048, 512]),
+#: its sLSTM's state on its head's 256 units; whisper-base (8 heads, d_ff
+#: 2,048, vocab 51,865) cut 6 + 6 -> SHARD_NEW_LAYERS + SHARD_NEW_LAYERS
+#: layers, on a 416-token prompt and 1,500 frames: 2 query and 2 KV heads
+#: a rank in every attention, its MLP on 512 of 2,048 rows.  At full
+#: depth the script took 925.4 s of command on an H100 machine (run XA2
+#: in PERF.md): its four ranks' serves slow the [shard-serve-hd] ranks,
+#: which share the host's cores
+SHARD_XLSTM_LAYERS = _XLSTM.xlstm.slstm_every
 
 
 def shard_hd_config(layers, arch=SHARD_HD_ARCH):
@@ -4966,11 +5019,19 @@ def shard_hd_rank(rank, store, work):
     dist.destroy_process_group()
 
 
+#: the serves of `shard_new_rank`, in order: (key, config)
+SHARD_NEW_SERVES = (("mla", cut_config(MLA_ARCH, SHARD_NEW_LAYERS)),
+                    ("hyb", cut_config(HYBRID_ARCH, SHARD_NEW_LAYERS)),
+                    ("xlstm", cut_config(XLSTM_ARCH, SHARD_XLSTM_LAYERS)),
+                    ("audio", cut_config(AUDIO_ARCH, SHARD_NEW_LAYERS)))
+
+
 def shard_new_rank(rank, store, work):
-    """One of the SHARD_NEW_RANKS processes of [shard-serve-mla] and
-    [shard-serve-hybrid]: a gloo group through a FileStore, a (1, 4)
-    mesh; each serve waits for its one-process run's file; writes its
-    results to ``work/new_rank{rank}.json``."""
+    """One of the SHARD_NEW_RANKS processes of [shard-serve-mla],
+    [shard-serve-hybrid], [shard-serve-xlstm] and [shard-serve-audio]: a
+    gloo group through a FileStore, a (1, 4) mesh; each serve waits for
+    its one-process run's file; writes its results to
+    ``work/new_rank{rank}.json``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -4981,10 +5042,10 @@ def shard_new_rank(rank, store, work):
     mesh = init_device_mesh("cuda", (1, SHARD_NEW_RANKS),
                             mesh_dim_names=("data", "model"))
     res, phases = {"rank": rank}, {}
-    for key, arch in (("mla", MLA_ARCH), ("hyb", HYBRID_ARCH)):
+    for key, cfg in SHARD_NEW_SERVES:
         t0 = time.perf_counter()
-        _ranks_serve(mesh, work, res, cut_config(arch, SHARD_NEW_LAYERS),
-                     f"shard_{key}_ref.pt", key=key, wait_s=SHARD_TIMEOUT_S)
+        _ranks_serve(mesh, work, res, cfg, f"shard_{key}_ref.pt", key=key,
+                     wait_s=SHARD_TIMEOUT_S)
         collect_garbage()
         torch.cuda.empty_cache()
         phases[key] = round(time.perf_counter() - t0, 2)
@@ -4995,63 +5056,113 @@ def shard_new_rank(rank, store, work):
 
 
 def check_shard_new(work, weights):
-    """[shard-serve-mla]'s and [shard-serve-hybrid]'s checks, on every
-    rank's results, against their one-process runs (``weights``: the
-    one-process weight bytes by key); returns the ranks' launches of
-    MLA's flash and of hymba's scan."""
+    """[shard-serve-mla]'s, [shard-serve-hybrid]'s, [shard-serve-xlstm]'s
+    and [shard-serve-audio]'s checks, on every rank's results, against
+    their one-process runs (``weights``: the one-process weight bytes by
+    key); returns the ranks' launches of MLA's and whisper's flash and of
+    hymba's and the xLSTM's scans."""
     ranks = [json.loads((work / f"new_rank{r}.json").read_text())
              for r in range(SHARD_NEW_RANKS)]
     n, n_layers = SHARD_NEW_RANKS, SHARD_NEW_LAYERS
     slots = SERVE_PROMPT + SHARD_DECODE_STEPS
-    mla_cfg, hyb = (cut_config(a, n_layers) for a in (MLA_ARCH, HYBRID_ARCH))
+    cfgs = dict(SHARD_NEW_SERVES)
+    mla_cfg, hyb, xl, au = (cfgs[k] for k in ("mla", "hyb", "xlstm",
+                                              "audio"))
     mla = mla_cfg.mla
     di = hyb.ssm.expand * hyb.d_model
     ring = Model(hyb, device="meta").cache_slots(slots + hyb.n_meta_tokens)
+    xdi = int(xl.xlstm.proj_factor_mlstm * xl.d_model)
+    pairs = xl.n_layers // xl.xlstm.slstm_every
+    xw = xl.xlstm.conv_width - 1
+    frames, au_slots = au.audio.n_audio_ctx, AUDIO_PROMPT + SHARD_DECODE_STEPS
+    au_hd = au.resolved_head_dim
+    no_scan = dict(scans=([], []), mlstms=([], []))
     want = {
         "mla": dict(
-            layout="latent", heads=[mla_cfg.n_heads // n],
+            layout="latent", flash=n_layers, heads=[mla_cfg.n_heads // n],
             kv_heads=[mla_cfg.n_heads // n],
             head_dims=[[mla.qk_nope_head_dim + mla.qk_rope_head_dim,
                         mla.v_head_dim]],
-            other={}, per_decode={}, scans=([], []),
+            other={}, per_decode={}, **no_scan,
             cache={"ckv": [n_layers, SERVE_BATCH, slots,
                            mla.kv_lora_rank // n],
                    "kr": [n_layers, SERVE_BATCH, slots,
                           mla.qk_rope_head_dim // n]},
             score_sums=n_layers),
         "hyb": dict(
-            layout="full", heads=[hyb.n_heads], kv_heads=[hyb.n_kv_heads],
+            layout="full", flash=n_layers, heads=[hyb.n_heads],
+            kv_heads=[hyb.n_kv_heads],
             head_dims=[[hyb.head_dim, hyb.head_dim]],
             other={"ssm_scan": n_layers},
             per_decode={"ssm_scan": float(n_layers)},
             scans=([[SERVE_BATCH, SERVE_PROMPT + hyb.n_meta_tokens,
                      di // n]], [[SERVE_BATCH, 1, di // n]]),
+            mlstms=([], []),
             cache={"k": [n_layers, SERVE_BATCH, ring, hyb.n_kv_heads,
                          hyb.head_dim],
                    "ssm_h": [n_layers, SERVE_BATCH, di // n,
                              hyb.ssm.d_state],
                    "ssm_conv": [n_layers, SERVE_BATCH, hyb.ssm.d_conv - 1,
                                 di // n]},
+            score_sums=None),
+        # the rank's 1 head of 4: the scan on [B * 1, S, 512]; its state
+        # and conv window on its head's channels and units
+        "xlstm": dict(
+            layout="heads", flash=0, heads=[], kv_heads=[], head_dims=[],
+            other={"mlstm_scan": pairs},
+            per_decode={"mlstm_scan": float(pairs)}, scans=([], []),
+            mlstms=([list(MLSTM_TP4[:3])],
+                    [[MLSTM_TP4[0], 1, MLSTM_TP4[2]]]),
+            cache={"m.c": [pairs, SERVE_BATCH, xl.n_heads // n,
+                           MLSTM_TP4[2], MLSTM_TP4[2]],
+                   "m.n": [pairs, SERVE_BATCH, xl.n_heads // n,
+                           MLSTM_TP4[2]],
+                   "m.m": [pairs, SERVE_BATCH, xl.n_heads // n],
+                   "m.conv": [pairs, SERVE_BATCH, xw, xdi // n],
+                   "s.h": [pairs, SERVE_BATCH, xl.d_model // n],
+                   "s.conv": [pairs, SERVE_BATCH, xw, xl.d_model // n]},
+            score_sums=None),
+        # 2 query and 2 KV heads a rank in each encoder, self and cross
+        # attention of a prefill
+        "audio": dict(
+            layout="heads", flash=3 * au.n_layers,
+            heads=[au.n_heads // n], kv_heads=[au.n_kv_heads // n],
+            head_dims=[[au_hd, au_hd]], other={}, per_decode={}, **no_scan,
+            shapes={f"{frames}x{frames}": au.n_layers,
+                    f"{AUDIO_PROMPT}x{AUDIO_PROMPT}": au.n_layers,
+                    f"{AUDIO_PROMPT}x{frames}": au.n_layers},
+            cache={"k": [au.n_layers, SERVE_BATCH, au_slots,
+                         au.n_kv_heads // n, au_hd],
+                   "xk": [au.n_layers, SERVE_BATCH, frames,
+                          au.n_kv_heads // n, au_hd]},
             score_sums=None)}
+    phases = (("mla", "shard-serve-mla"), ("hyb", "shard-serve-hybrid"),
+              ("xlstm", "shard-serve-xlstm"), ("audio", "shard-serve-audio"))
     for r in ranks:
         bad = []
-        for key, phase, arch in (("mla", "shard-serve-mla", MLA_ARCH),
-                                 ("hyb", "shard-serve-hybrid", HYBRID_ARCH)):
+        for key, phase in phases:
             w, g = want[key], (lambda k, key=key: r[f"{key}_{k}"])
+            cfg = cfgs[key]
             checks = {
                 "layout": g("layout") == w["layout"],
                 # the prefill's attention through the tensor-core kernel
-                # on the rank's heads (MLA) or every head (hymba), the
-                # scan on the rank's channels, one launch a layer
-                "launches": (g("flash_launches_prefill") == n_layers
+                # on the rank's heads (MLA, whisper) or every head
+                # (hymba), the scans on the rank's channels or heads, one
+                # launch a layer
+                "launches": (g("flash_launches_prefill") == w["flash"]
                              and g("other_launches") == w["other"]
                              and g("launches_per_decode_step")
                              == w["per_decode"]),
                 "shapes": (g("flash_heads") == w["heads"]
                            and g("flash_kv_heads") == w["kv_heads"]
                            and g("flash_head_dims") == w["head_dims"]
+                           and ("shapes" not in w
+                                or g("flash_shapes") == w["shapes"])
                            and [g("scan_shapes_prefill"),
-                                g("scan_shapes_decode")] == list(w["scans"])),
+                                g("scan_shapes_decode")] == list(w["scans"])
+                           and [g("mlstm_shapes_prefill"),
+                                g("mlstm_shapes_decode")]
+                           == list(w["mlstms"])),
                 "caches": all(g("cache_local")[k] == v
                               for k, v in w["cache"].items()),
                 "score_sums": (w["score_sums"] is None
@@ -5070,10 +5181,11 @@ def check_shard_new(work, weights):
                            and g("broken_rel_rms")
                            > 2 * SHARD_LOGITS_REL_RMS),
             }
-            log(phase, rank=r["rank"], config=arch, layers=n_layers,
-                cut_from=get_config(arch).n_layers, mesh=f"(1, {n})",
+            log(phase, rank=r["rank"], config=cfg.name, layers=cfg.n_layers,
+                cut_from=get_config(cfg.name).n_layers, mesh=f"(1, {n})",
                 layout=g("layout"), cache_local=g("cache_local"),
-                slots=slots, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                batch=SERVE_BATCH,
+                prompt=AUDIO_PROMPT if key == "audio" else SERVE_PROMPT,
                 decode_steps=SHARD_DECODE_STEPS,
                 weight_bytes_local=g("weight_bytes_local"),
                 weight_bytes_model_replicated=g(
@@ -5090,11 +5202,14 @@ def check_shard_new(work, weights):
                 other_launches_prefill=g("other_launches") or "none",
                 launches_per_decode_step=(g("launches_per_decode_step")
                                           or "none"),
-                flash_shapes=g("flash_shapes"), flash_heads=g("flash_heads"),
+                flash_shapes=g("flash_shapes") or "none",
+                flash_heads=g("flash_heads"),
                 flash_kv_heads=g("flash_kv_heads"),
                 flash_head_dims=g("flash_head_dims"),
                 scan_shapes_prefill=g("scan_shapes_prefill") or "none",
                 scan_shapes_decode=g("scan_shapes_decode") or "none",
+                mlstm_shapes_prefill=g("mlstm_shapes_prefill") or "none",
+                mlstm_shapes_decode=g("mlstm_shapes_decode") or "none",
                 collectives_prefill=g("collectives_prefill"),
                 collectives_per_decode_step=g(
                     "collectives_per_decode_step"),
@@ -5106,12 +5221,19 @@ def check_shard_new(work, weights):
             bad += [f"{phase}:{k}" for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"rank {r['rank']} failed {bad}")
-    # every rank's launches on the main path: MLA's flash on its heads,
-    # hymba's scan on its channels (prefill and the timed decode steps)
+
+    def scans(key, kernel):         # a prefill's and the timed steps'
+        return sum(r[f"{key}_other_launches"][kernel]
+                   + round(r[f"{key}_launches_per_decode_step"][kernel]
+                           * (SHARD_DECODE_STEPS - 1)) for r in ranks)
+
+    # every rank's launches on the main path: MLA's and whisper's flash on
+    # their heads, hymba's scan on its channels, the xLSTM's on its heads
     return {"flash_mla": sum(r["mla_flash_launches_prefill"] for r in ranks),
-            "ssm_hyb": sum(r["hyb_other_launches"]["ssm_scan"]
-                           + round(r["hyb_launches_per_decode_step"]["ssm_scan"]
-                                   * (SHARD_DECODE_STEPS - 1)) for r in ranks)}
+            "flash_audio": sum(r["audio_flash_launches_prefill"]
+                               for r in ranks),
+            "ssm_hyb": scans("hyb", "ssm_scan"),
+            "mlstm_xlstm": scans("xlstm", "mlstm_scan")}
 
 
 def check_shard_hd(work, cfg, one_weights, est, est_s, est_glm4):
@@ -5490,7 +5612,8 @@ def kernel_entry(name, source, replaces, launches, err, t, extra=()):
 def multi_device_phases():
     """[ep-compare], [ep-ranks], [shard-serve], [shard-serve-hd] (with
     [shard-train-hd]), [shard-serve-vlm], [shard-serve-mla],
-    [shard-serve-hybrid] and [batch-devices]; returns [ep-compare]'s
+    [shard-serve-hybrid], [shard-serve-xlstm], [shard-serve-audio] and
+    [batch-devices]; returns [ep-compare]'s
     record of the expert-parallel dispatch and the new ranks' kernel
     launches (`check_shard_new`)."""
     with scratch_dir() as tmp:
@@ -5660,6 +5783,12 @@ def main():
                      "src/repro/kernels/flash_attention/kernel.py:34",
                      ranks["flash_mla"], attn_err["wgmma"],
                      attn["mla_tp4"]["wgmma"]),
+        # [shard-serve-audio]'s launches on a rank's 2 heads, timed at
+        # its encoder's shape
+        kernel_entry("flash_attention_fwd_wgmma_audio_rank", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     ranks["flash_audio"], attn_err["wgmma"],
+                     attn["whisper_enc_tp4"]["wgmma"]),
         kernel_entry("ssm_scan",
                      "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:25",
@@ -5677,6 +5806,12 @@ def main():
                      recurrent[XLSTM_ARCH]["mlstm_scan"], mlstm_err,
                      # every serving prefill passes the cache's state
                      mlstm["prefill_carried"],
+                     extra=("host_ms", "floor_ms")),
+        # [shard-serve-xlstm]'s launches on a rank's 1 head of 4
+        kernel_entry("mlstm_scan_rank",
+                     "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+                     "src/repro/kernels/mlstm_scan/kernel.py:46",
+                     ranks["mlstm_xlstm"], mlstm_err, mlstm["rank_carried"],
                      extra=("host_ms", "floor_ms")),
         kernel_entry("moe_gmm", gmm_src,
                      "src/repro/kernels/moe_gmm/kernel.py:25",

@@ -24,6 +24,7 @@ The records go to ``build/dryrun/`` (``--out``), one JSON file per cell.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod off
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-350m --shape train_4k --mesh 64x4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --report
 """
 from __future__ import annotations
@@ -260,10 +261,12 @@ def _assumed(notes: dict) -> str:
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
              tuning_override=None, tag: str = "",
-             costing: bool = True) -> dict:
-    """Count one cell on the production mesh of ``multi_pod`` and write its
-    record to ``out_dir``."""
-    mesh_name = "2x16x16" if multi_pod else "16x16"
+             costing: bool = True, mesh_shape=None) -> dict:
+    """Count one cell on the production mesh of ``multi_pod``, or on a
+    (data, model) mesh of ``mesh_shape``, and write its record to
+    ``out_dir``."""
+    mesh_name = ("x".join(map(str, mesh_shape)) if mesh_shape
+                 else "2x16x16" if multi_pod else "16x16")
     cell_id = f"{arch}__{shape_name}__{mesh_name}" + (f"__{tag}" if tag else "")
     out_path = out_dir / f"{cell_id}.json"
     cfg = get_config(arch)
@@ -280,7 +283,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
 
     t0 = time.time()
     try:
-        mesh = make_production_mesh(multi_pod=multi_pod)
+        mesh = (fake_mesh(mesh_shape, ("data", "model")) if mesh_shape
+                else make_production_mesh(multi_pod=multi_pod))
         # 1. production pass: the deployable step; its memory record
         cell = build_cell(arch, shape_name, mesh, tuning_override)
         n_dev, mflops, accum = cell.n_devices, cell.model_flops, \
@@ -395,7 +399,12 @@ def main(argv=None):
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--no-costing", action="store_true",
                     help="production pass only (multi-pod sweeps)")
+    ap.add_argument("--mesh", metavar="DATAxMODEL",
+                    help="a (data, model) mesh instead of the production "
+                         "one, e.g. 64x4")
     args = ap.parse_args(argv)
+    mesh_shape = (tuple(int(n) for n in args.mesh.split("x"))
+                  if args.mesh else None)
 
     args.out.mkdir(parents=True, exist_ok=True)
     if args.report:
@@ -416,13 +425,15 @@ def main(argv=None):
 
     try:
         for arch, shape, mp in cells:
-            mesh_name = "2x16x16" if mp else "16x16"
+            mesh_name = (args.mesh if mesh_shape
+                         else "2x16x16" if mp else "16x16")
             if args.skip_existing:
                 p = args.out / f"{arch}__{shape}__{mesh_name}.json"
                 if p.exists() and json.loads(p.read_text()).get("status") in ("ok", "skipped"):
                     continue
             run_cell(arch, shape, mp, args.out,
-                     costing=not (args.no_costing or mp))
+                     costing=not (args.no_costing or mp),
+                     mesh_shape=mesh_shape)
     finally:
         import torch.distributed as dist
         if dist.is_initialized():

@@ -53,21 +53,18 @@ expert count once on the host (`models.moe`).
 Under an ambient mesh (`distributed.collectives.use_mesh`; the parameters
 DTensors placed by `distributed.sharding.shard_model`, or global tensors)
 every entry point takes the global batch and each rank computes its rows
-over the data axes (all of them where the batch does not divide): the
-dense (MLA among them), MoE, hybrid and VLM families run their stacks
-tensor-parallel (`models.transformer`; the VLM's ``vision_proj`` and
-hymba's meta tokens are gathered whole), the embedding goes through
-`collectives.embed_lookup`, the logits are computed over the rank's vocab
-columns and gathered, and prefill and decode return the global logits;
-the other families (xLSTM, audio) gather every parameter whole (an
-explicit all-gather; in a sharded train step a stacked layer's only where
-the stack runs it) and run their one-device code on their rows.
-`init_cache` then builds the rank's own part of the cache, with its
-``layout`` (`transformer.kv_layout`).  `loss` returns the rank's
-share of the global loss, whose gradients summed over the data axes are
-the global loss's, and the global values in its metrics (``loss`` among
-them); where the stack runs tensor-parallel and the model axis divides
-the vocab, its cross-entropy runs on the rank's vocab columns
+over the data axes (all of them where the batch does not divide): every
+family runs its stack tensor-parallel (`models.transformer`; the xLSTM's
+blocks in `models.xlstm`, the audio model's in `models.whisper`; the
+VLM's ``vision_proj`` and hymba's meta tokens are gathered whole), the
+embedding goes through `collectives.embed_lookup`, the logits are
+computed over the rank's vocab columns and gathered, and prefill and
+decode return the global logits.  `init_cache` then builds the rank's
+own part of the cache, with its ``layout`` (`transformer.kv_layout`).
+`loss` returns the rank's share of the global loss, whose gradients
+summed over the data axes are the global loss's, and the global values
+in its metrics (``loss`` among them); where the model axis divides the
+vocab, its cross-entropy runs on the rank's vocab columns
 (`collectives.vocab_parallel_ce`), and the unembedding is never
 gathered.
 
@@ -290,31 +287,34 @@ class Model(nn.Module):
     #: the leaves that the tensor-parallel stack takes as placed, each
     #: layer's share of them where the layer runs (GQA, the FFN and the
     #: MoE; MLA's up- and down-projections; the SSM's matrices and
-    #: ``a_log``, `models.ssm.local_params`); it takes every other leaf
-    #: (the norms and the replicated vectors above all) whole
+    #: ``a_log``, `models.ssm.local_params`; the mLSTM's and sLSTM's
+    #: matrices, gate vectors and ``gn``, `models.xlstm`; whisper's q and
+    #: v biases and its MLP's ``b_in``, `models.whisper`); it takes every
+    #: other leaf (the norms and the replicated vectors above all; the
+    #: biases whisper adds after a row-parallel sum, ``b_o`` and
+    #: ``b_out``) whole
     _TP_LEAVES = frozenset({
         "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down", "router",
         "embed", "unembed",
         "w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "w_kr",
-        "w_in", "conv_w", "conv_b", "w_xproj", "w_dt", "a_log", "w_out"})
+        "w_in", "conv_w", "conv_b", "w_xproj", "w_dt", "a_log", "w_out",
+        "w_i", "w_f", "b_i", "b_f", "gn", "w_gates", "r_gates",
+        "b_q", "b_v", "b_in"})
 
     def _spmd_params(self, params, mesh):
         """The tree a sharded forward computes with: the leaves that the
-        tensor-parallel stack takes as placed stay DTensors (the dense,
-        MLA, MoE, hybrid and VLM families'; the VLM's cross blocks'
-        matrices among them), and each layer takes its share, or gathers
-        the layer's whole leaf, where it runs; every other DTensor is
-        gathered whole (an explicit all-gather; a replicated one is its
-        local tensor: the norms, hymba's meta tokens, the VLM's gates and
-        its 1,280 x 4,096 ``vision_proj``, whose whole weights move fewer
-        bytes than gathering its [B, P, d] output would); a family without
-        a tensor-parallel stack (xLSTM, audio) gathers every leaf.  A `collectives.Stacked` leaf (the sharded train step's)
-        stays in its shards and is gathered, the same way, a layer at a
-        time where the stack runs it."""
-        tp = tfm.spmd_mesh(self.cfg) is not None
-
+        tensor-parallel stack takes as placed stay DTensors (the VLM's
+        cross blocks' matrices among them), and each layer takes its
+        share, or gathers the layer's whole leaf, where it runs; every
+        other DTensor is gathered whole (an explicit all-gather; a
+        replicated one is its local tensor: the norms, hymba's meta
+        tokens, the VLM's gates and its 1,280 x 4,096 ``vision_proj``,
+        whose whole weights move fewer bytes than gathering its [B, P, d]
+        output would).  A `collectives.Stacked` leaf (the sharded train
+        step's) stays in its shards and is gathered, the same way, a
+        layer at a time where the stack runs it."""
         def view(names, w):
-            keep = tp and names[-1] in self._TP_LEAVES
+            keep = names[-1] in self._TP_LEAVES
             if isinstance(w, col.Stacked):     # gathered a layer at a time
                 return w.viewed(whole=not keep)
             if col._is_dtensor(w) and not keep:
@@ -322,6 +322,13 @@ class Model(nn.Module):
             return w
 
         return map_with_names(view, params)
+
+    def _xlstm_tp(self, mesh) -> int:
+        """How many ways the xLSTM's state splits over ``mesh``'s model
+        axis (`models.xlstm.heads_split`): 1 without a mesh or where the
+        heads do not divide it."""
+        split = xlstm_mod.heads_split(self.cfg.n_heads, mesh)
+        return col.tp_size(mesh) if split else 1
 
     @staticmethod
     def _dp_rows(x, mesh):
@@ -424,21 +431,24 @@ class Model(nn.Module):
                 n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
                 state = xlstm_mod.XLSTMStackState.init(
                     n_pairs, x.shape[0], cfg.d_model, cfg.n_heads, cfg.xlstm,
-                    x.dtype, x.device)
+                    x.dtype, x.device, self._xlstm_tp(tfm.spmd_mesh(cfg)))
             else:
                 state = cache["layers"]
             h, layers = xlstm_mod.xlstm_stack_apply(
                 cfg.xlstm, cfg.n_heads, params, x, state,
-                mode="train" if mode == "train" else "serve")
+                mode="train" if mode == "train" else "serve",
+                mesh=tfm.spmd_mesh(cfg))
         elif cfg.family == "audio":
             enc_out = None
+            mesh = tfm.spmd_mesh(cfg)
             if mode != "decode":
                 enc_out = whisper_mod.encoder_forward(
                     cfg, params["enc"], batch["frontend"].to(x.dtype),
-                    mode=mode)
+                    mode=mode, mesh=mesh)
             # the decoder ends in its own LayerNorm
             h, layers = whisper_mod.decoder_forward(
-                cfg, params["dec"], x, positions, enc_out, mode=mode, **kw)
+                cfg, params["dec"], x, positions, enc_out, mode=mode,
+                mesh=mesh, **kw)
             return h, layers, aux
         else:
             raise ValueError(cfg.family)
@@ -456,9 +466,8 @@ class Model(nn.Module):
         the untied vocab, the cross-entropy is `collectives.
         vocab_parallel_ce` on the rank's unembedding columns; elsewhere
         `chunked_ce_loss` on the whole unembedding, gathered (a vocab that
-        the model axis does not divide, as hymba's 32,001; the families
-        whose stacks run
-        whole gather it with every other leaf)."""
+        the model axis does not divide, as hymba's 32,001 and whisper's
+        51,865)."""
         cfg = self.cfg
         params = self.params() if params is None else params
         tokens, labels = batch["tokens"], batch["labels"]
@@ -480,8 +489,7 @@ class Model(nn.Module):
         positions = self._positions(b, 0, t + nm)
         h, _, aux = self._trunk(params, x, positions, mode="train",
                                 cache=None, batch=batch)
-        vocab = (self._vocab_split() if tfm.spmd_mesh(cfg) is not None
-                 else None)
+        vocab = self._vocab_split()
         if vocab is not None:
             loss_sum, count = col.vocab_parallel_ce(
                 h[:, nm:], col.tp_local(params["unembed"], -1, vocab),
@@ -508,8 +516,6 @@ class Model(nn.Module):
         else:
             share = (loss_sum / torch.clamp(count, min=1.0)
                      / col.dp_size(mesh))
-        if tfm.spmd_mesh(cfg) is None:
-            aux = col.dp_mean(aux, mesh)
         ce = col.all_reduce(share.detach(), grp)
         layers = max(cfg.n_layers, 1)
         return share + aux / layers, {
@@ -642,8 +648,19 @@ class Model(nn.Module):
         ``xv`` takes the same layout but never the sequence split (the
         reference's ``cache_shardings`` splits only the self cache's
         sequence): under "seq" it takes `transformer.cross_kv_layout`, its
-        KV heads, else head_dim, else whole.  The batch is over the data
-        axes."""
+        KV heads, else head_dim, else whole.  The audio model's ``k``,
+        ``v``, ``xk`` and ``xv`` take `transformer.cross_kv_layout`: the
+        rank's KV heads where the model axis divides them, as the
+        reference places them, else whole.  The xLSTM's state (layout
+        "heads" where `models.xlstm.heads_split` holds, else "full") holds
+        the rank's heads: the mLSTM's ``c`` [P, B, H / TP, dh, dh], ``m``
+        [P, B, H / TP] and its conv window's ``d_inner / TP`` channels,
+        the sLSTM's ``h``, ``c``, ``n``, ``m`` and conv window on the
+        heads' ``d / TP`` units, as the reference places them; and the
+        mLSTM's ``n`` [P, B, H / TP, dh], which the reference splits by
+        ``dh`` instead (its generic rule tries the last dim first), so
+        that a rank's scan reads its heads' state whole.  The batch is
+        over the data axes."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         s = self.cache_slots(max_seq + cfg.n_meta_tokens)
@@ -662,18 +679,24 @@ class Model(nn.Module):
         if mesh is not None:
             n = col.dp_size(mesh)
             b = b // n if b % n == 0 else b
-            if tfm.spmd_mesh(cfg) is not None:
-                layout = tfm.kv_layout(cfg, mesh, s)
-                if layout == "seq":
-                    s_kv = s // col.tp_size(mesh)
-                kvh, hd_kv = split(layout)
-                x_kvh, x_hd = split(tfm.cross_kv_layout(cfg, mesh))
+            # the xLSTM's and whisper's caches split by heads only
+            layout = (tfm.cross_kv_layout(cfg, mesh)
+                      if cfg.family in ("ssm", "audio")
+                      else tfm.kv_layout(cfg, mesh, s))
+            if layout == "seq":
+                s_kv = s // col.tp_size(mesh)
+            kvh, hd_kv = split(layout)
+            x_kvh, x_hd = split(tfm.cross_kv_layout(cfg, mesh))
         cache: Cache = {"length": torch.zeros((), dtype=torch.int32,
                                               device=dev)}
         if cfg.family == "ssm":
             n_pairs = xlstm_mod.xlstm_pair_count(cfg.n_layers, cfg.xlstm)
             cache["layers"] = xlstm_mod.XLSTMStackState.init(
-                n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, dtype, dev)
+                n_pairs, b, cfg.d_model, cfg.n_heads, cfg.xlstm, dtype, dev,
+                self._xlstm_tp(mesh))
+            if mesh is not None:
+                cache["layout"] = ("heads" if xlstm_mod.heads_split(
+                    cfg.n_heads, mesh) else "full")
             return cache
         def zeros(*shape):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -698,7 +721,7 @@ class Model(nn.Module):
         if cfg.family == "audio":
             for name in ("xk", "xv"):
                 layers[name] = zeros(cfg.n_layers, b, cfg.audio.n_audio_ctx,
-                                     cfg.n_kv_heads, hd)
+                                     x_kvh, x_hd)
         if cfg.family == "hybrid":
             di = cfg.ssm.expand * cfg.d_model
             if layout is not None and tfm.ssm_split(cfg, mesh):

@@ -203,13 +203,11 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def spmd_mesh(cfg: ModelConfig):
-    """The ambient mesh when the cfg's stack runs tensor-parallel under it
-    (the dense (MLA among them), MoE, hybrid and VLM families), else
-    None."""
-    mesh = col.current_mesh()
-    if mesh is None or cfg.family not in ("dense", "moe", "hybrid", "vlm"):
-        return None
-    return mesh
+    """The ambient mesh, under which every family's stack runs
+    tensor-parallel (the xLSTM's and the audio model's in
+    `models.xlstm` and `models.whisper`), else None."""
+    del cfg
+    return col.current_mesh()
 
 
 def heads_aligned(cfg: ModelConfig, mesh) -> bool:

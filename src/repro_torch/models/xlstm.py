@@ -18,6 +18,13 @@ of ``src/repro/models/xlstm.py``.
   under ``torch.utils.checkpoint``, and ``xlstm_stack_apply(mode=
   "train")`` checkpoints each pair, as the reference's ``remat`` does.
 
+* **Under a mesh** (``xlstm_stack_apply(mesh=)``) each block runs on the
+  rank's ``H / TP`` heads where the model axis divides them: the mLSTM's
+  scan on the rank's heads (`mlstm_forward_tp`), the sLSTM's input
+  products, norm and FFN split and its recurrence whole on every rank
+  (`slstm_forward_tp` says why); elsewhere whole blocks from gathered
+  weights.
+
 States are NamedTuples of the reference's names and fields; the stacked
 ``XLSTMStackState`` of a model cache holds ``[P, ...]`` tensors that
 ``xlstm_stack_apply`` writes in place, pair by pair.
@@ -94,16 +101,19 @@ class MLSTMState(NamedTuple):
 
     @staticmethod
     def init(batch, d_model, n_heads, xl: XLSTMConfig, dtype=torch.float32,
-             device="cpu"):
+             device="cpu", tp: int = 1):
+        """The zero state; with ``tp`` a rank's ``H / tp`` heads and
+        ``d_inner / tp`` conv channels."""
         di = int(xl.proj_factor_mlstm * d_model)
         dh = di // n_heads
+        h_loc = n_heads // tp
         f32 = dict(dtype=torch.float32, device=device)
         return MLSTMState(
-            c=torch.zeros((batch, n_heads, dh, dh), **f32),
-            n=torch.zeros((batch, n_heads, dh), **f32),
-            m=torch.full((batch, n_heads), NEG_BIG, **f32),
-            conv=torch.zeros((batch, xl.conv_width - 1, di), dtype=dtype,
-                             device=device),
+            c=torch.zeros((batch, h_loc, dh, dh), **f32),
+            n=torch.zeros((batch, h_loc, dh), **f32),
+            m=torch.full((batch, h_loc), NEG_BIG, **f32),
+            conv=torch.zeros((batch, xl.conv_width - 1, di // tp),
+                             dtype=dtype, device=device),
         )
 
 
@@ -153,14 +163,11 @@ def _mlstm_out(n_heads: int, params: dict, x: torch.Tensor, h: torch.Tensor,
     return h @ params["w_down"].to(x.dtype)
 
 
-def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
-                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256
-                  ) -> Tuple[torch.Tensor, MLSTMState]:
-    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state)."""
-    b_sz, t, _ = x.shape
-    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
-                                                  state.conv)
-    dh = q.shape[-1]
+def _scan(n_heads: int, q, k, v, lf, li, state: MLSTMState, chunk: int):
+    """The scan (`mlstm_scan`: the kernel on the card) of q, k, v [B, H, T,
+    dh], lf, li [B, H, T] from ``state``'s (c, n, m): (h [B, H, T, dh]
+    fp32, the final c, n, m)."""
+    b_sz, _, t, dh = q.shape
 
     def flat(a):                     # [B, H, ...] -> [B * H, ...] fp32
         return a.float().reshape(b_sz * n_heads, *a.shape[2:]).contiguous()
@@ -168,23 +175,16 @@ def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
     h, (c_f, n_f, m_f) = mlstm_scan(
         flat(q), flat(k), flat(v), flat(lf), flat(li),
         (flat(state.c), flat(state.n), flat(state.m)), chunk=chunk)
-    h = h.reshape(b_sz, n_heads, t, dh)
-    return _mlstm_out(n_heads, params, x, h, z), MLSTMState(
-        c=c_f.reshape(b_sz, n_heads, dh, dh), n=n_f.reshape(b_sz, n_heads, dh),
-        m=m_f.reshape(b_sz, n_heads), conv=conv_tail)
+    return (h.reshape(b_sz, n_heads, t, dh),
+            (c_f.reshape(b_sz, n_heads, dh, dh),
+             n_f.reshape(b_sz, n_heads, dh), m_f.reshape(b_sz, n_heads)))
 
 
-def mlstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
-                        x: torch.Tensor, state: MLSTMState, *,
-                        chunk: int = 256) -> Tuple[torch.Tensor, MLSTMState]:
-    """`mlstm_forward`'s train form, with autograd and no kernel: the
-    reference's chunkwise form (``src/repro/models/xlstm.py:156-191``), the
-    plain ``mlstm_chunk`` ``chunk`` steps at a time, each chunk under
-    ``torch.utils.checkpoint``, the ragged tail padded so that it writes
-    nothing (li = -1e30)."""
-    t = x.shape[1]
-    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
-                                                  state.conv)
+def _scan_train(q, k, v, lf, li, state: MLSTMState, chunk: int):
+    """`_scan`'s train form: the plain ``mlstm_chunk`` ``chunk`` steps at a
+    time, each chunk under ``torch.utils.checkpoint``, the ragged tail
+    padded so that it writes nothing (li = -1e30)."""
+    t = q.shape[-2]
     chunk = min(chunk, t)
     q, k, v, lf, li = pad_chunks(q, k, v, lf, li, chunk)
     carry = (state.c, state.n, state.m)
@@ -196,7 +196,29 @@ def mlstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
             lf[..., sl], li[..., sl], carry, use_reentrant=False,
             preserve_rng_state=False)
         hs.append(h)
-    h = torch.cat(hs, dim=-2)[..., :t, :]
+    return torch.cat(hs, dim=-2)[..., :t, :], carry
+
+
+def mlstm_forward(xl: XLSTMConfig, n_heads: int, params: dict,
+                  x: torch.Tensor, state: MLSTMState, *, chunk: int = 256
+                  ) -> Tuple[torch.Tensor, MLSTMState]:
+    """x [B, T, d_model] from ``state`` -> (out [B, T, d_model], state)."""
+    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
+                                                  state.conv)
+    h, carry = _scan(n_heads, q, k, v, lf, li, state, chunk)
+    return _mlstm_out(n_heads, params, x, h, z), MLSTMState(
+        *carry, conv=conv_tail)
+
+
+def mlstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
+                        x: torch.Tensor, state: MLSTMState, *,
+                        chunk: int = 256) -> Tuple[torch.Tensor, MLSTMState]:
+    """`mlstm_forward`'s train form, with autograd and no kernel: the
+    reference's chunkwise form (``src/repro/models/xlstm.py:156-191``),
+    `_scan_train`."""
+    q, k, v, lf, li, z, conv_tail = _mlstm_inputs(xl, n_heads, params, x,
+                                                  state.conv)
+    h, carry = _scan_train(q, k, v, lf, li, state, chunk)
     return _mlstm_out(n_heads, params, x, h, z), MLSTMState(
         *carry, conv=conv_tail)
 
@@ -244,14 +266,16 @@ class SLSTMState(NamedTuple):
 
     @staticmethod
     def init(batch, d_model, xl: XLSTMConfig, dtype=torch.float32,
-             device="cpu"):
+             device="cpu", tp: int = 1):
+        """The zero state; with ``tp`` a rank's ``d_model / tp`` units."""
+        d = d_model // tp
         f32 = dict(dtype=torch.float32, device=device)
         return SLSTMState(
-            h=torch.zeros((batch, d_model), **f32),
-            c=torch.zeros((batch, d_model), **f32),
-            n=torch.zeros((batch, d_model), **f32),
-            m=torch.full((batch, d_model), NEG_BIG, **f32),
-            conv=torch.zeros((batch, xl.conv_width - 1, d_model), dtype=dtype,
+            h=torch.zeros((batch, d), **f32),
+            c=torch.zeros((batch, d), **f32),
+            n=torch.zeros((batch, d), **f32),
+            m=torch.full((batch, d), NEG_BIG, **f32),
+            conv=torch.zeros((batch, xl.conv_width - 1, d), dtype=dtype,
                              device=device),
         )
 
@@ -346,6 +370,220 @@ def slstm_forward_train(xl: XLSTMConfig, n_heads: int, params: dict,
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel forms: each rank runs its H / TP heads
+# ---------------------------------------------------------------------------
+
+
+def heads_split(n_heads: int, mesh) -> bool:
+    """Whether the blocks run on a rank's ``H / TP`` heads under ``mesh``
+    (the model axis divides the heads; so it divides d_inner and d_model
+    too).  Elsewhere every rank runs whole blocks from gathered weights:
+    ROADMAP Queue 1, item 2.2."""
+    return mesh is not None and n_heads % col.tp_size(mesh) == 0
+
+
+def _whole(params: dict) -> dict:
+    return {k: col.full(v) for k, v in params.items()}
+
+
+def mlstm_local_params(params: dict, mesh) -> dict:
+    """A layer's mLSTM weights for this rank's heads, as the reference's
+    rules place them (`distributed.sharding`): ``w_up``'s model box
+    (contiguous over its ``[xi | z]`` columns, so a rank's xi and z
+    columns lie in other ranks' boxes: `mlstm_inputs_tp` exchanges the
+    products), ``conv_w``, ``conv_b``, ``gn`` by channel, ``w_q``,
+    ``w_k``, ``w_v`` by the heads' columns, ``w_i``, ``w_f``, ``b_i``,
+    ``b_f`` by heads, ``w_down`` by the heads' rows; ``norm`` whole."""
+    lp = {k: col.tp_local(params[k], -1, mesh)
+          for k in ("w_up", "conv_w", "conv_b", "w_q", "w_k", "w_v", "w_i",
+                    "w_f", "b_i", "b_f", "gn")}
+    lp["w_down"] = col.tp_local(params["w_down"], -2, mesh)
+    lp["norm"] = params["norm"]
+    return lp
+
+
+def mlstm_inputs_tp(h_loc: int, lp: dict, x: torch.Tensor,
+                    conv: torch.Tensor, mesh):
+    """`_mlstm_inputs` on the rank's ``h_loc`` heads (``lp``:
+    `mlstm_local_params`), x [B, T, d_model] replicated over the model
+    axis.  The products of the rank's ``w_up`` box are all-gathered
+    (`collectives.gather_summed`: the ranks read different columns of
+    them) into the whole ``[xi | z]``; the conv and SiLU run on the rank's
+    channels of xi with its part of the conv window, and their output is
+    all-gathered the same way, because the column-parallel ``w_q``,
+    ``w_k``, ``w_i`` and ``w_f`` read every channel (gathering ``xc`` moves
+    what gathering xi would, and keeps the conv's weights and window
+    split).  Returns q, k, v [B, h_loc, T, dh], lf, li [B, h_loc, T], the
+    rank's z columns and its conv window."""
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    b_sz, t, _ = x.shape
+    dl = lp["conv_w"].shape[-1]
+    dh = dl // h_loc
+    xin = col.copy_to_tp(rms_norm(x, lp["norm"]), mesh)
+    up = col.gather_summed(xin @ lp["w_up"].to(x.dtype), grp, -1)
+    xi = up[..., :n * dl]
+    z = up.narrow(-1, (n + r) * dl, dl)
+    xc, conv_tail = causal_conv(xi.narrow(-1, r * dl, dl), lp["conv_w"],
+                                lp["conv_b"], conv)
+    xc = col.gather_summed(F.silu(xc), grp, -1)
+
+    def heads(a):                    # [B, T, dl] -> [B, h_loc, T, dh]
+        return a.reshape(b_sz, t, h_loc, dh).transpose(1, 2)
+
+    q = heads(xc @ lp["w_q"].to(x.dtype))
+    k = heads(xc @ lp["w_k"].to(x.dtype)) / math.sqrt(dh)
+    v = heads(xi @ lp["w_v"].to(x.dtype))
+    xcf = xc.float()
+    li = (xcf @ lp["w_i"] + lp["b_i"]).transpose(1, 2)
+    lf = F.logsigmoid((xcf @ lp["w_f"] + lp["b_f"]).transpose(1, 2))
+    return q, k, v, lf, li, z, conv_tail
+
+
+def _reduced(part: torch.Tensor, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's partial sums reduced over the model axis
+    in fp32, rounded to x's dtype once."""
+    return col.reduce_from_tp(part.float(), mesh).to(x.dtype)
+
+
+def mlstm_forward_tp(xl: XLSTMConfig, n_heads: int, params: dict,
+                     x: torch.Tensor, state: MLSTMState, mesh, *,
+                     chunk: int = 256, train: bool = False
+                     ) -> Tuple[torch.Tensor, MLSTMState]:
+    """`mlstm_forward` (``train``: `mlstm_forward_train`) over ``mesh``'s
+    model axis: the scan (the kernel on the card; the plain chunks with
+    autograd in train mode) on the rank's ``H / TP`` heads, ``[B * H / TP,
+    T, dh]``, from its part of the state (c [B, H / TP, dh, dh], n [B,
+    H / TP, dh], m [B, H / TP], conv [B, W - 1, d_inner / TP]); the
+    per-head norm, ``gn`` and the z gate on the rank's channels,
+    ``w_down`` row-parallel.  Returns (out [B, T, d_model], whole on every
+    rank; the rank's new state)."""
+    h_loc = n_heads // col.tp_size(mesh)
+    lp = mlstm_local_params(params, mesh)
+    q, k, v, lf, li, z, conv_tail = mlstm_inputs_tp(h_loc, lp, x,
+                                                    state.conv, mesh)
+    if train:
+        h, carry = _scan_train(q, k, v, lf, li, state, chunk)
+    else:
+        h, carry = _scan(h_loc, q, k, v, lf, li, state, chunk)
+    return (_reduced(_mlstm_out(h_loc, lp, x, h, z), x, mesh),
+            MLSTMState(*carry, conv=conv_tail))
+
+
+def ffn_split(dff: int, mesh) -> bool:
+    """Whether the sLSTM's FFN runs on a rank's ``d_ff / TP`` rows (the
+    model axis divides d_ff, as the reference's rules then split
+    ``w_down``)."""
+    n = col.tp_size(mesh)
+    return dff % n == 0 and dff >= n
+
+
+def slstm_local_params(params: dict, mesh) -> dict:
+    """A layer's sLSTM weights on the rank, as the reference places them:
+    ``conv_w``, ``conv_b`` and ``gn`` by unit, ``w_gates``'s model box
+    (contiguous over its ``[i | f | z | o]`` columns: a rank holds gate
+    columns of every unit), the FFN's ``w_up`` box (contiguous over ``[u
+    | g]``) and ``w_down``'s rows where the model axis divides d_ff (else
+    both whole); ``norm`` whole.  ``r_gates`` (placed over each head's
+    ``4 dh`` columns) and ``b_gates`` (replicated) whole: every rank runs
+    the whole recurrence (`slstm_forward_tp`), reading its units' part of
+    the output, so their gradients sum over the model axis
+    (`collectives.copy_to_tp`)."""
+    lp = {k: col.tp_local(params[k], -1, mesh)
+          for k in ("conv_w", "conv_b", "gn", "w_gates")}
+    lp["norm"] = params["norm"]
+    for k in ("r_gates", "b_gates"):
+        lp[k] = col.copy_to_tp(col.full(params[k]), mesh)
+    if ffn_split(params["w_down"].shape[-2], mesh):
+        lp["w_up"] = col.tp_local(params["w_up"], -1, mesh)
+        lp["w_down"] = col.tp_local(params["w_down"], -2, mesh)
+    else:
+        lp["w_up"], lp["w_down"] = (col.full(params[k])
+                                    for k in ("w_up", "w_down"))
+    return lp
+
+
+def slstm_inputs_tp(lp: dict, x: torch.Tensor, conv: torch.Tensor, mesh):
+    """`_slstm_inputs` over the model axis: the conv and SiLU on the
+    rank's units with its part of the window, all-gathered (the gate
+    columns of a rank's box read every unit); the products of the rank's
+    ``w_gates`` box (its columns below ``2 d`` read the conv path, the
+    rest the normed input) all-gathered into the whole ``[i | f | z | o]``
+    gate inputs [B, T, 4d] fp32 (`collectives.gather_summed`: each rank's
+    recurrence feeds its units only).  Returns them and the rank's conv
+    window."""
+    r, grp = col.tp_rank(mesh), col.tp_group(mesh)
+    d = x.shape[-1]
+    dl = lp["conv_w"].shape[-1]
+    xin = col.copy_to_tp(rms_norm(x, lp["norm"]), mesh)
+    xc, conv_tail = causal_conv(xin.narrow(-1, r * dl, dl), lp["conv_w"],
+                                lp["conv_b"], conv)
+    xc = col.gather_summed(F.silu(xc), grp, -1)
+    w = lp["w_gates"].to(x.dtype)
+    cut = min(max(2 * d - r * w.shape[-1], 0), w.shape[-1])
+    # both products on every rank, one of them empty where the box lies
+    # on one side of 2d: each rank's backward then runs xc's collective
+    box = torch.cat([xc @ w[:, :cut], xin @ w[:, cut:]], dim=-1)
+    return col.gather_summed(box, grp, -1).float(), conv_tail
+
+
+def _slstm_out_tp(h_loc: int, dff: int, lp: dict, x: torch.Tensor,
+                  hs: torch.Tensor, mesh) -> torch.Tensor:
+    """`_slstm_out` from the rank's units of hs [B, T, d / TP]: the
+    per-head norm and ``gn`` on them, the normed output all-gathered; with
+    the FFN split, the products of the rank's ``w_up`` box all-gathered
+    and its u and g columns cut for ``w_down``'s rows (row-parallel, the
+    partial sums reduced in fp32), else the whole FFN on every rank."""
+    n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    out_h = (_head_norm(hs, h_loc) * lp["gn"]).to(x.dtype)
+    fl = lp["w_down"].shape[-2]
+    if not ffn_split(dff, mesh):
+        out_h = col.gather(out_h, grp, -1)
+        u, g = (out_h @ lp["w_up"].to(x.dtype)).chunk(2, dim=-1)
+        return (u * F.gelu(g, approximate="tanh")) @ lp["w_down"].to(x.dtype)
+    out_h = col.gather_summed(out_h, grp, -1)
+    ug = col.gather_summed(out_h @ lp["w_up"].to(x.dtype), grp, -1)
+    u, g = ug.narrow(-1, r * fl, fl), ug.narrow(-1, (n + r) * fl, fl)
+    part = (u * F.gelu(g, approximate="tanh")) @ lp["w_down"].to(x.dtype)
+    return _reduced(part, x, mesh)
+
+
+def slstm_forward_tp(xl: XLSTMConfig, n_heads: int, params: dict,
+                     x: torch.Tensor, state: SLSTMState, mesh, *,
+                     train: bool = False, chunk: int = 64
+                     ) -> Tuple[torch.Tensor, SLSTMState]:
+    """`slstm_forward` (``train``: `slstm_forward_train`) over ``mesh``'s
+    model axis, from the rank's part of the state (h, c, n, m [B, d / TP],
+    its heads' units; conv [B, W - 1, d / TP]).
+
+    The reference's recurrent term (``einsum("bhd,hdg->bhg", h, r)
+    .reshape(b, 4d)``) lays each head's ``4 dh`` outputs over the ``[i |
+    f | z | o]`` gate columns of the whole ``d`` units, so unit u's gate g
+    reads the previous output of head ``(g d + u) // (4 dh)``: every
+    unit's step reads every head's, and a split of the recurrence by heads
+    would need a collective a token.  So every rank runs the whole
+    recurrence (a [B, d] x [d, 4d] product and the gates' elementwise ops
+    a token) from the state all-gathered once a call, and keeps its units:
+    the gate inputs' product (``w_gates``, 4 d^2 a token), the conv, the
+    per-head norm, ``gn`` and the FFN are split.  Returns (out [B, T,
+    d_model], whole on every rank; the rank's new state)."""
+    r, grp = col.tp_rank(mesh), col.tp_group(mesh)
+    h_loc = n_heads // col.tp_size(mesh)
+    lp = slstm_local_params(params, mesh)
+    gates_x, conv_tail = slstm_inputs_tp(lp, x, state.conv, mesh)
+    dl = lp["conv_w"].shape[-1]
+    whole = col.all_gather(torch.stack([state.h, state.c, state.n,
+                                        state.m]), grp, -1)
+    run = slstm_chunked if train else _slstm_steps
+    more = (chunk,) if train else ()
+    hs, *carry = run(n_heads, lp["r_gates"].float(), lp["b_gates"], gates_x,
+                     *whole.unbind(0), *more)
+    mine = [a.narrow(-1, r * dl, dl) for a in (hs, *carry)]
+    dff = int(xl.proj_factor_slstm * x.shape[-1])
+    return (_slstm_out_tp(h_loc, dff, lp, x, mine[0], mesh),
+            SLSTMState(*mine[1:], conv=conv_tail))
+
+
+# ---------------------------------------------------------------------------
 # Stack driver: alternating (mLSTM, sLSTM) residual block pairs
 # ---------------------------------------------------------------------------
 
@@ -363,15 +601,17 @@ class XLSTMStackState(NamedTuple):
 
     @staticmethod
     def init(n_pairs, batch, d_model, n_heads, xl: XLSTMConfig,
-             dtype=torch.float32, device="cpu"):
+             dtype=torch.float32, device="cpu", tp: int = 1):
+        """The zero state; with ``tp`` a rank's heads and their units
+        (`heads_split`)."""
         def stack(st):
             return type(st)(*(a.expand((n_pairs,) + a.shape).clone()
                               for a in st))
 
         return XLSTMStackState(
             m=stack(MLSTMState.init(batch, d_model, n_heads, xl, dtype,
-                                    device)),
-            s=stack(SLSTMState.init(batch, d_model, xl, dtype, device)),
+                                    device, tp)),
+            s=stack(SLSTMState.init(batch, d_model, xl, dtype, device, tp)),
         )
 
 
@@ -380,21 +620,46 @@ def _write(stacked: NamedTuple, i: int, new: NamedTuple) -> None:
         dst[i].copy_(src)
 
 
-def _pair(xl, n_heads, p_m, p_s, x, st_m, st_s, chunk):
+def _mlstm(xl, n_heads, p, x, st, mesh, *, chunk, train):
+    """The mLSTM block on the rank's heads (`mlstm_forward_tp`) where the
+    model axis of ``mesh`` divides them, else whole from gathered
+    weights."""
+    if heads_split(n_heads, mesh):
+        return mlstm_forward_tp(xl, n_heads, p, x, st, mesh, chunk=chunk,
+                                train=train)
+    fwd = mlstm_forward_train if train else mlstm_forward
+    return fwd(xl, n_heads, _whole(p), x, st, chunk=chunk)
+
+
+def _slstm(xl, n_heads, p, x, st, mesh, *, train):
+    """The sLSTM block, split as `slstm_forward_tp` splits it where the
+    model axis of ``mesh`` divides the heads, else whole from gathered
+    weights."""
+    if heads_split(n_heads, mesh):
+        return slstm_forward_tp(xl, n_heads, p, x, st, mesh, train=train)
+    fwd = slstm_forward_train if train else slstm_forward
+    return fwd(xl, n_heads, _whole(p), x, st)
+
+
+def _pair(xl, n_heads, p_m, p_s, x, st_m, st_s, chunk, mesh):
     """One (mLSTM, sLSTM) residual pair in train form, its weights
     gathered here (`collectives.gather_layer`)."""
     p_m, p_s = col.gather_layer(p_m), col.gather_layer(p_s)
-    out_m, _ = mlstm_forward_train(xl, n_heads, p_m, x, st_m, chunk=chunk)
+    out_m, _ = _mlstm(xl, n_heads, p_m, x, st_m, mesh, chunk=chunk,
+                      train=True)
     x = x + out_m
-    out_s, _ = slstm_forward_train(xl, n_heads, p_s, x, st_s)
+    out_s, _ = _slstm(xl, n_heads, p_s, x, st_s, mesh, train=True)
     return x + out_s
 
 
 def xlstm_stack_apply(xl: XLSTMConfig, n_heads: int, params: dict,
                       x: torch.Tensor, state: XLSTMStackState, *,
-                      mode: str = "serve", chunk: int = 256
+                      mode: str = "serve", chunk: int = 256, mesh=None
                       ) -> Tuple[torch.Tensor, XLSTMStackState]:
-    """The pairs in order, each an mLSTM then an sLSTM residual block.
+    """The pairs in order, each an mLSTM then an sLSTM residual block;
+    under ``mesh`` (the ambient one, `transformer.spmd_mesh`) each block
+    on the rank's heads where the model axis divides them (``state``
+    then the rank's part), else whole.
 
     ``mode="serve"`` (prefill and decode) writes ``state``'s tensors in
     place.  ``mode="train"`` runs each block's train form with autograd
@@ -409,13 +674,14 @@ def xlstm_stack_apply(xl: XLSTMConfig, n_heads: int, params: dict,
         st_s = SLSTMState(*(a[i] for a in state.s))
         if mode == "train":
             x = checkpoint(_pair, xl, n_heads, p_m, p_s, x, st_m, st_s,
-                           chunk, use_reentrant=False,
+                           chunk, mesh, use_reentrant=False,
                            preserve_rng_state=False)
             continue
-        out_m, st_m = mlstm_forward(xl, n_heads, p_m, x, st_m, chunk=chunk)
+        out_m, st_m = _mlstm(xl, n_heads, p_m, x, st_m, mesh, chunk=chunk,
+                             train=False)
         x = x + out_m
         _write(state.m, i, st_m)
-        out_s, st_s = slstm_forward(xl, n_heads, p_s, x, st_s)
+        out_s, st_s = _slstm(xl, n_heads, p_s, x, st_s, mesh, train=False)
         x = x + out_s
         _write(state.s, i, st_s)
     return x, (None if mode == "train" else state)

@@ -2,13 +2,14 @@
 sharded model, restore and train step) against the reference's 8-device
 runs, on the CPU.
 
-Two module-scoped runs feed every test: the reference in a subprocess
-with ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` (as
-``tests/test_multidevice.py`` runs it) on a (2, 4) mesh, which writes its
-outputs and the parameters and inputs behind them to an npz; then the
-port on eight gloo ranks of the same (2, 4) mesh (`torch_dist_ranks.py`:
-a ``FileStore`` in ``tmp_path``, no ports, one torch thread a rank).  The
-configs and inputs are ``tests/test_multidevice.py``'s."""
+Two module-scoped runs feed every test: the reference in three concurrent
+subprocesses with ``XLA_FLAGS=--xla_force_host_platform_device_count=8``
+(as ``tests/test_multidevice.py`` runs it) on a (2, 4) mesh (the xLSTM's
+on (4, 2)), which write their outputs and the parameters and inputs
+behind them to an npz; then the port on eight gloo ranks of the same
+meshes (`torch_dist_ranks.py`: a ``FileStore`` in ``tmp_path``, no ports,
+one torch thread a rank).  The configs and inputs are
+``tests/test_multidevice.py``'s and the families' smokes."""
 import os
 import subprocess
 import sys
@@ -213,6 +214,68 @@ for name, arch, prompt in (("mla", "minicpm3-4b", 6),
 np.savez(sys.argv[1], **out)
 """
 
+#: the xLSTM and audio families' reference runs, in a third subprocess
+#: beside the two others: the xLSTM smoke (2 heads, d_inner 64, d_ff 42) on
+#: a (4, 2) mesh, whose model axis its heads divide, and the whisper smoke
+#: (4 heads, d_ff 64) on (2, 4), in fp32
+REFERENCE_XLSTM_AUDIO = """
+import sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs import get_smoke_config
+from repro.distributed import sharding as shd
+from repro.models.model import build_model
+from repro.train.state import init_train_state
+from repro.train.steps import TrainConfig, make_train_step
+
+out = {}
+def save(prefix, tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    for p, leaf in flat:
+        out[prefix + ".".join(shd._path_names(p))] = np.asarray(leaf)
+
+rng = np.random.default_rng(9)
+for name, arch, shape, prompt in (("xlstm", "xlstm-350m", (4, 2), 6),
+                                  ("audio", "whisper-base", (2, 4), 5)):
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    model = build_model(cfg, q_chunk=8, kv_chunk=8)
+    params = model.init(jax.random.PRNGKey(17))
+    save(f"{name}.p.", params)
+    tok = jnp.asarray(rng.integers(0, 128, (4, prompt)), jnp.int32)
+    nxt = jnp.asarray(rng.integers(0, 128, (4, 1)), jnp.int32)
+    batch = {k: jnp.asarray(rng.integers(0, 128, (4, 16)), jnp.int32)
+             for k in ("tokens", "labels")}
+    serve = {"tokens": tok}
+    if cfg.family == "audio":
+        fe = jnp.asarray(rng.standard_normal(
+            (4, cfg.audio.n_audio_ctx, cfg.d_model)), jnp.float32)
+        serve["frontend"] = batch["frontend"] = fe
+        out[f"{name}.frontend"] = np.asarray(fe)
+    out[f"{name}.tokens"], out[f"{name}.next"] = np.asarray(tok), np.asarray(nxt)
+    for k in ("tokens", "labels"):
+        out[f"{name}.train.{k}"] = np.asarray(batch[k])
+    with jax.set_mesh(mesh):
+        cache = model.init_cache(4, prompt + 4, dtype=jnp.float32)
+        cache, logits = jax.jit(model.prefill)(params, serve, cache)
+        out[f"{name}.prefill"] = np.asarray(logits)
+        for i in (1, 2):
+            cache, logits = jax.jit(model.decode_step)(params, cache, nxt)
+            out[f"{name}.decode{i}"] = np.asarray(logits)
+    step = make_train_step(model, TrainConfig(lr=1e-3, warmup_steps=0))
+    with jax.set_mesh(mesh):
+        state = init_train_state(params)
+        p_sh = shd.param_shardings(cfg, state.params, mesh)
+        state = state._replace(params=jax.device_put(state.params, p_sh))
+        _, metrics = jax.jit(step)(state, batch)
+        out[f"{name}.train.loss"] = np.asarray(metrics["loss"])
+        out[f"{name}.train.gnorm_mesh"] = np.asarray(metrics["grad_norm"])
+    _, metrics = jax.jit(step)(init_train_state(params), batch)
+    out[f"{name}.train.gnorm_one_device"] = np.asarray(metrics["grad_norm"])
+np.savez(sys.argv[1], **out)
+"""
+
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
@@ -226,11 +289,12 @@ def runs(tmp_path_factory):
                          "--xla_cpu_multi_thread_eigen=false "
                          "intra_op_parallelism_threads=1",
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
-    parts = [tmp / f"ref{i}.npz" for i in range(2)]
+    scripts = (REFERENCE, REFERENCE_NEW_FAMILIES, REFERENCE_XLSTM_AUDIO)
+    parts = [tmp / f"ref{i}.npz" for i in range(len(scripts))]
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(script), str(path)], env=env,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for script, path in zip((REFERENCE, REFERENCE_NEW_FAMILIES), parts)]
+        for script, path in zip(scripts, parts)]
     for proc in procs:
         _, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, err[-3000:]
@@ -352,11 +416,14 @@ def test_sharded_train_step_equals_reference_and_one_process(runs):
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
 def test_whole_layer_families_train_sharded_as_one_process(runs, arch):
-    """The families without a tensor-parallel stack compute whole layers
-    under a mesh, each stacked layer gathered where its stack runs it:
-    their sharded fp32 step equals the one-process step within the fp32
-    bars, and no rank held more than one layer's gathered weights (whole,
-    and its model shard on the way) at once."""
+    """Where the model axis does not divide their heads (the xLSTM smoke's
+    2 and whisper's cut to 2 on the 4-way axis: ``torch_dist_ranks.
+    WHOLE_ARCHS``), the xLSTM's blocks and whisper's attention run every
+    head on every rank, each stacked layer gathered where its stack runs
+    it (whisper's MLP split): their sharded fp32 step equals the
+    one-process step within the fp32 bars, and no rank held more than one
+    layer's gathered weights (whole, and its model shard on the way) at
+    once."""
     _, port = runs
     got = {k: float(port[f"whole.{arch}.{k}"]) for k in (
         "loss_sharded", "loss_one", "gnorm_sharded", "gnorm_one")}
@@ -522,3 +589,84 @@ def test_mla_hybrid_train_step_equals_one_process(runs, name):
             float(ref[f"{name}.train.gnorm_one_device"]), rtol=1e-4)
     assert float(port[f"{name}.train.largest_local_share"]) <= 0.5
     assert int(port[f"{name}.train.unembed_gathers"]) == 0
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
+def test_whole_layer_families_serve_as_one_process(runs, arch):
+    """The same fallback serves as one process: the cache whole on the
+    model axis (layout "full"), prefill and both decode steps within
+    1e-4 in fp32."""
+    _, port = runs
+    assert str(port[f"whole.{arch}.layout"]) == "full"
+    for step in ("prefill", "decode1", "decode2"):
+        got = port[f"whole.{arch}.sharded.{step}"]
+        want = port[f"whole.{arch}.one.{step}"]
+        assert np.abs(got - want).max() < 1e-4, step
+
+
+@pytest.mark.parametrize("name,boxes", [
+    # (4, 2): one row a rank; 2 pairs; the mLSTM's 1 head of 2 (dh 32,
+    # d_inner 64), the sLSTM's 16 of 32 units, conv windows of 2
+    ("xlstm", {"m.c": (2, 1, 1, 32, 32), "m.n": (2, 1, 1, 32),
+               "m.m": (2, 1, 1), "m.conv": (2, 1, 2, 32),
+               "s.h": (2, 1, 16), "s.m": (2, 1, 16),
+               "s.conv": (2, 1, 2, 16)}),
+    # (2, 4): two rows a rank; 1 KV head of 4, 5 + 4 slots, 12 frames
+    ("audio", {"k": (2, 2, 9, 1, 8), "v": (2, 2, 9, 1, 8),
+               "xk": (2, 2, 12, 1, 8), "xv": (2, 2, 12, 1, 8)})])
+def test_xlstm_audio_tensor_parallel_serve_equals_reference_and_one_process(
+        runs, name, boxes):
+    """The xLSTM smoke on (4, 2) and the whisper smoke on (2, 4) run
+    tensor-parallel in fp32, each rank on its heads (the mLSTM's scan on
+    [B * H / TP, T, dh], the sLSTM's state on its heads' units, whisper's
+    attention on its heads): the cache boxes are the rank's heads, and
+    prefill and both decode steps equal the reference's 8-device run and
+    one process within 1e-4; the logits take the rank's vocab columns
+    (128 divides both model axes) and gather no unembedding."""
+    ref, port = runs
+    assert str(port[f"{name}.layout"]) == "heads"
+    for leaf, box in boxes.items():
+        assert tuple(port[f"{name}.local.{leaf}"]) == box, leaf
+    for step in ("prefill", "decode1", "decode2"):
+        got = port[f"{name}.sharded.{step}"]
+        assert np.abs(got - port[f"{name}.one.{step}"]).max() < 1e-4, step
+        assert np.abs(got - ref[f"{name}.{step}"]).max() < 1e-4, step
+    assert int(port[f"{name}.serve_unembed_gathers"]) == 0
+
+
+@pytest.mark.parametrize("name", ["xlstm", "audio"])
+def test_xlstm_audio_train_step_equals_one_process(runs, name):
+    """The sharded fp32 train step of the xLSTM smoke on (4, 2) and the
+    whisper smoke on (2, 4), tensor-parallel with the per-layer FSDP
+    gather: loss and grad norm within the fp32 bars of one process and of
+    the reference (its sharded step's loss, its one-device step's norm,
+    which its mesh step's equals here); no sharded leaf more than half on
+    a rank; the loss on the rank's vocab columns, no unembedding
+    gathered."""
+    ref, port = runs
+    got = {k: float(port[f"{name}.train.{k}"]) for k in (
+        "loss_sharded", "loss_one", "gnorm_sharded", "gnorm_one")}
+    np.testing.assert_allclose(got["loss_sharded"], got["loss_one"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["gnorm_sharded"], got["gnorm_one"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got["loss_sharded"],
+                               float(ref[f"{name}.train.loss"]), rtol=1e-5)
+    for norm in ("gnorm_one_device", "gnorm_mesh"):
+        np.testing.assert_allclose(got["gnorm_sharded"],
+                                   float(ref[f"{name}.train.{norm}"]),
+                                   rtol=1e-4)
+    assert float(port[f"{name}.train.largest_local_share"]) <= 0.5
+    assert int(port[f"{name}.train.unembed_gathers"]) == 0
+
+
+def test_xlstm_split_inputs_equal_the_whole_rows(runs):
+    """On (4, 2) the rank's mLSTM inputs (q, k, v, lf, li on its head; z
+    and the conv window on its d_inner / 2 channels, cut from the
+    exchanged ``[xi | z]``) and the sLSTM's exchanged gate inputs (whole)
+    and conv window (its units) equal the whole computation's, in
+    fp32."""
+    _, port = runs
+    assert float(port["xlstm.split_errs"].max()) <= 1e-6, \
+        port["xlstm.split_errs"]
+    assert bool(port["xlstm.split_shapes_ok"])

@@ -22,7 +22,9 @@ not divide the 4-way model axis; ``HEADS`` gives it 4 KV heads.  A third
 cell, llama-3.2-vision-11b at ``SMOKE`` widths and one group of 5 layers
 (``VLM_CELLS``), holds the VLM's tensor-parallel stack to the same counts,
 its two gaps pinned and explained (the test docstrings); the MLA and
-hybrid smokes (``NEW_CELLS``) hold theirs, with a gap each.  At
+hybrid smokes (``NEW_CELLS``) hold theirs, with a gap each, and the
+xLSTM and audio smokes (``XA_CELLS``, on meshes whose model axis their
+heads divide) theirs, with their gaps pinned.  At
 ``SMOKE`` on (2, 4) the port splits K and V on head_dim as the reference
 pins them (q by heads, the KV cache a quarter of head_dim a rank), so the
 5% bars and the argument bytes hold at both configs.  Collective bytes
@@ -79,6 +81,22 @@ NEW_SMOKES = {
 NEW_CELLS = [dict(arch=arch, shape=shape, mesh=mesh, cfg=cfg, name=arch)
              for arch, cfg in NEW_SMOKES.items()
              for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
+#: the xLSTM smoke's widths (2 heads, d_inner 64, d_ff 42) on (4, 2) and
+#: the whisper smoke's (4 heads, d_ff 64; 2 encoder layers over the
+#: published 1,500 frames) on (2, 4): each rank on its heads.  The xLSTM's
+#: train cell is left out: its sLSTM loop over 4,096 tokens takes about two
+#: minutes on meta tensors
+XA_SMOKES = {
+    "xlstm-350m": dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                       vocab=128),
+    "whisper-base": dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
+                         d_ff=64, vocab=128, audio=dict(n_encoder_layers=2,
+                                                        n_audio_ctx=1500))}
+XA_CELLS = [dict(arch=arch, shape=shape, mesh=mesh, cfg=XA_SMOKES[arch],
+                 name=arch) for arch, mesh, shape in (
+    ("xlstm-350m", "4x2", "decode_32k"),
+    ("whisper-base", "2x4", "decode_32k"),
+    ("whisper-base", "2x4", "train_4k"))]
 #: the train state's scalar leaves, in both packages: step int32 [],
 #: rng uint32 [2], data_cursor int32 []
 SCALAR_LEAVES = {"step": 4, "rng": 8, "data_cursor": 4}
@@ -98,7 +116,7 @@ def _run(script: str, *args) -> dict:
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     cells = json.dumps([{k: c[k] for k in ("arch", "shape", "mesh", "cfg")}
-                        for c in CELLS + VLM_CELLS + NEW_CELLS])
+                        for c in CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS])
     out = tmp_path_factory.mktemp("dryrun")
     with ThreadPoolExecutor(2) as pool:
         ref = pool.submit(_run, "torch_dryrun_ref.py", cells)
@@ -109,7 +127,7 @@ def both(tmp_path_factory):
 def _pairs(both):
     ref, port = both
     return {(c["name"], c["mesh"], c["shape"]): (r, p) for c, r, p in
-            zip(CELLS + VLM_CELLS + NEW_CELLS, ref["cells"],
+            zip(CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS, ref["cells"],
                 port["cells"])}
 
 
@@ -280,6 +298,77 @@ def test_mla_hybrid_argument_bytes_equal_xla(both, arch, shape, mesh):
         cfg = _new_config(arch)
         unread = 4 * cfg.n_meta_tokens * cfg.d_model // (1 if mesh == "1"
                                                          else 4)
+    assert port["argument_bytes"] - ref["argument_bytes"] == unread
+
+
+def _xa_config(arch):
+    from repro_torch.configs.base import AudioConfig
+
+    fields = dict(XA_SMOKES[arch])
+    if "audio" in fields:
+        fields["audio"] = AudioConfig(**fields["audio"])
+    return get_config(arch).replace(**fields)
+
+
+@pytest.mark.parametrize("arch,mesh", [("xlstm-350m", "4x2"),
+                                       ("whisper-base", "2x4")])
+def test_xlstm_audio_matmul_flops_per_device_match_reference_dots(
+        both, arch, mesh):
+    """The xLSTM's and whisper's decode step, each rank on its heads:
+    whisper's per-device matmul FLOPs equal XLA's dots; the xLSTM's differ
+    by a gap pinned to the FLOP.  The port runs the sLSTM recurrence whole
+    on every rank as one block-diagonal [d, 4d] product (2 x rows x d x 4d
+    a token), where XLA computes the reference's per-head einsum on its
+    model shard of ``r_gates``' columns (2 x rows x H x dh x 4dh / TP);
+    and XLA's text holds the mLSTM's decode step as dots (C q, 2 x rows x
+    H / TP x dh^2, and two normaliser products, 2 x rows x H / TP x dh
+    each), which the port's kernel runs (its FLOPs counted apart).  The
+    train cells' loops (whisper's 512-position attention chunks) XLA's
+    text counts once a body, so its train dots are no bar."""
+    ref, port = _pairs(both)[arch, mesh, "decode_32k"]
+    cfg = _xa_config(arch)
+    tp = int(mesh.split("x")[1])
+    rows = SHAPES_BY_NAME["decode_32k"].global_batch // (8 // tp)
+    want = 0
+    if cfg.family == "ssm":
+        d, h = cfg.d_model, cfg.n_heads
+        dh, dh_m = d // h, int(cfg.xlstm.proj_factor_mlstm * d) // h
+        pairs = cfg.n_layers // cfg.xlstm.slstm_every
+        want = pairs * (2 * rows * d * 4 * d - 2 * rows * h * dh * 4 * dh // tp
+                        - 2 * rows * h // tp * (dh_m ** 2 + 2 * dh_m))
+        assert port["kernel_flops"] > 0      # the mLSTM kernel's decode
+    assert port["matmul_flops"] - ref["dot_flops"] == want, (
+        port["matmul_flops"], ref["dot_flops"], want)
+
+
+@pytest.mark.parametrize("arch,mesh,shape", [
+    (c["arch"], c["mesh"], c["shape"]) for c in XA_CELLS])
+def test_xlstm_audio_argument_bytes_equal_xla(both, arch, mesh, shape):
+    """The xLSTM's and whisper's argument bytes are XLA's, their caches
+    the rank's heads (the xLSTM's mLSTM ``n`` by heads where the reference
+    splits it by ``dh``: the same bytes); less at whisper's decode the
+    leaves that decode never reads and ``jax.jit`` prunes: the encoder's,
+    the cross blocks' ``w_k``, ``w_v`` and ``b_v`` (K and V come from the
+    cache) and ``norm_f`` (the decoder ends in its own LayerNorm), each
+    its per-device box."""
+    import math
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+
+    ref, port = _pairs(both)[arch, mesh, shape]
+    unread = 0
+    if arch == "whisper-base" and shape == "decode_32k":
+        sizes = dict(zip(("data", "model"), map(int, mesh.split("x"))))
+        for k, p in Model(_xa_config(arch), device="meta").named_parameters():
+            names = k.split(".")
+            if not (names[0] == "enc" or k == "norm_f" or (
+                    "cross" in names and names[-1] in ("w_k", "w_v", "b_v"))):
+                continue
+            spec = shd.leaf_spec(names, p.shape, sizes)
+            split = math.prod(math.prod(sizes[a] for a in ax)
+                              for ax in spec if ax)
+            unread += p.numel() // split * p.element_size()
     assert port["argument_bytes"] - ref["argument_bytes"] == unread
 
 

@@ -472,6 +472,147 @@ def _new_families(ref, mesh, out):
             if any(pl.is_shard() for pl in p.placements)))
 
 
+#: (name, arch, mesh shape) of the xLSTM and audio smokes' tensor-parallel
+#: runs: the xLSTM's 2 heads (d_inner 64, d_ff 42) divide the model axis of
+#: (4, 2), whisper's 4 heads (d_ff 64) that of (2, 4)
+XLSTM_AUDIO = (("xlstm", "xlstm-350m", (4, 2)),
+               ("audio", "whisper-base", (2, 4)))
+
+
+def _cache_boxes(cache) -> dict:
+    """{leaf name: local shape} of a cache's layers (an xLSTM state's
+    leaves as ``m.c``, ``s.h``, ...)."""
+    layers = cache["layers"]
+    if isinstance(layers, dict):
+        return {k: tuple(v.shape) for k, v in layers.items()}
+    return {f"{part}.{f}": tuple(getattr(getattr(layers, part), f).shape)
+            for part in ("m", "s") for f in getattr(layers, part)._fields}
+
+
+def _serve(m, mesh, batch, nxt, prompt, out, tag):
+    """Prefill and two decode steps of ``m`` under ``mesh`` (None: one
+    process), the logits under ``tag``; returns the cache."""
+    from repro_torch.distributed import collectives as col
+
+    with col.use_mesh(mesh):
+        cache = m.init_cache(4, prompt + 4, dtype=torch.float32)
+        cache, lg = m.prefill(batch, cache)
+        out[f"{tag}.prefill"] = lg.numpy()
+        for i in (1, 2):
+            cache, lg = m.decode_step(cache, nxt)
+            out[f"{tag}.decode{i}"] = lg.numpy()
+    return cache
+
+
+def _xlstm_audio(ref, out):
+    """The xLSTM and audio smokes in fp32, tensor-parallel on the meshes of
+    XLSTM_AUDIO, against the reference's 8-device runs and one process:
+    prefill and two decode steps, the layout, the cache boxes and the
+    unembedding gathers; the sharded train step against the one-process
+    step; and the xLSTM's split inputs (`models.xlstm.mlstm_inputs_tp`,
+    `slstm_inputs_tp`) against the whole computation's."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps
+    from repro_torch.train.state import init_train_state
+
+    tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
+    for name, arch, shape in XLSTM_AUDIO:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        src = _tree(ref, f"{name}.p.")
+        tok = torch.from_numpy(ref[f"{name}.tokens"]).int()
+        nxt = torch.from_numpy(ref[f"{name}.next"]).int()
+        batch = {"tokens": tok}
+        if cfg.family == "audio":
+            batch["frontend"] = torch.from_numpy(ref[f"{name}.frontend"])
+        for sharded in (False, True):
+            m = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+            m.adopt(_nest({k: v.clone() for k, v in src.items()}))
+            if sharded:
+                shd.shard_model(m, mesh, source=src, device="cpu")
+            col.reset_counts()
+            tag = f"{name}.{'sharded' if sharded else 'one'}"
+            cache = _serve(m, mesh if sharded else None, batch, nxt,
+                           tok.shape[1], out, tag)
+        out[f"{name}.layout"] = np.asarray(cache["layout"])
+        out[f"{name}.serve_unembed_gathers"] = np.asarray(
+            col.COLLECTIVES["unembed_gather"])
+        for k, box in _cache_boxes(cache).items():
+            out[f"{name}.local.{k}"] = np.asarray(box)
+        if name == "xlstm":
+            _xlstm_split_inputs(cfg, src, tok, mesh, out)
+
+        train = {k: torch.from_numpy(ref[f"{name}.train.{k}"]).int()
+                 for k in ("tokens", "labels")}
+        if "frontend" in batch:
+            train["frontend"] = batch["frontend"]
+        one = Model(cfg, device="cpu", q_chunk=8, kv_chunk=8)
+        one.adopt(_nest({k: v.clone() for k, v in src.items()}))
+        _, m1 = steps.make_train_step(one, tcfg)(
+            init_train_state(one.params()), train)
+        two = Model(cfg, device="meta", q_chunk=8, kv_chunk=8)
+        shd.shard_model(two, mesh, source=src, device="cpu")
+        m2 = _sharded_step(two, mesh, train, tcfg)
+        for key, val in (("loss_sharded", m2["loss"]),
+                         ("loss_one", m1["loss"]),
+                         ("gnorm_sharded", m2["grad_norm"]),
+                         ("gnorm_one", m1["grad_norm"])):
+            out[f"{name}.train.{key}"] = np.asarray(float(val))
+        out[f"{name}.train.unembed_gathers"] = np.asarray(
+            col.COLLECTIVES["unembed_gather"])
+        out[f"{name}.train.largest_local_share"] = np.asarray(max(
+            p.to_local().numel() / p.numel() for p in two.parameters()
+            if any(pl.is_shard() for pl in p.placements)))
+
+
+def _xlstm_split_inputs(cfg, src, tok, mesh, out):
+    """The first pair's split inputs on the rank against the whole
+    computation's, in fp32 on the embedded prompt from a seeded conv
+    window: the mLSTM's q, k, v, lf, li on the rank's heads and its z
+    columns and conv window (the cut of the exchanged ``[xi | z]``), and
+    the sLSTM's gate inputs (exchanged whole) and conv window on the
+    rank's units.  Writes the largest error and whether each is zero."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models import xlstm as xl_mod
+
+    n, r = col.tp_size(mesh), col.tp_rank(mesh)
+    xl, h = cfg.xlstm, cfg.n_heads
+    pair = {part: {k[len(part) + 1:]: v[0] for k, v in src.items()
+                   if k.startswith(part + ".")}
+            for part in ("m_blocks", "s_blocks")}
+    x = src["embed"][tok.long()].float()
+    gen = torch.Generator().manual_seed(23)
+    di = int(xl.proj_factor_mlstm * cfg.d_model)
+    convs = {"m": torch.randn((4, xl.conv_width - 1, di), generator=gen),
+             "s": torch.randn((4, xl.conv_width - 1, cfg.d_model),
+                              generator=gen)}
+
+    def cut(z, dim, parts=n):        # the rank's part of dim
+        step = z.shape[dim] // parts
+        return z.narrow(dim, r * step, step)
+
+    whole = xl_mod._mlstm_inputs(xl, h, pair["m_blocks"], x, convs["m"])
+    lp = xl_mod.mlstm_local_params(pair["m_blocks"], mesh)
+    split = xl_mod.mlstm_inputs_tp(h // n, lp, x, cut(convs["m"], -1), mesh)
+    want = [cut(a, 1) for a in whole[:5]] + [cut(a, -1) for a in whole[5:]]
+    errs = [float((g - w).abs().max()) for g, w in zip(split, want)]
+    s_whole = xl_mod._slstm_inputs(pair["s_blocks"], x, convs["s"])
+    s_lp = xl_mod.slstm_local_params(pair["s_blocks"], mesh)
+    gates, conv = xl_mod.slstm_inputs_tp(s_lp, x, cut(convs["s"], -1), mesh)
+    errs += [float((gates - s_whole[0]).abs().max()),
+             float((conv - cut(s_whole[1], -1)).abs().max())]
+    out["xlstm.split_errs"] = col.all_reduce(
+        torch.tensor(errs), dist.group.WORLD, "max").numpy()
+    out["xlstm.split_shapes_ok"] = _every_rank(
+        split[0].shape[1] == h // n and split[5].shape[-1] == di // n)
+
+
 def _vocab_ce(mesh, out):
     """`collectives.vocab_parallel_ce` against `chunked_ce_loss` on one
     process (fp32): labels on both sides of every shard boundary, -1
@@ -533,16 +674,20 @@ def _vocab_ce(mesh, out):
             col.COLLECTIVES["unembed_gather"])
 
 
-#: the families that compute whole layers under a mesh: each stacked
-#: layer gathered whole (data and model axes) where its stack runs it
-WHOLE_ARCHS = ("xlstm-350m", "whisper-base")
+#: the xLSTM and audio smokes with heads that the (2, 4) mesh's model axis
+#: does not divide (the xLSTM's 2; whisper's cut from 4 to 2, as its 8 on a
+#: 16-way axis): their mixers and attention run every head from weights
+#: gathered where the stack runs the layer (whisper's MLP still splits)
+WHOLE_ARCHS = (("xlstm-350m", {}), ("whisper-base",
+                                    {"n_heads": 2, "n_kv_heads": 2}))
 
 
 def _train_whole(mesh, out):
     """The sharded train step of WHOLE_ARCHS at smoke widths in fp32
     against the one-process step: loss, grad norm, and the live gathered
     bytes against one layer's (its whole weights and their model shard,
-    gathered one after the other)."""
+    gathered one after the other); then prefill and two decode steps
+    against one process."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
@@ -551,8 +696,9 @@ def _train_whole(mesh, out):
     from repro_torch.train.state import init_train_state
 
     tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
-    for arch in WHOLE_ARCHS:
-        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    for arch, change in WHOLE_ARCHS:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                             **change)
         one = Model(cfg, device="cpu").init(torch.Generator().manual_seed(7))
         src = {k: v.detach().clone() for k, v in one.named_parameters()}
         gen = torch.Generator().manual_seed(8)
@@ -586,6 +732,18 @@ def _train_whole(mesh, out):
         out[f"whole.{arch}.gathered_peak"] = np.asarray(
             int(col.LAYER_GATHER["peak"]))
         out[f"whole.{arch}.layer_bytes"] = np.asarray(layer)
+        tok, nxt = batch["tokens"][:, :6], batch["labels"][:, :1]
+        serve = {"tokens": tok}
+        if "frontend" in batch:
+            serve["frontend"] = batch["frontend"].float()
+        for sharded in (False, True):
+            m = Model(cfg, device="cpu")
+            m.adopt(_nest({k: v.clone() for k, v in src.items()}))
+            if sharded:
+                shd.shard_model(m, mesh, source=src, device="cpu")
+            cache = _serve(m, mesh if sharded else None, serve, nxt, 6, out,
+                           f"whole.{arch}.{'sharded' if sharded else 'one'}")
+        out[f"whole.{arch}.layout"] = np.asarray(cache["layout"])
 
 
 def _pod_mesh(out):
@@ -633,6 +791,7 @@ def _rank(rank, path, ref_path, out_path):
     _train_whole(mesh, out)
     _vlm(ref, mesh, out)
     _new_families(ref, mesh, out)
+    _xlstm_audio(ref, out)
     _vocab_ce(mesh, out)
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     if rank == 0:

@@ -2,10 +2,11 @@
 so that the test process initialises no process group.
 
 ``python tests/torch_dryrun_port.py CELLS_JSON OUT_DIR`` counts each cell
-(``{"arch", "shape", "mesh": "1" | "2x4", "cfg": {config fields}}``,
-``mla`` and ``ssm`` as dicts of their fields) as
-`repro_torch.launch.dryrun` costs it (``build_cell(..., costing=True)``,
-on one device or on a (2, 4) mesh of a fake world of 8 ranks), and
+(``{"arch", "shape", "mesh": "1" | "2x4" | "4x2", "cfg": {config
+fields}}``, ``mla``, ``ssm``, ``xlstm`` and ``audio`` as dicts of their
+fields) as `repro_torch.launch.dryrun` costs it (``build_cell(...,
+costing=True)``, on one device or on a (2, 4) or (4, 2) mesh of a fake
+world of 8 ranks), and
 prints one JSON object: per cell the matmul FLOPs, the argument bytes and
 the collective bytes by kind (weighted as the roofline weighs them); and
 the record that ``run_cell`` writes to ``OUT_DIR`` for the first cell
@@ -17,15 +18,21 @@ from pathlib import Path
 
 import torch.distributed as dist
 
-from repro_torch.configs.base import MLAConfig, SSMConfig
+from repro_torch.configs.base import (
+    AudioConfig,
+    MLAConfig,
+    SSMConfig,
+    XLSTMConfig,
+)
 from repro_torch.launch import dryrun
 from repro_torch.roofline import analysis
 
 
 def config_fields(fields: dict) -> dict:
-    """A cell's config fields, its nested ``mla`` and ``ssm`` dicts made
-    the configs' dataclasses."""
-    nested = {"mla": MLAConfig, "ssm": SSMConfig}
+    """A cell's config fields, its nested ``mla``, ``ssm``, ``xlstm`` and
+    ``audio`` dicts made the configs' dataclasses."""
+    nested = {"mla": MLAConfig, "ssm": SSMConfig, "xlstm": XLSTMConfig,
+              "audio": AudioConfig}
     return {k: nested[k](**v) if k in nested else v
             for k, v in fields.items()}
 
@@ -34,8 +41,8 @@ def main():
     cells, out_dir = json.loads(sys.argv[1]), Path(sys.argv[2])
     got = []
     for c in cells:
-        mesh = (None if c["mesh"] == "1"
-                else dryrun.fake_mesh((2, 4), ("data", "model")))
+        mesh = (None if c["mesh"] == "1" else dryrun.fake_mesh(
+            tuple(map(int, c["mesh"].split("x"))), ("data", "model")))
         costs = dryrun.count_cell(dryrun.build_cell(
             c["arch"], c["shape"], mesh, {"cfg": config_fields(c["cfg"])}, costing=True))
         got.append({"matmul_flops": costs.matmul_flops,

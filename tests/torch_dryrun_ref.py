@@ -3,10 +3,11 @@ subprocess: ``repro.launch.dryrun`` forces 512 host devices when it is
 imported, so the test process must never import it.
 
 ``python tests/torch_dryrun_ref.py CELLS_JSON`` takes a list of cells,
-each ``{"arch", "shape", "mesh": "1" | "2x4", "cfg": {config fields}}``
-(``mla`` and ``ssm`` as dicts of their fields),
-builds each one's costing step (``build_cell(..., costing=True)``) on one
-device or on a (2, 4) mesh of 8 of the devices, compiles it, and prints
+each ``{"arch", "shape", "mesh": "1" | "2x4" | "4x2", "cfg": {config
+fields}}`` (``mla``, ``ssm``, ``xlstm`` and ``audio`` as dicts of their
+fields), builds each one's costing step (``build_cell(...,
+costing=True)``) on one device or on a (2, 4) or (4, 2) mesh of 8 of the
+devices, compiles it, and prints
 one JSON object: per cell the compiled HLO's ``dot`` FLOPs per device,
 ``memory_analysis()``'s argument bytes, the collective bytes by kind and
 the ``while`` loops of the HLO; and the dry run's tuning table, layer
@@ -21,7 +22,7 @@ import jax
 import numpy as np
 
 from repro.configs import SHAPES_BY_NAME, cell_is_applicable, get_config
-from repro.configs.base import MLAConfig, SSMConfig
+from repro.configs.base import AudioConfig, MLAConfig, SSMConfig, XLSTMConfig
 from repro.roofline.analysis import collective_bytes
 
 _DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*\w+\[([0-9,]*)\]")
@@ -60,11 +61,13 @@ def dot_flops(hlo: str) -> float:
 
 
 def cost_cell(arch, shape, mesh_name, cfg):
-    shape_2d = (1, 1) if mesh_name == "1" else (2, 4)
+    shape_2d = ((1, 1) if mesh_name == "1"
+                else tuple(map(int, mesh_name.split("x"))))
     mesh = jax.make_mesh(shape_2d, ("data", "model"),
                          devices=jax.devices()[:int(np.prod(shape_2d))],
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    nested = {"mla": MLAConfig, "ssm": SSMConfig}
+    nested = {"mla": MLAConfig, "ssm": SSMConfig, "xlstm": XLSTMConfig,
+              "audio": AudioConfig}
     cfg = {k: nested[k](**v) if k in nested else v for k, v in cfg.items()}
     lowered, _, _, _ = dr.build_cell(arch, shape, mesh, {"cfg": cfg},
                                      costing=True)
