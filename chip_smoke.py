@@ -152,10 +152,15 @@ against the plain version and timed beside it in one run.
   four more again (`[shard-serve-mla]`: minicpm3-4b cut to 2 layers on
   (1, 4), 10 heads a rank through the flash kernel, its latent cache a
   quarter of each width a rank; `[shard-serve-hybrid]`: hymba-1.5b cut
-  to 2 layers on (1, 4), the scan on 800 channels a rank), each held
+  to 2 layers on (1, 4), its attention on the column blocks of its
+  weights (7 touched query heads a rank through the flash kernel, its
+  cache a quarter of head_dim), the scan on 800 channels a rank;
+  `[shard-serve-mla10]`: minicpm3-4b at 10 heads, 2.5 a rank, on its
+  column blocks; no attention weight gathered whole), each held
   against a one-process run; `[batch-devices]`.  `[attn-compare]`,
   `[attn-time]`, `[ssm-compare]` and `[ssm-time]` hold and time the
-  flash launch of a rank's 10 MLA heads and the scan on 800 channels.
+  flash launches of a rank's 10 MLA heads, of the columns form's 7 and
+  3 touched heads, and the scan on 800 channels.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` are set False below), so fp32
@@ -253,6 +258,9 @@ from repro_torch.kernels.flash_attention.cost import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref,
 )
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    visible as flash_visible,
+)
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm_scan.cost import (  # noqa: E402
     cost as mlstm_bound,
@@ -287,6 +295,7 @@ from repro_torch.obs.events import (  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.roofline import analysis as roofline  # noqa: E402
@@ -580,6 +589,25 @@ VLM_CROSS_HD16_ATTN = (SERVE_BATCH, SERVE_PROMPT, _VLM.vision.n_patches,
 #: 40 / 4 = 10 heads
 MLA_TP4_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, _MLA.n_heads // 4,
                 _MLA.n_heads // 4) + MLA_ATTN[5:]
+#: the columns form's launches a rank of (1, 4): hymba-1.5b's 7 touched
+#: query heads of 25 (ceil(25 / 4) + 1 at every rank), K and V expanded to
+#: one KV head each, under its window and meta tokens
+#: (HYBRID_ATTN_SHAPE's order); minicpm3-4b cut to 10 heads, whose 2.5
+#: heads a rank are a (16, 16) rank's of the 40-head model: 3 touched
+MLA_COLUMNS_HEADS = 10
+
+
+def touched(n_heads, n, r=0):
+    """How many query heads model rank ``r`` of ``n`` attends on in the
+    columns form (`transformer.touched_heads`)."""
+    lo, hi = tfm.touched_heads(n_heads, n, r)
+    return hi - lo
+
+
+HYBRID_TP4_ATTN = (HYBRID_ATTN_SHAPE[:2] + (touched(_HYMBA.n_heads, 4),) * 2
+                   + HYBRID_ATTN_SHAPE[4:])
+MLA10_TP4_ATTN = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT) \
+    + (touched(MLA_COLUMNS_HEADS, 4),) * 2 + MLA_ATTN[5:]
 AUDIO_ENC_ATTN = (SERVE_BATCH, _AUDIO.audio.n_audio_ctx,
                   _AUDIO.audio.n_audio_ctx, _AUDIO.n_heads,
                   _AUDIO.n_kv_heads, _AUDIO.resolved_head_dim,
@@ -2937,8 +2965,10 @@ def phase_attn_compare():
     and the ragged ones in fp32 (SIMT) and bf16 (both), internlm2-1.8b's
     and deepseek-moe-16b's serving shapes in bf16, and in both dtypes
     the head_dim form's launches a rank (HD_RANK_ATTN),
-    hymba-1.5b's (window and meta tokens), minicpm3-4b's (Dk 96, Dv 64;
-    whole, and a rank's 10 heads of [shard-serve-mla]), the VLM's
+    hymba-1.5b's (window and meta tokens; whole, and the columns form's
+    7 touched heads a rank of [shard-serve-hybrid]), minicpm3-4b's (Dk
+    96, Dv 64; whole, a rank's 10 heads of [shard-serve-mla] and the
+    columns form's 3 touched heads of [shard-serve-mla10]), the VLM's
     cross-attention (whole, and a 16-rank head_dim rank's) and
     whisper's encoder (whole, and a rank's 2 heads of
     [shard-serve-audio]) and cross-attention (non-causal; each again
@@ -2983,11 +3013,12 @@ def phase_attn_compare():
             tag = f"{name}_" + ("fp32" if dtype == torch.float32 else "bf16")
             serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
                                causal=True)
-    b, s, h, kvh, d, window, meta = HYBRID_ATTN_SHAPE
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "hymba_" + ("fp32" if dtype == torch.float32 else "bf16")
-        serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
-                           causal=True, window=window, n_meta=meta)
+    for name, (b, s, h, kvh, d, window, meta) in (
+            ("hymba", HYBRID_ATTN_SHAPE), ("hymba_tp4", HYBRID_TP4_ATTN)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}_" + ("fp32" if dtype == torch.float32 else "bf16")
+            serving[tag] = run(attn_inputs(gen, b, s, s, h, kvh, d, dtype),
+                               causal=True, window=window, n_meta=meta)
     # slice 10's shapes, in both dtypes: MLA's Dk 96 / Dv 64 (V padded to
     # 96 in the wrapper), the non-causal Sq != Skv of the VLM's and
     # whisper's cross-attention, whisper's non-causal encoder.  Their Skv
@@ -2997,6 +3028,7 @@ def phase_attn_compare():
     scaled, faults = {}, {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in (
             ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+            ("mla10_tp4", MLA10_TP4_ATTN),
             ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
@@ -3036,8 +3068,10 @@ def phase_attn_compare():
         **{f"{name}_dropped_tail_rel_rms": f"{rel:.3e}"
            for name, rel in faults.items()},
         hybrid_shape="x".join(map(str, HYBRID_ATTN_SHAPE)),
+        hybrid_tp4_shape="x".join(map(str, HYBRID_TP4_ATTN)),
         **{f"{n}_shape": "x".join(map(str, shape[:-1])) for n, shape in (
             ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+            ("mla10_tp4", MLA10_TP4_ATTN),
             ("vlm_cross", VLM_CROSS_ATTN),
             ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
             ("whisper_enc", AUDIO_ENC_ATTN),
@@ -3065,10 +3099,14 @@ def in_turns(fns, iters, warmup):
 
 
 def phase_attn_time():
-    """Both kernels in bf16, as the serve paths call them, at eight
+    """Both kernels in bf16, as the serve paths call them, at ten
     shapes: one layer of internlm2-1.8b's prefill (ATTN_SHAPE), MLA's
-    prefill attention (causal, Dk 96, Dv 64), whole and a rank's 10 heads
-    of [shard-serve-mla], the VLM's cross-attention (non-causal, 2,048 x
+    prefill attention (causal, Dk 96, Dv 64), whole, a rank's 10 heads
+    of [shard-serve-mla] and the columns form's 3 touched heads of
+    [shard-serve-mla10], hymba-1.5b's 7 touched heads a rank of
+    [shard-serve-hybrid] (window 1,024 and 128 meta tokens: SDPA takes
+    the mask as a boolean matrix, the bound counts the visible pairs
+    only), the VLM's cross-attention (non-causal, 2,048 x
     6,404, GQA 32/8), whole and a 16-rank head_dim rank's (2 query heads
     on 1 KV head), and whisper's non-causal encoder (1,500 x 1,500), whole
     and a rank's 2 heads of [shard-serve-audio], and its cross-attention
@@ -3078,30 +3116,42 @@ def phase_attn_time():
     also the cost of V's padding, the tensor-core launch on a V of Dv = Dk
     = 96 beside the same launch on the real Dv = 64 (padded to 96 in the
     wrapper, the output cut back).  Returns the timings of each kernel at
-    the internlm2 shape and the two ranks' shapes, for the kernels'
+    the internlm2 shape and the four ranks' shapes, for the kernels'
     record."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     saved = kernel_counts()
     b, s, h, kvh, d = ATTN_SHAPE
+    hb, hs, hh, hkvh, hd, window, meta = HYBRID_TP4_ATTN
     shapes = (("internlm2", (b, s, s, h, kvh, d, d, True)),
               ("mla", MLA_ATTN), ("mla_tp4", MLA_TP4_ATTN),
+              ("mla10_tp4", MLA10_TP4_ATTN),
+              ("hymba_tp4", (hb, hs, hs, hh, hkvh, hd, hd, True)),
               ("vlm_cross", VLM_CROSS_ATTN),
               ("vlm_cross_hd16", VLM_CROSS_HD16_ATTN),
               ("whisper_enc", AUDIO_ENC_ATTN),
               ("whisper_enc_tp4", AUDIO_ENC_TP4_ATTN),
               ("whisper_cross", AUDIO_CROSS_ATTN))
+    # hymba's window and meta tokens; SDPA takes its mask as a boolean
+    # [Sq, Skv] matrix (row i sees key j: `visible`)
+    masked = {"hymba_tp4": dict(window=window, n_meta=meta)}
     out = {}
     for name, (b, sq, skv, h, kvh, d, dv, causal) in shapes:
+        kw = masked.get(name, {})
         q, k, v = attn_inputs(gen, b, sq, skv, h, kvh, d, torch.bfloat16, dv)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = (dict(attn_mask=flash_visible(sq, skv, causal=causal,
+                                             device=DEV, **kw))
+                if kw else dict(is_causal=causal))
         fns = {
             "wgmma": lambda: flash_ops.launch(q, k, v, "wgmma",
-                                              causal=causal),
-            "simt": lambda: flash_ops.launch(q, k, v, "simt", causal=causal),
-            "plain": lambda: flash_attention_ref(q, k, v, causal=causal),
+                                              causal=causal, **kw),
+            "simt": lambda: flash_ops.launch(q, k, v, "simt", causal=causal,
+                                             **kw),
+            "plain": lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                 **kw),
             "library": lambda: torch.nn.functional.
-            scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                         enable_gqa=kvh != h)}
+            scaled_dot_product_attention(qt, kt, vt, enable_gqa=kvh != h,
+                                         **sdpa)}
         iters = dict(wgmma=20, simt=5, plain=3, library=20)
         extra = {}
         if dv < d:
@@ -3118,10 +3168,11 @@ def phase_attn_time():
                          padded_over_unpadded=(
                              f"{ms['wgmma'] / ms['wgmma_dv_eq_dk']:.4f}"))
         bound = attn_bound(b, sq, h, kvh, d, 2, skv=skv, dv=dv,
-                           causal=causal)
+                           causal=causal, **kw)
         for route in ("wgmma", "simt"):
             log("attn-time", shape=name, kernel=route, B=b, Sq=sq, Skv=skv,
                 Hq=h, Hkv=kvh, Dk=d, Dv=dv, dtype="bfloat16", causal=causal,
+                window=kw.get("window", 0), n_meta=kw.get("n_meta", 0),
                 ms=f"{ms[route]:.4f}",
                 passes=[f"{t:.4f}" for t in runs[route]],
                 plain_ms=f"{ms['plain']:.4f}",
@@ -3133,12 +3184,13 @@ def phase_attn_time():
                 tflops=f"{bound['flop'] / ms[route] / 1e9:.2f}",
                 x_library=f"{ms[route] / ms['library']:.2f}",
                 **(extra if route == "wgmma" else {}))
-            if name in ("internlm2", "mla_tp4", "whisper_enc_tp4"):
+            if name in ("internlm2", "mla_tp4", "mla10_tp4", "hymba_tp4",
+                        "whisper_enc_tp4"):
                 out.setdefault(name, {})[route] = dict(ms=ms[route], plain_ms=ms["plain"],
                                   library_ms=ms["library"],
                                   bound_ms=bound["bound_ms"],
                                   bound_by=bound["bound_by"])
-        del q, k, v, qt, kt, vt, fns
+        del q, k, v, qt, kt, vt, fns, sdpa
         collect_garbage()
     set_kernel_counts(saved)
     return out
@@ -4500,7 +4552,6 @@ def _ranks_serve(mesh, work, res, cfg, ref_name, key="serve",
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import attention as attention_mod
-    from repro_torch.models import transformer as tfm
 
     out_res = {}
     deadline = time.perf_counter() + wait_s
@@ -4690,8 +4741,8 @@ def spawn_ranks(fn, n, work, store):
 
 def phase_shard_ranks(work):
     """[ep-ranks], [shard-serve], [shard-serve-hd], [shard-serve-vlm],
-    [shard-serve-mla], [shard-serve-hybrid], [shard-serve-xlstm] and
-    [shard-serve-audio]: SHARD_RANKS processes
+    [shard-serve-mla], [shard-serve-hybrid], [shard-serve-mla10],
+    [shard-serve-xlstm] and [shard-serve-audio]: SHARD_RANKS processes
     (`shard_rank`, a (1, 2) mesh), SHARD_HD_RANKS more (`shard_hd_rank`)
     and SHARD_NEW_RANKS more (`shard_new_rank`) share the card over gloo
     at once, every set bound by gloo's copies through host memory on the
@@ -4715,8 +4766,9 @@ def phase_shard_ranks(work):
         one_weights = shard_reference(work, get_config(SHARD_ARCH),
                                       "shard_ref.pt")
         cfgs = dict(SHARD_NEW_SERVES)
-        new_weights["hyb"] = shard_reference(work, cfgs["hyb"],
-                                             "shard_hyb_ref.pt")
+        for key in ("hyb", "mla10"):
+            new_weights[key] = shard_reference(work, cfgs[key],
+                                               f"shard_{key}_ref.pt")
         vlm_cfg = cut_config(VLM_ARCH, SHARD_VLM_LAYERS)
         vlm_weights = shard_reference(work, vlm_cfg, "shard_vlm_ref.pt")
         # after the VLM's: [shard-serve-vlm]'s ranks finish last
@@ -4870,9 +4922,13 @@ SHARD_VLM_LAYERS = _VLM.vision.cross_attn_every
 #: 3,200, d_ff 5,504, vocab 32,001, 128 meta tokens, window 1,024), each
 #: cut to SHARD_NEW_LAYERS, on a (1, 4) mesh: MLA in the heads form (10
 #: heads a rank), its cache a quarter of each latent width a rank; hymba's
-#: attention on gathered weights (25 and 5 heads divide no 4-way axis),
-#: its SSM on 800 channels a rank.  Two layers each: the four processes
-#: share the host's cores and gloo's copies with the six others
+#: attention in the columns form (25 and 5 heads divide no 4-way axis:
+#: each rank multiplies by its 400 columns of w_q, 80 of w_k and w_v,
+#: attends on the 7 query heads its 400 rows of w_o touch, and holds a
+#: quarter of head_dim of the 5 KV heads), its SSM on 800 channels a rank;
+#: then [shard-serve-mla10], minicpm3-4b at 10 heads in the columns form
+#: (MLA_COLUMNS_HEADS).  Two layers each: the four processes share the
+#: host's cores and gloo's copies with the six others
 SHARD_NEW_RANKS = 4
 SHARD_NEW_LAYERS = 2
 #: [shard-serve-xlstm] and [shard-serve-audio], on the same four ranks
@@ -5022,13 +5078,17 @@ def shard_hd_rank(rank, store, work):
 #: the serves of `shard_new_rank`, in order: (key, config)
 SHARD_NEW_SERVES = (("mla", cut_config(MLA_ARCH, SHARD_NEW_LAYERS)),
                     ("hyb", cut_config(HYBRID_ARCH, SHARD_NEW_LAYERS)),
+                    ("mla10", cut_config(MLA_ARCH, SHARD_NEW_LAYERS,
+                                         n_heads=MLA_COLUMNS_HEADS,
+                                         n_kv_heads=MLA_COLUMNS_HEADS)),
                     ("xlstm", cut_config(XLSTM_ARCH, SHARD_XLSTM_LAYERS)),
                     ("audio", cut_config(AUDIO_ARCH, SHARD_NEW_LAYERS)))
 
 
 def shard_new_rank(rank, store, work):
     """One of the SHARD_NEW_RANKS processes of [shard-serve-mla],
-    [shard-serve-hybrid], [shard-serve-xlstm] and [shard-serve-audio]: a
+    [shard-serve-hybrid], [shard-serve-mla10], [shard-serve-xlstm] and
+    [shard-serve-audio]: a
     gloo group through a FileStore, a (1, 4) mesh; each serve waits for
     its one-process run's file; writes its results to
     ``work/new_rank{rank}.json``."""
@@ -5056,18 +5116,20 @@ def shard_new_rank(rank, store, work):
 
 
 def check_shard_new(work, weights):
-    """[shard-serve-mla]'s, [shard-serve-hybrid]'s, [shard-serve-xlstm]'s
-    and [shard-serve-audio]'s checks, on every rank's results, against
-    their one-process runs (``weights``: the one-process weight bytes by
-    key); returns the ranks' launches of MLA's and whisper's flash and of
-    hymba's and the xLSTM's scans."""
+    """[shard-serve-mla]'s, [shard-serve-hybrid]'s, [shard-serve-mla10]'s,
+    [shard-serve-xlstm]'s and [shard-serve-audio]'s checks, on every
+    rank's results, against their one-process runs (``weights``: the
+    one-process weight bytes by key), no attention leaf gathered whole
+    among them; returns the ranks' launches of MLA's, hymba's, the
+    10-head MLA's and whisper's flash and of hymba's and the xLSTM's
+    scans."""
     ranks = [json.loads((work / f"new_rank{r}.json").read_text())
              for r in range(SHARD_NEW_RANKS)]
     n, n_layers = SHARD_NEW_RANKS, SHARD_NEW_LAYERS
     slots = SERVE_PROMPT + SHARD_DECODE_STEPS
     cfgs = dict(SHARD_NEW_SERVES)
-    mla_cfg, hyb, xl, au = (cfgs[k] for k in ("mla", "hyb", "xlstm",
-                                              "audio"))
+    mla_cfg, hyb, xl, au, mla10 = (cfgs[k] for k in (
+        "mla", "hyb", "xlstm", "audio", "mla10"))
     mla = mla_cfg.mla
     di = hyb.ssm.expand * hyb.d_model
     ring = Model(hyb, device="meta").cache_slots(slots + hyb.n_meta_tokens)
@@ -5089,9 +5151,13 @@ def check_shard_new(work, weights):
                    "kr": [n_layers, SERVE_BATCH, slots,
                           mla.qk_rope_head_dim // n]},
             score_sums=n_layers),
+        # the columns form: 7 touched query heads a rank (25 on 4), K and
+        # V expanded to one KV head each; the cache a quarter of head_dim
+        # of every KV head, one score SUM a layer per decode step
         "hyb": dict(
-            layout="full", flash=n_layers, heads=[hyb.n_heads],
-            kv_heads=[hyb.n_kv_heads],
+            layout="head_dim", flash=n_layers,
+            heads=[touched(hyb.n_heads, n)], kv_heads=[touched(hyb.n_heads,
+                                                               n)],
             head_dims=[[hyb.head_dim, hyb.head_dim]],
             other={"ssm_scan": n_layers},
             per_decode={"ssm_scan": float(n_layers)},
@@ -5099,12 +5165,26 @@ def check_shard_new(work, weights):
                      di // n]], [[SERVE_BATCH, 1, di // n]]),
             mlstms=([], []),
             cache={"k": [n_layers, SERVE_BATCH, ring, hyb.n_kv_heads,
-                         hyb.head_dim],
+                         hyb.head_dim // n],
                    "ssm_h": [n_layers, SERVE_BATCH, di // n,
                              hyb.ssm.d_state],
                    "ssm_conv": [n_layers, SERVE_BATCH, hyb.ssm.d_conv - 1,
                                 di // n]},
-            score_sums=None),
+            score_sums=n_layers),
+        # minicpm3-4b's widths at 10 heads: 2.5 a rank, as the 40 heads on
+        # 16 ranks; 3 touched heads a rank, the latent cache as "mla"'s
+        "mla10": dict(
+            layout="latent", flash=n_layers,
+            heads=[touched(mla10.n_heads, n)],
+            kv_heads=[touched(mla10.n_heads, n)],
+            head_dims=[[mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+                        mla.v_head_dim]],
+            other={}, per_decode={}, **no_scan,
+            cache={"ckv": [n_layers, SERVE_BATCH, slots,
+                           mla.kv_lora_rank // n],
+                   "kr": [n_layers, SERVE_BATCH, slots,
+                          mla.qk_rope_head_dim // n]},
+            score_sums=n_layers),
         # the rank's 1 head of 4: the scan on [B * 1, S, 512]; its state
         # and conv window on its head's channels and units
         "xlstm": dict(
@@ -5137,6 +5217,7 @@ def check_shard_new(work, weights):
                           au.n_kv_heads // n, au_hd]},
             score_sums=None)}
     phases = (("mla", "shard-serve-mla"), ("hyb", "shard-serve-hybrid"),
+              ("mla10", "shard-serve-mla10"),
               ("xlstm", "shard-serve-xlstm"), ("audio", "shard-serve-audio"))
     for r in ranks:
         bad = []
@@ -5169,6 +5250,11 @@ def check_shard_new(work, weights):
                                or g("collectives_per_decode_step").get(
                                    "score_sum") == w["score_sums"]),
                 "syncs": g("prefill_syncs") == 0 and g("decode_syncs") == 0,
+                # no attention leaf gathered whole, prefill or decode
+                "attn_gathers": (
+                    g("collectives_prefill").get("attn_gather", 0) == 0
+                    and g("collectives_per_decode_step").get(
+                        "attn_gather", 0) == 0),
                 # a quarter of every leaf that the rules split over the
                 # model axis, each other leaf whole
                 "weights": (g("weight_bytes_local")
@@ -5182,6 +5268,7 @@ def check_shard_new(work, weights):
                            > 2 * SHARD_LOGITS_REL_RMS),
             }
             log(phase, rank=r["rank"], config=cfg.name, layers=cfg.n_layers,
+                n_heads=cfg.n_heads,
                 cut_from=get_config(cfg.name).n_layers, mesh=f"(1, {n})",
                 layout=g("layout"), cache_local=g("cache_local"),
                 batch=SERVE_BATCH,
@@ -5228,8 +5315,12 @@ def check_shard_new(work, weights):
                            * (SHARD_DECODE_STEPS - 1)) for r in ranks)
 
     # every rank's launches on the main path: MLA's and whisper's flash on
-    # their heads, hymba's scan on its channels, the xLSTM's on its heads
+    # their heads, hymba's and the 10-head MLA's on their touched heads,
+    # hymba's scan on its channels, the xLSTM's on its heads
     return {"flash_mla": sum(r["mla_flash_launches_prefill"] for r in ranks),
+            "flash_hyb": sum(r["hyb_flash_launches_prefill"] for r in ranks),
+            "flash_mla10": sum(r["mla10_flash_launches_prefill"]
+                               for r in ranks),
             "flash_audio": sum(r["audio_flash_launches_prefill"]
                                for r in ranks),
             "ssm_hyb": scans("hyb", "ssm_scan"),
@@ -5612,8 +5703,8 @@ def kernel_entry(name, source, replaces, launches, err, t, extra=()):
 def multi_device_phases():
     """[ep-compare], [ep-ranks], [shard-serve], [shard-serve-hd] (with
     [shard-train-hd]), [shard-serve-vlm], [shard-serve-mla],
-    [shard-serve-hybrid], [shard-serve-xlstm], [shard-serve-audio] and
-    [batch-devices]; returns [ep-compare]'s
+    [shard-serve-hybrid], [shard-serve-mla10], [shard-serve-xlstm],
+    [shard-serve-audio] and [batch-devices]; returns [ep-compare]'s
     record of the expert-parallel dispatch and the new ranks' kernel
     launches (`check_shard_new`)."""
     with scratch_dir() as tmp:
@@ -5783,6 +5874,17 @@ def main():
                      "src/repro/kernels/flash_attention/kernel.py:34",
                      ranks["flash_mla"], attn_err["wgmma"],
                      attn["mla_tp4"]["wgmma"]),
+        # the columns form's launches on a rank's touched heads, all
+        # ranks: [shard-serve-hybrid]'s 7 of 25, [shard-serve-mla10]'s 3
+        # of 10
+        kernel_entry("flash_attention_fwd_wgmma_hybrid_rank", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     ranks["flash_hyb"], attn_err["wgmma"],
+                     attn["hymba_tp4"]["wgmma"]),
+        kernel_entry("flash_attention_fwd_wgmma_mla10_rank", flash_src,
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     ranks["flash_mla10"], attn_err["wgmma"],
+                     attn["mla10_tp4"]["wgmma"]),
         # [shard-serve-audio]'s launches on a rank's 2 heads, timed at
         # its encoder's shape
         kernel_entry("flash_attention_fwd_wgmma_audio_rank", flash_src,

@@ -51,7 +51,7 @@ same code.
 names (``"all-reduce"``, ``"all-gather"``), which
 `roofline.counting.costing` reads.  `LAYER_GATHER` holds the bytes of the
 per-layer gathered weights alive now and their peak since the last
-`reset_counts`.
+`reset_counts`: storage that a gather allocated, never an alias.
 """
 from __future__ import annotations
 
@@ -72,12 +72,15 @@ from repro_torch.distributed import sharding as shd
 #: sharded decode's three; "score_sum": the head_dim and latent
 #: decodes' one;
 #: "unembed_gather": the model's unembedding gathered whole, which
-#: `vocab_parallel_ce` and the sharded logits never do)
+#: `vocab_parallel_ce` and the sharded logits never do; "attn_gather": an
+#: attention leaf gathered whole over the model axis, which the heads,
+#: head_dim and columns forms never do)
 COLLECTIVES: Counter = Counter()
 #: result bytes of those calls by kind ("all-reduce", "all-gather")
 COLLECTIVE_BYTES: Counter = Counter()
-#: bytes of the per-layer gathered weights (`LayerShard.gather`) alive
-#: now ("live") and the most alive at once since `reset_counts` ("peak")
+#: bytes of the per-layer gathered weights alive now ("live") and the most
+#: alive at once since `reset_counts` ("peak"): what `LayerShard.gather`
+#: allocates, and a layer's view made whole at a counted site (`full`)
 LAYER_GATHER: Counter = Counter()
 
 _MESH = None
@@ -372,12 +375,23 @@ def _gather_axes(w, mesh_dims, dtype=None) -> torch.Tensor:
     return loc
 
 
-def full(w) -> torch.Tensor:
+def full(w, site: str = "") -> torch.Tensor:
     """The whole tensor: a DTensor gathered over every mesh dim that
-    shards it (an explicit all-gather), a plain tensor as it is."""
+    shards it (an explicit all-gather), a plain tensor as it is.  With
+    ``site``, a gather over the model axis counts in ``COLLECTIVES[site]``
+    and, of a layer's view in the sharded train step, in `LAYER_GATHER`."""
     if not _is_dtensor(w):
         return w
-    return _gather_axes(w, range(w.device_mesh.ndim))
+    if site:
+        t = w.device_mesh.mesh_dim_names.index("model")
+        if w.placements[t].is_shard():
+            COLLECTIVES[site] += 1
+    out = _gather_axes(w, range(w.device_mesh.ndim))
+    # a layer's view (`LayerShard.gather`) made whole where the layer runs
+    if (site and getattr(w, "_layer_view", False)
+            and out.untyped_storage() is not w.to_local().untyped_storage()):
+        _track(out)
+    return out
 
 
 def tp_local(w, dim: int, mesh, dtype=None) -> torch.Tensor:
@@ -472,8 +486,12 @@ class LayerShard:
 
         mesh, like = self.like.device_mesh, self.like
         dp = shd.mesh_axes(mesh)[0]
-        loc = _track(gather_summed(self.local, dp_group(mesh),
-                                   layer_dp_dim(like) - 1))
+        loc = gather_summed(self.local, dp_group(mesh),
+                            layer_dp_dim(like) - 1)
+        # over one data rank the gather is an alias of the stacked leaf,
+        # which it did not allocate
+        if loc.untyped_storage() is not self.local.untyped_storage():
+            _track(loc)
         placements = tuple(
             Replicate() if a in dp else (Shard(p.dim - 1) if p.is_shard()
                                          else p)
@@ -482,6 +500,7 @@ class LayerShard:
                                   shape=like.shape[1:],
                                   stride=shd._contiguous_stride(
                                       like.shape[1:]))
+        view._layer_view = True     # a counted site's `full` tracks it
         if not self.whole:
             return view
         out = full(view)
@@ -498,7 +517,8 @@ def gather_layer(tree):
 
 
 def _track(t: torch.Tensor) -> torch.Tensor:
-    """Count ``t``'s storage in `LAYER_GATHER` while it lives."""
+    """Count ``t``'s storage in `LAYER_GATHER` while it lives: a storage
+    that a gather allocated, never an alias of its input."""
     st = t.untyped_storage()
     n = st.nbytes()
     LAYER_GATHER["live"] += n

@@ -69,9 +69,13 @@ def _axis_size(sizes: Dict[str, int], axes) -> int:
     return int(np.prod([sizes[a] for a in axes]))
 
 
-def _fits(dim: int, sizes: Dict[str, int], axes) -> bool:
-    n = _axis_size(sizes, axes)
+def fits(dim: int, n: int) -> bool:
+    """Whether ``n`` devices split ``dim`` (else the rules replicate it)."""
     return dim % n == 0 and dim >= n
+
+
+def _fits(dim: int, sizes: Dict[str, int], axes) -> bool:
+    return fits(dim, _axis_size(sizes, axes))
 
 
 def _one(axes) -> DimSpec:

@@ -40,8 +40,8 @@ MoE, hybrid and VLM stacks run tensor-parallel on each rank's local
 tensors (`_gqa_attention_tp`, `_mla_attention_tp`, `_cross_attention_tp`,
 `collectives.swiglu_tp`, the hybrid's SSM on the rank's channels through
 `ssm.ssm_forward_tp`): the residual stream is replicated over the model
-axis, and GQA attention takes one of three forms, the pins of the
-reference's ``constrain_heads``:
+axis, and GQA attention takes one of four forms, after the reference's
+placements and the pins of its ``constrain_heads``:
 
 * ``heads`` (`heads_aligned`: both head counts divide the model axis):
   q, k and v column-parallel by heads;
@@ -50,9 +50,17 @@ reference's ``constrain_heads``:
   mistral-nemo-12b, dbrx-132b and llama-3.2-vision-11b on 16 model
   ranks): q column-parallel by heads, k and v from the rank's columns
   all-gathered into whole KV heads, each rank's query heads attending
-  over the one KV head they use (`_head_dim_attention`,
+  over the one KV head they use (`_columns_attention`,
   `_cross_head_dim_attention`);
-* otherwise every head on every rank from gathered weights.
+* ``columns`` (`columns_split`: neither, but the model axis divides the
+  weights' flat widths and head_dim; hymba-1.5b): the rank multiplies by
+  its column blocks of q, k and v, all-gathers the products and attends
+  on the query heads its rows of ``w_o`` touch (`_columns_attention`,
+  whose head_dim form is the case where those are its own heads; MLA's
+  twin in `_mla_attention_tp`, minicpm3-4b's 40 heads on 16 ranks);
+* otherwise every head on every rank from gathered weights
+  (``COLLECTIVES["attn_gather"]``; the VLM's cross blocks in the columns
+  case too).
 
 The output projection is row-parallel, its partial sums reduced with one
 fp32 SUM all-reduce; a VLM cross block's gates apply after the reduce.
@@ -60,13 +68,14 @@ The KV cache's layout (`kv_layout`) is its sequence axis over the model
 axis with ``decode_kv_shard`` (decode then goes through
 `collectives.sharded_kv_decode_attention`), else the local heads, else
 the rank's head_dim slice of every KV head (decode through
-`collectives.head_dim_decode_attention`), else whole; the VLM's vision
-K/V cache takes `cross_kv_layout`, the same but never "seq"; an MLA cache
-holds the rank's columns of ``ckv`` and ``kr`` where the model axis
-divides both ("latent", decode through
-`collectives.latent_decode_attention`), else whole; the hybrid's SSM
-state its channels where the model axis divides d_inner (`ssm_split`).  The MoE FFN goes
-through `distributed.moe_ep.moe_ffn_ep` where the model axis divides
+`collectives.head_dim_decode_attention`; the head_dim and columns
+forms), else whole; the VLM's vision K/V cache takes `cross_kv_layout`,
+the heads and head_dim forms' and never "seq"; an MLA cache holds the
+rank's columns of ``ckv`` and ``kr`` where the model axis divides both
+("latent", decode through `collectives.latent_decode_attention`), else
+whole; the hybrid's SSM state its channels where the model axis divides
+d_inner (`ssm_split`).  The MoE FFN goes through
+`distributed.moe_ep.moe_ffn_ep` where the model axis divides
 ``n_routed``.  In train mode each layer gathers its own weights inside
 its checkpointed function (`collectives.gather_layer`: the sharded train
 step's per-layer FSDP gather; a no-op otherwise).  Without a mesh every
@@ -83,6 +92,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import moe_ep
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -218,13 +228,45 @@ def heads_aligned(cfg: ModelConfig, mesh) -> bool:
 
 
 def head_dim_split(cfg: ModelConfig, mesh) -> bool:
-    """Whether attention splits K and V on head_dim (`_head_dim_attention`):
-    the query heads divide the model axis, the KV heads do not but divide
-    it (so each rank's query heads use one KV head), and head_dim divides
-    it."""
+    """Whether attention splits K and V on head_dim (`_columns_attention`'s
+    head_dim form): the query heads divide the model axis, the KV heads do
+    not but divide it (so each rank's query heads use one KV head), and
+    head_dim divides it."""
     n = col.tp_size(mesh)
     return (cfg.n_heads % n == 0 and cfg.n_kv_heads % n != 0
             and n % cfg.n_kv_heads == 0 and cfg.resolved_head_dim % n == 0)
+
+
+def columns_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether attention runs on the column blocks of its weights that the
+    reference places on a rank (`_columns_attention`, and MLA's columns
+    form in `_mla_attention_tp`): the query heads do not divide the model
+    axis, and it divides every flat width that the reference splits (its
+    ``_fits``; GQA: ``H * hd`` of ``w_q`` and ``w_o``'s rows, ``KVH * hd``
+    of ``w_k`` and ``w_v``; MLA: ``H * (dn + dr)`` of ``w_uq``, ``H * dn``
+    of ``w_uk``, ``H * dv`` of ``w_uv`` and ``w_o``'s rows).  A GQA layer
+    also needs head_dim to fit, where the reference's cache rule splits
+    the KV heads' head_dim: elsewhere it would replicate the cache, and
+    the layer takes the gathered path with its whole cache."""
+    n = col.tp_size(mesh)
+    h = cfg.n_heads
+    if h % n == 0:
+        return False
+    if cfg.mla is not None:
+        m = cfg.mla
+        widths = (m.qk_nope_head_dim + m.qk_rope_head_dim,
+                  m.qk_nope_head_dim, m.v_head_dim)
+        return all(shd.fits(h * w, n) for w in widths)
+    hd = cfg.resolved_head_dim
+    return all(shd.fits(w, n) for w in (h * hd, cfg.n_kv_heads * hd, hd))
+
+
+def touched_heads(n_heads: int, n: int, r: int) -> Tuple[int, int]:
+    """The query heads ``[lo, hi)`` that model rank ``r`` of ``n``
+    computes on its column blocks: its row block of ``w_o`` covers heads
+    ``[r H / n, (r + 1) H / n)``, so it touches ``[floor(r H / n),
+    ceil((r + 1) H / n))`` (its own heads where ``n`` divides ``H``)."""
+    return r * n_heads // n, -(-(r + 1) * n_heads // n)
 
 
 def latent_split(cfg: ModelConfig, mesh) -> bool:
@@ -232,16 +274,15 @@ def latent_split(cfg: ModelConfig, mesh) -> bool:
     and ``qk_rope_head_dim``: the reference's ``_fits``), so that a rank
     holds its columns of ``ckv`` and ``kr``."""
     n = col.tp_size(mesh)
-    return all(w % n == 0 and w >= n for w in (cfg.mla.kv_lora_rank,
-                                               cfg.mla.qk_rope_head_dim))
+    return all(shd.fits(w, n) for w in (cfg.mla.kv_lora_rank,
+                                        cfg.mla.qk_rope_head_dim))
 
 
 def ssm_split(cfg: ModelConfig, mesh) -> bool:
     """Whether the hybrid's SSM runs on a rank's ``d_inner / TP`` channels
     (the model axis divides d_inner, as the reference's cache rule asks
     of ``ssm_h`` and ``ssm_conv``)."""
-    n, di = col.tp_size(mesh), cfg.ssm.expand * cfg.d_model
-    return di % n == 0 and di >= n
+    return shd.fits(cfg.ssm.expand * cfg.d_model, col.tp_size(mesh))
 
 
 def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
@@ -249,13 +290,16 @@ def kv_layout(cfg: ModelConfig, mesh, slots: int) -> str:
     ``[r * S / TP, (r + 1) * S / TP)``, every head: ``decode_kv_shard``
     without a window, so without a ring and its pinned slots), "heads"
     (its KV heads), "head_dim" (its ``hd / TP`` slice of every KV head,
-    the reference's ``Shard(4)``) or "full"; an MLA cache "latent" (its
-    columns of ``ckv`` and ``kr``, `latent_split`) or "full"."""
+    the reference's ``Shard(4)``: the head_dim and columns forms) or
+    "full"; an MLA cache "latent" (its columns of ``ckv`` and ``kr``,
+    `latent_split`) or "full"."""
     if cfg.mla is not None:
         return "latent" if latent_split(cfg, mesh) else "full"
     if (col.usable_mesh() is not None and cfg.decode_kv_shard
             and not cfg.sliding_window and slots % col.tp_size(mesh) == 0):
         return "seq"
+    if columns_split(cfg, mesh):
+        return "head_dim"
     return cross_kv_layout(cfg, mesh)
 
 
@@ -287,106 +331,149 @@ def _gqa_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """`gqa_attention` over the model axis: a rank's heads where both head
     counts divide (q, k, v column-parallel, the output projection
-    row-parallel, its partial sums reduced in fp32), `_head_dim_attention`
-    where only the query heads do, else every head on every rank from
-    gathered weights (what query heads that do not divide the model axis
-    still wait for: ROADMAP Queue 1, item 2.2).  The flash kernel gets
-    plain local tensors."""
+    row-parallel, its partial sums reduced in fp32), `_columns_attention`
+    where the KV heads do not divide but the reference splits the
+    weights' columns (`head_dim_split`, `columns_split`), else every head
+    on every rank from weights gathered whole
+    (``COLLECTIVES["attn_gather"]``).  The flash kernel gets plain local
+    tensors."""
     if heads_aligned(cfg, mesh):
         w = {n: col.tp_local(p[n], -1, mesh) for n in ("w_q", "w_k", "w_v")}
         w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
         out, cache = gqa_attention(cfg, w, col.copy_to_tp(x, mesh),
                                    positions, mesh=mesh, **kw)
-    elif head_dim_split(cfg, mesh):
-        out, cache = _head_dim_attention(cfg, p, x, positions, mesh=mesh,
-                                         **kw)
+    elif head_dim_split(cfg, mesh) or columns_split(cfg, mesh):
+        out, cache = _columns_attention(cfg, p, x, positions, mesh=mesh,
+                                        **kw)
     else:
-        w = {n: col.full(w) for n, w in p.items()}
+        w = {n: col.full(w, "attn_gather") for n, w in p.items()}
         return gqa_attention(cfg, w, x, positions, mesh=mesh, **kw)
     return col.reduce_from_tp(out.float(), mesh).to(x.dtype), cache
 
 
-def _head_dim_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                        positions: torch.Tensor, *, mesh, mode: str,
-                        layer_cache: Optional[dict] = None,
-                        kv_pos: Optional[torch.Tensor] = None, cursor=None,
-                        q_chunk: int = 1024, kv_chunk: int = 1024,
-                        kv_layout: Optional[str] = None
-                        ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Attention where the query heads divide the model axis and the KV
-    heads do not (`head_dim_split`).  q is column-parallel (the rank's
-    H / TP heads); k and v come from the rank's columns of ``w_k`` and
-    ``w_v`` (a slice of one KV head's head_dim), all-gathered into whole
-    KV heads; the rank's query heads attend over the one KV head they use.
-    In train mode the gradients are summed over the model axis where one
-    device would have summed them before rounding
-    (`collectives.column_parallel_qkv`, `collectives.kv_group_sum`), so
-    that the gathered K and V, and the input, get the one-device step's
-    gradients; the gather's backward then cuts the rank's columns.  The
-    cache ("head_dim") holds the rank's head_dim slice of every KV head:
-    prefill writes it from the gathered K and V; decode all-gathers q
-    (every head), scores over the slice
-    (`collectives.head_dim_decode_attention`) and all-gathers its output's
-    head_dim.  With ``kv_layout="seq"`` the cache is the sequence split's,
-    as in `gqa_attention`.  x is replicated over the model axis.  Returns
-    (the rank's partial sum of the output projection in fp32, the layer's
-    cache; None in train mode)."""
+def gather_columns(mesh, *parts: torch.Tensor,
+                   summed: bool = True) -> Tuple[torch.Tensor, ...]:
+    """Each [B, T, w / TP] column block, whole: one all-gather of their
+    concatenation over the model axis.  Where the ranks consume the
+    products differently (``summed``, `collectives.gather_summed`) each
+    block's gradient is the fp32 sum of every rank's, cut to this rank's
+    columns; else (`collectives.gather`) this rank's cut of its own."""
+    b, t = parts[0].shape[:2]
+    n = col.tp_size(mesh)
+    widths = [z.shape[-1] for z in parts]
+    gather = col.gather_summed if summed else col.gather
+    whole = gather(torch.cat(parts, -1), col.tp_group(mesh),
+                   -1).reshape(b, t, n, sum(widths))
+    return tuple(z.reshape(b, t, n * w)
+                 for z, w in zip(whole.split(widths, -1), widths))
+
+
+def _columns_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       positions: torch.Tensor, *, mesh, mode: str,
+                       layer_cache: Optional[dict] = None,
+                       kv_pos: Optional[torch.Tensor] = None, cursor=None,
+                       q_chunk: int = 1024, kv_chunk: int = 1024,
+                       kv_layout: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Attention on the column blocks of ``w_q``, ``w_k`` and ``w_v`` that
+    the reference places on a rank, where the KV heads do not divide the
+    model axis (`head_dim_split`, `columns_split`).  The rank multiplies x
+    by its columns (`collectives.column_parallel_qkv`: x's gradient summed
+    over the model axis in fp32) and attends on the query heads that its
+    rows of ``w_o`` touch (`touched_heads`).  In the head_dim form (the
+    query heads divide the axis) those are its own heads, its columns of
+    k and v a slice of the one KV head they use: K and V are all-gathered
+    and that head's gradient is summed over the ranks that use it inside
+    attention, before rounding, as on one device
+    (`collectives.kv_group_sum`); the gather's backward then cuts the
+    rank's columns.  In the columns form (hymba-1.5b's 25 / 5 heads on 4
+    or 16 model ranks) the three products are all-gathered at once
+    (`gather_columns`: a head two ranks share gets both ranks'
+    gradients), q is cut to the touched heads, and K and V are expanded
+    to one KV head per touched head (a touched group need not be whole).
+    The cache ("head_dim") holds the rank's head_dim slice of every KV
+    head: prefill writes it from the gathered K and V; decode scores every
+    head's q over the slice (`collectives.head_dim_decode_attention`) and
+    all-gathers its output's head_dim.  With ``kv_layout="seq"`` the cache
+    is the sequence split's, as in `gqa_attention`.  The output is cut to
+    the columns ``[r H hd / TP, (r + 1) H hd / TP)`` that the rank's block
+    of ``w_o`` multiplies, so each output column is computed once over
+    the ranks.  x is replicated over the model axis.  Returns (the rank's
+    partial sum of the output projection in fp32, the layer's cache; None
+    in train mode)."""
     b, t, _ = x.shape
     dt, hd = x.dtype, cfg.resolved_head_dim
+    h_all, kvh = cfg.n_heads, cfg.n_kv_heads
     n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
+    lo, hi = touched_heads(h_all, n, r)
+    own = h_all % n == 0             # the head_dim form
     q, k, v = col.column_parallel_qkv(
         x, *(col.tp_local(p[w], -1, mesh).to(dt)
              for w in ("w_q", "w_k", "w_v")), mesh)
-    q = apply_rope(q.reshape(b, t, -1, hd), positions, cfg.rope_theta)
-    k, v = (col.gather(z, grp, -1).reshape(b, t, cfg.n_kv_heads, hd)
-            for z in (k, v))
-    k = apply_rope(k, positions, cfg.rope_theta)
-    h_loc = q.shape[2]
-    # the KV head of this rank's query heads, whose head_dim holds its
-    # columns of w_k and w_v
-    j = r * h_loc // (cfg.n_heads // cfg.n_kv_heads)
-    k_j, v_j = (z.narrow(2, j, 1).contiguous() for z in (k, v))
+    if own:
+        k, v = (col.gather(z, grp, -1) for z in (k, v))
+    else:
+        q, k, v = gather_columns(mesh, q, k, v)
+    q = q.reshape(b, t, -1, hd)
+    k = apply_rope(k.reshape(b, t, kvh, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, t, kvh, hd)
     # the rank's head_dim slice of every KV head, for the cache
     k_d, v_d = (z.narrow(3, r * (hd // n), hd // n) for z in (k, v))
     seq = kv_layout == "seq"
     attend = dict(window=cfg.sliding_window, n_meta=cfg.n_meta_tokens)
     new_cache = None
-    if mode == "train":
-        out = chunked_attention(
-            q, k_j, v_j, positions, positions, causal=True, q_chunk=q_chunk,
-            kv_chunk=kv_chunk,
-            kv_grad=lambda z: col.kv_group_sum(z, mesh, j, cfg.n_kv_heads),
-            **attend)
-    elif mode == "prefill":
-        out = prefill_attention(q, k_j, v_j, positions, positions,
-                                causal=True, **attend)
-        if seq:
-            ck = seq_write(layer_cache["k"], k, cursor, mesh)
-            cv = seq_write(layer_cache["v"], v, cursor, mesh)
-        else:
-            ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k_d, v_d,
-                                 cursor, n_pinned=cfg.n_meta_tokens)
-        new_cache = {"k": ck, "v": cv}
-    elif mode == "decode":
-        q_all = col.all_gather(q, grp, 2)
+    if mode == "decode":
+        q = apply_rope(col.all_gather(q, grp, 2) if own else q, positions,
+                       cfg.rope_theta)               # every head's query
         if seq:
             out, ck, cv, _ = col.sharded_kv_decode_attention(
-                q_all, layer_cache["k"], layer_cache["v"], k, v, positions,
+                q, layer_cache["k"], layer_cache["v"], k, v, positions,
                 kv_pos, cursor, mesh)
         else:
             ck, cv = cache_write(layer_cache["k"], layer_cache["v"], k_d, v_d,
                                  cursor, n_pinned=cfg.n_meta_tokens)
             out = col.all_gather(col.head_dim_decode_attention(
-                q_all, ck, cv, positions, kv_pos, mesh, **attend), grp, -1)
-        out = out.narrow(2, r * h_loc, h_loc)
+                q, ck, cv, positions, kv_pos, mesh, **attend), grp, -1)
+        out = out[:, :, lo:hi]
         new_cache = {"k": ck, "v": cv}
+    elif mode in ("train", "prefill"):
+        q = apply_rope(q if own else q[:, :, lo:hi], positions,
+                       cfg.rope_theta)
+        if own:
+            j = lo // (h_all // kvh)     # the one KV head the rank uses
+            k_t, v_t = (z.narrow(2, j, 1).contiguous() for z in (k, v))
+
+            def kv_grad(z):
+                return col.kv_group_sum(z, mesh, j, kvh)
+        else:                            # the KV head of each touched head
+            kv_of = torch.arange(lo, hi, device=x.device) // (h_all // kvh)
+            k_t, v_t = (z.index_select(2, kv_of) for z in (k, v))
+            kv_grad = None
+        if mode == "train":
+            out = chunked_attention(q, k_t, v_t, positions, positions,
+                                    causal=True, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk, kv_grad=kv_grad,
+                                    **attend)
+        else:
+            out = prefill_attention(q, k_t, v_t, positions, positions,
+                                    causal=True, **attend)
+            if seq:
+                ck = seq_write(layer_cache["k"], k, cursor, mesh)
+                cv = seq_write(layer_cache["v"], v, cursor, mesh)
+            else:
+                ck, cv = cache_write(layer_cache["k"], layer_cache["v"],
+                                     k_d, v_d, cursor,
+                                     n_pinned=cfg.n_meta_tokens)
+            new_cache = {"k": ck, "v": cv}
     else:
         raise ValueError(mode)
-    # the partial product of the rank's heads in fp32 (the bf16 operands'
+    width = h_all * hd // n
+    out = out.reshape(b, t, -1).narrow(-1, r * width - lo * hd, width)
+    # the partial product of the rank's rows in fp32 (the bf16 operands'
     # products summed as a bf16 GEMM sums them), so that the output is
     # rounded to the compute dtype once, after the all-reduce
     w_o = col.tp_local(p["w_o"], -2, mesh).to(dt)
-    return out.reshape(b, t, -1).float() @ w_o.float(), new_cache
+    return out.float() @ w_o.float(), new_cache
 
 
 def _ffn_tp(cfg: ModelConfig, p: dict, h: torch.Tensor, mode: str,
@@ -439,9 +526,46 @@ def _mla_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
                  "kr": cache_write_single(layer_cache["kr"], kr_new, cursor)}
 
 
-#: the MLA weights every rank takes whole: it computes the query latent,
-#: ``ckv`` and ``kr`` alike
-_MLA_WHOLE = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+#: MLA's down-projections: the query latent's, c_kv's and the rotary key's
+_MLA_DOWN = ("w_dq", "w_dkv", "w_kr")
+
+
+def _mla_latents_tp(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                    positions: torch.Tensor, mesh):
+    """The query latent cq, c_kv and the rotary key, whole on every rank.
+    Where the model axis divides the three widths (the reference places
+    the down-projections split) the rank multiplies h by its columns
+    (`collectives.column_parallel_qkv`: h's gradient summed over the
+    model axis in fp32) and the three products are all-gathered at once
+    (`gather_columns`); else the weights are gathered whole.  The norms
+    and rotary apply to the whole latents."""
+    mla = cfg.mla
+    n, dt = col.tp_size(mesh), h.dtype
+    if all(shd.fits(w, n) for w in (mla.q_lora_rank, mla.kv_lora_rank,
+                                    mla.qk_rope_head_dim)):
+        cq, ckv, kr = gather_columns(mesh, *col.column_parallel_qkv(
+            h, *(col.tp_local(p[k], -1, mesh).to(dt) for k in _MLA_DOWN),
+            mesh), summed=False)
+    else:
+        cq, ckv, kr = (h @ col.full(p[k], "attn_gather").to(dt)
+                       for k in _MLA_DOWN)
+    cq = rms_norm(cq, p["q_norm"])
+    ckv = rms_norm(ckv, p["kv_norm"])
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return cq, ckv, kr
+
+
+def _touched_block(w: torch.Tensor, n_heads: int, width: int,
+                   mesh) -> torch.Tensor:
+    """The rank's block of columns ``[r H w / TP, (r + 1) H w / TP)`` of a
+    flat ``[rows, H * width]`` weight, padded with zero columns to the
+    touched heads' ``[lo * width, hi * width)`` (`touched_heads`), so
+    that it multiplies per head; at most two heads are partial."""
+    n, r = col.tp_size(mesh), col.tp_rank(mesh)
+    lo, hi = touched_heads(n_heads, n, r)
+    start = r * n_heads * width // n
+    return torch.nn.functional.pad(
+        w, (start - lo * width, hi * width - start - w.shape[-1]))
 
 
 def _mla_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -450,35 +574,40 @@ def _mla_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor,
                       q_chunk: int, kv_chunk: int,
                       kv_layout: Optional[str] = None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """`_mla_attention` over the model axis.  Every rank computes the
-    query latent, ``ckv`` and ``kr`` whole, from whole down-projections.
-    Where the model axis divides the heads (the heads form) ``w_uq``,
-    ``w_uk`` and ``w_uv`` are column-parallel by heads and ``w_o``
-    row-parallel, its partial sums reduced once in fp32; the three latents
-    pass `collectives.copy_to_tp`, so that the down-projections' gradients
-    sum over the ranks' heads.  Elsewhere every head runs on every rank
-    from gathered weights (ROADMAP Queue 1, item 2.2).  Prefill runs the
-    flash kernel on the rank's heads.  With ``kv_layout="latent"`` the
-    cache holds the rank's columns of ``ckv`` and ``kr``: prefill and
-    decode write the rank's slice of the whole latents, and decode scores
-    every head over the slices (`collectives.latent_decode_attention`:
-    the queries of every head, one all-gather over heads in the heads
-    form; one fp32 SUM of the partial scores; the latent output
-    all-gathered), then applies the rank's heads of ``w_uv`` and
-    ``w_o``."""
+    """`_mla_attention` over the model axis.  The latents come whole from
+    the rank's columns of the down-projections (`_mla_latents_tp`); then
+    the rank multiplies them by its columns of ``w_uq``, ``w_uk`` and
+    ``w_uv``: in the heads form (the model axis divides the heads) whole
+    heads; in the columns form (`columns_split`: minicpm3-4b's 40 heads on
+    16 ranks) blocks that cut heads, whose products are all-gathered
+    (`gather_columns`) and narrowed to the heads the rank's rows of
+    ``w_o`` touch (`touched_heads`).  The latents pass
+    `collectives.copy_to_tp` first: each rank consumes them through its
+    own columns, so their gradients are summed over the model axis before
+    the norms' backward (the norm scales, whole on every rank, get the
+    whole gradient).  Train and prefill attend on the touched heads
+    (`mla.decompressed_attention`, prefill through the flash kernel); the
+    output is narrowed to the rank's rows of ``w_o`` and the partial sums
+    reduced once in fp32.  Decode reads the cache in the absorbed form,
+    every head's queries on every rank: the heads form absorbs ``w_uk``
+    into its heads' queries and all-gathers them; the columns form
+    all-gathers q, absorbs the rank's ``w_uk`` block (`_touched_block`)
+    and sums the partial absorbed queries with one fp32 SUM; the rank's
+    ``w_uv`` block then gives exactly its ``w_o`` rows' input, so decode
+    gathers no weight.  Where neither form holds (a width the reference
+    replicates) every head runs on every rank from the up-projections and
+    ``w_o`` gathered whole (``COLLECTIVES["attn_gather"]``).  With
+    ``kv_layout="latent"``, in every form, the cache holds the rank's
+    columns of ``ckv`` and ``kr``, scored with
+    `collectives.latent_decode_attention` (one fp32 SUM of the partial
+    scores, the latent output all-gathered), else whole."""
     mla = cfg.mla
+    h_all, (b, t, _), dt = cfg.n_heads, h.shape, h.dtype
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    rk = mla.kv_lora_rank
     n, r, grp = col.tp_size(mesh), col.tp_rank(mesh), col.tp_group(mesh)
-    heads = cfg.n_heads % n == 0
-    w = {k: col.full(p[k]) for k in _MLA_WHOLE}
-    if heads:
-        h_loc = cfg.n_heads // n
-        w.update({k: col.tp_local(p[k], -1, mesh)
-                  for k in ("w_uq", "w_uk", "w_uv")})
-        w["w_o"] = col.tp_local(p["w_o"], -2, mesh)
-        share = lambda z: col.copy_to_tp(z, mesh)       # noqa: E731
-    else:
-        h_loc, share = cfg.n_heads, None
-        w.update({k: col.full(p[k]) for k in ("w_uq", "w_uk", "w_uv", "w_o")})
+    heads = h_all % n == 0
+    columns = columns_split(cfg, mesh)
     latent = kv_layout == "latent"
 
     def mine(z):             # the rank's columns of a whole latent
@@ -486,46 +615,79 @@ def _mla_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor,
             return z
         return z.narrow(-1, r * (z.shape[-1] // n), z.shape[-1] // n)
 
+    cq, ckv, kr = _mla_latents_tp(cfg, p, h, positions, mesh)
+    if heads or columns:
+        cq, ckv, kr = (col.copy_to_tp(z, mesh) for z in (cq, ckv, kr))
+        lo, hi = touched_heads(h_all, n, r)
+        w_uq, w_uk, w_uv = (col.tp_local(p[k], -1, mesh).to(dt)
+                            for k in ("w_uq", "w_uk", "w_uv"))
+        w_o = col.tp_local(p["w_o"], -2, mesh).to(dt)
+    else:                    # every head, from weights gathered whole
+        lo, hi = 0, h_all
+        w_uq, w_uk, w_uv, w_o = (col.full(p[k], "attn_gather").to(dt)
+                                 for k in ("w_uq", "w_uk", "w_uv", "w_o"))
     new_cache = None
     if mode == "decode":
-        ckv_new, kr_new = mla_mod.mla_latents(mla, w, h, positions,
-                                              cfg.rope_theta)
-        ckv = cache_write_single(layer_cache["ckv"], mine(ckv_new), cursor)
-        kr = cache_write_single(layer_cache["kr"], mine(kr_new), cursor)
-        new_cache = {"ckv": ckv, "kr": kr}
-        if not latent:
-            out = mla_mod.mla_attention_decode(mla, h_loc, w, h, positions,
-                                               ckv, kr, kv_pos,
-                                               cfg.rope_theta)
+        ckv_c = cache_write_single(layer_cache["ckv"], mine(ckv), cursor)
+        kr_c = cache_write_single(layer_cache["kr"], mine(kr), cursor)
+        new_cache = {"ckv": ckv_c, "kr": kr_c}
+        q = cq @ w_uq
+        if columns:          # every head's queries
+            q = col.all_gather(q, grp, -1)
+        q = q.reshape(b, t, -1, dn + dr)
+        q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+        if columns:
+            # the rank's w_uk columns absorbed into its touched heads'
+            # queries; each head's partials summed over the ranks
+            part = torch.einsum(
+                "bthn,rhn->bthr", q[:, :, lo:hi, :dn].float(),
+                _touched_block(w_uk, h_all, dn, mesh).float().reshape(
+                    rk, hi - lo, dn))
+            q_abs = col.all_reduce(torch.nn.functional.pad(
+                part, (0, 0, lo, h_all - hi)), grp).to(dt)
         else:
-            q_abs, q_rope = mla_mod.absorbed_query(mla, h_loc, w, h,
-                                                   positions, cfg.rope_theta)
-            if heads:        # every head's queries: one all-gather
-                q = col.all_gather(torch.cat([q_abs, q_rope], -1), grp, 2)
-                q_abs, q_rope = q.split([mla.kv_lora_rank,
-                                         mla.qk_rope_head_dim], -1)
+            q_abs = torch.einsum("bthn,rhn->bthr", q[..., :dn],
+                                 w_uk.reshape(rk, hi - lo, dn))
+        if heads:            # every head's queries: one all-gather
+            q = col.all_gather(torch.cat([q_abs, q_rope], -1), grp, 2)
+            q_abs, q_rope = q.split([rk, dr], -1)
+        if latent:
             o_lat = col.latent_decode_attention(
-                mine(q_abs), mine(q_rope), ckv, kr, positions, kv_pos, mesh,
-                scale=1.0 / math.sqrt(mla.qk_nope_head_dim
-                                      + mla.qk_rope_head_dim))
-            if heads:
-                o_lat = o_lat.narrow(2, r * h_loc, h_loc)
-            out = mla_mod.latent_out(mla, h_loc, w, o_lat)
+                mine(q_abs), mine(q_rope), ckv_c, kr_c, positions, kv_pos,
+                mesh, scale=1.0 / math.sqrt(dn + dr))
+        else:
+            o_lat = mla_mod.latent_attention(mla, q_abs, q_rope, ckv_c, kr_c,
+                                             positions, kv_pos)
+        if columns:
+            w_uv = _touched_block(w_uv, h_all, dv, mesh)
+        out = torch.einsum("bthr,rhv->bthv", o_lat[:, :, lo:hi],
+                           w_uv.reshape(rk, hi - lo, dv))
     elif mode in ("train", "prefill"):
-        out, (ckv_new, kr_new) = mla_mod.mla_attention_full(
-            mla, h_loc, w, h, positions, cfg.rope_theta, mode=mode,
-            q_chunk=q_chunk, kv_chunk=kv_chunk, share=share)
+        q, k_nope, v = cq @ w_uq, ckv @ w_uk, ckv @ w_uv
+        touched = slice(None)           # the rank's own heads, or all
+        if columns:                     # every head, cut to the touched
+            q, k_nope, v = gather_columns(mesh, q, k_nope, v)
+            touched = slice(lo, hi)
+        q, k_nope, v = (z.reshape(b, t, -1, w)[:, :, touched]
+                        for z, w in ((q, dn + dr), (k_nope, dn), (v, dv)))
+        out = mla_mod.decompressed_attention(
+            q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta),
+            k_nope, kr, v, positions, mode=mode, q_chunk=q_chunk,
+            kv_chunk=kv_chunk)
         if mode == "prefill":
             new_cache = {
-                "ckv": cache_write_single(layer_cache["ckv"], mine(ckv_new),
+                "ckv": cache_write_single(layer_cache["ckv"], mine(ckv),
                                           cursor),
-                "kr": cache_write_single(layer_cache["kr"], mine(kr_new),
+                "kr": cache_write_single(layer_cache["kr"], mine(kr),
                                          cursor)}
     else:
         raise ValueError(mode)
-    if heads:
-        out = col.reduce_from_tp(out.float(), mesh).to(h.dtype)
-    return out, new_cache
+    if not (heads or columns):
+        return out.reshape(b, t, -1) @ w_o, new_cache
+    width = h_all * dv // n
+    out = out.reshape(b, t, -1).narrow(-1, r * width - lo * dv, width)
+    return col.reduce_from_tp(out.float() @ w_o.float(), mesh).to(dt), \
+        new_cache
 
 
 def _ssm_mix(cfg: ModelConfig, p: dict, h: torch.Tensor, mode: str,
@@ -733,7 +895,8 @@ def _cross_attention_tp(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
         out, kv = _cross_head_dim_attention(cfg, p, h, mesh=mesh,
                                             memory=memory, **kw)
     else:
-        w = {n: col.full(p[n]) for n in ("w_q", "w_k", "w_v", "w_o")}
+        w = {n: col.full(p[n], "attn_gather")
+             for n in ("w_q", "w_k", "w_v", "w_o")}
         return _cross_attention(cfg, w, h, memory=memory, **kw)
     return col.reduce_from_tp(out.float(), mesh).to(h.dtype), kv
 
@@ -747,8 +910,8 @@ def _cross_head_dim_attention(cfg: ModelConfig, p: dict, h: torch.Tensor,
                               ) -> Tuple[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """The cross block's attention where the query heads divide the model
-    axis and the KV heads do not (`head_dim_split`), as
-    `_head_dim_attention` runs the self layers: q column-parallel (the
+    axis and the KV heads do not (`head_dim_split`), as the head_dim form
+    of `_columns_attention` runs the self layers: q column-parallel (the
     rank's H / TP heads), k and v from the vision states and the rank's
     columns of ``w_k`` and ``w_v``, all-gathered into whole KV heads, the
     rank's query heads attending over the one KV head they use.  In train

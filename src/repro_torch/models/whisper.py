@@ -24,7 +24,7 @@ heads_aligned`): ``w_q``, ``b_q``, ``w_k``, ``w_v`` and ``b_v`` by the
 heads' columns, ``w_o`` row-parallel, its partial sums reduced in fp32 and
 rounded once, and ``b_o`` (placed split over d) gathered and added once,
 after the sum; the caches hold the rank's KV heads.  Elsewhere (8 heads
-on a 16-way axis: ROADMAP Queue 1, item 2.2) attention runs every head
+on a 16-way axis: ROADMAP Queue 1, item 1) attention runs every head
 from gathered weights.  The MLP splits wherever the model axis divides
 d_ff: ``w_in``, ``b_in`` column-parallel, ``w_out`` row-parallel, ``b_out``
 added once after the sum.  The residual stream, the encoder's output and
@@ -112,7 +112,8 @@ class _Attn:
     ``b_q``, ``w_k``, ``w_v``, ``b_v``) and rows (``w_o``), the inputs
     passed through `collectives.copy_to_tp` (`share`) and the output
     projection's partial sums reduced before ``b_o`` (``partial``); else
-    every weight whole (gathered under a mesh)."""
+    every weight whole (gathered under a mesh, counted in
+    ``COLLECTIVES["attn_gather"]``)."""
 
     def __init__(self, cfg: ModelConfig, p: dict, mesh):
         self.mesh, self.partial = mesh, (mesh is not None
@@ -122,7 +123,7 @@ class _Attn:
                       for k in ("w_q", "b_q", "w_k", "w_v", "b_v")}
             self.w.update(w_o=col.tp_local(p["w_o"], -2, mesh), b_o=p["b_o"])
         else:
-            self.w = {k: col.full(v) for k, v in p.items()}
+            self.w = {k: col.full(v, "attn_gather") for k, v in p.items()}
 
     def share(self, x: torch.Tensor) -> torch.Tensor:
         return col.copy_to_tp(x, self.mesh) if self.partial else x

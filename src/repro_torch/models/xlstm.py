@@ -378,7 +378,7 @@ def heads_split(n_heads: int, mesh) -> bool:
     """Whether the blocks run on a rank's ``H / TP`` heads under ``mesh``
     (the model axis divides the heads; so it divides d_inner and d_model
     too).  Elsewhere every rank runs whole blocks from gathered weights:
-    ROADMAP Queue 1, item 2.2."""
+    ROADMAP Queue 1, item 1."""
     return mesh is not None and n_heads % col.tp_size(mesh) == 0
 
 

@@ -177,11 +177,15 @@ mesh = jax.make_mesh((2, 4), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 # the MLA and hybrid smokes in fp32: minicpm3-4b (4 heads; its latent
 # cache 8 and 4 wide) and hymba-1.5b (4 query and 2 KV heads, 4 meta
-# tokens, a ring of 8 slots that a 16-token prompt wraps, d_inner 64)
+# tokens, a ring of 8 slots that a 16-token prompt wraps, d_inner 64); then
+# each with 6 query heads, 1.5 a rank of the 4-way model axis (minicpm3's
+# 6 KV heads, hymba's 2), built from the seed here
 rng = np.random.default_rng(5)
-for name, arch, prompt in (("mla", "minicpm3-4b", 6),
-                           ("hyb", "hymba-1.5b", 16)):
-    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+for name, arch, prompt, change in (
+        ("mla", "minicpm3-4b", 6, {}), ("hyb", "hymba-1.5b", 16, {}),
+        ("mla6", "minicpm3-4b", 6, {"n_heads": 6, "n_kv_heads": 6}),
+        ("hyb6", "hymba-1.5b", 16, {"n_heads": 6, "n_kv_heads": 2})):
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", **change)
     model = build_model(cfg, q_chunk=8, kv_chunk=8)
     params = model.init(jax.random.PRNGKey(13))
     save(f"{name}.p.", params)
@@ -381,6 +385,20 @@ def test_head_dim_kv_decode_equals_baseline_and_reference(runs):
     assert int(port["hd.score_sums"]) == 2
 
 
+def test_columns_form_sequence_split_decode_equals_one_process(runs):
+    """The same model cut to 2 query heads with ``decode_kv_shard``: the
+    columns form (half a head a rank) on the sequence-split cache; prefill
+    and both decode steps equal one process, no attention leaf gathered
+    whole."""
+    _, port = runs
+    assert str(port["cols.layout"]) == "seq"
+    assert tuple(port["cols.k_local"]) == (2, 2, 5, 2, 8)
+    for step in ("prefill", "decode1", "decode2"):
+        got = port[f"cols.sharded.{step}"]
+        assert np.abs(got - port[f"cols.one.{step}"]).max() < 1e-4, step
+    assert int(port["cols.attn_gathers"]) == 0
+
+
 def test_sharded_train_step_equals_reference_and_one_process(runs):
     ref, port = runs
     # the reference's cell: capacity 1.25, aux averaged over the data
@@ -414,16 +432,19 @@ def test_sharded_train_step_equals_reference_and_one_process(runs):
     assert 0 < int(port["train.gathered_peak"]) <= one_layer
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base",
+                                  "whisper-base-1x8"])
 def test_whole_layer_families_train_sharded_as_one_process(runs, arch):
     """Where the model axis does not divide their heads (the xLSTM smoke's
-    2 and whisper's cut to 2 on the 4-way axis: ``torch_dist_ranks.
-    WHOLE_ARCHS``), the xLSTM's blocks and whisper's attention run every
-    head on every rank, each stacked layer gathered where its stack runs
-    it (whisper's MLP split): their sharded fp32 step equals the
-    one-process step within the fp32 bars, and no rank held more than one
-    layer's gathered weights (whole, and its model shard on the way) at
-    once."""
+    2 and whisper's cut to 2 on the 4-way axis of (2, 4), whisper's 4 on
+    the 8-way axis of (1, 8): ``torch_dist_ranks.WHOLE_ARCHS``), the
+    xLSTM's blocks and whisper's attention run every head on every rank,
+    each stacked layer gathered where its stack runs it (whisper's MLP
+    split): their sharded fp32 step equals the one-process step within
+    the fp32 bars, and no rank held more than one layer's gathered weights
+    (whole, and its model shard on the way) at once.  On (1, 8) the
+    data-axis gather of a layer is an alias of the stacked leaf, which the
+    live count leaves out."""
     _, port = runs
     got = {k: float(port[f"whole.{arch}.{k}"]) for k in (
         "loss_sharded", "loss_one", "gnorm_sharded", "gnorm_one")}
@@ -527,13 +548,21 @@ def test_indivisible_vocab_takes_the_gathered_path(runs):
     # meta slots that the 16-token prompt (20 with the meta tokens) wraps;
     # the SSM's state on a quarter of d_inner (64) a rank
     ("hyb", "head_dim", {"k": (2, 2, 12, 2, 2), "ssm_h": (2, 2, 16, 4),
-                         "ssm_conv": (2, 2, 2, 16)}, 2)])
+                         "ssm_conv": (2, 2, 2, 16)}, 2),
+    # 6 heads, 1.5 a rank: the columns form; the latent cache as "mla"'s
+    ("mla6", "latent", {"ckv": (2, 2, 10, 2), "kr": (2, 2, 10, 1)}, 2),
+    # 6 query and 2 KV heads: the columns form, the cache a quarter of
+    # head_dim of both KV heads (the reference's Shard(4))
+    ("hyb6", "head_dim", {"k": (2, 2, 12, 2, 2), "v": (2, 2, 12, 2, 2),
+                          "ssm_h": (2, 2, 16, 4)}, 2)])
 def test_mla_hybrid_tensor_parallel_serve_equals_reference_and_one_process(
         runs, name, layout, boxes, sums):
     """The MLA (minicpm3-4b) and hybrid (hymba-1.5b) smokes run
     tensor-parallel on the (2, 4) mesh in fp32, the caches placed as the
     reference's ``cache_shardings`` places them: prefill and both decode
-    steps equal the reference's 8-device run and one process."""
+    steps equal the reference's 8-device run and one process.  With 6
+    heads on the 4-way model axis each rank computes on the column blocks
+    the reference places on it (`transformer.columns_split`)."""
     ref, port = runs
     assert str(port[f"{name}.layout"]) == layout
     for leaf, box in boxes.items():
@@ -546,28 +575,39 @@ def test_mla_hybrid_tensor_parallel_serve_equals_reference_and_one_process(
 
 
 @pytest.mark.parametrize("name,layout,sums", [
-    ("mla2", "latent", 2), ("hyb2", "full", 0)])
+    ("mla2", "latent", 2), ("hyb2", "head_dim", 2), ("hybw", "full", 0),
+    ("mlaw", "latent", 2)])
 def test_heads_that_do_not_divide_serve_as_one_process(runs, name, layout,
                                                        sums):
-    """With 2 heads on the 4-way model axis (minicpm3-4b's and hymba's
-    forms on 16 ranks) attention runs every head on every rank from
-    gathered weights; MLA's latent cache still splits (its decode one
-    score SUM a layer), the SSM still runs on a rank's channels and the
-    FFN still splits: prefill and both decode steps equal one process."""
+    """With 2 heads on the 4-way model axis (half a head a rank) attention
+    runs in the columns form, each rank on the one head its rows of
+    ``w_o`` touch; MLA's latent cache splits and hymba's cache takes a
+    quarter of head_dim (each decode one score SUM a layer).  hymba at 2
+    query heads and 1 KV head 6 wide (``w_k``'s 6 columns do not divide
+    the axis) runs every head on every rank from gathered weights, its
+    cache whole.  minicpm3 at 2 heads with v_head_dim 3 (``w_uv``'s 6
+    columns do not divide) runs every head on every rank from gathered
+    up-projections, its latent cache still split as the reference's
+    cache rule splits it.  The SSM still runs on a rank's channels and
+    the FFN still splits: prefill and both decode steps equal one
+    process."""
     _, port = runs
+    mla = name.startswith("mla")
     assert str(port[f"{name}.layout"]) == layout
-    assert tuple(port[f"{name}.local.{'ckv' if name == 'mla2' else 'ssm_h'}"]
-                 ) == ((2, 2, 10, 2) if name == "mla2" else (2, 2, 16, 4))
+    assert tuple(port[f"{name}.local.{'ckv' if mla else 'ssm_h'}"]
+                 ) == ((2, 2, 10, 2) if mla else (2, 2, 16, 4))
     for step in ("prefill", "decode1", "decode2"):
         got = port[f"{name}.sharded.{step}"]
         assert np.abs(got - port[f"{name}.one.{step}"]).max() < 1e-4, step
     assert list(port[f"{name}.score_sums"]) == [sums, sums]
 
 
-@pytest.mark.parametrize("name", ["mla", "hyb", "mla2", "hyb2"])
+@pytest.mark.parametrize("name", ["mla", "hyb", "mla6", "hyb6", "mla2",
+                                  "hyb2", "hybw", "mlaw"])
 def test_mla_hybrid_train_step_equals_one_process(runs, name):
-    """The sharded fp32 train step of the MLA and hybrid smokes on (2, 4),
-    the per-layer FSDP gather of each stacked leaf: loss and grad norm
+    """The sharded fp32 train step of the MLA and hybrid smokes on (2, 4)
+    (at 6 and 2 heads in the columns form), the per-layer FSDP gather of
+    each stacked leaf: loss and grad norm
     within the fp32 bars of one process; for the reference's configs the
     loss of its sharded step and the grad norm of its one-device step
     (the VLM's mesh norm differs from it on jax 0.9.0); no sharded leaf
@@ -580,7 +620,7 @@ def test_mla_hybrid_train_step_equals_one_process(runs, name):
                                rtol=1e-5)
     np.testing.assert_allclose(got["gnorm_sharded"], got["gnorm_one"],
                                rtol=1e-4)
-    if name in ("mla", "hyb"):
+    if name in ("mla", "hyb", "mla6", "hyb6"):
         np.testing.assert_allclose(got["loss_sharded"],
                                    float(ref[f"{name}.train.loss"]),
                                    rtol=1e-5)
@@ -591,7 +631,26 @@ def test_mla_hybrid_train_step_equals_one_process(runs, name):
     assert int(port[f"{name}.train.unembed_gathers"]) == 0
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
+@pytest.mark.parametrize("name", ["mla6", "hyb6", "mla2", "hyb2", "hybw",
+                                  "mlaw"])
+def test_columns_form_gathers_no_attention_leaf(runs, name):
+    """Where the query heads do not divide the model axis, serving
+    (prefill and two decode steps) and the sharded train step compute on
+    the attention weights' column blocks: no attention leaf is gathered
+    whole (``COLLECTIVES["attn_gather"]``).  ``hybw``, whose ``w_k``
+    width does not divide the axis, gathers its split ``w_q`` and ``w_o``
+    every layer, and ``mlaw``, whose ``w_uv`` and ``w_o`` widths do not,
+    its split ``w_uq`` and ``w_uk``, as the counts show (2 layers; a
+    serve runs 3 steps, the train step each layer forward and in its
+    recompute)."""
+    _, port = runs
+    want = ((2 * 2 * 3, 2 * 2 * 2) if name in ("hybw", "mlaw") else (0, 0))
+    assert (int(port[f"{name}.serve_attn_gathers"]),
+            int(port[f"{name}.train.attn_gathers"])) == want
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base",
+                                  "whisper-base-1x8"])
 def test_whole_layer_families_serve_as_one_process(runs, arch):
     """The same fallback serves as one process: the cache whole on the
     model axis (layout "full"), prefill and both decode steps within

@@ -22,7 +22,9 @@ not divide the 4-way model axis; ``HEADS`` gives it 4 KV heads.  A third
 cell, llama-3.2-vision-11b at ``SMOKE`` widths and one group of 5 layers
 (``VLM_CELLS``), holds the VLM's tensor-parallel stack to the same counts,
 its two gaps pinned and explained (the test docstrings); the MLA and
-hybrid smokes (``NEW_CELLS``) hold theirs, with a gap each, and the
+hybrid smokes (``NEW_CELLS``) hold theirs, with a gap each, their
+6-head configs (``COLUMN_CELLS``, the columns form on (2, 4)) the split
+of XLA's one-device count plus the touched heads' attention, and the
 xLSTM and audio smokes (``XA_CELLS``, on meshes whose model axis their
 heads divide) theirs, with their gaps pinned.  At
 ``SMOKE`` on (2, 4) the port splits K and V on head_dim as the reference
@@ -81,6 +83,16 @@ NEW_SMOKES = {
 NEW_CELLS = [dict(arch=arch, shape=shape, mesh=mesh, cfg=cfg, name=arch)
              for arch, cfg in NEW_SMOKES.items()
              for mesh in ("1", "2x4") for shape in ("train_4k", "decode_32k")]
+#: the same smokes at 6 query heads (minicpm3's 6 KV heads, hymba's 2):
+#: 1.5 heads a rank of the 4-way model axis, minicpm3-4b's and hymba's
+#: case on 16, which the port computes in the columns form
+COLUMN_SMOKES = {"mla6": (MLA, dict(NEW_SMOKES[MLA], n_heads=6,
+                                    n_kv_heads=6)),
+                 "hyb6": (HYBRID, dict(NEW_SMOKES[HYBRID], n_heads=6))}
+COLUMN_CELLS = [dict(arch=arch, shape=shape, mesh=mesh, cfg=cfg, name=name)
+                for name, (arch, cfg) in COLUMN_SMOKES.items()
+                for mesh in ("1", "2x4")
+                for shape in ("train_4k", "decode_32k")]
 #: the xLSTM smoke's widths (2 heads, d_inner 64, d_ff 42) on (4, 2) and
 #: the whisper smoke's (4 heads, d_ff 64; 2 encoder layers over the
 #: published 1,500 frames) on (2, 4): each rank on its heads.  The xLSTM's
@@ -116,7 +128,8 @@ def _run(script: str, *args) -> dict:
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     cells = json.dumps([{k: c[k] for k in ("arch", "shape", "mesh", "cfg")}
-                        for c in CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS])
+                        for c in CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS
+                        + COLUMN_CELLS])
     out = tmp_path_factory.mktemp("dryrun")
     with ThreadPoolExecutor(2) as pool:
         ref = pool.submit(_run, "torch_dryrun_ref.py", cells)
@@ -127,8 +140,8 @@ def both(tmp_path_factory):
 def _pairs(both):
     ref, port = both
     return {(c["name"], c["mesh"], c["shape"]): (r, p) for c, r, p in
-            zip(CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS, ref["cells"],
-                port["cells"])}
+            zip(CELLS + VLM_CELLS + NEW_CELLS + XA_CELLS + COLUMN_CELLS,
+                ref["cells"], port["cells"])}
 
 
 @pytest.mark.parametrize("mesh", ["1", "2x4"])
@@ -296,6 +309,88 @@ def test_mla_hybrid_argument_bytes_equal_xla(both, arch, shape, mesh):
     unread = 0
     if arch == HYBRID and shape == "decode_32k":
         cfg = _new_config(arch)
+        unread = 4 * cfg.n_meta_tokens * cfg.d_model // (1 if mesh == "1"
+                                                         else 4)
+    assert port["argument_bytes"] - ref["argument_bytes"] == unread
+
+
+def _column_config(name):
+    from repro_torch.configs.base import MLAConfig, SSMConfig
+
+    arch, fields = COLUMN_SMOKES[name]
+    nested = {"mla": MLAConfig, "ssm": SSMConfig}
+    return get_config(arch).replace(**{
+        k: nested[k](**v) if k in nested else v for k, v in fields.items()})
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("name", ["mla6", "hyb6"])
+def test_columns_form_matmul_flops_per_device_match_reference_dots(
+        both, name, shape):
+    """The 6-head smokes on (2, 4), 1.5 heads a rank: the port's
+    per-device matmul FLOPs are XLA's one-device dots over the 8 devices
+    (its pinned one-device gap, hymba's train chunks, over 8 too), plus
+    the attention of the heads a rank touches beyond its share: the
+    columns form attends on the 2 query heads its rows of ``w_o`` touch,
+    against 6 / 4 = 1.5 (train: QK and PV, forward, two recomputes and two
+    backward products, 5 x 2 (Dk + Dv) x pairs a head and row, the pairs
+    those of the chunks that cover the sequence: hymba's 4,100 tokens in
+    two 4,096-position chunks); less at MLA's decode the one-wide rotary
+    scores (as `test_mla_hybrid_matmul_flops_per_device_match_reference_
+    dots` pins them) and at hymba's decode the scan's output contraction
+    (C . h over d_state, 2 x rows x d_inner x d_state a layer), a dot in
+    XLA's text that the port's scan kernel holds in its kernel cost.
+    Pinned within 1% of that split.  XLA's own (2, 4)
+    count is no anchor here: it partitions the heads that do not divide
+    by replicating ("involuntary full rematerialization"), so MLA's count
+    there is above the port's (hymba's train loops it counts once, as on
+    one device)."""
+    ref1 = _pairs(both)[name, "1", shape][0]
+    ref, port = _pairs(both)[name, "2x4", shape]
+    cfg = _column_config(name)
+    spec = SHAPES_BY_NAME[shape]
+    n_dev, tp = 8, 4
+    rows = spec.global_batch // dryrun.SHAPE_TUNING[shape]["grad_accum"]
+    want = ref1["dot_flops"] / n_dev
+    if shape == "train_4k":
+        if cfg.mla is not None:
+            dk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+            dv = cfg.mla.v_head_dim
+        else:
+            dk = dv = cfg.resolved_head_dim
+        chunks = -(-(spec.seq_len + cfg.n_meta_tokens) // spec.seq_len)
+        pairs = (chunks * spec.seq_len) ** 2
+        if cfg.mla is None:     # XLA counts 1 of the 4 chunk pairs
+            want += (3 * 5 * 4 * rows * spec.seq_len ** 2 * cfg.n_heads
+                     * dk * cfg.n_layers) / n_dev
+        touched = 2 - cfg.n_heads / tp
+        want += (touched * rows / (n_dev // tp) * 5 * 2 * (dk + dv) * pairs
+                 * cfg.n_layers)
+    elif cfg.mla is not None:
+        want -= (2 * rows // (n_dev // tp) * cfg.n_heads * spec.seq_len
+                 * cfg.mla.qk_rope_head_dim // tp * cfg.n_layers)
+    else:   # the scan's C . h, a dot in XLA's text, the kernel's cost here
+        want -= (2 * rows * cfg.ssm.expand * cfg.d_model * cfg.ssm.d_state
+                 * cfg.n_layers) / n_dev
+    assert abs(port["matmul_flops"] - want) <= 0.01 * ref1["dot_flops"] / 8, (
+        port["matmul_flops"], want)
+    if cfg.mla is not None:
+        assert port["matmul_flops"] < ref["dot_flops"]
+
+
+@pytest.mark.parametrize("mesh", ["1", "2x4"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("name", ["mla6", "hyb6"])
+def test_columns_form_argument_bytes_equal_xla(both, name, shape, mesh):
+    """The 6-head smokes' argument bytes are XLA's: every attention leaf
+    split as the reference's rules split it (the flat widths divide the
+    model axis though the heads do not), hymba's cache a quarter of
+    head_dim a rank; less at hymba's decode its meta tokens, as in
+    `test_mla_hybrid_argument_bytes_equal_xla`."""
+    ref, port = _pairs(both)[name, mesh, shape]
+    cfg = _column_config(name)
+    unread = 0
+    if cfg.mla is None and shape == "decode_32k":
         unread = 4 * cfg.n_meta_tokens * cfg.d_model // (1 if mesh == "1"
                                                          else 4)
     assert port["argument_bytes"] - ref["argument_bytes"] == unread

@@ -8,6 +8,7 @@ rank 0 writes the results.
 REF.npz holds the reference's 8-device outputs and the parameters and
 inputs they were computed from (see the test module).
 """
+import dataclasses
 import os
 import sys
 import tempfile
@@ -226,6 +227,31 @@ def _decode(ref, mesh, out):
             out["dec.layout"] = np.asarray(cache["layout"])
             out["dec.combine"] = np.asarray(col.COLLECTIVES["decode_combine"])
             out["dec.k_local"] = np.asarray(cache["layers"]["k"].shape)
+    # the same model cut to 2 query heads of 8 (the columns form: half a
+    # head a rank) with the sequence split, against one process
+    cut = base.replace(n_heads=2, head_dim=8, decode_kv_shard=True)
+    shapes = dict(Model(cut, device="meta").named_parameters())
+    src = {k: v[tuple(slice(0, n) for n in shapes[k].shape)].clone()
+           for k, v in src.items()}
+    for sharded in (False, True):
+        m = Model(cut, device="cpu", q_chunk=8, kv_chunk=8)
+        m.adopt(_nest({k: v.clone() for k, v in src.items()}))
+        if sharded:
+            shd.shard_model(m, mesh, source=src, device="cpu")
+        tag = f"cols.{'sharded' if sharded else 'one'}"
+        with col.use_mesh(mesh if sharded else None):
+            cache = m.init_cache(4, 20, dtype=torch.float32)
+            col.reset_counts()
+            cache, lg = m.prefill({"tokens": tok}, cache)
+            out[f"{tag}.prefill"] = lg.numpy()
+            for i in (1, 2):
+                cache, lg = m.decode_step(cache, nxt)
+                out[f"{tag}.decode{i}"] = lg.numpy()
+        if sharded:
+            out["cols.layout"] = np.asarray(cache["layout"])
+            out["cols.k_local"] = np.asarray(cache["layers"]["k"].shape)
+            out["cols.attn_gathers"] = np.asarray(
+                col.COLLECTIVES["attn_gather"])
 
 
 def _train(ref, mesh, out):
@@ -395,21 +421,35 @@ def _vlm(ref, mesh, out):
 
 #: (name, arch, config changes) of the MLA and hybrid smokes: the
 #: reference's fp32 smokes (``mla``: 4 heads, the heads form; ``hyb``: 4
-#: query and 2 KV heads, the head_dim form) and, against one process only,
-#: 2 heads that the 4-way model axis does not divide (the gathered form
-#: with the latent cache and the SSM still split)
+#: query and 2 KV heads, the head_dim form), its 6-head configs (``mla6``:
+#: 6 heads; ``hyb6``: 6 query and 2 KV heads; 1.5 heads a rank of the
+#: 4-way model axis, as minicpm3-4b's and hymba's on 16: the columns form)
+#: and, against one process only, 2 heads (the columns form on half a head
+#: a rank), hymba's 2 query heads and 1 KV head 6 wide (``hybw``: the
+#: 4-way axis divides w_q's 12 columns but not w_k's 6, which the rules
+#: replicate: every head on every rank from weights gathered whole) and
+#: minicpm3's 2 heads with v_head_dim 3 (``mlaw``: w_uv's and w_o's 6 do
+#: not divide the axis: every head on every rank from gathered
+#: up-projections, the latent cache still split), cut from the
+#: reference's 4-head parameters
 NEW_FAMILIES = (("mla", "minicpm3-4b", {}), ("hyb", "hymba-1.5b", {}),
+                ("mla6", "minicpm3-4b", {"n_heads": 6, "n_kv_heads": 6}),
+                ("hyb6", "hymba-1.5b", {"n_heads": 6, "n_kv_heads": 2}),
                 ("mla2", "minicpm3-4b", {"n_heads": 2, "n_kv_heads": 2}),
-                ("hyb2", "hymba-1.5b", {"n_heads": 2}))
+                ("hyb2", "hymba-1.5b", {"n_heads": 2}),
+                ("hybw", "hymba-1.5b", {"n_heads": 2, "n_kv_heads": 1,
+                                        "head_dim": 6}),
+                ("mlaw", "minicpm3-4b", {"n_heads": 2, "n_kv_heads": 2,
+                                         "mla": {"v_head_dim": 3}}))
 
 
 def _new_families(ref, mesh, out):
     """The MLA and hybrid smokes in fp32 on the (2, 4) mesh against the
     reference's 8-device run and one process: prefill and two decode
-    steps, the layout, the local cache boxes and the score sums of each
-    decode step; then the sharded train step against the one-process
-    step.  The ``2`` variants take the reference's parameters with their
-    heads cut to two."""
+    steps, the layout, the local cache boxes, the score sums of each
+    decode step and the attention leaves gathered whole; then the sharded
+    train step against the one-process step.  The ``2`` variants take the
+    reference's parameters with their heads cut to two."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
@@ -419,9 +459,12 @@ def _new_families(ref, mesh, out):
 
     tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
     for name, arch, change in NEW_FAMILIES:
-        base = name.rstrip("2")
-        cfg = get_smoke_config(arch).replace(compute_dtype="float32",
-                                             **change)
+        base = name if name.endswith("6") else name[:3]
+        cfg = get_smoke_config(arch)
+        if "mla" in change:               # MLA widths changed
+            change = {**change, "mla": dataclasses.replace(cfg.mla,
+                                                           **change["mla"])}
+        cfg = cfg.replace(compute_dtype="float32", **change)
         tok = torch.from_numpy(ref[f"{base}.tokens"]).int()
         nxt = torch.from_numpy(ref[f"{base}.next"]).int()
         shapes = dict(Model(cfg, device="meta").named_parameters())
@@ -434,20 +477,24 @@ def _new_families(ref, mesh, out):
             if sharded:
                 shd.shard_model(m, mesh, source=src, device="cpu")
             tag = f"{name}.{'sharded' if sharded else 'one'}"
-            sums = []
+            sums, gathers = [], 0
             with col.use_mesh(mesh if sharded else None):
                 cache = m.init_cache(4, tok.shape[1] + 4,
                                      dtype=torch.float32)
+                col.reset_counts()
                 cache, lg = m.prefill({"tokens": tok}, cache)
                 out[f"{tag}.prefill"] = lg.numpy()
                 for i in (1, 2):
+                    gathers += col.COLLECTIVES["attn_gather"]
                     col.reset_counts()
                     cache, lg = m.decode_step(cache, nxt)
                     out[f"{tag}.decode{i}"] = lg.numpy()
                     sums.append(col.COLLECTIVES["score_sum"])
+                gathers += col.COLLECTIVES["attn_gather"]
             if sharded:
                 out[f"{name}.layout"] = np.asarray(cache["layout"])
                 out[f"{name}.score_sums"] = np.asarray(sums)
+                out[f"{name}.serve_attn_gathers"] = np.asarray(gathers)
                 for k, v in cache["layers"].items():
                     out[f"{name}.local.{k}"] = np.asarray(v.shape)
 
@@ -467,6 +514,8 @@ def _new_families(ref, mesh, out):
             out[f"{name}.train.{key}"] = np.asarray(float(val))
         out[f"{name}.train.unembed_gathers"] = np.asarray(
             col.COLLECTIVES["unembed_gather"])
+        out[f"{name}.train.attn_gathers"] = np.asarray(
+            col.COLLECTIVES["attn_gather"])
         out[f"{name}.train.largest_local_share"] = np.asarray(max(
             p.to_local().numel() / p.numel() for p in two.parameters()
             if any(pl.is_shard() for pl in p.placements)))
@@ -674,20 +723,27 @@ def _vocab_ce(mesh, out):
             col.COLLECTIVES["unembed_gather"])
 
 
-#: the xLSTM and audio smokes with heads that the (2, 4) mesh's model axis
-#: does not divide (the xLSTM's 2; whisper's cut from 4 to 2, as its 8 on a
-#: 16-way axis): their mixers and attention run every head from weights
-#: gathered where the stack runs the layer (whisper's MLP still splits)
-WHOLE_ARCHS = (("xlstm-350m", {}), ("whisper-base",
-                                    {"n_heads": 2, "n_kv_heads": 2}))
+#: (name, arch, config changes, mesh shape) of the xLSTM and audio smokes
+#: with heads that the model axis does not divide (the xLSTM's 2 and
+#: whisper's cut from 4 to 2 on (2, 4); whisper's 4 on (1, 8), whose
+#: data-axis group of one rank makes each layer's gather of its stacked
+#: leaves an alias that `collectives.LAYER_GATHER` must not count): their
+#: mixers and attention run every head from weights gathered where the
+#: stack runs the layer (whisper's MLP still splits)
+WHOLE_ARCHS = (("xlstm-350m", "xlstm-350m", {}, (2, 4)),
+               ("whisper-base", "whisper-base",
+                {"n_heads": 2, "n_kv_heads": 2}, (2, 4)),
+               ("whisper-base-1x8", "whisper-base", {}, (1, 8)))
 
 
-def _train_whole(mesh, out):
+def _train_whole(out):
     """The sharded train step of WHOLE_ARCHS at smoke widths in fp32
     against the one-process step: loss, grad norm, and the live gathered
     bytes against one layer's (its whole weights and their model shard,
     gathered one after the other); then prefill and two decode steps
     against one process."""
+    from torch.distributed.device_mesh import init_device_mesh
+
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as shd
@@ -696,7 +752,9 @@ def _train_whole(mesh, out):
     from repro_torch.train.state import init_train_state
 
     tcfg = steps.TrainConfig(lr=1e-3, warmup_steps=0)
-    for arch, change in WHOLE_ARCHS:
+    for name, arch, change, shape in WHOLE_ARCHS:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
         cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                              **change)
         one = Model(cfg, device="cpu").init(torch.Generator().manual_seed(7))
@@ -718,20 +776,20 @@ def _train_whole(mesh, out):
         stacks = {}
         for k, p in two.named_parameters():
             if col.layer_dp_dim(p) > 0:
-                name = "pair" if k.startswith(("m_blocks", "s_blocks")) \
+                stack = "pair" if k.startswith(("m_blocks", "s_blocks")) \
                     else k.rsplit(".", 2)[0].split(".")[0]
                 if k.startswith(("enc.", "dec.")):
-                    name = k[:3]
-                stacks[name] = stacks.get(name, 0) + (
+                    stack = k[:3]
+                stacks[stack] = stacks.get(stack, 0) + (
                     p.numel() // p.shape[0] * p.element_size())
         layer = max(stacks.values()) * (1 + 1 / col.tp_size(mesh))
-        for key, val in (("loss_sharded", m2["loss"]), ("loss_one", m1["loss"]),
-                         ("gnorm_sharded", m2["grad_norm"]),
-                         ("gnorm_one", m1["grad_norm"])):
-            out[f"whole.{arch}.{key}"] = np.asarray(float(val))
-        out[f"whole.{arch}.gathered_peak"] = np.asarray(
+        for k, val in (("loss_sharded", m2["loss"]), ("loss_one", m1["loss"]),
+                       ("gnorm_sharded", m2["grad_norm"]),
+                       ("gnorm_one", m1["grad_norm"])):
+            out[f"whole.{name}.{k}"] = np.asarray(float(val))
+        out[f"whole.{name}.gathered_peak"] = np.asarray(
             int(col.LAYER_GATHER["peak"]))
-        out[f"whole.{arch}.layer_bytes"] = np.asarray(layer)
+        out[f"whole.{name}.layer_bytes"] = np.asarray(layer)
         tok, nxt = batch["tokens"][:, :6], batch["labels"][:, :1]
         serve = {"tokens": tok}
         if "frontend" in batch:
@@ -742,8 +800,8 @@ def _train_whole(mesh, out):
             if sharded:
                 shd.shard_model(m, mesh, source=src, device="cpu")
             cache = _serve(m, mesh if sharded else None, serve, nxt, 6, out,
-                           f"whole.{arch}.{'sharded' if sharded else 'one'}")
-        out[f"whole.{arch}.layout"] = np.asarray(cache["layout"])
+                           f"whole.{name}.{'sharded' if sharded else 'one'}")
+        out[f"whole.{name}.layout"] = np.asarray(cache["layout"])
 
 
 def _pod_mesh(out):
@@ -788,7 +846,7 @@ def _rank(rank, path, ref_path, out_path):
     _pod_mesh(out)
     _decode(ref, mesh, out)
     _train(ref, mesh, out)
-    _train_whole(mesh, out)
+    _train_whole(out)
     _vlm(ref, mesh, out)
     _new_families(ref, mesh, out)
     _xlstm_audio(ref, out)
